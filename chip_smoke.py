@@ -11,21 +11,31 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 2. build: every kernel of ``self_attention_tacotron_torch/csrc`` with ``nvcc``,
    one compiler process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at small
-   ragged shapes and at the flagship shapes, float32 and bfloat16, with times
-   by CUDA events;
+   ragged shapes and at the flagship shapes, with times by CUDA events: ``bigru``
+   and ``mha_full`` in float32 and bfloat16; ``fused_decode`` (the whole decode
+   loop, float32) with prenet dropout 0.5 from injected masks, at narrow and
+   off-tile sizes (transition agent, speaker embedding, two batch blocks, a
+   prefix of 320 steps), at the flagship sizes to the step cap, and with an
+   early exit whose threshold is taken from the plain run's own stop
+   probabilities, where lengths, flags, step counts and the zero tail must be
+   equal; the timed 500-step launch against the plain version by windows of
+   steps; and a step cap beyond one block's shared memory, where the launch
+   limit is 0 and ``predict`` raises;
 4. main path: flagship synthesis at full width from the committed trained
    weights through ``convert.load_npz`` and ``make_predict_fn``, batch 1 and
-   batch 32, once through the kernels and once with ``use_pallas_kernels=False``,
-   same generator seed; lengths, flags and step counts must be equal, frames
-   and alignments within the stated tolerances, and every kernel's launch count
-   above zero; then a short request on the card against the same request on
-   the CPU;
+   batch 32, once through the kernels (the fused decode included) and once with
+   ``use_pallas_kernels=False`` (eager encoder, step-by-step decode), same
+   generator seed; lengths and flags must be equal on every lane whose stop
+   probabilities keep a margin from the threshold, frames and alignments within
+   the stated tolerances, and every kernel's launch count above zero; then a
+   short request on the card against the same request on the CPU;
 5. report: one JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import sys
@@ -40,7 +50,9 @@ if not torch.cuda.is_available():
 
 from self_attention_tacotron_torch import convert  # noqa: E402
 from self_attention_tacotron_torch.hparams import HParams  # noqa: E402
-from self_attention_tacotron_torch.ops import fused_attention, fused_rnn  # noqa: E402
+from self_attention_tacotron_torch.models.decoders import DecoderConditioning  # noqa: E402
+from self_attention_tacotron_torch.models.models import TacotronNetwork  # noqa: E402
+from self_attention_tacotron_torch.ops import fused_attention, fused_decode, fused_rnn  # noqa: E402
 from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     TRAINED_NPZ as NPZ,
@@ -69,15 +81,47 @@ TOL = {
     ("bigru", torch.float32): 1e-4, ("bigru", torch.bfloat16): 3e-2,
     ("mha_full", torch.float32): 2e-5, ("mha_full", torch.bfloat16): 2e-2,
 }
+# fused_decode against fused_decode_reference on the card (float32, TF32 off):
+# the two differ only by the order of summation (sums of up to 1024 terms), but
+# every step feeds its frame back, so the difference grows with the steps. The
+# comparisons run FUSED_STEPS decoder steps: the eager paths of this port were
+# measured 1.5e-5 apart after 50 steps and 1.4e-2 after 500.
+FUSED_STEPS = 64
+TOL_FUSED = 1e-4
+# The same tolerance holds decoders with seeded weights, which do not spread, over
+# long runs to the cap: a narrow one over FUSED_LONG_STEPS steps and one of the
+# flagship's widths over the main path's 500. From step 256 on, the attention over
+# the cache's prefix takes the paths of a long prefix (one slice of the head width
+# per thread group, index loops that stride over the block).
+# The trained model does spread: a lane that never fires feeds its own output back
+# far beyond the end of its utterance, and there the plain version moved against
+# itself by one part in 1e7 of the memories ends up to 0.95 apart on a few lanes
+# (printed by this script as "plain version against itself"). So the timed launch,
+# trained weights and 500 steps with no exit, is held against the plain version's
+# run on the same masks by windows of steps, on the largest error of each lane: in
+# the first two windows every lane is held (steps 64 to 256 at twice what the plain
+# version moved against itself there, 2.5e-3), in the last the median lane (where a
+# fault of the long-prefix paths would show on every lane) and only for a batch of
+# at least FUSED_MEDIAN_LANES lanes; the largest is printed beside it.
+FUSED_LONG_STEPS = 320
+FUSED_WINDOWS = ((FUSED_STEPS, TOL_FUSED, "max"), (256, 5e-3, "max"), (500, 1e-3, "median"))
+FUSED_MEDIAN_LANES = 8
+# An early-exit threshold is placed in the widest gap of the plain run's stop
+# logits; the gap must be at least this many times the largest difference between
+# the kernel's and the plain version's stop logits, so that "fired" cannot differ.
+FUSED_MARGIN_FACTOR = 200.0
 # Kernel path against the plain path through the whole synthesis (float32). The
 # two encoders differ by about 1e-6, and the autoregressive loop feeds every
 # difference back: lanes that never fire their stop token run 500 steps on
 # their own output, far beyond the end of the utterance, and spread apart. So
-# the first EARLY_STEPS decoder steps are held tightly, the whole run loosely,
-# and lengths, flags and step counts exactly.
+# the first EARLY_STEPS decoder steps are held tightly and the whole run loosely.
+# Lengths and flags are held exactly on every lane whose stop probabilities, in
+# the plain run and up to the lane's firing frame, stay MAIN_MARGIN away from the
+# threshold (twice the loose tolerance); the other lanes are counted and printed.
 EARLY_STEPS = 50
 TOL_MAIN_EARLY = 1e-4
 TOL_MAIN = 5e-2
+MAIN_MARGIN = 0.1
 # The card (kernel path) against the port on the CPU, 30 decoder steps at full
 # width with the same injected masks: float32 sums in another order.
 TOL_CPU = 1e-4
@@ -232,6 +276,405 @@ def phase_kernels():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 3, continued: the whole-loop decode kernel against its plain version
+# --------------------------------------------------------------------------- #
+
+
+def narrow_hparams(**overrides) -> HParams:
+    """The narrow flagship of the CPU tests: units 32, A1/A2 = 24/8, 10 mel bins."""
+    hp = HParams(
+        tacotron_model="DualSourceSelfAttentionTacotronModel",
+        encoder="SelfAttentionCBHGEncoder", decoder="DualSourceSelfAttentionDecoder",
+        attention="forward", attention2="additive", num_symbols=30, embedding_dim=32,
+        encoder_prenet_out_units=(32, 16), cbhg_out_units=32, conv_channels=16,
+        max_filter_width=4, projection1_out_channels=16, projection2_out_channels=16,
+        num_highway=2, self_attention_out_units=32, self_attention_num_heads=2,
+        self_attention_transformer_ffn_units=64, decoder_prenet_out_units=(32, 16),
+        attention_out_units=32, attention1_out_units=24, attention2_out_units=8,
+        decoder_out_units=32, decoder_self_attention_out_units=32,
+        decoder_self_attention_num_heads=2, num_mels=10, outputs_per_step=2,
+    )
+    return hp.override_from_dict(overrides)
+
+
+def seeded_decoder(hp: HParams, seed: int):
+    """A decoder with weights drawn from ``seed``, on the card, in eval mode."""
+    torch.manual_seed(seed)
+    return TacotronNetwork(hp).decoder.to(DEV).eval()
+
+
+def seeded_conditioning(decoder, rng, lengths, src_len: int, speaker_units: int = 0):
+    """Memories from ``rng``, keys from the decoder's own memory layers."""
+    batch = len(lengths)
+    memories = tuple(
+        torch.tensor(rng.standard_normal((batch, src_len, e)).astype(np.float32), device=DEV)
+        for e in decoder.memory_units
+    )
+    mask = torch.arange(src_len, device=DEV)[None, :] < torch.tensor(lengths, device=DEV)[:, None]
+    speaker = None
+    if speaker_units:
+        speaker = torch.tensor(
+            rng.standard_normal((batch, speaker_units)).astype(np.float32), device=DEV
+        )
+    with torch.no_grad():
+        keys = decoder.compute_keys(memories)
+    return DecoderConditioning(
+        memories=memories, keys=keys, masks=(mask, mask), speaker_embed=speaker
+    )
+
+
+def seeded_masks(packed, rng, steps: int, batch: int):
+    """Prenet keep-masks for every step at the decoder's own drop rate; None at rate 0."""
+    if packed.keep_prob >= 1.0:
+        return None
+    return tuple(
+        torch.tensor(rng.random((steps, batch, packed.sizes[k])) < packed.keep_prob, device=DEV)
+        for k in ("P1", "P2")
+    )
+
+
+def stop_logits(stop_probs: torch.Tensor) -> np.ndarray:
+    p = stop_probs.double().cpu().numpy()
+    with np.errstate(divide="ignore"):
+        return np.clip(np.log(p) - np.log1p(-p), -80.0, 30.0)
+
+
+def exit_threshold(stop_probs: torch.Tensor, steps: int, r: int):
+    """(threshold, gap in logits): the middle of the widest gap between the run's own
+    stop logits at which every lane fires before the cap and not all at one step.
+    A trained model's early stop probabilities are tiny (1e-10 to 1e-6); float32
+    resolves those relatively, so only thresholds near 1 are left out."""
+    logits = stop_logits(stop_probs)
+    values = np.unique(logits)
+    best_gap, best_mid = 0.0, None
+    for lo, hi in zip(values[:-1], values[1:]):
+        mid = (lo + hi) / 2
+        if hi - lo <= best_gap or mid > 10.0:
+            continue
+        fired = logits > mid
+        if not fired.any(axis=1).all():
+            continue
+        first_step = fired.argmax(axis=1) // r
+        spread = len(set(first_step.tolist())) > 1 or len(first_step) == 1
+        if first_step.max() < steps - 2 and spread:
+            best_gap, best_mid = hi - lo, mid
+    require(best_mid is not None, "no threshold lets every lane fire at its own step")
+    return float(1.0 / (1.0 + np.exp(-best_mid))), float(best_gap)
+
+
+def fused_flops_and_bytes(packed, lengths, steps: int):
+    """What ``steps`` decoder steps need on these inputs: operations (products,
+    the score pass and contexts over the valid positions, attention over the
+    live prefix) and bytes (every input read once, every output written once; the
+    K/V cache is scratch and is counted apart)."""
+    z = packed.sizes
+    batch, valid = len(lengths), int(np.sum(lengths))
+    src_len = int(np.max(lengths))
+    products = sum(
+        rows * cols for name, (rows, cols) in packed.shapes.items()
+        if name.endswith("_w") and (name != "ta_w" or packed.use_transition_agent)
+    )
+    a_tot, e_tot = z["A1"] + z["A2"], z["E1"] + z["E2"]
+    per_step = batch * 2 * products + valid * (4 * a_tot + 2 * e_tot)
+    attention = batch * 4 * z["SA"] * steps * (steps + 1) // 2
+    flops = steps * per_step + attention
+    out_row = z["R"] * z["M"] + z["R"] + 2 * src_len
+    nbytes = (
+        4 * packed.flat.numel() + 4 * batch * src_len * (a_tot + e_tot + 1)
+        + steps * batch * (z["P1"] + z["P2"]) + 4 * batch * steps * out_row + 9 * batch
+    )
+    cache_bytes = batch * 2 * z["SA"] * 4 * (steps + steps * (steps + 1) // 2)
+    return float(flops), float(nbytes), float(cache_bytes)
+
+
+def compare_decodes(got, want, r: int):
+    """Float differences over the steps both ran; lengths, flags, step count and
+    the zero tail are held exactly."""
+    steps = int(want.num_steps)
+    exact = (
+        int(got.num_steps) == steps
+        and torch.equal(got.lengths, want.lengths)
+        and torch.equal(got.finished, want.finished)
+        and got.lengths.dtype == torch.int32 and got.finished.dtype == torch.bool
+    )
+    tail = sum(
+        float(x[:, n:].abs().sum())
+        for x, n in (
+            (got.frames["mel"], steps * r), (got.stop_probs, steps * r),
+            (got.alignments[0], steps), (got.alignments[1], steps),
+        )
+    )
+    finite = all(
+        bool(torch.isfinite(x).all())
+        for x in (got.frames["mel"], got.stop_probs, *got.alignments)
+    )
+    errs = {
+        "mel": max_abs_err(got.frames["mel"], want.frames["mel"]),
+        "stop_probs": max_abs_err(got.stop_probs, want.stop_probs),
+        "alignments": max(max_abs_err(a, b) for a, b in zip(got.alignments, want.alignments)),
+        "stop_logits": float(np.abs(
+            stop_logits(got.stop_probs[:, : steps * r]) - stop_logits(want.stop_probs[:, : steps * r])
+        ).max()),
+    }
+    return errs, exact, tail == 0.0, finite
+
+
+def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, slice_batch=None):
+    batch, src_len = cond.memories[0].shape[:2]
+    r = packed.sizes["R"]
+    before = fused_decode.launch_count
+    got = fused_decode.fused_decode(
+        packed, cond, masks, steps, threshold, early_exit=early_exit, slice_batch=slice_batch
+    )
+    torch.cuda.synchronize()
+    launches = fused_decode.launch_count - before
+    want = fused_decode.fused_decode_reference(
+        packed, cond, masks, steps, threshold, early_exit=early_exit
+    )
+    errs, exact, zero_tail, finite = compare_decodes(got, want, r)
+    blocks = -(-batch // (slice_batch or batch))
+    ok = (
+        finite and exact and zero_tail and launches == blocks
+        and max(errs["mel"], errs["stop_probs"], errs["alignments"]) <= TOL_FUSED
+    )
+    rec = {
+        "kernel": "fused_decode", "case": name,
+        "shape": {"B": batch, "S": src_len, "T": steps, **packed.sizes},
+        "transition_agent": packed.use_transition_agent, "threshold": threshold,
+        "early_exit": early_exit, "launches": launches, "num_steps": int(got.num_steps),
+        "lengths": got.lengths.tolist() if batch <= 8 else None,
+        "finished": int(got.finished.sum()),
+        "max_abs_err": max(errs["mel"], errs["stop_probs"], errs["alignments"]), **errs,
+        "tol": TOL_FUSED, "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
+    }
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
+    return rec, want
+
+
+def timed_once(fn):
+    """(result, ms by CUDA events) of one call."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    result = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return result, start.elapsed_time(end)
+
+
+def lane_errors(got, want, r: int, lo: int, hi: int) -> torch.Tensor:
+    """Per lane, the largest absolute difference over decoder steps lo..hi."""
+    pairs = [
+        (got.frames["mel"][:, lo * r : hi * r], want.frames["mel"][:, lo * r : hi * r]),
+        (got.stop_probs[:, lo * r : hi * r], want.stop_probs[:, lo * r : hi * r]),
+        *((a[:, lo:hi], b[:, lo:hi]) for a, b in zip(got.alignments, want.alignments)),
+    ]
+    return torch.stack([(a - b).abs().flatten(1).amax(dim=1) for a, b in pairs]).amax(dim=0)
+
+
+def window_errors(got, want, r: int):
+    windows, lo = [], 0
+    for hi, tol, held in FUSED_WINDOWS:
+        errs = lane_errors(got, want, r, lo, hi)
+        windows.append({
+            "steps": [lo, hi], "max": float(errs.max()), "median": float(errs.median()),
+            "lanes_above_2e-2": int((errs > 2e-2).sum()), "tol": tol, "held": held,
+        })
+        lo = hi
+    return windows
+
+
+def check_fused_long(name, got, want, r: int):
+    """The trained model's long run to the cap against the plain version's, by
+    windows of steps (see FUSED_WINDOWS)."""
+    errs, exact, zero_tail, finite = compare_decodes(got, want, r)
+    require(FUSED_WINDOWS[-1][0] == int(want.num_steps), "the windows must cover the run")
+    windows = window_errors(got, want, r)
+    batch = got.lengths.shape[0]
+    ok = finite and exact and zero_tail
+    for w in windows:
+        if w["held"] == "median" and batch < FUSED_MEDIAN_LANES:
+            w["held"] = "not held: too few lanes for a median"
+        else:
+            ok = ok and w[w["held"]] <= w["tol"]
+    rec = {
+        "kernel": "fused_decode", "case": name, "num_steps": int(got.num_steps), **errs,
+        "windows": windows, "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
+    }
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
+
+
+def check_fused_refusal(net, hp) -> None:
+    """Beyond what one block's shared memory holds, the limit is 0 and the wrapper
+    and ``predict`` raise: nothing is launched and nothing else decodes instead."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    fits = fused_decode.fused_decode_max_batch(hp, hp.max_iters, 128)
+    beyond = 100000
+    need, have = fused_decode.block_shared_memory(
+        fused_decode.pack_decoder(net.decoder).sizes, 128, beyond, DEV
+    )
+    limit = fused_decode.fused_decode_max_batch(hp, beyond, 128)
+    lo, hi = hp.max_iters, beyond   # the largest step cap at which a block still fits
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fused_decode.fused_decode_max_batch(hp, mid, 128) else (lo, mid)
+    before = launch_counts()
+    raised = None
+    try:
+        make_predict_fn(net, max_iters=beyond)(ragged_request(np.random.default_rng(5), 1, 128))
+    except RuntimeError as error:
+        raised = str(error)
+    log("check " + json.dumps({
+        "kernel": "fused_decode", "case": "launch limit", "lanes_per_launch": fits, "sms": sms,
+        "max_iters_beyond": beyond, "block_needs": need, "sm_offers": have,
+        "limit_beyond": limit, "largest_max_iters_that_fits": lo, "predict_raised": raised,
+    }))
+    require(fits == fused_decode.LANES * sms, "the launch limit is not LANES lanes per SM")
+    require(need > have and limit == 0, "a block beyond an SM must give a limit of 0")
+    require(raised is not None and "shared memory" in raised,
+            "predict must raise where the kernel cannot launch")
+    require(launch_counts()["fused_decode"] == before["fused_decode"],
+            "a refused launch was counted")
+
+
+def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None):
+    """To the cap first; then at a threshold from that run's own stop probabilities,
+    with the early exit and without it, where every integer and flag must be equal."""
+    batch = cond.memories[0].shape[0]
+    masks = seeded_masks(packed, rng, steps, batch)
+    rec, want = check_fused(name + ", to the cap", packed, cond, masks, steps, 2.0,
+                            slice_batch=slice_batch)
+    threshold, gap = exit_threshold(want.stop_probs, steps, packed.sizes["R"])
+    need = FUSED_MARGIN_FACTOR * rec["stop_logits"]
+    log("check " + json.dumps({
+        "kernel": "fused_decode", "case": name + ", threshold", "threshold": threshold,
+        "gap_in_logits": gap, "needed": need,
+    }))
+    require(gap >= need, f"{name}: the widest gap between stop logits ({gap}) is under {need}")
+    rec_exit, _ = check_fused(name + ", early exit", packed, cond, masks, steps, threshold)
+    require(rec_exit["num_steps"] < steps and rec_exit["finished"] == batch,
+            f"{name}: the threshold did not end the run early")
+    rec_late, _ = check_fused(name + ", exit off", packed, cond, masks, steps, threshold,
+                              early_exit=False)
+    require(rec_late["num_steps"] == steps and rec_late["finished"] == batch,
+            f"{name}: without the exit the run must reach the cap with every lane fired")
+    return rec
+
+
+def flagship_conditioning(net, req, seed: int):
+    source = torch.as_tensor(req["source"], device=DEV)
+    lengths = torch.as_tensor(req["source_lengths"], device=DEV)
+    with torch.inference_mode():
+        cond, _ = net.encode(
+            source, lengths, generator=torch.Generator(device=DEV).manual_seed(seed)
+        )
+    return cond
+
+
+def phase_fused_decode():
+    flagship = convert.load_npz(NPZ, flagship_hparams())
+    packed = fused_decode.pack_decoder(flagship.decoder)
+    check_fused_refusal(flagship, flagship.hparams)
+
+    # (a) narrow and off-tile sizes: B=3 S=11 as the CPU tests, B=5 (two blocks of
+    # the grid, one lane in the second), odd S, transition agent, speaker embedding
+    rng = np.random.default_rng(11)
+    steps = 24
+    for name, overrides, lengths, src_len, spk in (
+        ("narrow B=3 S=11", {}, [11, 7, 4], 11, 0),
+        ("narrow B=5 S=13, transition agent",
+         {"attention": "forward_transition_agent"}, [13, 5, 9, 1, 12], 13, 0),
+        ("narrow B=5 S=9, speaker embedding",
+         {"use_speaker_embedding": True, "num_speakers": 4, "speaker_embedding_dim": 6},
+         [9, 9, 3, 6, 2], 9, 6),
+    ):
+        decoder = seeded_decoder(narrow_hparams(**overrides), seed=len(lengths) + src_len)
+        cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
+        check_fused_with_exit(name, fused_decode.pack_decoder(decoder), cond, rng, steps)
+    # the last decoder over a long prefix, to the cap (see FUSED_LONG_STEPS)
+    narrow = fused_decode.pack_decoder(decoder)
+    check_fused(f"narrow B=5 S=9, {FUSED_LONG_STEPS} steps", narrow, cond,
+                seeded_masks(narrow, rng, FUSED_LONG_STEPS, 5), FUSED_LONG_STEPS, 2.0)
+    # the last decoder again as two sequential batch blocks (3 + 2 lanes), to the cap
+    check_fused("narrow B=5 S=9, two batch blocks", narrow, cond,
+                seeded_masks(narrow, rng, steps, 5), steps, 2.0, slice_batch=3)
+    # widths off every power of two, three frames a step, prenet dropout off (no masks)
+    odd = seeded_decoder(narrow_hparams(
+        decoder_prenet_drop_rate=0.0,
+        decoder_prenet_out_units=(20, 12), attention_out_units=28, attention1_out_units=10,
+        attention2_out_units=7, decoder_out_units=36, decoder_self_attention_out_units=24,
+        num_mels=7, outputs_per_step=3, cbhg_out_units=20, self_attention_out_units=12,
+    ), seed=5)
+    cond = seeded_conditioning(odd, rng, [7, 2, 5, 7, 7, 3], 7)
+    check_fused_with_exit("odd widths B=6 S=7 r=3", fused_decode.pack_decoder(odd), cond, rng, 19)
+
+    # the flagship's widths with seeded weights, the main path's step count, to the cap
+    rng = np.random.default_rng(13)
+    wide = seeded_decoder(flagship_hparams(), seed=3)
+    packed_wide = fused_decode.pack_decoder(wide)
+    steps = flagship.hparams.max_iters
+    for lengths in (ragged_lengths(rng, 32, 128).tolist(), [97]):
+        cond = seeded_conditioning(wide, rng, lengths, max(lengths))
+        check_fused(f"flagship widths, seeded weights, B={len(lengths)}, {steps} steps",
+                    packed_wide, cond, seeded_masks(packed_wide, rng, steps, len(lengths)),
+                    steps, 2.0, early_exit=False)
+    del wide, packed_wide
+
+    # (b, c) flagship sizes, conditioning from the real encoder: B=32 ragged and B=1
+    rng = np.random.default_rng(12)
+    records = {}
+    for batch, longest in ((32, 128), (1, 97)):
+        req = ragged_request(rng, batch, longest)
+        cond = flagship_conditioning(flagship, req, seed=batch)
+        records[batch] = check_fused_with_exit(
+            f"flagship B={batch} S={longest}", packed, cond, rng, FUSED_STEPS
+        )
+        # time per launch at the main path's step count, no exit
+        steps = flagship.hparams.max_iters
+        masks = seeded_masks(packed, rng, steps, batch)
+        run = lambda: fused_decode.fused_decode(  # noqa: E731
+            packed, cond, masks, steps, 2.0, early_exit=False
+        )
+        ms = time_ms(run, warmup=1, iters=3)
+        # that launch against the plain version's run, which gives the plain time
+        want, plain_ms = timed_once(
+            lambda: fused_decode.fused_decode_reference(packed, cond, masks, steps, 2.0, False)
+        )
+        check_fused_long(f"flagship B={batch}, {steps} steps", run(), want,
+                         packed.sizes["R"])
+        if batch == 32:
+            # the yardstick of the last window: how far the plain version itself moves
+            moved = dataclasses.replace(cond, memories=tuple(m * (1.0 + 1e-7) for m in cond.memories))
+            log("check " + json.dumps({
+                "kernel": "fused_decode",
+                "case": f"flagship B={batch}, {steps} steps, plain version against itself "
+                        "with the memories moved by one part in 1e7",
+                "windows": window_errors(
+                    fused_decode.fused_decode_reference(packed, moved, masks, steps, 2.0, False),
+                    want, packed.sizes["R"]),
+            }))
+        flops, nbytes, cache_bytes = fused_flops_and_bytes(packed, req["source_lengths"], steps)
+        t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+        records[batch].update(
+            ms=ms, ms_per_step=ms / steps, steps_timed=steps, plain_ms=plain_ms,
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes, cache_prefix_bytes=cache_bytes,
+        )
+        log("check " + json.dumps({
+            "kernel": "fused_decode", "case": f"flagship B={batch}, time",
+            **{k: v for k, v in records[batch].items()
+               if k in ("ms", "ms_per_step", "steps_timed", "plain_ms", "bound_ms", "bound_by",
+                        "flops", "bytes", "cache_prefix_bytes")},
+        }))
+    return records
+
+
+# --------------------------------------------------------------------------- #
 # Phase 4: the main path
 # --------------------------------------------------------------------------- #
 
@@ -305,10 +748,18 @@ def output_errors(out, ref, steps: int, r: int):
     }
 
 
+def launch_counts():
+    return {
+        "bigru": fused_rnn.launch_count, "mha_full": fused_attention.launch_count,
+        "fused_decode": fused_decode.launch_count,
+    }
+
+
 def phase_against_cpu(steps: int = 30) -> None:
-    """The card's kernel path against the port on the CPU, which the CPU tests
-    hold against the JAX package: same weights, same source, same injected
-    decoder prenet masks, encoder prenet dropout off, no early exit."""
+    """The card's kernel path (fused decode included) against the port's
+    step-by-step path on the CPU, which the CPU tests hold against the JAX
+    package: same weights, same source, same injected decoder prenet masks,
+    encoder prenet dropout off, no early exit."""
     # no probability exceeds a threshold of 2: every lane runs all the steps
     hp = flagship_hparams(encoder_prenet_drop_rate=0.0, stop_token_threshold=2.0)
     rng = np.random.default_rng(77)
@@ -317,11 +768,11 @@ def phase_against_cpu(steps: int = 30) -> None:
         rng.random((steps, 2, units)) < 1.0 - hp.decoder_prenet_drop_rate
         for units in hp.decoder_prenet_out_units
     )
-    before = (fused_rnn.launch_count, fused_attention.launch_count)
+    before = launch_counts()
     on_card = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=steps)(req, prenet_masks=masks)
     torch.cuda.synchronize()
     require(
-        (fused_rnn.launch_count, fused_attention.launch_count) == (before[0] + 1, before[1] + 1),
+        launch_counts() == {name: count + 1 for name, count in before.items()},
         "one request must launch each kernel once",
     )
     on_cpu = make_predict_fn(
@@ -339,6 +790,36 @@ def phase_against_cpu(steps: int = 30) -> None:
         raise SystemExit(f"the card and the CPU differ: {errs}")
 
 
+def compare_lengths(out, ref, threshold: float, r: int):
+    """Lengths and flags, exactly, on the lanes whose stop probabilities in the
+    plain run keep MAIN_MARGIN from the threshold up to and including the frame
+    that fires; returns what was left out."""
+    probs = ref["stop_probs"].cpu().numpy()
+    lengths, fired = ref["lengths"].cpu().numpy(), ref["finished"].cpu().numpy()
+    steps = int(ref["num_steps"])
+    left_out = []
+    for lane in range(probs.shape[0]):
+        upto = int(lengths[lane]) if fired[lane] else steps * r
+        margin = float(np.abs(probs[lane, :upto] - threshold).min())
+        if margin < MAIN_MARGIN:
+            left_out.append({
+                "lane": lane, "margin": margin,
+                "lengths": [int(out["lengths"][lane]), int(lengths[lane])],
+            })
+            continue
+        same = bool(out["finished"][lane]) == bool(fired[lane])
+        if fired[lane] or int(out["num_steps"]) == steps:   # else the cap of another run
+            same = same and int(out["lengths"][lane]) == int(lengths[lane])
+        if not same:
+            raise SystemExit(
+                f"lane {lane} (margin {margin}) differs between the kernel path and the plain "
+                f"path: length {int(out['lengths'][lane])} against {int(lengths[lane])}"
+            )
+    if not left_out and not torch.equal(out["num_steps"], ref["num_steps"]):
+        raise SystemExit("num_steps differs between the kernel path and the plain path")
+    return left_out
+
+
 def phase_main_path():
     use_full_float32()
     reqs = requests()
@@ -348,8 +829,9 @@ def phase_main_path():
 
     fused_rnn.launch_count = 0
     fused_attention.launch_count = 0
+    fused_decode.launch_count = 0
     outs, stats = run_requests(predict, reqs, seed=100)
-    launches = {"bigru": fused_rnn.launch_count, "mha_full": fused_attention.launch_count}
+    launches = launch_counts()
     log("main_path kernels " + json.dumps({"launches": launches, "requests": stats}))
     for name, count in launches.items():
         if count < len(reqs):
@@ -357,25 +839,24 @@ def phase_main_path():
     for out, req in zip(outs, reqs):
         check_output(out, req, hp)
 
+    # eager encoder and the step-by-step decode loop: no kernel at all
     hp_plain = flagship_hparams(use_pallas_kernels=False)
     predict_plain = make_predict_fn(convert.load_npz(NPZ, hp_plain), max_iters=hp.max_iters)
-    before = (fused_rnn.launch_count, fused_attention.launch_count)
+    before = launch_counts()
     outs_plain, stats_plain = run_requests(predict_plain, reqs, seed=100)
-    require(
-        before == (fused_rnn.launch_count, fused_attention.launch_count),
-        "the plain path launched a kernel",
-    )
+    require(before == launch_counts(), "the plain path launched a kernel")
     log("main_path plain " + json.dumps({"requests": stats_plain}))
 
     r = hp.outputs_per_step
     for out, ref in zip(outs, outs_plain):
-        for key in ("lengths", "finished", "num_steps"):
-            if not torch.equal(out[key], ref[key]):
-                raise SystemExit(f"{key} differs between the kernel path and the plain path")
-        whole = output_errors(out, ref, hp.max_iters, r)
-        early = output_errors(out, ref, EARLY_STEPS, r)
+        left_out = compare_lengths(out, ref, hp.stop_token_threshold, r)
+        steps = min(int(out["num_steps"]), int(ref["num_steps"]))
+        whole = output_errors(out, ref, steps, r)
+        early = output_errors(out, ref, min(EARLY_STEPS, steps), r)
         log("main_path agreement " + json.dumps({
             "batch": int(out["mel"].shape[0]),
+            "num_steps": [int(out["num_steps"]), int(ref["num_steps"])],
+            "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
             "early_steps": EARLY_STEPS, "early": early, "early_tol": TOL_MAIN_EARLY,
             "whole": whole, "whole_tol": TOL_MAIN,
         }))
@@ -384,7 +865,7 @@ def phase_main_path():
         if not max(whole.values()) <= TOL_MAIN:
             raise SystemExit(f"kernel path and plain path differ: {whole}")
     phase_against_cpu()
-    return launches, stats
+    return launches, stats, stats_plain
 
 
 # --------------------------------------------------------------------------- #
@@ -402,7 +883,8 @@ def main() -> int:
 
     use_full_float32()
     records = phase_kernels()
-    launches, stats = phase_main_path()
+    fused = phase_fused_decode()
+    launches, stats, stats_plain = phase_main_path()
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -421,6 +903,25 @@ def main() -> int:
             "bf16_ms": records[(name, torch.bfloat16)]["ms"],
             "bf16_max_abs_err": records[(name, torch.bfloat16)]["max_abs_err"],
         })
+    # the whole loop in one launch at the main path's shapes: flagship, B=32, T=500.
+    # No single PyTorch call computes a decode loop, so there is no library time;
+    # the step-by-step path's wall time for the batch-32 request stands beside it.
+    rec = fused[32]
+    kernels.append({
+        "name": "fused_decode", "route": "cuda",
+        "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+        "launches": launches["fused_decode"], "max_abs_err": rec["max_abs_err"],
+        "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+        "bound_by": rec["bound_by"], "library_ms": None,
+        "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": "float32",
+        "ms_per_step": rec["ms_per_step"], "compared_over_steps": FUSED_STEPS,
+        "batch1_ms": fused[1]["ms"], "batch1_ms_per_step": fused[1]["ms_per_step"],
+        "batch1_bound_ms": fused[1]["bound_ms"], "batch1_plain_ms": fused[1]["plain_ms"],
+        "step_by_step_request_ms": 1e3 * stats_plain[1]["wall_s"],
+        "step_by_step_ms_per_step": stats_plain[1]["ms_per_step"],
+        "fused_request_ms": 1e3 * stats[1]["wall_s"],
+    })
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,0 +1,670 @@
+"""The whole autoregressive decode loop in one launch: CUDA kernel, plain version, wrapper.
+
+``fused_decode`` replaces ``fused_decode`` of the JAX package
+(``self_attention_tacotron_tpu/ops/fused_decode.py``, ``_make_kernel`` /
+``_run_fused``): every decoder step of a synthesis request (prenet with its
+always-on dropout, attention ZoneoutLSTM, the fused dual query projection, both
+sources' additive scores, the forward-attention recursion with or without the
+transition agent, contexts, two decoder ZoneoutLSTMs, the causal self-attention
+block over a growing K/V cache, the output projection, per-lane stop tracking
+and the early exit) runs inside one kernel (``csrc/fused_decode.cu``), with no
+host work per step.
+
+What bounds it on an H100: the serial chain of steps. A step needs about
+2 * 3.5 M * B operations and re-reads 14 MB of float32 weights, far below what
+the card can do in the time one step's dependent stages take. The design gives
+every group of ``LANES`` lanes one block that walks all the steps on its own:
+state in shared memory, weights streamed through L2 (the same 14 MB for every
+block and step), conditioning and the K/V cache in global memory. Blocks meet
+once per step, on a counter in global memory, only to agree whether every lane
+has fired; that is why all blocks of a launch must be resident at once
+(cooperative launch), which bounds a launch at ``LANES`` lanes per SM. Larger
+batches run as sequential batch blocks. One block's shared memory grows with
+``max_iters`` (a step's attention logits over the prefix) and the source
+length; where it outgrows an SM the wrapper raises.
+
+The prenet's dropout masks come in as arrays, one row per step, drawn by the
+caller: the kernel and the step-by-step path of ``ops/decode_loop.py`` are then
+the same function of the same generator.
+
+Specialised to the flagship family: dual source, forward attention (with or
+without transition agent) on source 1, additive attention on source 2, one
+decoder self-attention hop, optional speaker embedding, mel head,
+``n_feed_frame=1``, two prenet layers, float32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import torch
+
+from self_attention_tacotron_torch.models.attention import AdditiveAttention, ForwardAttention
+from self_attention_tacotron_torch.models.decoders import Decoder, DecoderConditioning
+from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
+from self_attention_tacotron_torch.utils.cuda_build import load_library
+
+# Launches of the CUDA kernel made by ``fused_decode`` in this process.
+launch_count = 0
+
+# Lanes per block, as csrc/fused_decode.cu has it.
+LANES = 4
+# Multiprocessors of an H100 SXM: the launch limit quoted where no card is present.
+H100_SM_COUNT = 132
+
+_NEG_INF = -1e9
+_EPS = 1e-6
+
+_function = None
+
+
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+# --------------------------------------------------------------------------- #
+# Which configurations the kernel serves
+# --------------------------------------------------------------------------- #
+
+
+def supports_fused_decode(hp) -> bool:
+    """True for the flagship family that the kernel is specialised to.
+
+    Dual source with decoder self-attention (one hop), forward attention with
+    or without the transition agent on source 1, additive attention on source
+    2, mel head, ``n_feed_frame=1``, two prenet layers, float32. The kernel
+    reads memories and cache rows 16 bytes at a time, so those widths are
+    multiples of 4; and the first decoder LSTM has no residual, which holds
+    whenever its input and output widths differ.
+    """
+    sa = hp.decoder_self_attention_out_units
+    heads = hp.decoder_self_attention_num_heads
+    return bool(
+        hp.decoder == "DualSourceSelfAttentionDecoder"
+        and hp.attention in ("forward", "forward_transition_agent")
+        and hp.attention2 == "additive"
+        and hp.decoder_self_attention_num_hop == 1
+        and hp.n_feed_frame == 1
+        and len(hp.decoder_prenet_out_units) == 2
+        and not hp.use_forced_alignment_mode
+        and hp.compute_dtype == "float32"
+        and hp.cbhg_out_units % 4 == 0
+        and hp.self_attention_out_units % 4 == 0
+        and sa % heads == 0
+        and (sa // heads) % 4 == 0
+        and hp.attention_out_units + hp.cbhg_out_units + hp.self_attention_out_units
+        != hp.decoder_out_units
+    )
+
+
+def _hp_sizes(hp) -> Dict[str, int]:
+    # FFN: ``decoder_factory`` leaves the block's feed-forward width at its default
+    return dict(
+        M=hp.num_mels, R=hp.outputs_per_step,
+        P1=hp.decoder_prenet_out_units[0], P2=hp.decoder_prenet_out_units[1],
+        SPK=hp.speaker_embedding_dim if hp.use_speaker_embedding else 0,
+        AU=hp.attention_out_units, A1=hp.attention1_out_units, A2=hp.attention2_out_units,
+        DU=hp.decoder_out_units, SA=hp.decoder_self_attention_out_units,
+        H=hp.decoder_self_attention_num_heads, FFN=1024,
+        E1=hp.cbhg_out_units, E2=hp.self_attention_out_units,
+    )
+
+
+def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
+    """Most lanes one launch takes; 0 when the configuration cannot run fused at all.
+
+    The blocks of a launch (``LANES`` lanes each) must all be resident at once
+    for the per-step exit agreement, one block per SM: ``LANES`` times the
+    multiprocessors of the current CUDA device, or of an H100 where there is no
+    card. On a card the built kernel is also asked whether one block's shared
+    memory, which grows with ``max_iters`` and ``src_len``, fits an SM: if not,
+    nothing can be launched.
+    """
+    if not supports_fused_decode(hp):
+        return 0
+    if not torch.cuda.is_available():
+        return LANES * H100_SM_COUNT
+    device = torch.device("cuda", torch.cuda.current_device())
+    return _launch_limit(_hp_sizes(hp), src_len, max_iters, device)
+
+
+# --------------------------------------------------------------------------- #
+# Operand packing
+# --------------------------------------------------------------------------- #
+
+# Order of the matrices and vectors in the flat weight buffer; the enum
+# ``Entry`` of the source lists the same names in the same order.
+_ENTRIES = (
+    "p1_w", "p1_b", "p2_w", "p2_b", "attg_w", "attg_b", "qp_w", "v_cat", "ta_w", "ta_b",
+    "l1_w", "l1_b", "l2_w", "l2_b", "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
+    "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b", "out_w", "out_b",
+)
+# Order of the sizes handed to the kernel, before the offsets of the entries.
+_SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2")
+
+
+@dataclasses.dataclass
+class PackedDecoder:
+    """A decoder's weights in the kernel's layout.
+
+    ``flat`` holds every matrix as (in, out), what the plain version multiplies
+    by, each row padded to a multiple of 4 floats and each entry starting at a
+    multiple of 4 floats, so that the kernel reads 16 bytes at a time.
+    ``mat(name)`` is the (rows, cols) view of one entry, without the padding.
+    """
+
+    flat: torch.Tensor
+    offsets: Dict[str, int]
+    shapes: Dict[str, Tuple[int, int]]
+    sizes: Dict[str, int]
+    use_transition_agent: bool
+    zoneout_cell: float
+    zoneout_output: float
+    forget_bias: float
+    keep_prob: float
+    ln_eps: float
+    pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates
+
+    def mat(self, name: str) -> torch.Tensor:
+        rows, cols = self.shapes[name]
+        start = self.offsets[name]
+        return self.flat[start : start + rows * _round4(cols)].view(rows, _round4(cols))[:, :cols]
+
+    def vec(self, name: str) -> torch.Tensor:
+        return self.mat(name)[0]
+
+
+def _require(condition: bool, message: str) -> None:
+    if not condition:
+        raise ValueError(f"fused_decode: {message}")
+
+
+def pack_decoder(decoder: Decoder) -> PackedDecoder:
+    """Bring the weights of ``decoder`` into the kernel's layout, on their device.
+
+    Raises ``ValueError`` for a decoder outside the kernel's specialisation.
+    """
+    _require(decoder.num_attentions == 2, "the kernel is dual source")
+    mech1, mech2 = decoder.attentions
+    _require(isinstance(mech1, ForwardAttention), "source 1 must use forward attention")
+    _require(isinstance(mech2, AdditiveAttention), "source 2 must use additive attention")
+    _require(decoder.query_projection is not None, "no fused query projection")
+    _require(decoder.n_feed_frame == 1, "n_feed_frame must be 1")
+    _require(len(decoder.prenet.out_units) == 2, "the prenet must have two layers")
+    _require(decoder.num_decoder_layers == 2, "the decoder must have two LSTM layers")
+    _require(decoder.output_heads[0][0] == "mel" and len(decoder.output_heads) == 1,
+             "the kernel serves the mel head")
+    sa = decoder.self_attention
+    _require(sa is not None and sa.num_hop == 1 and sa.use_positional_encoding,
+             "one decoder self-attention hop with positional encoding is required")
+    block = sa.block_0
+    cells = (decoder.attention_lstm, *decoder.decoder_lstms)
+    for attr in ("zoneout_factor_cell", "zoneout_factor_output", "forget_bias"):
+        _require(len({getattr(c, attr) for c in cells}) == 1, f"the cells differ in {attr}")
+    _require(not decoder.training, "the kernel computes eval-mode zoneout: call .eval()")
+
+    E1, E2 = decoder.memory_units
+    P1, P2 = decoder.prenet.out_units
+    AU, DU = decoder.attention_rnn_out_units, decoder.decoder_out_units
+    SA, H = sa.num_units, block.mha.num_heads
+    KA = decoder.attention_lstm.gates.in_features
+    sizes = dict(
+        M=decoder.out_dim, R=decoder.outputs_per_step, P1=P1, P2=P2,
+        SPK=KA - (P2 + E1 + E2 + AU), AU=AU, A1=mech1.num_units, A2=mech2.num_units,
+        DU=DU, SA=SA, H=H, FFN=block.ffn1.out_features, E1=E1, E2=E2,
+    )
+    _require(sizes["SPK"] >= 0, "the attention LSTM is narrower than its inputs")
+    _require(E1 % 4 == 0 and E2 % 4 == 0, "memory widths must be multiples of 4")
+    _require(SA % H == 0 and (SA // H) % 4 == 0, "head width must be a multiple of 4")
+    _require(AU + E1 + E2 != DU, "the first decoder LSTM would take a residual")
+    _require(decoder.decoder_lstm_1.gates.in_features == 2 * DU, "second LSTM input width")
+
+    def t(linear) -> torch.Tensor:
+        return linear.weight.detach().t()
+
+    def row(vector) -> torch.Tensor:
+        return vector.detach().reshape(1, -1)
+
+    use_ta = mech1.transition_factor is not None
+    ref = decoder.output_projection.weight
+    zeros = lambda *shape: torch.zeros(*shape, dtype=ref.dtype, device=ref.device)  # noqa: E731
+    tensors = {
+        "p1_w": t(decoder.prenet.Dense_0), "p1_b": row(decoder.prenet.Dense_0.bias),
+        "p2_w": t(decoder.prenet.Dense_1), "p2_b": row(decoder.prenet.Dense_1.bias),
+        "attg_w": t(decoder.attention_lstm.gates), "attg_b": row(decoder.attention_lstm.gates.bias),
+        "qp_w": t(decoder.query_projection),
+        "v_cat": torch.cat([row(mech1.attention_v), row(mech2.attention_v)], dim=1),
+        # [context | query], as the mechanism concatenates them
+        "ta_w": row(mech1.transition_factor.weight) if use_ta else zeros(1, E1 + AU),
+        "ta_b": row(mech1.transition_factor.bias) if use_ta else zeros(1, 1),
+        "l1_w": t(decoder.decoder_lstm_0.gates), "l1_b": row(decoder.decoder_lstm_0.gates.bias),
+        "l2_w": t(decoder.decoder_lstm_1.gates), "l2_b": row(decoder.decoder_lstm_1.gates.bias),
+        "in_w": t(sa.in_proj), "in_b": row(sa.in_proj.bias),
+        "ln1_s": row(block.ln1.weight), "ln1_b": row(block.ln1.bias),
+        "ln2_s": row(block.ln2.weight), "ln2_b": row(block.ln2.bias),
+        "qkv_w": t(block.mha.qkv),
+        "o_w": t(block.mha.out), "o_b": row(block.mha.out.bias),
+        "f1_w": t(block.ffn1), "f1_b": row(block.ffn1.bias),
+        "f2_w": t(block.ffn2), "f2_b": row(block.ffn2.bias),
+        "out_w": t(decoder.output_projection), "out_b": row(decoder.output_projection.bias),
+    }
+    A, OW = sizes["A1"] + sizes["A2"], sizes["R"] * sizes["M"] + sizes["R"]
+    expected = {
+        "p1_w": (sizes["M"], P1), "p2_w": (P1, P2), "attg_w": (KA, 4 * AU), "qp_w": (AU, A),
+        "v_cat": (1, A), "ta_w": (1, E1 + AU), "l1_w": (AU + E1 + E2 + DU, 4 * DU),
+        "l2_w": (2 * DU, 4 * DU), "in_w": (DU, SA), "qkv_w": (SA, 3 * SA), "o_w": (SA, SA),
+        "f1_w": (SA, sizes["FFN"]), "f2_w": (sizes["FFN"], SA), "out_w": (SA, OW),
+    }
+    offsets, shapes, total = {}, {}, 0
+    for name in _ENTRIES:
+        w = tensors[name]
+        _require(w.dtype == torch.float32, f"{name} is {w.dtype}, the kernel takes float32")
+        _require(w.device == ref.device, f"{name} is on {w.device}, not on {ref.device}")
+        if name in expected:
+            _require(tuple(w.shape) == expected[name],
+                     f"{name}: expected shape {expected[name]}, got {tuple(w.shape)}")
+        offsets[name], shapes[name] = total, tuple(w.shape)
+        total += w.shape[0] * _round4(w.shape[1])
+    flat = torch.zeros(total, dtype=torch.float32, device=ref.device)
+    packed = PackedDecoder(
+        flat=flat, offsets=offsets, shapes=shapes, sizes=sizes, use_transition_agent=use_ta,
+        zoneout_cell=float(cells[0].zoneout_factor_cell),
+        zoneout_output=float(cells[0].zoneout_factor_output),
+        forget_bias=float(cells[0].forget_bias),
+        keep_prob=1.0 - float(decoder.prenet.drop_rate),
+        ln_eps=float(block.ln1.eps),
+        pe_rate=_pe_rate(SA, ref.device),
+    )
+    for name in _ENTRIES:
+        packed.mat(name).copy_(tensors[name])
+    return packed
+
+
+def _pe_rate(dim: int, device) -> torch.Tensor:
+    # the rates of models/self_attention.py::_sinusoid_table, kept in float64
+    i = torch.arange(dim, dtype=torch.float64)
+    rate = 1.0 / torch.pow(torch.tensor(10000.0, dtype=torch.float64),
+                           2.0 * torch.div(i, 2, rounding_mode="floor") / dim)
+    return rate.to(device)
+
+
+@dataclasses.dataclass
+class _Operands:
+    """Conditioning and masks as both the kernel and the plain version read them."""
+
+    keys_cat: torch.Tensor      # (B, S, A1 + A2)
+    score_bias: torch.Tensor    # (B, S): 0 where valid, -1e9 where padded
+    mem1: torch.Tensor          # (B, S, E1)
+    mem2: torch.Tensor          # (B, S, E2)
+    spk: Optional[torch.Tensor]  # (B, SPK) or None
+    masks: Optional[Tuple[torch.Tensor, torch.Tensor]]   # (T, B, P1), (T, B, P2) bool
+
+
+def _operands(packed: PackedDecoder, cond: DecoderConditioning, prenet_masks,
+              max_iters: int) -> _Operands:
+    z = packed.sizes
+    device = packed.flat.device
+    _require(len(cond.memories) == 2 and len(cond.keys) == 2, "two attention sources expected")
+    mem1, mem2 = (m.detach().contiguous() for m in cond.memories)
+    B, S, _ = mem1.shape
+    _require(B >= 1 and S >= 1 and max_iters >= 1, "empty batch, source or step count")
+    for name, tensor, shape in (
+        ("memories[0]", mem1, (B, S, z["E1"])), ("memories[1]", mem2, (B, S, z["E2"])),
+        ("keys[0]", cond.keys[0], (B, S, z["A1"])), ("keys[1]", cond.keys[1], (B, S, z["A2"])),
+    ):
+        _require(tuple(tensor.shape) == shape, f"{name}: expected {shape}, got {tuple(tensor.shape)}")
+        _require(tensor.dtype == torch.float32, f"{name} is {tensor.dtype}, not float32")
+        _require(tensor.device == device, f"{name} is on {tensor.device}, the weights on {device}")
+    keys_cat = torch.cat([k.detach() for k in cond.keys], dim=-1).contiguous()
+    mask = cond.masks[0]
+    if mask is None:
+        score_bias = torch.zeros(B, S, dtype=torch.float32, device=device)
+    else:
+        _require(tuple(mask.shape) == (B, S) and mask.dtype == torch.bool,
+                 "masks[0] must be a (B, S) boolean mask")
+        score_bias = torch.where(mask.to(device), 0.0, _NEG_INF).to(torch.float32)
+    spk = cond.speaker_embed
+    if z["SPK"]:
+        _require(spk is not None and tuple(spk.shape) == (B, z["SPK"]),
+                 f"a (B, {z['SPK']}) speaker embedding is required")
+        spk = spk.detach().to(device=device, dtype=torch.float32).contiguous()
+    else:
+        _require(spk is None, "the decoder takes no speaker embedding")
+    masks = None
+    if prenet_masks is not None:
+        _require(len(prenet_masks) == 2, "one mask array per prenet layer")
+        masks = []
+        for m, units in zip(prenet_masks, (z["P1"], z["P2"])):
+            m = torch.as_tensor(m).to(device=device, dtype=torch.bool)
+            _require(m.dim() == 3 and m.shape[0] >= max_iters and tuple(m.shape[1:]) == (B, units),
+                     f"prenet mask: expected (>= {max_iters}, {B}, {units}), got {tuple(m.shape)}")
+            masks.append(m[:max_iters].contiguous())
+        masks = tuple(masks)
+    else:
+        _require(packed.keep_prob >= 1.0, "prenet dropout is on: hand in the masks")
+    return _Operands(keys_cat, score_bias.contiguous(), mem1, mem2, spk, masks)
+
+
+# --------------------------------------------------------------------------- #
+# The plain PyTorch version
+# --------------------------------------------------------------------------- #
+
+
+def _lstm(x_h, w, b, c, h, p: PackedDecoder):
+    i, g, f, o = (x_h @ w + b).chunk(4, dim=-1)
+    new_c = torch.sigmoid(f + p.forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
+    new_h = torch.sigmoid(o) * torch.tanh(new_c)
+    zc, zo = p.zoneout_cell, p.zoneout_output
+    return zc * c + (1.0 - zc) * new_c, zo * h + (1.0 - zo) * new_h
+
+
+def _layer_norm(x, scale, bias, eps: float):
+    mean = x.mean(dim=-1, keepdim=True)
+    centred = x - mean
+    var = (centred * centred).mean(dim=-1, keepdim=True)
+    return centred / torch.sqrt(var + eps) * scale + bias
+
+
+def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_threshold: float,
+                  early_exit: bool) -> DecodeResult:
+    z = p.sizes
+    B, S, _ = ops.mem1.shape
+    T, R, M, A1 = max_iters, z["R"], z["M"], z["A1"]
+    SA, H = z["SA"], z["H"]
+    HD = SA // H
+    device = p.flat.device
+    f32 = dict(dtype=torch.float32, device=device)
+    zeros = lambda *shape: torch.zeros(*shape, **f32)  # noqa: E731
+    W = {name: p.mat(name) for name in _ENTRIES}
+    v_cat, inv_keep = p.vec("v_cat"), 1.0 / p.keep_prob
+    even = (torch.arange(SA, device=device) % 2) == 0
+
+    frames, stops = zeros(B, T, R * M), zeros(B, T, R)
+    align1, align2 = zeros(B, T, S), zeros(B, T, S)
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    lengths = torch.zeros(B, dtype=torch.int32, device=device)
+    k_cache, v_cache = zeros(B, T, SA), zeros(B, T, SA)
+
+    feed = zeros(B, M)
+    c_att, h_att = zeros(B, z["AU"]), zeros(B, z["AU"])
+    c1, h1, c2, h2 = (zeros(B, z["DU"]) for _ in range(4))
+    alpha1 = zeros(B, S)
+    alpha1[:, 0] = 1.0
+    u = torch.full((B, 1), 0.5, **f32)
+    ctx1, ctx2 = zeros(B, z["E1"]), zeros(B, z["E2"])
+
+    t = 0
+    while t < T:
+        x = torch.relu(feed @ W["p1_w"] + W["p1_b"])
+        if ops.masks is not None:
+            x = torch.where(ops.masks[0][t], x * inv_keep, torch.zeros_like(x))
+        x = torch.relu(x @ W["p2_w"] + W["p2_b"])
+        if ops.masks is not None:
+            x = torch.where(ops.masks[1][t], x * inv_keep, torch.zeros_like(x))
+
+        parts = [x] + ([ops.spk] if ops.spk is not None else []) + [ctx1, ctx2, h_att]
+        c_att, h_att = _lstm(torch.cat(parts, dim=-1), W["attg_w"], W["attg_b"], c_att, h_att, p)
+
+        # both sources' scores from one tanh pass over the concatenated keys
+        qp = h_att @ W["qp_w"]
+        hidden = torch.tanh(ops.keys_cat + qp[:, None, :]) * v_cat
+        e1 = hidden[..., :A1].sum(dim=-1) + ops.score_bias
+        e2 = hidden[..., A1:].sum(dim=-1) + ops.score_bias
+        y1 = torch.softmax(e1, dim=-1)
+        shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
+        alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
+        alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
+        ctx1 = (alpha1[:, :, None] * ops.mem1).sum(dim=1)
+        if p.use_transition_agent:
+            ta_in = torch.cat([ctx1, h_att], dim=-1)
+            u = torch.sigmoid(ta_in @ p.vec("ta_w") + p.vec("ta_b"))[:, None]
+        alpha2 = torch.softmax(e2, dim=-1)
+        ctx2 = (alpha2[:, :, None] * ops.mem2).sum(dim=1)
+
+        c1, h1 = _lstm(torch.cat([h_att, ctx1, ctx2, h1], dim=-1), W["l1_w"], W["l1_b"], c1, h1, p)
+        c2, h2 = _lstm(torch.cat([h1, h2], dim=-1), W["l2_w"], W["l2_b"], c2, h2, p)
+        feature = h2 + h1
+
+        # causal self-attention block over the live prefix 0..t of the cache
+        angle = t * p.pe_rate
+        pe = torch.where(even, torch.sin(angle), torch.cos(angle)).to(torch.float32)
+        xs = feature @ W["in_w"] + W["in_b"] + pe
+        qkv = _layer_norm(xs, W["ln1_s"], W["ln1_b"], p.ln_eps) @ W["qkv_w"]
+        q, k_cache[:, t], v_cache[:, t] = qkv[:, :SA], qkv[:, SA : 2 * SA], qkv[:, 2 * SA :]
+        qh = (q / math.sqrt(HD)).reshape(B, H, HD)
+        keys = k_cache[:, : t + 1].reshape(B, t + 1, H, HD)
+        values = v_cache[:, : t + 1].reshape(B, t + 1, H, HD)
+        probs = torch.softmax(torch.einsum("bhd,bthd->bht", qh, keys), dim=-1)
+        attn = torch.einsum("bht,bthd->bhd", probs, values).reshape(B, SA)
+        xs = xs + attn @ W["o_w"] + W["o_b"]
+        ffn = torch.relu(_layer_norm(xs, W["ln2_s"], W["ln2_b"], p.ln_eps) @ W["f1_w"] + W["f1_b"])
+        y = xs + ffn @ W["f2_w"] + W["f2_b"]
+
+        out = y @ W["out_w"] + W["out_b"]
+        frames[:, t] = out[:, : R * M]
+        stop_probs = torch.sigmoid(out[:, R * M :])
+        stops[:, t] = stop_probs
+        align1[:, t], align2[:, t] = alpha1, alpha2
+
+        fired_mask = stop_probs > stop_threshold
+        fired = fired_mask.any(dim=-1)
+        first_fire = fired_mask.int().argmax(dim=-1)
+        newly = fired & ~finished
+        lengths = torch.where(newly, (t * R + first_fire + 1).to(torch.int32), lengths)
+        finished = finished | fired
+        feed = out[:, (R - 1) * M : R * M]
+
+        t += 1
+        if early_exit and bool(finished.all()):
+            break
+
+    lengths = torch.where(finished, lengths, torch.full_like(lengths, t * R))
+    return DecodeResult(
+        frames={"mel": frames.reshape(B, T * R, M)},
+        stop_probs=stops.reshape(B, T * R),
+        lengths=lengths,
+        alignments=(align1, align2),
+        finished=finished,
+        num_steps=torch.tensor(t, dtype=torch.int32, device=device),
+    )
+
+
+def fused_decode_reference(
+    packed: PackedDecoder,
+    cond: DecoderConditioning,
+    prenet_masks: Optional[Sequence[torch.Tensor]],
+    max_iters: int,
+    stop_threshold: float,
+    early_exit: bool = True,
+) -> DecodeResult:
+    """Plain PyTorch version of one launch of ``fused_decode``, in the kernel's formulation.
+
+    Concatenated keys against ``[v1 | v2]``, the key mask as an added -1e9, the
+    query scaled by ``1 / sqrt(HD)`` before the dot, attention over the live
+    prefix of the cache, dropout as ``x * (1 / keep)`` where the mask keeps. All
+    lanes run until every lane has fired (``early_exit``) or to ``max_iters``.
+    """
+    ops = _operands(packed, cond, prenet_masks, int(max_iters))
+    with torch.no_grad():
+        return _decode_plain(packed, ops, int(max_iters), float(stop_threshold), bool(early_exit))
+
+
+# --------------------------------------------------------------------------- #
+# The kernel
+# --------------------------------------------------------------------------- #
+
+
+def _kernel_fn():
+    global _function
+    if _function is None:
+        fn = load_library("fused_decode").fused_decode_f32
+        # 18 device pointers, the sizes (host), the scalars (host), the stream
+        fn.argtypes = [ctypes.c_void_p] * 18 + [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _function = fn
+    return _function
+
+
+def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0), offsets=None):
+    # the struct ``Dims`` of the source: sizes, (transition agent, early exit, masks), offsets
+    values = [B, S, T] + [sizes[k] for k in _SIZES] + [int(f) for f in flags]
+    values += [0] * len(_ENTRIES) if offsets is None else [offsets[name] for name in _ENTRIES]
+    return (ctypes.c_int * len(values))(*values)
+
+
+def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int,
+                        device) -> Tuple[int, int]:
+    """(bytes of shared memory one block needs, bytes a block may have on ``device``),
+    both as the built kernel reports them."""
+    lib = load_library("fused_decode")
+    lib.fused_decode_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_decode_smem_bytes.restype = ctypes.c_longlong
+    lib.fused_decode_smem_limit.argtypes = []
+    lib.fused_decode_smem_limit.restype = ctypes.c_longlong
+    with torch.cuda.device(device):
+        limit = int(lib.fused_decode_smem_limit())
+    if limit < 0:
+        raise RuntimeError(f"fused_decode: CUDA error {-limit} on reading the device's limits")
+    return int(lib.fused_decode_smem_bytes(_dims(sizes, 1, src_len, max_iters))), limit
+
+
+def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device) -> int:
+    need, have = block_shared_memory(sizes, src_len, max_iters, device)
+    if need > have:
+        return 0
+    return LANES * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_threshold: float,
+                   early_exit: bool) -> DecodeResult:
+    global launch_count
+    z = p.sizes
+    B, S, _ = ops.mem1.shape
+    T, R, M, SA = max_iters, z["R"], z["M"], z["SA"]
+    device = p.flat.device
+    f32 = dict(dtype=torch.float32, device=device)
+    # rows at and beyond num_steps stay zero, as the step-by-step path leaves them
+    frames, stops = torch.zeros(B, T, R * M, **f32), torch.zeros(B, T, R, **f32)
+    align1, align2 = torch.zeros(B, T, S, **f32), torch.zeros(B, T, S, **f32)
+    lengths = torch.zeros(B, dtype=torch.int32, device=device)
+    finished = torch.zeros(B, dtype=torch.bool, device=device)
+    # [0] num_steps, [1 + t] the blocks' arrival counter of step t
+    info = torch.zeros(1 + T, dtype=torch.int32, device=device)
+    # scratch: K transposed (B, SA, T4), V (B, T, SA); only the written prefix is read
+    k_cache = torch.empty(B, SA, _round4(T), **f32)
+    v_cache = torch.empty(B, T, SA, **f32)
+
+    dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None),
+                 p.offsets)
+    scalars = (ctypes.c_float * 7)(
+        p.zoneout_cell, p.zoneout_output, p.forget_bias, 1.0 / p.keep_prob,
+        stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]),
+    )
+    pointers = [
+        p.flat, p.pe_rate, ops.keys_cat, ops.mem1, ops.mem2, ops.score_bias, ops.spk,
+        *(ops.masks if ops.masks is not None else (None, None)),
+        k_cache, v_cache, frames, stops, align1, align2, lengths, finished, info,
+    ]
+    fn = _kernel_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(*(0 if x is None else x.data_ptr() for x in pointers), dims, scalars, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")
+    launch_count += 1
+    return DecodeResult(
+        frames={"mel": frames.view(B, T * R, M)},
+        stop_probs=stops.view(B, T * R),
+        lengths=lengths,
+        alignments=(align1, align2),
+        finished=finished,
+        num_steps=info[0],
+    )
+
+
+# --------------------------------------------------------------------------- #
+# The wrapper
+# --------------------------------------------------------------------------- #
+
+
+def _slice_cond(cond: DecoderConditioning, start: int, end: int) -> DecoderConditioning:
+    cut = lambda x: None if x is None else x[start:end]  # noqa: E731
+    return DecoderConditioning(
+        memories=tuple(cut(m) for m in cond.memories),
+        keys=tuple(cut(k) for k in cond.keys),
+        masks=tuple(cut(m) for m in cond.masks),
+        speaker_embed=cut(cond.speaker_embed),
+    )
+
+
+def fused_decode(
+    packed: PackedDecoder,
+    cond: DecoderConditioning,
+    prenet_masks: Optional[Sequence[torch.Tensor]],
+    max_iters: int,
+    stop_threshold: float,
+    early_exit: bool = True,
+    slice_batch: Optional[int] = None,
+) -> DecodeResult:
+    """Decode a whole request; returns the ``DecodeResult`` of ``ops/decode_loop.py``.
+
+    Weights and conditioning on a CUDA device go to the kernel or raise; on the
+    CPU they go to ``fused_decode_reference``. ``prenet_masks``: one
+    (max_iters, B, units) boolean keep-mask per prenet layer, or None when the
+    prenet's drop rate is 0.
+
+    Inside one launch all lanes run until every lane has fired or to
+    ``max_iters``. A batch above the launch limit (see
+    ``fused_decode_max_batch``; ``slice_batch`` overrides it) runs as sequential
+    batch blocks: per-lane frames up to the lane's length, lengths and flags are
+    those of one launch, ``num_steps`` is the maximum over the blocks, and a
+    block's rows between its own exit and ``num_steps`` are zero.
+    """
+    device = packed.flat.device
+    if device.type not in ("cpu", "cuda"):
+        raise RuntimeError(f"fused_decode has no kernel for device {device}")
+    max_iters = int(max_iters)
+    B, S = cond.memories[0].shape[:2]
+    limit = B   # the plain version takes any batch
+    if device.type == "cuda":
+        limit = _launch_limit(packed.sizes, S, max_iters, device)
+        if limit < 1:
+            need, have = block_shared_memory(packed.sizes, S, max_iters, device)
+            raise RuntimeError(
+                f"fused_decode cannot launch at max_iters={max_iters}, src_len={S}: one block "
+                f"needs {need} bytes of shared memory, an SM of this device offers {have}"
+            )
+    if slice_batch is not None:
+        limit = int(slice_batch)
+        if limit < 1:
+            raise ValueError("fused_decode: slice_batch must be at least 1")
+    if B > limit:
+        parts = [
+            fused_decode(
+                packed, _slice_cond(cond, start, min(start + limit, B)),
+                None if prenet_masks is None else [
+                    torch.as_tensor(m)[:, start : start + limit] for m in prenet_masks
+                ],
+                max_iters, stop_threshold, early_exit, slice_batch=limit,
+            )
+            for start in range(0, B, limit)
+        ]
+        return DecodeResult(
+            frames={"mel": torch.cat([r.frames["mel"] for r in parts])},
+            stop_probs=torch.cat([r.stop_probs for r in parts]),
+            lengths=torch.cat([r.lengths for r in parts]),
+            alignments=tuple(
+                torch.cat([r.alignments[i] for r in parts]) for i in range(2)
+            ),
+            finished=torch.cat([r.finished for r in parts]),
+            num_steps=torch.stack([r.num_steps for r in parts]).max(),
+        )
+    ops = _operands(packed, cond, prenet_masks, max_iters)
+    run = _decode_plain if device.type == "cpu" else _decode_kernel
+    with torch.no_grad():
+        return run(packed, ops, max_iters, float(stop_threshold), bool(early_exit))

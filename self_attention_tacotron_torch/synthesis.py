@@ -1,9 +1,10 @@
-"""Batched synthesis: encode, then the step-by-step autoregressive mel decode.
+"""Batched synthesis: encode, then the autoregressive mel decode.
 
-Counterpart of ``self_attention_tacotron_tpu/synthesis.py`` (``make_predict_fn``
-with ``use_fused=False``): encode the whole source in parallel, run the decode
-loop of ``ops/decode_loop.py`` with per-lane stop tokens, and return the same
-output dictionary.
+Counterpart of ``self_attention_tacotron_tpu/synthesis.py`` (``make_predict_fn``):
+encode the whole source in parallel, decode with per-lane stop tokens, and
+return the same output dictionary. The decode is the whole-loop kernel of
+``ops/fused_decode.py`` where the configuration has one, else the step-by-step
+loop of ``ops/decode_loop.py``.
 """
 
 from __future__ import annotations
@@ -15,6 +16,11 @@ import torch
 
 from self_attention_tacotron_torch.models.models import TacotronNetwork
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult, decode_incrementally
+from self_attention_tacotron_torch.ops.fused_decode import (
+    fused_decode,
+    pack_decoder,
+    supports_fused_decode,
+)
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
 
 
@@ -23,6 +29,7 @@ def make_predict_fn(
     max_iters: Optional[int] = None,
     device="cuda",
     early_exit: bool = True,
+    use_fused: Optional[bool] = None,
 ):
     """Build ``predict(batch, generator=None, prenet_masks=None) -> dict``.
 
@@ -40,7 +47,20 @@ def make_predict_fn(
     (max_iters, B, units) boolean array per prenet layer, used instead of drawing.
 
     ``early_exit=False`` runs every request to ``max_iters`` and so spares the
-    decode loop its one host synchronisation per step (see ``ops/decode_loop.py``).
+    step-by-step loop its one host synchronisation per step (see
+    ``ops/decode_loop.py``).
+
+    ``use_fused``: decode with the whole-loop kernel of ``ops/fused_decode.py``.
+    Default: on where ``hparams.use_pallas_kernels`` is set, the configuration is
+    one the kernel serves (``supports_fused_decode``) and the device is the card;
+    else the step-by-step loop. ``True`` raises for a configuration the kernel does
+    not serve, and with ``device="cpu"`` runs the kernel's plain version. On the
+    card the fused decode launches its kernel or raises (``RuntimeError`` where
+    ``max_iters`` or the source is so long that one block outgrows an SM's shared
+    memory): nothing gives way to the loop, which a caller asks for with
+    ``use_fused=False``. The weights are packed for the kernel here, once, so load
+    them before this call. Both decodes take the same masks, drawn before the
+    choice, so they consume the generator alike.
 
     The output dictionary has ``mel`` (B, max_iters*r, num_mels), ``stop_probs``
     (B, max_iters*r), ``lengths`` (B,), ``alignments`` (per source, (B, max_iters,
@@ -56,6 +76,11 @@ def make_predict_fn(
     max_steps = int(max_iters or hp.max_iters)
     r = hp.outputs_per_step
     head_dims = dict(net.decoder.output_heads)
+    if use_fused is None:
+        use_fused = hp.use_pallas_kernels and supports_fused_decode(hp) and dev.type == "cuda"
+    elif use_fused and not supports_fused_decode(hp):
+        raise ValueError("configuration not supported by the fused decode kernel")
+    packed = pack_decoder(net.decoder) if use_fused else None
 
     def to_device(value, dtype=None):
         if value is None:
@@ -95,6 +120,12 @@ def make_predict_fn(
             )
         else:
             masks = None
+
+        if use_fused:
+            result = fused_decode(
+                packed, cond, masks, max_steps, hp.stop_token_threshold, early_exit=early_exit
+            )
+            return _assemble_outputs(result, enc_sa)
 
         def step_fn(state, feed, t):
             step_masks = None if masks is None else tuple(m[t] for m in masks)

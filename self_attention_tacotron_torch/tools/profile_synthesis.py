@@ -7,9 +7,12 @@ Flagship at full width, trained weights, batch 32 (ragged source lengths up to
 reach, so that every run does the same work. It prints JSON lines:
 
 * ``encoder``: time of ``encode`` by CUDA events, kernel path and plain path;
-* ``decode``: wall time per decoder step with and without the early exit's host
-  synchronisation, in turns (sync, no sync, no sync, sync);
-* ``device``: from ``torch.profiler`` over one request: kernels launched per
+* ``decode``: time per decoder step of a whole request, in turns (a, b, b, a):
+  the step-by-step loop with and without the early exit's host synchronisation
+  (host clock), and the fused decode kernel with the exit agreement and without
+  (host clock and CUDA events);
+* ``device``, once for the step-by-step path and once for the fused path: from
+  ``torch.profiler`` over one request, kernels launched per request and per
   decoder step, device-busy time per step and its share of the same request's
   untraced wall time (encoder included in both), and the kernels that take most
   device time.
@@ -66,6 +69,50 @@ def encoder_ms(net, req, dev, iters: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def events_per_step(predict, req, steps: int, dev) -> float:
+    gen = torch.Generator(device=dev).manual_seed(0)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    predict(req, generator=gen)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / steps
+
+
+def device_row(predict, req, steps: int, untraced_ms: float, dev):
+    """One traced request: launches, device-busy time and its share of ``untraced_ms``."""
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.profiler.profile(activities=activities) as prof:
+        predict(req, generator=gen)
+        torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - start)
+    rows = [
+        (e.key, e.count, e.device_time_total / 1e3)
+        for e in prof.key_averages()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    if not rows:
+        return {"error": "no device time in the trace"}
+    busy_ms = sum(r[2] for r in rows)
+    launches = sum(r[1] for r in rows)
+    top = sorted(rows, key=lambda r: -r[2])[:8]
+    # the tracer slows the host down, so the share is taken against the
+    # untraced wall time of the same request
+    return {
+        "traced_wall_ms": wall_ms, "untraced_wall_ms": untraced_ms,
+        "device_busy_ms": busy_ms,
+        "device_busy_share_of_untraced_wall": busy_ms / untraced_ms,
+        "kernel_launches": launches,
+        "launches_per_step": launches / steps,
+        "device_busy_ms_per_step": busy_ms / steps,
+        "top_kernels": [{"name": k[:80], "count": c, "device_ms": t} for k, c, t in top],
+    }
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=200, help="decoder steps per request")
@@ -78,8 +125,14 @@ def main() -> None:
     net_plain = convert.load_npz(
         TRAINED_NPZ, flagship_hparams(stop_token_threshold=2.0, use_pallas_kernels=False)
     )
-    with_sync = make_predict_fn(net, max_iters=args.steps)
-    no_sync = make_predict_fn(net, max_iters=args.steps, early_exit=False)
+    stepwise = {
+        "sync": make_predict_fn(net, max_iters=args.steps, use_fused=False),
+        "no_sync": make_predict_fn(net, max_iters=args.steps, use_fused=False, early_exit=False),
+    }
+    fused = {
+        "exit_agreement": make_predict_fn(net, max_iters=args.steps),
+        "to_the_cap": make_predict_fn(net, max_iters=args.steps, early_exit=False),
+    }
 
     for batch, longest in ((32, 128), (1, 97)):
         req = ragged_request(np.random.default_rng(1234), batch, longest)
@@ -87,50 +140,26 @@ def main() -> None:
             "encoder": {"batch": batch, "kernels_ms": encoder_ms(net, req, dev),
                         "plain_ms": encoder_ms(net_plain, req, dev)}
         }), flush=True)
-        wall_per_step(with_sync, req, args.steps, dev)      # warm-up
-        turns = [("sync", with_sync), ("no_sync", no_sync), ("no_sync", no_sync),
-                 ("sync", with_sync)]
-        times = {"sync": [], "no_sync": []}
-        for name, predict in turns:
-            times[name].append(wall_per_step(predict, req, args.steps, dev))
-        print(json.dumps({"decode": {"batch": batch, "ms_per_step": times}}), flush=True)
-
-        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-        gen = torch.Generator(device=dev).manual_seed(0)
-        torch.cuda.synchronize()
-        start = time.perf_counter()
-        with torch.profiler.profile(activities=activities) as prof:
-            with_sync(req, generator=gen)
-            torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - start)
-        rows = [
-            (e.key, e.count, e.device_time_total / 1e3)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
+        decode = {"batch": batch}
+        for label, pair in (("step_by_step", stepwise), ("fused", fused)):
+            (a, first), (b, second) = pair.items()
+            wall_per_step(first, req, args.steps, dev)      # warm-up
+            times = {a: [], b: []}
+            for name, predict in ((a, first), (b, second), (b, second), (a, first)):
+                times[name].append(wall_per_step(predict, req, args.steps, dev))
+            decode[label] = {"ms_per_step": times}
+        decode["fused"]["ms_per_step_by_cuda_events"] = [
+            events_per_step(fused["exit_agreement"], req, args.steps, dev) for _ in range(2)
         ]
-        if not rows:
-            print(json.dumps({"device": {"batch": batch, "error": "no device time in the trace"}}),
-                  flush=True)
-            continue
-        busy_ms = sum(r[2] for r in rows)
-        launches = sum(r[1] for r in rows)
-        # the tracer slows the host down, so the share is taken against the
-        # untraced wall time of the same request
-        untraced_ms = args.steps * sum(times["sync"]) / len(times["sync"])
-        top = sorted(rows, key=lambda r: -r[2])[:8]
-        print(json.dumps({
-            "device": {
-                "batch": batch, "traced_wall_ms": wall_ms, "untraced_wall_ms": untraced_ms,
-                "device_busy_ms": busy_ms,
-                "device_busy_share_of_untraced_wall": busy_ms / untraced_ms,
-                "kernel_launches": launches,
-                "launches_per_step": launches / args.steps,
-                "device_busy_ms_per_step": busy_ms / args.steps,
-                "top_kernels": [
-                    {"name": k[:80], "count": c, "device_ms": t} for k, c, t in top
-                ],
-            }
-        }), flush=True)
+        print(json.dumps({"decode": decode}), flush=True)
+
+        for label, predict, times in (
+            ("step_by_step", stepwise["sync"], decode["step_by_step"]["ms_per_step"]["sync"]),
+            ("fused", fused["exit_agreement"], decode["fused"]["ms_per_step"]["exit_agreement"]),
+        ):
+            untraced_ms = args.steps * sum(times) / len(times)
+            row = device_row(predict, req, args.steps, untraced_ms, dev)
+            print(json.dumps({"device": {"batch": batch, "path": label, **row}}), flush=True)
 
 
 if __name__ == "__main__":

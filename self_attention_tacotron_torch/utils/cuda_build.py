@@ -28,7 +28,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_SOURCES: Tuple[str, ...] = ("bigru", "mha_full")
+KERNEL_SOURCES: Tuple[str, ...] = ("bigru", "mha_full", "fused_decode")
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

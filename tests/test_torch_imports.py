@@ -42,7 +42,8 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
     names = [os.path.relpath(p, REPO) for p in _sources()]
     assert "chip_smoke.py" in names
     for expected in ("synthesis.py", "convert.py", "hparams.py", "ops/fused_rnn.py",
-                     "ops/fused_attention.py", "ops/decode_loop.py", "models/models.py"):
+                     "ops/fused_attention.py", "ops/fused_decode.py", "ops/decode_loop.py",
+                     "models/models.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
 
 
@@ -59,8 +60,12 @@ def test_importing_the_port_loads_nothing_of_jax():
         "from self_attention_tacotron_torch import convert, synthesis\n"
         "from self_attention_tacotron_torch.models import models\n"
         "from self_attention_tacotron_torch.ops import fused_rnn, fused_attention, decode_loop\n"
+        "from self_attention_tacotron_torch.ops import fused_decode\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('LOADED', bad)\n"
+        # no kernel is built or bound, and no triton is asked for, by an import
+        "from self_attention_tacotron_torch.utils import cuda_build\n"
+        "print('BOUND', sorted(cuda_build._libraries), 'triton' in sys.modules)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run(
@@ -69,6 +74,7 @@ def test_importing_the_port_loads_nothing_of_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    assert "BOUND [] False" in out.stdout, out.stdout
 
 
 def test_kernel_sources_are_cuda_for_sm_90a_and_are_built_into_an_ignored_directory():
@@ -115,9 +121,21 @@ def test_a_cuda_tensor_never_reaches_the_plain_version():
     gates read the tensor's device, not a global switch."""
     import inspect
 
-    from self_attention_tacotron_torch.ops import fused_attention, fused_rnn
+    from self_attention_tacotron_torch.ops import fused_attention, fused_decode, fused_rnn
 
-    for fn in (fused_rnn.bigru, fused_attention.mha_full):
+    for fn in (fused_rnn.bigru, fused_attention.mha_full, fused_decode.fused_decode):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert 'device.type == "cpu"' in src
+
+
+def test_fused_decode_on_a_device_without_a_kernel_raises():
+    from self_attention_tacotron_torch.ops import fused_decode
+
+    packed = fused_decode.PackedDecoder(
+        flat=torch.zeros(4, device="meta"), offsets={}, shapes={}, sizes={},
+        use_transition_agent=False, zoneout_cell=0.1, zoneout_output=0.1, forget_bias=1.0,
+        keep_prob=0.5, ln_eps=1e-6, pe_rate=torch.zeros(4, dtype=torch.float64),
+    )
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fused_decode.fused_decode(packed, None, None, 3, 0.5)
