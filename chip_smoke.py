@@ -20,7 +20,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    probabilities, where lengths, flags, step counts and the zero tail must be
    equal; the timed 500-step launch against the plain version by windows of
    steps; and a step cap beyond one block's shared memory, where the launch
-   limit is 0 and ``predict`` raises;
+   limit is 0 and ``predict`` raises; the training kernels: ``bigru_train`` (the
+   BiGRU's forward kernel and the kernel of its backward's carry recursion)
+   against autograd through the plain version, outputs and the gradients of the
+   input and of all eight weights; ``fused_teacher`` (the teacher-forced decoder
+   scan, one kernel forward and one backward) against its plain version under
+   autograd, outputs and every gradient, at narrow and off-tile sizes (transition
+   agent, speaker embedding, eval zoneout, train zoneout, zoneout 0) and at the
+   flagship sizes over 400 steps with conditioning from the real encoder, the
+   trained weights, prenet dropout and train zoneout;
 4. main path: flagship synthesis at full width from the committed trained
    weights through ``convert.load_npz`` and ``make_predict_fn``, batch 1 and
    batch 32, once through the kernels (the fused decode included) and once with
@@ -29,7 +37,13 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    probabilities keep a margin from the threshold, frames and alignments within
    the stated tolerances, and every kernel's launch count above zero; then a
    short request on the card against the same request on the CPU;
-5. report: one JSON line ``{"kernels": [...]}``, then the last line
+5. training main path: ``Trainer.train_step`` of the flagship from the trained
+   weights on a seeded batch of 32 lanes x 800 frames, three steps through the
+   kernels and three with ``use_pallas_kernels=False``, same state and generator
+   seed: loss parts and ``grad_norm`` must agree, every kernel of the step must
+   have been launched once forward and once backward per step, the plain path
+   must launch none; an evaluation step on both paths;
+6. report: one JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -51,16 +65,28 @@ if not torch.cuda.is_available():
 from self_attention_tacotron_torch import convert  # noqa: E402
 from self_attention_tacotron_torch.hparams import HParams  # noqa: E402
 from self_attention_tacotron_torch.models.decoders import DecoderConditioning  # noqa: E402
-from self_attention_tacotron_torch.models.models import TacotronNetwork  # noqa: E402
-from self_attention_tacotron_torch.ops import fused_attention, fused_decode, fused_rnn  # noqa: E402
+from self_attention_tacotron_torch.models.models import (  # noqa: E402
+    TacotronNetwork,
+    tacotron_model_factory,
+)
+from self_attention_tacotron_torch.ops import (  # noqa: E402
+    fused_attention,
+    fused_decode,
+    fused_rnn,
+    fused_teacher,
+)
 from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     TRAINED_NPZ as NPZ,
+    device_busy,
     flagship_hparams,
     gpu_line,
     ragged_lengths,
     ragged_request,
+    training_batch,
 )
+from self_attention_tacotron_torch.tools.profile_training import timed_step  # noqa: E402
+from self_attention_tacotron_torch.training.trainer import Trainer  # noqa: E402
 from self_attention_tacotron_torch.utils import cuda_build  # noqa: E402
 from self_attention_tacotron_torch.utils.platform import use_full_float32  # noqa: E402
 
@@ -675,6 +701,334 @@ def phase_fused_decode():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 3, continued: the training kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+# bigru_train against autograd through bigru_reference, float32: the outputs as
+# for ``bigru``; each gradient leaf relative to its largest entry (sums over up
+# to B * S = 4096 rows in another order, through 128 recurrent steps).
+TOL_BIGRU_GRAD = 1e-4
+# fused_teacher against teacher_decode_reference under autograd, float32, TF32
+# off. Teacher forcing feeds no output back, so values stay close over 400 steps:
+# features and alignments absolute; each gradient relative to its leaf's largest
+# entry (weight gradients sum over B * N = 12800 rows in another order).
+TOL_TEACHER = 1e-4
+TOL_TEACHER_GRAD = 1e-4
+# These hold narrow decoders, the flagship's widths with seeded weights over 400
+# steps, and the trained flagship over 40. The trained flagship over 400 steps of
+# this batch spreads: its recurrences (LSTM states, the forward-attention
+# recursion) amplify a rounding. The yardstick printed beside that case is the
+# plain version against itself with the memories and keys moved by one part in
+# 1e7 (measured 5e-3 on the values, 1.5e-4 on the gradients); the case is held at
+# the looser tolerances below.
+TOL_TEACHER_TRAINED = 1e-2
+TOL_TEACHER_TRAINED_GRAD = 2e-3
+
+
+def relative_errors(got, want):
+    """Per name, the largest absolute difference over the leaf's largest entry."""
+    return {
+        name: float((got[name] - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        for name, w in want.items() if w is not None
+    }
+
+
+def check_bigru_train(B, S, C, H, lengths, timed: bool, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    arr = lambda *shape: torch.tensor(  # noqa: E731
+        rng.standard_normal(shape).astype(np.float32), device=DEV)
+    xs0, cot = arr(B, S, C), arr(B, S, 2 * H)
+    lens = torch.tensor(np.asarray(lengths, np.int32), device=DEV)
+    params = [gru_params(rng, C, H, torch.float32) for _ in range(2)]
+
+    def run(fn):
+        xs = xs0.clone().requires_grad_(True)
+        ps = [{k: v.clone().requires_grad_(True) for k, v in p.items()} for p in params]
+        y = fn(xs, lens, ps[0], ps[1], H)
+        (y * cot).sum().backward()
+        out = {"y": y.detach(), "d_xs": xs.grad}
+        for direction, p in zip(("fwd", "bwd"), ps):
+            out.update({f"d_{direction}_{k}": v.grad for k, v in p.items()})
+        return out
+
+    before = (fused_rnn.launch_count, fused_rnn.bwd_launch_count)
+    got = run(fused_rnn.bigru_train)
+    torch.cuda.synchronize()
+    launches = (fused_rnn.launch_count - before[0], fused_rnn.bwd_launch_count - before[1])
+    want = run(fused_rnn.bigru_reference)
+    errs = relative_errors(got, want)
+    y_err = max_abs_err(got["y"], want["y"])
+    grad_err = max(v for k, v in errs.items() if k != "y")
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    ok = (finite and launches == (1, 1) and y_err <= TOL[("bigru", torch.float32)]
+          and grad_err <= TOL_BIGRU_GRAD)
+    rec = {
+        "kernel": "bigru_bwd", "shape": {"B": B, "S": S, "C": C, "H": H}, "dtype": "float32",
+        "launches_fwd_bwd": list(launches), "y_max_abs_err": y_err,
+        "grad_max_rel_err": grad_err, "grad_rel_errs": errs, "tol_y": TOL[("bigru", torch.float32)],
+        "tol_grad_rel": TOL_BIGRU_GRAD, "ok": ok,
+    }
+    if timed:
+        # the carry kernel alone, on the operands the backward hands it
+        weights = [p[k] for p in params for k in fused_rnn._PARAM_KEYS]
+        rz, n, hp, _, _, wgh_t, wch_t = fused_rnn.bwd_operands(xs0, got["y"], weights, H)
+        args = (cot, rz, n, hp, lens, wgh_t, wch_t)
+        g_kernel = fused_rnn.bigru_bwd_carry(*args)
+        g_plain = fused_rnn.bigru_bwd_carry_reference(*args)
+        steps = int(np.minimum(np.asarray(lengths), S).sum())
+        flops = 2.0 * steps * 2 * 3 * H * H
+        nbytes = 4.0 * (B * S * 2 * H * (1 + 2 + 2) + B * S * H * 2 * 3 + 2 * 3 * H * H + B)
+        t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+        rec.update(
+            max_abs_err=max(max_abs_err(a, b) for a, b in zip(g_kernel, g_plain)),
+            ms=time_ms(lambda: fused_rnn.bigru_bwd_carry(*args)),
+            plain_ms=time_ms(
+                lambda: fused_rnn.bigru_bwd_carry_reference(*args), warmup=1, iters=2),
+            train_fwd_bwd_ms=time_ms(lambda: run(fused_rnn.bigru_train), warmup=1, iters=5),
+            plain_fwd_bwd_ms=time_ms(lambda: run(fused_rnn.bigru_reference), warmup=0, iters=2),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes", flops=flops, bytes=nbytes,
+        )
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"bigru_train disagrees with autograd through its plain version: {rec}")
+    return rec
+
+
+def phase_bigru_bwd():
+    check_bigru_train(4, 12, 10, 8, [12, 7, 1, 12], timed=False)
+    check_bigru_train(5, 9, 7, 20, [9, 1, 4, 9, 2], timed=False, seed=1)
+    check_bigru_train(1, 33, 128, 128, [33], timed=False, seed=2)
+    lengths = ragged_lengths(np.random.default_rng(3), 32, 128)
+    return check_bigru_train(32, 128, 128, 128, lengths, timed=True, seed=3)
+
+
+def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zoneout):
+    """Operands of ``teacher_decode`` at the sizes ``z`` with weights from ``rng``."""
+    def arr(*shape, scale=0.3):
+        return torch.tensor(
+            rng.standard_normal(shape).astype(np.float32) * np.float32(scale), device=DEV)
+
+    fan = lambda k: 1.0 / np.sqrt(k)  # noqa: E731
+    A = z["A1"] + z["A2"]
+    in_att = z["P2"] + spk + z["E1"] + z["E2"] + z["AU"]
+    in1 = z["AU"] + z["E1"] + z["E2"] + z["DU"]
+    vblk = torch.zeros(A, 2, device=DEV)
+    vblk[: z["A1"], 0] = arr(z["A1"])
+    vblk[z["A1"] :, 1] = arr(z["A2"])
+    weights = dict(
+        w_p1=arr(z["F"], z["P1"]), b_p1=arr(z["P1"]),
+        w_p2=arr(z["P1"], z["P2"], scale=fan(z["P1"])), b_p2=arr(z["P2"]),
+        w_attg=arr(in_att, 4 * z["AU"], scale=fan(in_att)), b_attg=arr(4 * z["AU"]),
+        w_qp=arr(z["AU"], A, scale=fan(z["AU"])), vblk=vblk,
+        w_ta=arr(z["E1"] + z["AU"], 1, scale=fan(z["AU"])), b_ta=arr(1),
+        w_l1=arr(in1, 4 * z["DU"], scale=fan(in1)), b_l1=arr(4 * z["DU"]),
+        w_l2=arr(2 * z["DU"], 4 * z["DU"], scale=fan(2 * z["DU"])), b_l2=arr(4 * z["DU"]),
+    )
+    lens = torch.tensor(lengths, device=DEV)
+    return dict(
+        weights=weights, keys=arr(B, S, A), mem1=arr(B, S, z["E1"]), mem2=arr(B, S, z["E2"]),
+        spk=arr(B, spk) if spk else None,
+        score_bias=torch.where(torch.arange(S, device=DEV)[None] < lens[:, None], 0.0, -1e9).float(),
+        hp_like=dict(
+            dual=True, use_ta=use_ta, att_units=z["AU"], att1_units=z["A1"],
+            att2_units=z["A2"], dec_units=z["DU"], zoneout_cell=zc, zoneout_output=zo,
+            prenet_drop_rate=0.0 if z.get("no_dropout") else 0.5, io_dtype="float32",
+            src1_kind="forward", eval_zoneout=eval_zoneout,
+        ),
+    )
+
+
+def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
+    """What one launch needs on these inputs. Operations: every product of the
+    step once (the backward's are against the transposed weights; the weight
+    gradients are batched products outside the kernel), the score pass over the
+    valid positions (the backward recomputes it and adds its adjoint) and the
+    contexts. Bytes: weights, conditioning and per-step rows read once, outputs
+    written once."""
+    hp_like, w = ops["hp_like"], ops["weights"]
+    B, N = feeds.shape[:2]
+    S = ops["keys"].shape[1]
+    z = dict(P2=w["w_p2"].shape[1], SPK=0 if ops["spk"] is None else ops["spk"].shape[1],
+             AU=hp_like["att_units"], A1=hp_like["att1_units"], A2=hp_like["att2_units"],
+             DU=hp_like["dec_units"], E1=ops["mem1"].shape[-1], E2=ops["mem2"].shape[-1])
+    A, E = z["A1"] + z["A2"], z["E1"] + z["E2"]
+    core = [n for n in fused_teacher.CORE_WEIGHTS if hp_like["use_ta"] or n not in ("w_ta", "b_ta")]
+    products = sum(w[n].numel() for n in core if n.startswith("w_"))
+    weight_floats = sum(w[n].numel() for n in core)
+    valid = int(np.sum(np.minimum(lengths, S)))
+    widths = {k: v[1] for k, v in fused_teacher.row_layouts(z, S).items()}
+    conditioning = B * S * (A + E + 1) + B * z["SPK"]
+    outputs = B * N * (z["DU"] + 2 * S)
+    if not backward:
+        flops = N * (B * 2 * products + valid * (4 * A + 2 * E))
+        floats = (weight_floats + B * N * z["P2"] + conditioning + outputs
+                  + B * N * (widths["carry"] + widths["acts"]))
+    else:
+        flops = N * (B * 2 * products + valid * (10 * A + 4 * E))
+        floats = (weight_floats + B * N * z["P2"] + conditioning + outputs
+                  + B * N * (widths["carry"] + widths["acts"] + widths["stack"])
+                  + B * S * A + B * 2 * A + B * widths["stack"] + B * z["SPK"])
+    return float(flops), 4.0 * floats
+
+
+def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=False,
+                  tol=TOL_TEACHER, tol_grad=TOL_TEACHER_GRAD, yardstick=False, valid_steps=None):
+    """Forward values and every gradient of ``teacher_decode`` (two kernel launches)
+    against ``teacher_decode_reference`` under autograd, non-zero cotangents for
+    both outputs."""
+    B, N = feeds.shape[:2]
+    S = ops["keys"].shape[1]
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    cot_f = torch.randn(B, N, ops["hp_like"]["dec_units"], device=DEV, generator=gen)
+    cot_a = torch.randn(B, N, 2 * S, device=DEV, generator=gen)
+    if valid_steps is not None:
+        # as a loss masks the frames beyond a lane's target length
+        live = torch.arange(N, device=DEV)[None, :] < torch.as_tensor(valid_steps, device=DEV)[:, None]
+        cot_f, cot_a = cot_f * live[..., None], cot_a * live[..., None]
+
+    def run(fn, with_align=True, moved=1.0):
+        leaf = lambda v: None if v is None else v.detach().clone().requires_grad_(True)  # noqa: E731
+        w = {k: leaf(v) for k, v in ops["weights"].items()}
+        c = {k: leaf(None if ops[k] is None else ops[k] * moved)
+             for k in ("keys", "mem1", "mem2", "spk")}
+        f = leaf(feeds)
+        (feat, align), fwd_ms = timed_once(lambda: fn(
+            weights=w, keys=c["keys"], mem1=c["mem1"], mem2=c["mem2"], spk=c["spk"],
+            score_bias=ops["score_bias"], feeds=f, seed=seed, hp_like=ops["hp_like"],
+            prenet_masks=prenet_masks,
+        ))
+        loss = (feat * cot_f).sum() + ((align * cot_a).sum() if with_align else 0.0)
+        _, bwd_ms = timed_once(loss.backward)
+        grads = {**{k: v.grad for k, v in w.items()},
+                 **{k: v.grad for k, v in c.items() if v is not None}, "feeds": f.grad}
+        if not ops["hp_like"]["use_ta"]:
+            grads.pop("w_ta"), grads.pop("b_ta")        # unused: no gradient, or zeros
+        return feat.detach(), align.detach(), grads, (fwd_ms, bwd_ms)
+
+    before = (fused_teacher.launch_count, fused_teacher.bwd_launch_count)
+    got = run(fused_teacher.teacher_decode)
+    launches = (fused_teacher.launch_count - before[0],
+                fused_teacher.bwd_launch_count - before[1])
+    want = run(fused_teacher.teacher_decode_reference)
+    errs = relative_errors(got[2], want[2])
+    value_err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
+    grad_abs = max(max_abs_err(got[2][k], g) for k, g in want[2].items() if g is not None)
+    finite = all(bool(torch.isfinite(x).all()) for x in (got[0], got[1], *got[2].values()))
+    sums = got[1].reshape(B, N, 2, S).sum(dim=-1)
+    ok = (finite and launches == (1, 1) and value_err <= tol
+          and max(errs.values()) <= tol_grad and float((sums - 1.0).abs().max()) < 1e-4)
+    hp_like = ops["hp_like"]
+    rec = {
+        "kernel": "fused_teacher", "case": name,
+        "shape": {"B": B, "S": S, "N": N, "F": feeds.shape[-1],
+                  **{k: int(v) for k, v in hp_like.items() if k.endswith("_units")}},
+        "transition_agent": hp_like["use_ta"], "speaker": ops["spk"] is not None,
+        "zoneout": [hp_like["zoneout_cell"], hp_like["zoneout_output"]],
+        "eval_zoneout": hp_like["eval_zoneout"], "prenet_dropout": prenet_masks is not None,
+        "launches_fwd_bwd": list(launches),
+        "features_max_abs_err": max_abs_err(got[0], want[0]),
+        "alignments_max_abs_err": max_abs_err(got[1], want[1]), "tol": tol,
+        "grad_max_rel_err": max(errs.values()), "grad_max_abs_err": grad_abs,
+        "tol_grad_rel": tol_grad, "grad_rel_errs": errs,
+        "largest_gradient_entry": max(float(g.abs().max()) for g in want[2].values()), "ok": ok,
+    }
+    if yardstick:
+        moved = run(fused_teacher.teacher_decode_reference, moved=1.0 + 1e-7)
+        rec["plain_against_itself_moved_by_1e-7"] = {
+            "features_max_abs": max_abs_err(moved[0], want[0]),
+            "alignments_max_abs": max_abs_err(moved[1], want[1]),
+            "grad_max_rel": max(relative_errors(moved[2], want[2]).values()),
+        }
+    if timed:
+        # a second, warm pass, with the cotangents a training step has (none for the alignments)
+        again = run(fused_teacher.teacher_decode, with_align=False)
+        kernel_ms = (fused_teacher.last_launch_ms("fwd"), fused_teacher.last_launch_ms("bwd"))
+        plain = want            # the plain version's times are those of the run compared with
+        for i, which in enumerate(("fwd", "bwd")):
+            flops, nbytes = teacher_flops_and_bytes(ops, feeds, lengths, backward=bool(i))
+            t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+            rec[which] = {
+                "ms": kernel_ms[i], "ms_per_step": kernel_ms[i] / N,
+                "wrapper_ms": again[3][i], "plain_ms": plain[3][i],
+                "bound_ms": max(t_ops, t_bytes) * 1e3,
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "flops": flops, "bytes": nbytes,
+            }
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"fused_teacher disagrees with its plain version: {rec}")
+    return rec
+
+
+def phase_fused_teacher():
+    narrow = dict(F=10, P1=12, P2=8, AU=12, A1=12, A2=6, DU=16, E1=12, E2=8)
+    odd = dict(F=7, P1=20, P2=12, AU=28, A1=10, A2=7, DU=36, E1=20, E2=12)
+    rng = np.random.default_rng(21)
+    for name, z, lengths, steps, kw in (
+        ("narrow B=3 S=11", narrow, [11, 7, 4], 6, {}),
+        ("narrow B=5 S=13, transition agent, speaker embedding", narrow, [13, 5, 9, 1, 12], 20,
+         dict(use_ta=True, spk=5)),
+        ("narrow B=5 S=9, eval zoneout", narrow, [9, 9, 3, 6, 2], 20,
+         dict(zc=0.1, zo=0.1, eval_zoneout=True)),
+        ("odd widths B=6 S=7, train zoneout, transition agent", odd, [7, 2, 5, 7, 7, 3], 19,
+         dict(zc=0.3, zo=0.2, use_ta=True)),
+        ("odd widths B=6 S=7, zoneout 0, prenet dropout 0", dict(odd, no_dropout=True),
+         [7, 2, 5, 7, 7, 3], 19, {}),
+    ):
+        B, S = len(lengths), max(lengths)
+        ops = seeded_teacher_operands(
+            rng, z, B, S, lengths, kw.get("use_ta", False), kw.get("spk", 0),
+            kw.get("zc", 0.0), kw.get("zo", 0.0), kw.get("eval_zoneout", False),
+        )
+        feeds = torch.tensor(rng.standard_normal((B, steps, z["F"])).astype(np.float32), device=DEV)
+        masks = None
+        if ops["hp_like"]["prenet_drop_rate"] > 0.0:
+            masks = tuple(torch.tensor(rng.random((B, steps, z[k])) < 0.5, device=DEV)
+                          for k in ("P1", "P2"))
+        check_teacher(name, ops, feeds, masks, lengths)
+
+    # the flagship: trained weights, conditioning from the real encoder, the
+    # training batch's frames, prenet dropout 0.5 and train zoneout 0.1 / 0.1
+    hp = flagship_hparams()
+    net = convert.load_npz(NPZ, hp)
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    with torch.no_grad():
+        cond, _ = net.encode(
+            torch.as_tensor(batch["source"], device=DEV),
+            torch.as_tensor(batch["source_lengths"], device=DEV),
+            generator=torch.Generator(device=DEV).manual_seed(0),
+        )
+        net.decoder.train()
+        ops = net.decoder.teacher_operands(cond)
+        feeds = net.decoder.make_teacher_feeds(torch.as_tensor(batch["mel"], device=DEV))
+    total = feeds.shape[1]
+    masks = tuple(torch.tensor(rng.random((32, total, u)) < 0.5, device=DEV)
+                  for u in hp.decoder_prenet_out_units)
+    valid_steps = batch["target_lengths"] // hp.outputs_per_step
+    check_teacher(
+        "flagship B=32 S=128 ragged, 40 steps, trained weights", ops,
+        feeds[:, :40].contiguous(), tuple(m[:, :40].contiguous() for m in masks),
+        batch["source_lengths"], valid_steps=valid_steps,
+    )
+    # the flagship's widths and step count with seeded weights, which do not spread
+    wide = dict(F=80, P1=256, P2=128, AU=256, A1=224, A2=32, DU=256, E1=256, E2=256)
+    lengths = batch["source_lengths"].tolist()
+    check_teacher(
+        f"flagship widths, seeded weights, B=32 S=128 ragged, {total} steps",
+        seeded_teacher_operands(rng, wide, 32, 128, lengths, False, 0, 0.1, 0.1, False),
+        feeds, masks, lengths, valid_steps=valid_steps,
+    )
+    # the trained flagship over all the steps of a training batch: the timed launch
+    return check_teacher(
+        f"flagship B=32 S=128 ragged, {total} steps, trained weights", ops, feeds, masks,
+        batch["source_lengths"], timed=True, tol=TOL_TEACHER_TRAINED,
+        tol_grad=TOL_TEACHER_TRAINED_GRAD, yardstick=True, valid_steps=valid_steps,
+    )
+
+
+# --------------------------------------------------------------------------- #
 # Phase 4: the main path
 # --------------------------------------------------------------------------- #
 
@@ -869,6 +1223,195 @@ def phase_main_path():
 
 
 # --------------------------------------------------------------------------- #
+# Phase 5: the training main path
+# --------------------------------------------------------------------------- #
+
+TRAIN_STEPS = 3
+# Kernel path against the all-plain path, same state, batch and generator seed (so
+# the same dropout and zoneout masks), float32.
+# From freshly initialised weights (drawn from a seed) the gradients are well
+# conditioned: the loss parts absolute, grad_norm and every gradient leaf (relative
+# to the leaf's largest entry) are held after one step.
+TOL_TRAIN_LOSS = 1e-4
+TOL_TRAIN_NORM_REL = 1e-3
+TOL_TRAIN_LEAF_REL = 1e-3
+# From the trained weights on this batch (random symbol ids, not text) they are not:
+# the gradients of the encoder's leaves are small sums of large terms, and the
+# plain path against itself with the embedding moved by one part in 1e7 moves them
+# by more than half (printed as the yardstick; in float64 the same move changes them
+# by about one part in a hundred). So there the first step's loss parts are held
+# tightly, grad_norm only to a factor, and the later steps' losses loosely: after
+# an update the paths drift, since Adam moves every weight by about the learning
+# rate in the direction of its gradient's sign.
+TOL_TRAINED_NORM_REL = 0.5
+TOL_TRAINED_LATER = 2e-2
+TOL_EVAL = 1e-4
+
+
+def training_counts():
+    return {
+        "bigru": fused_rnn.launch_count, "bigru_bwd": fused_rnn.bwd_launch_count,
+        "fused_teacher_fwd": fused_teacher.launch_count,
+        "fused_teacher_bwd": fused_teacher.bwd_launch_count,
+        "mha_full": fused_attention.launch_count, "fused_decode": fused_decode.launch_count,
+    }
+
+
+def reset_training_counts():
+    fused_rnn.launch_count = fused_rnn.bwd_launch_count = 0
+    fused_teacher.launch_count = fused_teacher.bwd_launch_count = 0
+    fused_attention.launch_count = fused_decode.launch_count = 0
+
+
+def trained_network(hp, moved: float = 1.0):
+    net = convert.load_npz(NPZ, hp)
+    if moved != 1.0:
+        with torch.no_grad():
+            for p in net.embedding.parameters():
+                p.mul_(moved)
+    return net
+
+
+def seeded_network(hp):
+    torch.manual_seed(7)
+    return tacotron_model_factory(hp).network(is_training=True)
+
+
+def run_training(path: str, batch, overrides, make_net, steps: int, measure: bool,
+                 trace: bool = False):
+    """``steps`` updates from ``make_net(hp)`` with the launch counts read around
+    them. ``measure``: a warm-up on a state of its own and an evaluation step
+    first; ``trace``: one more step under ``torch.profiler`` after."""
+    hp = flagship_hparams(**overrides)
+    trainer = Trainer(tacotron_model_factory(hp))
+    eval_losses, eval_counts = {}, {}
+    if measure:
+        warm = trainer.init_state(make_net(hp))
+        trainer.train_step(warm, batch, torch.Generator(device=DEV).manual_seed(1))
+        del warm
+    state = trainer.init_state(make_net(hp))
+    if measure:
+        reset_training_counts()
+        losses, _ = trainer.eval_step(state, batch, torch.Generator(device=DEV).manual_seed(2))
+        eval_losses, eval_counts = {k: float(v) for k, v in losses.items()}, training_counts()
+    start = {k: v.detach().clone() for k, v in state.net.named_parameters()}
+
+    reset_training_counts()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=DEV).manual_seed(4321)
+    frames = int(batch["target_lengths"].sum())
+    metrics, rows, first_grads = [], [], None
+    for _ in range(steps):
+        state, m, row = timed_step(trainer, state, batch, gen)
+        if first_grads is None:
+            first_grads = {k: p.grad.detach().clone() for k, p in state.net.named_parameters()}
+        metrics.append({k: float(v) for k, v in m.items()})
+        rows.append({**row, "frames_per_s": 1e3 * frames / row["wall_ms"]})
+    counts = training_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    require(all(np.isfinite(v) for m in metrics for v in m.values()), f"{path}: a metric is not finite")
+    moved = 0
+    for name, p in state.net.named_parameters():
+        require(bool(torch.isfinite(p).all()), f"{path}: {name} is not finite after training")
+        moved += bool((p != start[name]).any())
+    require(moved == len(start), f"{path}: only {moved} of {len(start)} parameters changed")
+    require(state.step == steps, "the state must count the steps")
+    busy = None
+    if trace:
+        busy = device_busy(lambda: trainer.train_step(state, batch, gen),
+                           sum(r["wall_ms"] for r in rows[1:]) / (steps - 1), top=6)
+    log(f"training {path} " + json.dumps({
+        "card": gpu_line(), "batch": int(batch["mel"].shape[0]),
+        "frames_per_lane": int(batch["mel"].shape[1]), "valid_frames": frames,
+        "launches": counts, "steps": rows, "metrics": metrics, "eval": eval_losses,
+        "eval_launches": eval_counts, "max_memory_allocated_gb": peak_gb, "device": busy,
+    }))
+    return {"metrics": metrics, "rows": rows, "counts": counts, "peak_gb": peak_gb,
+            "first_grads": first_grads, "eval": eval_losses, "eval_counts": eval_counts,
+            "device": busy}
+
+
+def first_step_agreement(a, b):
+    """Loss parts (absolute), grad_norm and every gradient leaf (relative) of the
+    first step of two runs."""
+    ma, mb = a["metrics"][0], b["metrics"][0]
+    require(set(ma) == set(mb), "the two paths report different metrics")
+    leaves = relative_errors(a["first_grads"], b["first_grads"])
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1])[:4]
+    return {
+        "loss_parts_abs": {k: abs(ma[k] - mb[k]) for k in ma if k != "grad_norm"},
+        "grad_norm": [ma["grad_norm"], mb["grad_norm"]],
+        "grad_norm_rel": abs(ma["grad_norm"] - mb["grad_norm"]) / mb["grad_norm"],
+        "gradient_leaves_max_rel_err": worst[0][1],
+        "gradient_leaves_median_rel_err": float(np.median(list(leaves.values()))),
+        "worst_gradient_leaves": worst,
+    }
+
+
+def phase_training():
+    hp = flagship_hparams()
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
+                "mha_full": 0, "fused_decode": 0}
+    plain_hp = {"use_pallas_kernels": False}
+
+    # (a) one step from freshly initialised weights at full width: every gradient leaf
+    seeded = run_training("kernels, seeded weights", batch, {}, seeded_network, 1, False)
+    require(seeded["counts"] == one_step, f"one step launched {seeded['counts']}")
+    seeded_plain = run_training("plain, seeded weights", batch, plain_hp, seeded_network, 1, False)
+    row = first_step_agreement(seeded, seeded_plain)
+    log("training agreement, seeded weights " + json.dumps({
+        **row, "tol_loss": TOL_TRAIN_LOSS, "tol_grad_norm_rel": TOL_TRAIN_NORM_REL,
+        "tol_leaf_rel": TOL_TRAIN_LEAF_REL,
+    }))
+    if not (max(row["loss_parts_abs"].values()) <= TOL_TRAIN_LOSS
+            and row["grad_norm_rel"] <= TOL_TRAIN_NORM_REL
+            and row["gradient_leaves_max_rel_err"] <= TOL_TRAIN_LEAF_REL):
+        raise SystemExit(f"kernel path and plain path differ from seeded weights: {row}")
+    del seeded, seeded_plain
+    torch.cuda.empty_cache()
+
+    # (b) the main path: three steps from the trained weights
+    kernels = run_training("kernels", batch, {}, trained_network, TRAIN_STEPS, True, trace=True)
+    expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
+    require(kernels["counts"] == expected,
+            f"{TRAIN_STEPS} training steps launched {kernels['counts']}, expected {expected}")
+    require(kernels["eval_counts"] == {**one_step, "bigru_bwd": 0, "fused_teacher_bwd": 0,
+                                       "mha_full": 1},
+            f"an evaluation step launched {kernels['eval_counts']}")
+    torch.cuda.empty_cache()
+    plain = run_training("plain", batch, plain_hp, trained_network, TRAIN_STEPS, True)
+    require(all(v == 0 for v in plain["counts"].values()), "the plain path launched a kernel")
+    require(all(v == 0 for v in plain["eval_counts"].values()), "the plain path launched a kernel")
+    nudged = run_training("plain, embedding moved by 1e-7", batch, plain_hp,
+                          lambda hp: trained_network(hp, 1.0 + 1e-7), 1, False)
+
+    first = first_step_agreement(kernels, plain)
+    later = [
+        {"step": i + 1, "loss_parts_abs": {k: abs(a[k] - b[k]) for k in a if k != "grad_norm"},
+         "loss": [a["loss"], b["loss"]], "grad_norm": [a["grad_norm"], b["grad_norm"]]}
+        for i, (a, b) in enumerate(zip(kernels["metrics"], plain["metrics"])) if i > 0
+    ]
+    eval_diffs = {k: abs(v - plain["eval"][k]) for k, v in kernels["eval"].items()}
+    log("training agreement " + json.dumps({
+        "first_step": first, "tol_loss": TOL_TRAIN_LOSS,
+        "tol_grad_norm_rel": TOL_TRAINED_NORM_REL,
+        "yardstick_plain_against_itself": first_step_agreement(nudged, plain),
+        "later_steps": later, "tol_later": TOL_TRAINED_LATER,
+        "eval_loss_parts_abs": eval_diffs, "tol_eval": TOL_EVAL,
+    }))
+    if not max(first["loss_parts_abs"].values()) <= TOL_TRAIN_LOSS:
+        raise SystemExit(f"kernel path and plain path differ in the first step's losses: {first}")
+    if not first["grad_norm_rel"] <= TOL_TRAINED_NORM_REL:
+        raise SystemExit(f"kernel path and plain path differ in grad_norm: {first}")
+    for row in later:
+        if not max(row["loss_parts_abs"].values()) <= TOL_TRAINED_LATER:
+            raise SystemExit(f"kernel path and plain path differ in the losses: {row}")
+    if not max(eval_diffs.values()) <= TOL_EVAL:
+        raise SystemExit(f"kernel path and plain path differ in the evaluation step: {eval_diffs}")
+    return kernels, plain
 
 
 def main() -> int:
@@ -882,9 +1425,19 @@ def main() -> int:
         f"-> {os.path.relpath(cuda_build.BUILD_DIR, REPO)}")
 
     use_full_float32()
-    records = phase_kernels()
-    fused = phase_fused_decode()
-    launches, stats, stats_plain = phase_main_path()
+
+    def timed_phase(phase):
+        begin = time.perf_counter()
+        result = phase()
+        log(f"phase {phase.__name__}: {time.perf_counter() - begin:.1f} s")
+        return result
+
+    records = timed_phase(phase_kernels)
+    fused = timed_phase(phase_fused_decode)
+    bigru_bwd = timed_phase(phase_bigru_bwd)
+    teacher = timed_phase(phase_fused_teacher)
+    launches, stats, stats_plain = timed_phase(phase_main_path)
+    train, train_plain = timed_phase(phase_training)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -903,6 +1456,11 @@ def main() -> int:
             "bf16_ms": records[(name, torch.bfloat16)]["ms"],
             "bf16_max_abs_err": records[(name, torch.bfloat16)]["max_abs_err"],
         })
+    # the BiGRU's forward kernel is also the primal of the training function
+    kernels[0].update(
+        also_replaces="self_attention_tacotron_tpu/ops/fused_rnn.py:216",
+        training_launches=train["counts"]["bigru"],
+    )
     # the whole loop in one launch at the main path's shapes: flagship, B=32, T=500.
     # No single PyTorch call computes a decode loop, so there is no library time;
     # the step-by-step path's wall time for the batch-32 request stands beside it.
@@ -922,6 +1480,42 @@ def main() -> int:
         "step_by_step_ms_per_step": stats_plain[1]["ms_per_step"],
         "fused_request_ms": 1e3 * stats[1]["wall_s"],
     })
+    # The training kernels: launches are those of the three training steps. No single
+    # PyTorch call computes any of them (``torch.nn.GRU`` has another candidate, and
+    # nothing computes a teacher-forced attention decoder), so there is no library
+    # time; the all-plain path's training step stands beside the kernel path's.
+    step_ms = {
+        "train_step_ms": min(r["step_ms"] for r in train["rows"]),
+        "plain_train_step_ms": min(r["step_ms"] for r in train_plain["rows"]),
+    }
+    kernels.append({
+        "name": "bigru_bwd", "route": "cuda",
+        "source": "self_attention_tacotron_torch/csrc/bigru_bwd.cu",
+        "replaces": "self_attention_tacotron_tpu/ops/fused_rnn.py:293",
+        "launches": train["counts"]["bigru_bwd"], "max_abs_err": bigru_bwd["max_abs_err"],
+        "ms": bigru_bwd["ms"], "plain_ms": bigru_bwd["plain_ms"],
+        "bound_ms": bigru_bwd["bound_ms"], "bound_by": bigru_bwd["bound_by"],
+        "library_ms": None, "shape": bigru_bwd["shape"], "dtype": "float32",
+        "grad_max_rel_err": bigru_bwd["grad_max_rel_err"],
+        "train_fwd_bwd_ms": bigru_bwd["train_fwd_bwd_ms"],
+        "plain_fwd_bwd_ms": bigru_bwd["plain_fwd_bwd_ms"], **step_ms,
+    })
+    for which, line, err in (
+        ("fwd", 1219, max(teacher["features_max_abs_err"], teacher["alignments_max_abs_err"])),
+        ("bwd", 1310, teacher["grad_max_abs_err"]),
+    ):
+        kernels.append({
+            "name": f"fused_teacher_{which}", "route": "cuda",
+            "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
+            "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
+            "launches": train["counts"][f"fused_teacher_{which}"], "max_abs_err": err,
+            "ms": teacher[which]["ms"], "plain_ms": teacher[which]["plain_ms"],
+            "bound_ms": teacher[which]["bound_ms"], "bound_by": teacher[which]["bound_by"],
+            "library_ms": None, "shape": teacher["shape"], "dtype": "float32",
+            "ms_per_step": teacher[which]["ms_per_step"],
+            "wrapper_ms": teacher[which]["wrapper_ms"],
+            "grad_max_rel_err": teacher["grad_max_rel_err"], **step_ms,
+        })
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

@@ -16,6 +16,10 @@ laid out by the type of the module it lands in:
 
 A key that finds no place raises, and so does a parameter or buffer of the
 module that no key filled.
+
+``torch_to_flax_flat`` is the way back: a module's parameters and batch-norm
+statistics, or its gradients, in the same flat layout, so that a test can hold
+gradients and updated weights against the JAX package leaf by leaf.
 """
 
 from __future__ import annotations
@@ -119,6 +123,62 @@ def flax_to_torch_state(
     if unfilled:
         raise KeyError(f"no value for {len(unfilled)} entries of the module: {unfilled[:8]}")
     return state
+
+
+def _flax_names(root: nn.Module, parts: Tuple[str, ...]) -> Tuple[str, ...]:
+    """The JAX parameter tree's names for the sub-module at ``parts`` below ``root``."""
+    names, module = [], root
+    while parts:
+        step = 1
+        name = parts[0]
+        for flax_name, dotted in getattr(module, "flax_aliases", {}).items():
+            alias = tuple(dotted.split("."))
+            if parts[: len(alias)] == alias:
+                name, step = flax_name, len(alias)
+                break
+        for part in parts[:step]:
+            module = getattr(module, part)
+        names.append(name)
+        parts = parts[step:]
+    return tuple(names)
+
+
+def _place_back(module: nn.Module, leaf: str, value: np.ndarray):
+    """(collection, flax leaf name, array in flax layout) for one state-dict leaf."""
+    if isinstance(module, nn.Linear):
+        return ("params", "kernel", value.T) if leaf == "weight" else ("params", "bias", value)
+    if isinstance(module, nn.Conv1d):
+        if leaf == "weight":
+            return "params", "kernel", value.transpose(2, 1, 0)
+        return "params", "bias", value
+    if isinstance(module, nn.BatchNorm1d) and leaf.startswith("running_"):
+        return "batch_stats", leaf[len("running_"):], value
+    if isinstance(module, (nn.BatchNorm1d, nn.LayerNorm)):
+        return "params", "scale" if leaf == "weight" else "bias", value
+    return "params", leaf, value
+
+
+def torch_to_flax_flat(module: nn.Module, gradients: bool = False) -> Dict[str, np.ndarray]:
+    """The inverse of ``flax_to_torch_state``: ``params/...`` and ``batch_stats/...``
+    keys with numpy leaves in the JAX package's layouts.
+
+    ``gradients=True`` gives the parameters' ``.grad`` under the ``params/...``
+    keys instead (a parameter without a gradient gives zeros) and no batch
+    statistics. The arrays are copies and do not follow later updates.
+    """
+    flat: Dict[str, np.ndarray] = {}
+    entries = list(module.named_parameters())
+    if not gradients:
+        entries += [(k, v) for k, v in module.named_buffers() if not k.endswith(_IGNORED_BUFFERS)]
+    for full, tensor in entries:
+        *parts, leaf = full.split(".")
+        owner = module.get_submodule(".".join(parts))
+        if gradients:
+            tensor = torch.zeros_like(tensor) if tensor.grad is None else tensor.grad
+        collection, name, array = _place_back(owner, leaf, tensor.detach().cpu().numpy())
+        key = "/".join((collection, *_flax_names(module, tuple(parts)), name))
+        flat[key] = np.array(array)     # a copy: the tensor's memory changes with the next update
+    return flat
 
 
 def load_state(module: nn.Module, state: Dict[str, torch.Tensor]) -> nn.Module:

@@ -43,6 +43,8 @@
 
 #include <cstring>
 
+#include "dense.cuh"
+
 namespace {
 
 constexpr int LANES = 4;
@@ -89,10 +91,6 @@ struct Ptrs {
   unsigned char* finished;       // (B,)
   int* info;                     // [0] steps run, [1 + t] arrival counter of step t
 };
-
-__host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
-__host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
-__host__ __device__ inline int imin(int a, int b) { return a < b ? a : b; }
 
 // Offsets (in floats) of the arrays in dynamic shared memory. Every per-lane
 // array is LANES rows of r4(width) floats. The wrapper asks for this sum through
@@ -141,89 +139,6 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   return L;
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
-  acc.x = fmaf(a, w.x, acc.x);
-  acc.y = fmaf(a, w.y, acc.y);
-  acc.z = fmaf(a, w.z, acc.z);
-  acc.w = fmaf(a, w.w, acc.w);
-}
-
-// Partial sums of s_in (LANES rows of K values, row stride ldi, a multiple of 4)
-// times W (K rows of ld floats, ld a multiple of 4). The K rows are cut into
-// `parts` slices of a multiple of 8 rows; a thread owns four neighbouring columns
-// of one slice for all lanes:
-//   s_part[(p * LANES + l) * ld + j] = sum over slice p of s_in[l][k] * W[k][j].
-// Returns `parts`. The caller synchronises, then adds the slices with gather().
-__device__ __forceinline__ int dense_partial(const float* __restrict__ W, int ld, int K,
-                                             const float* s_in, int ldi, float* s_part,
-                                             int tid) {
-  const int nc4 = ld >> 2;
-  int parts = NT / nc4;
-  parts = imax(1, imin(parts, (K + 7) / 8));
-  const int chunk = ((K + parts - 1) / parts + 7) / 8 * 8;
-  parts = (K + chunk - 1) / chunk;
-  for (int idx = tid; idx < parts * nc4; idx += NT) {
-    const int p = idx / nc4;
-    const int c = idx - p * nc4;
-    const int k0 = p * chunk;
-    const int k1 = imin(k0 + chunk, K);
-    float4 acc[LANES];
-#pragma unroll
-    for (int l = 0; l < LANES; ++l) acc[l] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* w4 = reinterpret_cast<const float4*>(W) + (size_t)k0 * nc4 + c;
-    int k = k0;
-    for (; k + 8 <= k1; k += 8) {
-      float4 w[8];
-#pragma unroll
-      for (int u = 0; u < 8; ++u) w[u] = __ldg(w4 + (size_t)u * nc4);
-      w4 += (size_t)8 * nc4;
-#pragma unroll
-      for (int l = 0; l < LANES; ++l) {
-        const float4 a0 = *reinterpret_cast<const float4*>(s_in + l * ldi + k);
-        const float4 a1 = *reinterpret_cast<const float4*>(s_in + l * ldi + k + 4);
-        fma4(acc[l], a0.x, w[0]);
-        fma4(acc[l], a0.y, w[1]);
-        fma4(acc[l], a0.z, w[2]);
-        fma4(acc[l], a0.w, w[3]);
-        fma4(acc[l], a1.x, w[4]);
-        fma4(acc[l], a1.y, w[5]);
-        fma4(acc[l], a1.z, w[6]);
-        fma4(acc[l], a1.w, w[7]);
-      }
-    }
-    for (; k < k1; ++k) {
-      const float4 w = __ldg(w4);
-      w4 += nc4;
-#pragma unroll
-      for (int l = 0; l < LANES; ++l) fma4(acc[l], s_in[l * ldi + k], w);
-    }
-#pragma unroll
-    for (int l = 0; l < LANES; ++l)
-      *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * ld + 4 * c) = acc[l];
-  }
-  return parts;
-}
-
-__device__ __forceinline__ float gather(const float* s_part, int parts, int ld, int l, int j) {
-  float acc = 0.0f;
-  for (int p = 0; p < parts; ++p) acc += s_part[(p * LANES + l) * ld + j];
-  return acc;
-}
-
 // Eval-mode ZoneoutLSTM from the partial sums of its gate product (4U columns,
 // i, g, f, o). c is s_c[l * ldc + j]; the previous h is s_h[l * ldh + j] and is
 // overwritten; the new h also goes to s_h2[l * ldh2 + j], and h + s_res[...] to
@@ -237,10 +152,10 @@ __device__ __forceinline__ void lstm_pointwise(const float* s_part, int parts, i
   for (int i = tid; i < LANES * U; i += NT) {
     const int l = i / U;
     const int j = i - l * U;
-    const float zi = gather(s_part, parts, ld, l, j) + __ldg(b + j);
-    const float zg = gather(s_part, parts, ld, l, U + j) + __ldg(b + U + j);
-    const float zf = gather(s_part, parts, ld, l, 2 * U + j) + __ldg(b + 2 * U + j);
-    const float zo = gather(s_part, parts, ld, l, 3 * U + j) + __ldg(b + 3 * U + j);
+    const float zi = gather<LANES>(s_part, parts, ld, l, j) + __ldg(b + j);
+    const float zg = gather<LANES>(s_part, parts, ld, l, U + j) + __ldg(b + U + j);
+    const float zf = gather<LANES>(s_part, parts, ld, l, 2 * U + j) + __ldg(b + 2 * U + j);
+    const float zo = gather<LANES>(s_part, parts, ld, l, 3 * U + j) + __ldg(b + 3 * U + j);
     const float c = s_c[l * ldc + j];
     const float h = s_h[l * ldh + j];
     const float new_c = sigmoidf_(zf + sc.forget_bias) * c + sigmoidf_(zi) * tanhf(zg);
@@ -352,20 +267,20 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   int steps = 0;
   for (int t = 0; t < T; ++t) {
     // ------------------------------ prenet ------------------------------------
-    int parts = dense_partial(w + d.off[P1_W], r4(P1), M, s_feed, ld_feed, s_part, tid);
+    int parts = dense_partial<LANES, NT>(w + d.off[P1_W], r4(P1), M, s_feed, ld_feed, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * P1; i += NT) {
       const int l = i / P1, j = i - l * P1;
-      float v = fmaxf(gather(s_part, parts, r4(P1), l, j) + __ldg(w + d.off[P1_B] + j), 0.0f);
+      float v = fmaxf(gather<LANES>(s_part, parts, r4(P1), l, j) + __ldg(w + d.off[P1_B] + j), 0.0f);
       if (d.use_masks) v = P.mask1[((size_t)t * B + s_b[l]) * P1 + j] ? v * sc.inv_keep : 0.0f;
       s_x1[l * ld_x1 + j] = v;
     }
     __syncthreads();
-    parts = dense_partial(w + d.off[P2_W], r4(P2), P1, s_x1, ld_x1, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[P2_W], r4(P2), P1, s_x1, ld_x1, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * P2; i += NT) {
       const int l = i / P2, j = i - l * P2;
-      float v = fmaxf(gather(s_part, parts, r4(P2), l, j) + __ldg(w + d.off[P2_B] + j), 0.0f);
+      float v = fmaxf(gather<LANES>(s_part, parts, r4(P2), l, j) + __ldg(w + d.off[P2_B] + j), 0.0f);
       if (d.use_masks) v = P.mask2[((size_t)t * B + s_b[l]) * P2 + j] ? v * sc.inv_keep : 0.0f;
       s_attin[l * ld_attin + j] = v;
     }
@@ -373,18 +288,18 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
 
     // ------------------------------ attention LSTM -----------------------------
     // input [prenet | speaker | ctx1 | ctx2 | h_att]; the new h_att is the query
-    parts = dense_partial(w + d.off[ATTG_W], 4 * AU, KA, s_attin, ld_attin, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[ATTG_W], 4 * AU, KA, s_attin, ld_attin, s_part, tid);
     __syncthreads();
     lstm_pointwise(s_part, parts, AU, w + d.off[ATTG_B], s_catt, ld_au, s_attin + (KA - AU),
                    ld_attin, s_din, ld_din, nullptr, 0, sc, tid);
     __syncthreads();
 
     // ------------------------------ both sources' scores -----------------------
-    parts = dense_partial(w + d.off[QP_W], r4(A), AU, s_din, ld_din, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[QP_W], r4(A), AU, s_din, ld_din, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * A; i += NT) {
       const int l = i / A, j = i - l * A;
-      s_qp[l * ld_a + j] = gather(s_part, parts, r4(A), l, j);
+      s_qp[l * ld_a + j] = gather<LANES>(s_part, parts, r4(A), l, j);
     }
     __syncthreads();
     for (int pair = warp; pair < LANES * S; pair += NWARPS) {
@@ -489,7 +404,7 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
       __syncthreads();
       for (int i = tid; i < LANES * EW; i += NT) {
         const int l = i / EW, j = i - l * EW;
-        const float v = gather(s_part, cparts, EW, l, j);
+        const float v = gather<LANES>(s_part, cparts, EW, l, j);
         s_attin[l * ld_attin + P2 + d.SPK + j] = v;   // next step's attention LSTM input
         s_din[l * ld_din + AU + j] = v;               // [query | ctx1 | ctx2 | h1]
       }
@@ -508,12 +423,12 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     }
 
     // ------------------------------ decoder LSTMs ------------------------------
-    parts = dense_partial(w + d.off[L1_W], 4 * DU, KD1, s_din, ld_din, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[L1_W], 4 * DU, KD1, s_din, ld_din, s_part, tid);
     __syncthreads();
     lstm_pointwise(s_part, parts, DU, w + d.off[L1_B], s_c1, ld_du, s_din + (KD1 - DU), ld_din,
                    s_din2, ld_din2, nullptr, 0, sc, tid);
     __syncthreads();
-    parts = dense_partial(w + d.off[L2_W], 4 * DU, 2 * DU, s_din2, ld_din2, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[L2_W], 4 * DU, 2 * DU, s_din2, ld_din2, s_part, tid);
     __syncthreads();
     // feature = h2 + h1
     lstm_pointwise(s_part, parts, DU, w + d.off[L2_B], s_c2, ld_du, s_din2 + DU, ld_din2,
@@ -521,22 +436,22 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     __syncthreads();
 
     // ------------------------------ self-attention block -----------------------
-    parts = dense_partial(w + d.off[IN_W], r4(SA), DU, s_feat, ld_du, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[IN_W], r4(SA), DU, s_feat, ld_du, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * SA; i += NT) {
       const int l = i / SA, j = i - l * SA;
       const double angle = (double)t * P.pe_rate[j];
       const float pe = (float)((j & 1) ? cos(angle) : sin(angle));
-      s_xs[l * ld_sa + j] = gather(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[IN_B] + j) + pe;
+      s_xs[l * ld_sa + j] = gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[IN_B] + j) + pe;
     }
     __syncthreads();
     layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN1_S], w + d.off[LN1_B], sc.ln_eps, warp, lane);
     __syncthreads();
-    parts = dense_partial(w + d.off[QKV_W], r4(3 * SA), SA, s_xn, ld_sa, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[QKV_W], r4(3 * SA), SA, s_xn, ld_sa, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * 3 * SA; i += NT) {
       const int l = i / (3 * SA), j = i - l * 3 * SA;
-      const float v = gather(s_part, parts, r4(3 * SA), l, j);
+      const float v = gather<LANES>(s_part, parts, r4(3 * SA), l, j);
       if (j < SA) {
         s_q[l * ld_sa + j] = v / sc.sqrt_hd;
       } else if (s_valid[l]) {
@@ -631,42 +546,42 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
       __syncthreads();
       for (int i = tid; i < LANES * SA; i += NT) {
         const int l = i / SA, j = i - l * SA;
-        s_attn[l * ld_sa + j] = gather(s_part, vparts, SA, l, j);
+        s_attn[l * ld_sa + j] = gather<LANES>(s_part, vparts, SA, l, j);
       }
       __syncthreads();
     }
-    parts = dense_partial(w + d.off[O_W], r4(SA), SA, s_attn, ld_sa, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[O_W], r4(SA), SA, s_attn, ld_sa, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * SA; i += NT) {
       const int l = i / SA, j = i - l * SA;
-      s_xs[l * ld_sa + j] += gather(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[O_B] + j);
+      s_xs[l * ld_sa + j] += gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[O_B] + j);
     }
     __syncthreads();
     layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN2_S], w + d.off[LN2_B], sc.ln_eps, warp, lane);
     __syncthreads();
-    parts = dense_partial(w + d.off[F1_W], r4(FFN), SA, s_xn, ld_sa, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[F1_W], r4(FFN), SA, s_xn, ld_sa, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * FFN; i += NT) {
       const int l = i / FFN, j = i - l * FFN;
       s_f1[l * ld_f1 + j] =
-          fmaxf(gather(s_part, parts, r4(FFN), l, j) + __ldg(w + d.off[F1_B] + j), 0.0f);
+          fmaxf(gather<LANES>(s_part, parts, r4(FFN), l, j) + __ldg(w + d.off[F1_B] + j), 0.0f);
     }
     __syncthreads();
-    parts = dense_partial(w + d.off[F2_W], r4(SA), FFN, s_f1, ld_f1, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[F2_W], r4(SA), FFN, s_f1, ld_f1, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * SA; i += NT) {
       const int l = i / SA, j = i - l * SA;
       s_y[l * ld_sa + j] =
-          s_xs[l * ld_sa + j] + gather(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[F2_B] + j);
+          s_xs[l * ld_sa + j] + gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[F2_B] + j);
     }
     __syncthreads();
 
     // ------------------------------ output rows --------------------------------
-    parts = dense_partial(w + d.off[OUT_W], r4(OW), SA, s_y, ld_sa, s_part, tid);
+    parts = dense_partial<LANES, NT>(w + d.off[OUT_W], r4(OW), SA, s_y, ld_sa, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * OW; i += NT) {
       const int l = i / OW, j = i - l * OW;
-      const float v = gather(s_part, parts, r4(OW), l, j) + __ldg(w + d.off[OUT_B] + j);
+      const float v = gather<LANES>(s_part, parts, r4(OW), l, j) + __ldg(w + d.off[OUT_B] + j);
       const size_t row = (size_t)s_b[l] * T + t;
       if (j < RM) {
         if (s_valid[l]) P.frames[row * RM + j] = v;

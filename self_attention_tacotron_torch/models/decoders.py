@@ -4,8 +4,15 @@ Counterpart of ``self_attention_tacotron_tpu/models/decoders.py`` for the
 flagship's ``DualSourceSelfAttentionDecoder``: prenet -> attention LSTM ->
 attention mechanism(s) -> decoder ZoneoutLSTM stack per step, then the output
 head with its K/V-cached self-attention block. All recurrence state is carried
-explicitly in :class:`DecoderState`. The teacher-forced full-sequence pass is
-not part of this module yet.
+explicitly in :class:`DecoderState`.
+
+``forward(cond, targets)`` is the teacher-forced pass of training and
+evaluation. On a CUDA device, with ``use_pallas`` and a decoder of the family
+``ops/fused_teacher.py`` serves, the scanned region runs as that module's two
+kernels (or raises); otherwise, and on the CPU, it is a Python loop over
+``step`` under autograd. Both paths draw the prenet's dropout masks and the
+zoneout masks' seed from one generator in one order and build the zoneout
+masks from the same hash, so they compute the same function.
 """
 
 from __future__ import annotations
@@ -17,11 +24,14 @@ import torch
 import torch.nn as nn
 
 from self_attention_tacotron_torch.models.attention import (
+    AdditiveAttention,
     AttentionState,
+    ForwardAttention,
     initial_attention_state,
 )
 from self_attention_tacotron_torch.models.modules import LSTMCarry, PreNet, ZoneoutLSTMCell
 from self_attention_tacotron_torch.models.self_attention import SelfAttentionTransformer
+from self_attention_tacotron_torch.ops import fused_teacher
 
 
 @dataclasses.dataclass
@@ -75,8 +85,10 @@ class Decoder(nn.Module):
         self_attention_drop_rate: float = 0.05,
         self_attention_ffn_units: int = 1024,
         speaker_units: int = 0,
+        use_pallas: bool = False,
     ):
         super().__init__()
+        self.use_pallas = use_pallas
         self.output_heads = tuple(output_heads)
         self.out_dim = sum(dim for _, dim in self.output_heads)
         self.outputs_per_step = outputs_per_step
@@ -237,8 +249,25 @@ class Decoder(nn.Module):
         return new_state, (out, tuple(aligns))
 
     # ------------------------------------------------------------------ #
-    # Output head, one step at a time
+    # Output head: full sequence (training) and one step at a time
     # ------------------------------------------------------------------ #
+
+    def post(self, features: torch.Tensor, generator: Optional[torch.Generator] = None):
+        """features: (B, N, D) scanned step outputs -> frames and stop logits.
+
+        Returns ``({head: (B, N * r, dim)}, stop (B, N * r), sa_alignments)``.
+        """
+        sa_aligns = []
+        if self.self_attention is not None:
+            features, sa_aligns = self.self_attention(
+                features, mask=None, causal=True, generator=generator
+            )
+        b, n, _ = features.shape
+        r = self.outputs_per_step
+        block = self.output_projection(features)          # (B, N, r * out_dim + r)
+        frame_block = block[..., : r * self.out_dim].reshape(b, n * r, self.out_dim)
+        stop = block[..., r * self.out_dim :].reshape(b, n * r)
+        return self._split_heads(frame_block), stop, sa_aligns
 
     def _split_heads(self, frame_block: torch.Tensor) -> Dict[str, torch.Tensor]:
         frames = {}
@@ -261,6 +290,173 @@ class Decoder(nn.Module):
         block = self.output_projection(feature)
         frame_block = block[:, : r * self.out_dim].reshape(-1, r, self.out_dim)
         return self._split_heads(frame_block), block[:, r * self.out_dim :], caches
+
+    # ------------------------------------------------------------------ #
+    # Teacher-forced decode (training and evaluation)
+    # ------------------------------------------------------------------ #
+
+    def make_teacher_feeds(self, targets: torch.Tensor) -> torch.Tensor:
+        """targets: (B, T, out_dim), T a multiple of r -> feeds (B, N, n_feed * out_dim).
+
+        Step n is fed the last ``n_feed_frame`` ground-truth frames of group
+        n - 1, and step 0 the go frame of zeros.
+        """
+        b, t, m = targets.shape
+        r = self.outputs_per_step
+        if t % r != 0:
+            raise ValueError("targets must be padded to a multiple of outputs_per_step")
+        n = t // r
+        groups = targets.reshape(b, n, r, m)
+        prev = groups[:, :-1, r - self.n_feed_frame :, :].reshape(b, n - 1, -1)
+        go = torch.zeros(b, 1, self.n_feed_frame * m, dtype=targets.dtype, device=targets.device)
+        return torch.cat([go, prev], dim=1)
+
+    def fused_teacher_supported(self) -> bool:
+        """Whether this decoder is of the family the teacher kernels serve."""
+        mechs = self.attentions
+        return (
+            len(mechs) == 2
+            and isinstance(mechs[0], ForwardAttention)
+            and isinstance(mechs[1], AdditiveAttention)
+            and self.query_projection is not None
+            and len(self.prenet.out_units) == 2
+            and self.num_decoder_layers == 2
+            and all(u % 4 == 0 for u in self.memory_units)
+            and self.attention_rnn_out_units + sum(self.memory_units) != self.decoder_out_units
+        )
+
+    def _teacher_hp_like(self) -> Dict:
+        mech1, mech2 = self.attentions
+        return dict(
+            dual=True, use_ta=mech1.transition_factor is not None,
+            att_units=self.attention_rnn_out_units, att1_units=mech1.num_units,
+            att2_units=mech2.num_units, dec_units=self.decoder_out_units,
+            zoneout_cell=self.attention_lstm.zoneout_factor_cell,
+            zoneout_output=self.attention_lstm.zoneout_factor_output,
+            forget_bias=self.attention_lstm.forget_bias,
+            prenet_drop_rate=self.prenet.drop_rate, io_dtype="float32", src1_kind="forward",
+            eval_zoneout=not self.training,
+        )
+
+    def teacher_operands(self, cond: DecoderConditioning) -> Dict:
+        """What ``fused_teacher.teacher_decode`` takes besides feeds, seed and masks:
+        ``vblk`` from the two score vectors, ``w_qp`` the fused query projection,
+        both mechanisms' keys side by side, the key mask as a bias."""
+        mech1, mech2 = self.attentions
+        v1, v2 = mech1.attention_v, mech2.attention_v
+        e1 = self.memory_units[0]
+        if mech1.transition_factor is not None:
+            w_ta, b_ta = mech1.transition_factor.weight.t(), mech1.transition_factor.bias
+        else:
+            w_ta = v1.new_zeros(e1 + self.attention_rnn_out_units, 1)
+            b_ta = v1.new_zeros(1)
+        weights = dict(
+            w_p1=self.prenet.Dense_0.weight.t(), b_p1=self.prenet.Dense_0.bias,
+            w_p2=self.prenet.Dense_1.weight.t(), b_p2=self.prenet.Dense_1.bias,
+            w_attg=self.attention_lstm.gates.weight.t(), b_attg=self.attention_lstm.gates.bias,
+            w_qp=self.query_projection.weight.t(),
+            vblk=torch.cat([
+                torch.cat([v1, torch.zeros_like(v1)], dim=1),
+                torch.cat([torch.zeros_like(v2), v2], dim=1),
+            ], dim=0),
+            w_ta=w_ta, b_ta=b_ta,
+            w_l1=self.decoder_lstm_0.gates.weight.t(), b_l1=self.decoder_lstm_0.gates.bias,
+            w_l2=self.decoder_lstm_1.gates.weight.t(), b_l2=self.decoder_lstm_1.gates.bias,
+        )
+        mask = cond.masks[0]
+        mem1, mem2 = cond.memories
+        if mask is None:
+            score_bias = mem1.new_zeros(mem1.shape[:2])
+        else:
+            score_bias = torch.where(mask, 0.0, -1e9).to(torch.float32)
+        spk = cond.speaker_embed
+        return dict(
+            weights=weights, keys=torch.cat(cond.keys, dim=-1), mem1=mem1, mem2=mem2,
+            score_bias=score_bias, spk=None if spk is None else spk.to(torch.float32),
+            hp_like=self._teacher_hp_like(),
+        )
+
+    def _fused_teacher_call(self, cond: DecoderConditioning, feeds, prenet_masks, seed: int):
+        """The scanned region through ``ops/fused_teacher.py``."""
+        features, aligns = fused_teacher.teacher_decode(
+            **self.teacher_operands(cond), feeds=feeds, seed=seed, prenet_masks=prenet_masks
+        )
+        s = cond.memories[0].shape[1]
+        return features, (aligns[..., :s], aligns[..., s:])
+
+    def draw_teacher_masks(self, batch: int, steps: int, device,
+                           generator: Optional[torch.Generator] = None):
+        """``(prenet keep masks or None, zoneout seed)`` for one teacher-forced pass.
+
+        One call per prenet layer, then one for the seed that all zoneout masks of
+        the pass come from (``fused_teacher.hash_keep_masks``); the seed is 0, and
+        nothing is drawn for it, in eval mode and at zoneout 0.
+        """
+        prenet_masks = None
+        if self.prenet.drop_rate > 0.0:
+            keep = 1.0 - self.prenet.drop_rate
+            prenet_masks = tuple(
+                torch.rand((batch, steps, units), device=device, generator=generator) < keep
+                for units in self.prenet.out_units
+            )
+        seed = 0
+        if self.training and self._zoneout_factors() != (0.0, 0.0):
+            seed = int(torch.randint(0, 2**31 - 1, (1,), device=device, generator=generator))
+        return prenet_masks, seed
+
+    def _zoneout_factors(self) -> Tuple[float, float]:
+        cell = self.attention_lstm
+        return max(cell.zoneout_factor_cell, 0.0), max(cell.zoneout_factor_output, 0.0)
+
+    def _plain_teacher_scan(self, cond: DecoderConditioning, feeds, prenet_masks, seed: int):
+        """The scanned region as a Python loop over ``step`` under autograd."""
+        b, n = feeds.shape[:2]
+        zc, zo = self._zoneout_factors()
+        zoneout = None
+        if self.training and (zc > 0.0 or zo > 0.0):
+            if self.num_decoder_layers != 2:
+                raise NotImplementedError("zoneout masks are made for two decoder LSTMs")
+            zoneout = [
+                tuple(None if m is None else m > 0.5 for m in pair)
+                for pair in fused_teacher.zoneout_keep_masks(
+                    dict(zoneout_cell=zc, zoneout_output=zo,
+                         att_units=self.attention_rnn_out_units,
+                         dec_units=self.decoder_out_units),
+                    seed, n, b, feeds.device,
+                )
+            ]
+        state = self.initial_state(cond)
+        features, aligns = [], []
+        for t in range(n):
+            state, (feature, align) = self.step(
+                state, feeds[:, t], cond,
+                prenet_masks=None if prenet_masks is None else [m[:, t] for m in prenet_masks],
+                zoneout_masks=None if zoneout is None else [
+                    tuple(None if m is None else m[t] for m in pair) for pair in zoneout
+                ],
+            )
+            features.append(feature)
+            aligns.append(align)
+        return torch.stack(features, dim=1), tuple(torch.stack(a, dim=1) for a in zip(*aligns))
+
+    def forward(self, cond: DecoderConditioning, targets: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """Teacher-forced pass.
+
+        Returns ``({head: frames}, stop_logits (B, T), alignments ((B, N, S_i) per
+        source), sa_alignments)``. The prenet's dropout masks are drawn in one
+        call per layer; in train mode the zoneout masks of all steps come from
+        one seed (``fused_teacher.hash_keep_masks``), in eval mode zoneout is
+        the deterministic interpolation.
+        """
+        feeds = self.make_teacher_feeds(targets)
+        prenet_masks, seed = self.draw_teacher_masks(*feeds.shape[:2], feeds.device, generator)
+        if self.use_pallas and feeds.device.type != "cpu" and self.fused_teacher_supported():
+            features, aligns = self._fused_teacher_call(cond, feeds, prenet_masks, seed)
+        else:
+            features, aligns = self._plain_teacher_scan(cond, feeds, prenet_masks, seed)
+        frames, stop, sa_aligns = self.post(features, generator=generator)
+        return frames, stop, aligns, sa_aligns
 
 
 def mel_heads(hparams) -> Tuple[Tuple[str, int], ...]:
@@ -306,4 +502,5 @@ def decoder_factory(
         self_attention_num_hop=hparams.decoder_self_attention_num_hop,
         self_attention_drop_rate=hparams.decoder_self_attention_drop_rate,
         speaker_units=speaker_units,
+        use_pallas=hparams.use_pallas_kernels,
     )

@@ -70,7 +70,7 @@ class SelfAttentionCBHGEncoder(nn.Module):
     ):
         memory1 = self.cbhg(self.prenet(embedded, generator=generator), lengths)
         mask = sequence_mask(lengths, embedded.shape[1])
-        memory2, sa_alignments = self.self_attention(memory1, mask=mask)
+        memory2, sa_alignments = self.self_attention(memory1, mask=mask, generator=generator)
         return memory1, memory2, sa_alignments
 
 

@@ -1,19 +1,22 @@
 """Top-level network, the flagship model class, and the model factory.
 
-Counterpart of ``self_attention_tacotron_tpu/models/models.py`` for synthesis:
-:class:`TacotronNetwork` holds embeddings, encoder and decoder, with ``encode``
-and the incremental decode plumbing that ``synthesis.py`` drives. The
-teacher-forced forward pass, the losses and the postnets are not ported yet.
+Counterpart of ``self_attention_tacotron_tpu/models/models.py``:
+:class:`TacotronNetwork` holds embeddings, encoder and decoder, with the
+teacher-forced ``forward`` of training and evaluation, and ``encode`` plus the
+incremental decode plumbing that ``synthesis.py`` drives. The model classes bind
+a network configuration to its loss. The postnets are not ported yet.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from self_attention_tacotron_torch.hparams import HParams
+from self_attention_tacotron_torch.models import losses as losses_lib
 from self_attention_tacotron_torch.models.attention import attention_factory
 from self_attention_tacotron_torch.models.decoders import (
     Decoder,
@@ -23,6 +26,19 @@ from self_attention_tacotron_torch.models.decoders import (
 from self_attention_tacotron_torch.models.encoders import encoder_factory
 from self_attention_tacotron_torch.models.modules import Embedding, sequence_mask
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
+
+
+@dataclasses.dataclass
+class NetworkOutput:
+    """Teacher-forced forward outputs (training and evaluation)."""
+
+    frames: Dict[str, torch.Tensor]            # head -> (B, T, dim), before any postnet
+    postnet_frames: Optional[torch.Tensor]     # refined mel, or None
+    linear_frames: Optional[torch.Tensor]      # linear spectrogram, or None
+    stop_logits: torch.Tensor                  # (B, T)
+    alignments: Tuple[torch.Tensor, ...]       # per source (B, N_steps, S)
+    encoder_sa_alignments: Tuple[torch.Tensor, ...]
+    decoder_sa_alignments: Tuple[torch.Tensor, ...]
 
 
 class TacotronNetwork(nn.Module):
@@ -112,6 +128,29 @@ class TacotronNetwork(nn.Module):
         )
         return cond, tuple(sa_aligns)
 
+    def forward(
+        self,
+        source: torch.Tensor,
+        source_lengths: torch.Tensor,
+        targets: torch.Tensor,           # (B, T, out_dim) padded to a multiple of r
+        target_lengths: torch.Tensor,
+        accent_type: Optional[torch.Tensor] = None,
+        speaker_id: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> NetworkOutput:
+        """Teacher-forced forward pass; every random draw comes from ``generator``."""
+        cond, enc_sa = self.encode(source, source_lengths, accent_type, speaker_id, generator)
+        frames, stop_logits, aligns, dec_sa = self.decoder(cond, targets, generator=generator)
+        return NetworkOutput(
+            frames=frames,
+            postnet_frames=None,
+            linear_frames=None,
+            stop_logits=stop_logits,
+            alignments=tuple(aligns),
+            encoder_sa_alignments=tuple(enc_sa),
+            decoder_sa_alignments=tuple(dec_sa),
+        )
+
     # incremental decode plumbing, used by the synthesis loop
 
     def decoder_initial_state(self, cond: DecoderConditioning):
@@ -133,7 +172,10 @@ class TacotronNetwork(nn.Module):
 
 
 class TacotronModelBase:
-    """Binds a network configuration to its name (and, later, to its loss)."""
+    """Binds a network configuration to its loss."""
+
+    #: target heads this model trains on
+    HEADS: Tuple[str, ...] = ("mel",)
 
     def __init__(self, hparams: HParams):
         self.hparams = hparams
@@ -152,6 +194,57 @@ class TacotronModelBase:
         use_full_float32()
         net = TacotronNetwork(self.hparams).to(dev)
         return net.train(is_training)
+
+    def head_dims(self) -> Dict[str, int]:
+        """Output head widths in the decoder's head order (the order of the fed-back block)."""
+        hp = self.hparams
+        dims = {"mel": hp.num_mels, "mgc": hp.num_mgcs, "lf0": hp.num_lf0s}
+        return {h: dims[h] for h in self.HEADS}
+
+    def loss(
+        self,
+        output: NetworkOutput,
+        batch: Dict[str, torch.Tensor],
+        params=None,
+    ) -> Dict[str, torch.Tensor]:
+        """Total loss and its parts. ``batch`` uses the data layer's field names;
+        ``params`` (an iterable of parameters) is what L2 regularisation reads."""
+        hp = self.hparams
+        lengths = batch["target_lengths"]
+        parts: Dict[str, torch.Tensor] = {}
+        if "mel" in self.HEADS:
+            parts["mel_loss"] = losses_lib.spec_loss(
+                output.frames["mel"], batch["mel"], lengths, hp.spec_loss_type
+            )
+            if output.postnet_frames is not None:
+                parts["postnet_loss"] = losses_lib.spec_loss(
+                    output.postnet_frames, batch["mel"], lengths, hp.spec_loss_type
+                )
+            if output.linear_frames is not None and "spec" in batch:
+                parts["linear_loss"] = losses_lib.spec_loss(
+                    output.linear_frames, batch["spec"], lengths, hp.spec_loss_type
+                )
+            if hp.binary_divergence_weight > 0.0:
+                parts["binary_divergence"] = (
+                    hp.binary_divergence_weight
+                    * losses_lib.binary_divergence(output.frames["mel"], batch["mel"], lengths)
+                )
+        if "mgc" in self.HEADS:
+            parts["mgc_loss"] = losses_lib.spec_loss(
+                output.frames["mgc"], batch["mgc"], lengths, hp.spec_loss_type
+            )
+            parts["lf0_loss"] = losses_lib.classification_loss(
+                output.frames["lf0"], batch["lf0"], lengths
+            )
+        parts["done_loss"] = losses_lib.stop_token_loss(
+            output.stop_logits, batch["done"], lengths
+        )
+        if hp.use_l2_regularization and params is not None:
+            parts["l2_regularization"] = losses_lib.l2_regularization(
+                params, hp.l2_regularization_weight
+            )
+        parts["loss"] = sum(parts.values())
+        return parts
 
 
 class DualSourceSelfAttentionTacotronModel(TacotronModelBase):

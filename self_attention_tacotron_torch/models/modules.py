@@ -79,7 +79,14 @@ def _same_padding(kernel_size: int) -> Tuple[int, int]:
 
 
 class Conv1dBN(nn.Module):
-    """1-D convolution (SAME) + batch norm + optional activation, on (B, T, C)."""
+    """1-D convolution (SAME) + batch norm + optional activation, on (B, T, C).
+
+    In train mode the batch statistics are taken over every position, padded
+    ones too, and the running averages are updated here, as the JAX package's
+    batch norm does it: the variance is the biased one, E[x^2] - E[x]^2, both in
+    the normalisation and in the running average (``nn.BatchNorm1d`` would store
+    the unbiased one).
+    """
 
     def __init__(
         self,
@@ -96,8 +103,19 @@ class Conv1dBN(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm1d(out_channels, eps=1e-3, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = F.pad(x.transpose(1, 2), _same_padding(self.kernel_size))
-        x = self.BatchNorm_0(self.Conv_0(x)).transpose(1, 2)
+        x = self.Conv_0(F.pad(x.transpose(1, 2), _same_padding(self.kernel_size)))
+        bn = self.BatchNorm_0
+        if self.training:
+            mean = x.mean(dim=(0, 2))
+            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                bn.running_mean.lerp_(mean, bn.momentum)
+                bn.running_var.lerp_(var, bn.momentum)
+            scale = bn.weight * torch.rsqrt(var + bn.eps)
+            x = (x - mean[None, :, None]) * scale[None, :, None] + bn.bias[None, :, None]
+        else:
+            x = bn(x)
+        x = x.transpose(1, 2)
         if self.activation is not None:
             x = self.activation(x)
         return x
@@ -233,9 +251,11 @@ def run_gru(
 class BiRNN(nn.Module):
     """Bidirectional GRU over padded batches; concatenates both directions.
 
-    With ``use_pallas`` (the flag keeps the JAX package's name), in eval mode
-    and on a tensor that is not on the CPU, both directions run as the one
-    hand-written kernel of ``ops/fused_rnn.py``.
+    With ``use_pallas`` (the flag keeps the JAX package's name) and on a
+    tensor that is not on the CPU, both directions run as the hand-written
+    kernels of ``ops/fused_rnn.py``: ``bigru`` in eval mode, and in train mode
+    ``bigru_train``, whose backward is a kernel too. Without the flag, or on the
+    CPU, the cells run step by step under autograd.
     """
 
     def __init__(self, cell_fwd: GRUCell, cell_bwd: GRUCell, use_pallas: bool = False):
@@ -245,8 +265,9 @@ class BiRNN(nn.Module):
         self.use_pallas = use_pallas
 
     def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        if self.use_pallas and not self.training and xs.device.type != "cpu":
-            return fused_rnn.bigru(
+        if self.use_pallas and xs.device.type != "cpu":
+            run = fused_rnn.bigru_train if self.training else fused_rnn.bigru
+            return run(
                 xs,
                 lengths,
                 self.cell_fwd.kernel_params(),

@@ -41,6 +41,13 @@ def _device_table(length: int, dim: int, dtype, device) -> torch.Tensor:
         return torch.from_numpy(_sinusoid_table(length, dim)).to(device=device, dtype=dtype)
 
 
+def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with the mask drawn from ``generator`` (or the default one)."""
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def positional_encoding(length: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
     """Sinusoidal positional encoding table, (length, dim); float64 table rounded to float32.
 
@@ -55,7 +62,10 @@ class MultiHeadAttention(nn.Module):
 
     With ``use_pallas`` (the flag keeps the JAX package's name), in eval mode,
     non-causal, and on a tensor that is not on the CPU, attention runs as the
-    one hand-written kernel of ``ops/fused_attention.py``.
+    one hand-written kernel of ``ops/fused_attention.py``. In train mode and
+    with a causal mask it is plain PyTorch under autograd, as the JAX package
+    leaves both to XLA; train mode drops attention probabilities at
+    ``drop_rate``, drawn from ``generator``, and returns the dropped ones.
     """
 
     def __init__(
@@ -85,9 +95,8 @@ class MultiHeadAttention(nn.Module):
         x: torch.Tensor,                      # (B, T, D)
         mask: Optional[torch.Tensor] = None,  # (B, T) valid mask
         causal: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        if self.training and self.drop_rate > 0.0:
-            raise NotImplementedError("attention dropout in train mode is not ported yet")
         qkv = self.qkv(x)
         if self.use_pallas and not self.training and not causal and x.device.type != "cpu":
             ctx, probs = fused_attention.mha_full(qkv, mask, self.num_heads)
@@ -102,6 +111,8 @@ class MultiHeadAttention(nn.Module):
             cmask = torch.ones(tq, tk, dtype=torch.bool, device=x.device).tril(tk - tq)
             logits = logits.masked_fill(~cmask[None, None], _NEG_INF)
         probs = torch.softmax(logits, dim=-1)
+        if self.training and self.drop_rate > 0.0:
+            probs = dropout(probs, self.drop_rate, generator)
         ctx = torch.matmul(probs.to(v.dtype), v)
         b, h, tq, dd = ctx.shape
         return self.out(ctx.permute(0, 2, 1, 3).reshape(b, tq, h * dd)), probs
@@ -146,6 +157,7 @@ class SelfAttentionBlock(nn.Module):
         use_pallas: bool = False,
     ):
         super().__init__()
+        self.drop_rate = drop_rate
         self.ln1 = nn.LayerNorm(num_units, eps=_LN_EPS)
         self.ln2 = nn.LayerNorm(num_units, eps=_LN_EPS)
         self.mha = MultiHeadAttention(
@@ -157,11 +169,17 @@ class SelfAttentionBlock(nn.Module):
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.ffn2(F.relu(self.ffn1(x)))
 
-    def forward(self, x, mask=None, causal=False):
-        """Eval mode: the block's dropout is off (train mode is not ported yet)."""
-        h, probs = self.mha(self.ln1(x), mask=mask, causal=causal)
+    def forward(self, x, mask=None, causal=False, generator=None):
+        """Train mode drops both branches at ``drop_rate`` before the residual sums."""
+        drop = self.training and self.drop_rate > 0.0
+        h, probs = self.mha(self.ln1(x), mask=mask, causal=causal, generator=generator)
+        if drop:
+            h = dropout(h, self.drop_rate, generator)
         x = x + h
-        return x + self._ffn(self.ln2(x)), probs
+        f = self._ffn(self.ln2(x))
+        if drop:
+            f = dropout(f, self.drop_rate, generator)
+        return x + f, probs
 
     def step(self, x, k_cache, v_cache, index: int):
         """Incremental twin of ``forward`` in eval mode."""
@@ -198,13 +216,13 @@ class SelfAttentionTransformer(nn.Module):
     def _blocks(self) -> List[SelfAttentionBlock]:
         return [getattr(self, f"block_{i}") for i in range(self.num_hop)]
 
-    def forward(self, x, mask=None, causal=False):
+    def forward(self, x, mask=None, causal=False, generator=None):
         x = self.in_proj(x)
         if self.use_positional_encoding:
             x = x + positional_encoding(x.shape[1], self.num_units, x.dtype, x.device)[None]
         probs_all = []
         for block in self._blocks():
-            x, probs = block(x, mask=mask, causal=causal)
+            x, probs = block(x, mask=mask, causal=causal, generator=generator)
             probs_all.append(probs)
         if mask is not None:
             x = x * mask.unsqueeze(-1).to(x.dtype)

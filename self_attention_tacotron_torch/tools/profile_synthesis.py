@@ -33,6 +33,7 @@ from self_attention_tacotron_torch import convert
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 from self_attention_tacotron_torch.tools.flagship import (
     TRAINED_NPZ,
+    device_busy,
     flagship_hparams,
     gpu_line,
     ragged_request,
@@ -82,35 +83,12 @@ def events_per_step(predict, req, steps: int, dev) -> float:
 
 def device_row(predict, req, steps: int, untraced_ms: float, dev):
     """One traced request: launches, device-busy time and its share of ``untraced_ms``."""
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     gen = torch.Generator(device=dev).manual_seed(0)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    with torch.profiler.profile(activities=activities) as prof:
-        predict(req, generator=gen)
-        torch.cuda.synchronize()
-    wall_ms = 1e3 * (time.perf_counter() - start)
-    rows = [
-        (e.key, e.count, e.device_time_total / 1e3)
-        for e in prof.key_averages()
-        if e.device_type == torch.autograd.DeviceType.CUDA
-    ]
-    if not rows:
-        return {"error": "no device time in the trace"}
-    busy_ms = sum(r[2] for r in rows)
-    launches = sum(r[1] for r in rows)
-    top = sorted(rows, key=lambda r: -r[2])[:8]
-    # the tracer slows the host down, so the share is taken against the
-    # untraced wall time of the same request
-    return {
-        "traced_wall_ms": wall_ms, "untraced_wall_ms": untraced_ms,
-        "device_busy_ms": busy_ms,
-        "device_busy_share_of_untraced_wall": busy_ms / untraced_ms,
-        "kernel_launches": launches,
-        "launches_per_step": launches / steps,
-        "device_busy_ms_per_step": busy_ms / steps,
-        "top_kernels": [{"name": k[:80], "count": c, "device_ms": t} for k, c, t in top],
-    }
+    row = device_busy(lambda: predict(req, generator=gen), untraced_ms)
+    if "error" not in row:
+        row["launches_per_step"] = row["kernel_launches"] / steps
+        row["device_busy_ms_per_step"] = row["device_busy_ms"] / steps
+    return row
 
 
 def main() -> None:

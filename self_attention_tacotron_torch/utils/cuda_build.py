@@ -3,7 +3,8 @@
 Each source under ``csrc/`` has a plain C interface and includes none of
 PyTorch's headers, so ``nvcc`` compiles it in seconds. A source is built at
 first use into ``build/`` inside the package (git-ignored), under a name keyed
-by a hash of the source and the compiler flags, and loaded once per process.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the compiler
+flags, and loaded once per process.
 There is no other way to a kernel: if the build fails, the caller gets the
 compiler's message as an exception.
 """
@@ -28,7 +29,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
 
-KERNEL_SOURCES: Tuple[str, ...] = ("bigru", "mha_full", "fused_decode")
+KERNEL_SOURCES: Tuple[str, ...] = (
+    "bigru", "mha_full", "fused_decode", "bigru_bwd", "fused_teacher",
+)
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -50,8 +53,12 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    hashed = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
+        with open(path, "rb") as f:
+            hashed.update(f.read())
+    digest = hashed.hexdigest()[:16]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

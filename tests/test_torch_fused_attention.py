@@ -110,8 +110,20 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(case):
 
 
 def test_train_mode_attention_dropout_is_named_as_not_ported():
-    mha = MultiHeadAttention(D, NH, D, drop_rate=0.05).train()
-    with pytest.raises(NotImplementedError):
-        mha(torch.zeros(1, 4, D))
+    """The name is from when train mode raised; it is ported now: the attention
+    probabilities are dropped at ``drop_rate`` with masks from the generator, and
+    the dropped ones are returned."""
+    rate = 0.25
+    mha = MultiHeadAttention(D, NH, D, drop_rate=rate).train()
+    x = torch.tensor(np.random.default_rng(0).standard_normal((2, 6, D)).astype(np.float32))
+    out, probs = mha(x, generator=torch.Generator().manual_seed(3))
+    again, probs_again = mha(x, generator=torch.Generator().manual_seed(3))
+    other, _ = mha(x, generator=torch.Generator().manual_seed(4))
+    assert torch.equal(out, again) and torch.equal(probs, probs_again)
+    assert not torch.equal(out, other)
+    _, kept = mha.eval()(x)
+    dropped = probs == 0.0
+    assert 0.05 < float(dropped.float().mean()) < 0.5
+    assert_close(probs[~dropped], (kept[~dropped] / (1.0 - rate)).detach().numpy(), atol=1e-6)
     out, _ = MultiHeadAttention(D, NH, D, drop_rate=0.0).train()(torch.zeros(1, 4, D))
     assert out.shape == (1, 4, D)

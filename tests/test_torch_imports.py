@@ -43,7 +43,9 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
     assert "chip_smoke.py" in names
     for expected in ("synthesis.py", "convert.py", "hparams.py", "ops/fused_rnn.py",
                      "ops/fused_attention.py", "ops/fused_decode.py", "ops/decode_loop.py",
-                     "models/models.py"):
+                     "models/models.py", "models/losses.py", "ops/fused_teacher.py",
+                     "training/trainer.py", "training/schedules.py", "tools/flagship.py",
+                     "tools/profile_training.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
 
 
@@ -60,7 +62,11 @@ def test_importing_the_port_loads_nothing_of_jax():
         "from self_attention_tacotron_torch import convert, synthesis\n"
         "from self_attention_tacotron_torch.models import models\n"
         "from self_attention_tacotron_torch.ops import fused_rnn, fused_attention, decode_loop\n"
-        "from self_attention_tacotron_torch.ops import fused_decode\n"
+        "from self_attention_tacotron_torch.ops import fused_decode, fused_teacher\n"
+        "from self_attention_tacotron_torch.models import losses\n"
+        "from self_attention_tacotron_torch.training import schedules, trainer\n"
+        "from self_attention_tacotron_torch.tools import flagship, profile_synthesis\n"
+        "from self_attention_tacotron_torch.tools import profile_training\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('LOADED', bad)\n"
         # no kernel is built or bound, and no triton is asked for, by an import
@@ -121,9 +127,12 @@ def test_a_cuda_tensor_never_reaches_the_plain_version():
     gates read the tensor's device, not a global switch."""
     import inspect
 
-    from self_attention_tacotron_torch.ops import fused_attention, fused_decode, fused_rnn
+    from self_attention_tacotron_torch.ops import (
+        fused_attention, fused_decode, fused_rnn, fused_teacher,
+    )
 
-    for fn in (fused_rnn.bigru, fused_attention.mha_full, fused_decode.fused_decode):
+    for fn in (fused_rnn.bigru, fused_attention.mha_full, fused_decode.fused_decode,
+               fused_rnn.bigru_bwd_carry, fused_teacher.teacher_decode):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert 'device.type == "cpu"' in src
