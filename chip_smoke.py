@@ -29,20 +29,31 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    agent, speaker embedding, eval zoneout, train zoneout, zoneout 0) and at the
    flagship sizes over 400 steps with conditioning from the real encoder, the
    trained weights, prenet dropout and train zoneout;
+   ``bilstm`` (ZoneoutEncoderV1's LSTM) in float32 and bfloat16 at narrow
+   ragged shapes and at full width; the baseline family's specialisations:
+   ``fused_decode`` with one source or without self-attention (the three pairs
+   of flags the flagship does not launch) at narrow sizes with early exits, the
+   baseline at full width (B=32 and B=1, 500 steps, timed, and with an early
+   exit) and at a step cap beyond the flagship's largest, where it must run;
+   ``fused_teacher`` with one source, narrow and at full width over 400 steps;
 4. main path: flagship synthesis at full width from the committed trained
    weights through ``convert.load_npz`` and ``make_predict_fn``, batch 1 and
    batch 32, once through the kernels (the fused decode included) and once with
    ``use_pallas_kernels=False`` (eager encoder, step-by-step decode), same
    generator seed; lengths and flags must be equal on every lane whose stop
    probabilities keep a margin from the threshold, frames and alignments within
-   the stated tolerances, and every kernel's launch count above zero; then a
-   short request on the card against the same request on the CPU;
+   the stated tolerances, and every kernel's launch count exact; then a short
+   request on the card against the same request on the CPU; then the baseline
+   (``configs/ljspeech_baseline.json``, seeded weights) the same way, and one
+   ZoneoutEncoderV1 request, whose encoder is ``bilstm``;
 5. training main path: ``Trainer.train_step`` of the flagship from the trained
    weights on a seeded batch of 32 lanes x 800 frames, three steps through the
    kernels and three with ``use_pallas_kernels=False``, same state and generator
    seed: loss parts and ``grad_norm`` must agree, every kernel of the step must
    have been launched once forward and once backward per step, the plain path
-   must launch none; an evaluation step on both paths;
+   must launch none; an evaluation step on both paths; then the baseline from
+   seeded weights: three timed steps through the kernels, one plain, every
+   gradient leaf of the first step held, launch counts exact, an evaluation step;
 6. report: one JSON line ``{"kernels": [...]}``, then the last line
    ``{"ok": true, "device": {...}}``.
 """
@@ -78,9 +89,11 @@ from self_attention_tacotron_torch.ops import (  # noqa: E402
 from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     TRAINED_NPZ as NPZ,
+    config_hparams,
     device_busy,
     flagship_hparams,
     gpu_line,
+    load_network,
     ragged_lengths,
     ragged_request,
     training_batch,
@@ -105,6 +118,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # GRU feeds such flips back through its steps.
 TOL = {
     ("bigru", torch.float32): 1e-4, ("bigru", torch.bfloat16): 3e-2,
+    ("bilstm", torch.float32): 1e-4, ("bilstm", torch.bfloat16): 3e-2,
     ("mha_full", torch.float32): 2e-5, ("mha_full", torch.bfloat16): 2e-2,
 }
 # fused_decode against fused_decode_reference on the card (float32, TF32 off):
@@ -282,6 +296,55 @@ def check_mha(B, T, D, H, lengths, dtype, timed: bool, seed: int = 0):
     return rec
 
 
+def lstm_params(rng, C, H, dtype):
+    s = 1.0 / np.sqrt(C + H)
+    return {
+        "kernel": torch.tensor(rng.standard_normal((C + H, 4 * H)).astype(np.float32) * s,
+                               device=DEV).to(dtype),
+        "bias": torch.tensor(rng.standard_normal(4 * H).astype(np.float32) * 0.1,
+                             device=DEV).to(dtype),
+    }
+
+
+def check_bilstm(B, S, C, H, lengths, dtype, zoneout: float, timed: bool, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    xs = torch.tensor(rng.standard_normal((B, S, C)).astype(np.float32), device=DEV).to(dtype)
+    lens = torch.tensor(np.asarray(lengths, np.int32), device=DEV)
+    pf, pb = lstm_params(rng, C, H, dtype), lstm_params(rng, C, H, dtype)
+    args = (xs, lens, pf, pb, H, zoneout, zoneout)
+    got = fused_rnn.bilstm(*args)
+    torch.cuda.synchronize()
+    want = fused_rnn.bilstm_reference(*args)
+    err = max_abs_err(got, want)
+    tol = TOL[("bilstm", dtype)]
+    padded_zero = all(
+        float(got[b, n:].abs().max()) == 0.0 for b, n in enumerate(lengths) if n < S
+    )
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol and padded_zero
+    rec = {
+        "kernel": "bilstm", "shape": {"B": B, "S": S, "C": C, "H": H}, "zoneout": zoneout,
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol,
+        "padded_rows_zero": padded_zero, "ok": ok,
+    }
+    if timed:
+        elem = xs.element_size()
+        steps = int(np.minimum(np.asarray(lengths), S).sum())
+        flops = 2.0 * steps * 2 * (C + H) * 4 * H
+        nbytes = elem * (B * S * C + B * S * 2 * H + 2 * ((C + H) * 4 * H + 4 * H)) + 4 * B
+        t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+        rec.update(
+            ms=time_ms(lambda: fused_rnn.bilstm(*args)),
+            plain_ms=time_ms(lambda: fused_rnn.bilstm_reference(*args), warmup=1, iters=2),
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            flops=flops, bytes=nbytes,
+        )
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"bilstm disagrees with its plain version: {rec}")
+    return rec
+
+
 def phase_kernels():
     records = {}
     for dtype in (torch.float32, torch.bfloat16):
@@ -292,11 +355,19 @@ def phase_kernels():
         check_mha(3, 16, 32, 2, [16, 9, 3], dtype, timed=False)
         check_mha(3, 16, 32, 2, None, dtype, timed=False)
         check_mha(2, 37, 72, 3, [37, 5], dtype, timed=False, seed=1)
+        # ZoneoutEncoderV1's LSTM: lanes of length 1 and S, zoneout 0 and 0.1
+        check_bilstm(4, 12, 10, 8, [12, 1, 7, 12], dtype, 0.0, timed=False)
+        check_bilstm(5, 9, 7, 20, [9, 1, 4, 9, 2], dtype, 0.1, timed=False, seed=1)
+        check_bilstm(1, 33, 128, 128, [33], dtype, 0.1, timed=False, seed=2)
         # the flagship shapes, ragged
         lengths = ragged_lengths(np.random.default_rng(3), 32, 128)
         records[("bigru", dtype)] = check_bigru(32, 128, 128, 128, lengths, dtype, timed=True)
         records[("mha_full", dtype)] = check_mha(
             32, 128, 256, 2, lengths.tolist(), dtype, timed=True
+        )
+        # ZoneoutEncoderV1 at full width: prenet 128 in, 128 units a direction
+        records[("bilstm", dtype)] = check_bilstm(
+            32, 128, 128, 128, lengths, dtype, 0.1, timed=True, seed=4
         )
     return records
 
@@ -345,7 +416,7 @@ def seeded_conditioning(decoder, rng, lengths, src_len: int, speaker_units: int 
     with torch.no_grad():
         keys = decoder.compute_keys(memories)
     return DecoderConditioning(
-        memories=memories, keys=keys, masks=(mask, mask), speaker_embed=speaker
+        memories=memories, keys=keys, masks=tuple(mask for _ in memories), speaker_embed=speaker
     )
 
 
@@ -404,7 +475,7 @@ def fused_flops_and_bytes(packed, lengths, steps: int):
     per_step = batch * 2 * products + valid * (4 * a_tot + 2 * e_tot)
     attention = batch * 4 * z["SA"] * steps * (steps + 1) // 2
     flops = steps * per_step + attention
-    out_row = z["R"] * z["M"] + z["R"] + 2 * src_len
+    out_row = z["R"] * z["M"] + z["R"] + (2 if packed.dual else 1) * src_len
     nbytes = (
         4 * packed.flat.numel() + 4 * batch * src_len * (a_tot + e_tot + 1)
         + steps * batch * (z["P1"] + z["P2"]) + 4 * batch * steps * out_row + 9 * batch
@@ -418,7 +489,8 @@ def compare_decodes(got, want, r: int):
     the zero tail are held exactly."""
     steps = int(want.num_steps)
     exact = (
-        int(got.num_steps) == steps
+        len(got.alignments) == len(want.alignments)
+        and int(got.num_steps) == steps
         and torch.equal(got.lengths, want.lengths)
         and torch.equal(got.finished, want.finished)
         and got.lengths.dtype == torch.int32 and got.finished.dtype == torch.bool
@@ -427,7 +499,7 @@ def compare_decodes(got, want, r: int):
         float(x[:, n:].abs().sum())
         for x, n in (
             (got.frames["mel"], steps * r), (got.stop_probs, steps * r),
-            (got.alignments[0], steps), (got.alignments[1], steps),
+            *((a, steps) for a in got.alignments),
         )
     )
     finite = all(
@@ -465,6 +537,7 @@ def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, sl
     )
     rec = {
         "kernel": "fused_decode", "case": name,
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
         "shape": {"B": batch, "S": src_len, "T": steps, **packed.sizes},
         "transition_agent": packed.use_transition_agent, "threshold": threshold,
         "early_exit": early_exit, "launches": launches, "num_steps": int(got.num_steps),
@@ -565,6 +638,7 @@ def check_fused_refusal(net, hp) -> None:
             "predict must raise where the kernel cannot launch")
     require(launch_counts()["fused_decode"] == before["fused_decode"],
             "a refused launch was counted")
+    return lo
 
 
 def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None):
@@ -604,7 +678,7 @@ def flagship_conditioning(net, req, seed: int):
 def phase_fused_decode():
     flagship = convert.load_npz(NPZ, flagship_hparams())
     packed = fused_decode.pack_decoder(flagship.decoder)
-    check_fused_refusal(flagship, flagship.hparams)
+    largest_cap = check_fused_refusal(flagship, flagship.hparams)
 
     # (a) narrow and off-tile sizes: B=3 S=11 as the CPU tests, B=5 (two blocks of
     # the grid, one lane in the second), odd S, transition agent, speaker embedding
@@ -697,6 +771,145 @@ def phase_fused_decode():
                if k in ("ms", "ms_per_step", "steps_timed", "plain_ms", "bound_ms", "bound_by",
                         "flops", "bytes", "cache_prefix_bytes")},
         }))
+    records["largest_cap"] = largest_cap
+    return records
+
+
+def time_fused(name, packed, cond, masks, lengths, steps: int):
+    """Time of one launch to the cap (no exit) by CUDA events, that launch against
+    the plain version's run over all the steps (seeded weights: TOL_FUSED), and the
+    bound of the work these inputs need."""
+    def run():
+        return fused_decode.fused_decode(packed, cond, masks, steps, 2.0, early_exit=False)
+
+    ms = time_ms(run, warmup=1, iters=3)
+    want, plain_ms = timed_once(
+        lambda: fused_decode.fused_decode_reference(packed, cond, masks, steps, 2.0, False)
+    )
+    errs, exact, zero_tail, finite = compare_decodes(run(), want, packed.sizes["R"])
+    err = max(errs["mel"], errs["stop_probs"], errs["alignments"])
+    flops, nbytes, _ = fused_flops_and_bytes(packed, lengths, steps)
+    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
+    rec = {
+        "kernel": "fused_decode", "case": name,
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
+        "shape": {"B": len(lengths), "S": int(max(lengths)), "T": steps, **packed.sizes},
+        "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
+        "bound_ms": max(t_ops, t_bytes) * 1e3,
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
+        "bytes": nbytes, "max_abs_err": err, **errs, "tol": TOL_FUSED,
+        "exact_lengths_flags_steps": exact, "zero_tail": zero_tail,
+        "ok": finite and exact and zero_tail and err <= TOL_FUSED,
+    }
+    log("check " + json.dumps(rec))
+    if not rec["ok"]:
+        raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
+    return rec
+
+
+def check_cap_beyond_the_flagship(packed, hp, cond, rng, cap: int):
+    """Without self-attention nothing in a block grows with the step cap: the
+    baseline runs at a cap where a flagship block no longer fits an SM. Its first
+    FUSED_STEPS steps are held against the plain version's run of that length."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    limit = fused_decode.fused_decode_max_batch(hp, cap, 128)
+    need, have = fused_decode.block_shared_memory(packed.sizes, 128, cap, DEV)
+    masks = seeded_masks(packed, rng, cap, 1)
+    before = fused_decode.launch_count
+    got, ms = timed_once(
+        lambda: fused_decode.fused_decode(packed, cond, masks, cap, 2.0, early_exit=False)
+    )
+    launched = fused_decode.launch_count - before
+    want = fused_decode.fused_decode_reference(
+        packed, cond, tuple(m[:FUSED_STEPS] for m in masks), FUSED_STEPS, 2.0, False
+    )
+    r = packed.sizes["R"]
+    err = max(
+        max_abs_err(got.frames["mel"][:, : FUSED_STEPS * r], want.frames["mel"]),
+        max_abs_err(got.stop_probs[:, : FUSED_STEPS * r], want.stop_probs),
+        max_abs_err(got.alignments[0][:, :FUSED_STEPS], want.alignments[0]),
+    )
+    finite = all(bool(torch.isfinite(x).all()) for x in (got.frames["mel"], got.stop_probs))
+    rec = {
+        "kernel": "fused_decode", "case": "baseline beyond the flagship's step cap",
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
+        "max_iters": cap, "lanes_per_launch": limit, "block_needs": need, "sm_offers": have,
+        "launches": launched, "num_steps": int(got.num_steps), "ms": ms,
+        "first_steps_max_abs_err": err, "first_steps": FUSED_STEPS, "tol": TOL_FUSED,
+    }
+    rec["ok"] = (limit == fused_decode.LANES * sms and need <= have and launched == 1
+                 and int(got.num_steps) == cap and finite and err <= TOL_FUSED)
+    log("check " + json.dumps(rec))
+    if not rec["ok"]:
+        raise SystemExit(f"the baseline must decode beyond the flagship's step cap: {rec}")
+
+
+# Seeded decoders without self-attention keep their stop logits within a few tenths
+# of 0, where no threshold lets every lane fire at a step of its own with a margin;
+# for the checks of the early exit the stop rows of their output projection are
+# scaled by this much, which spreads the logits as a trained model's are spread and
+# leaves the frames as they are.
+STOP_SPREAD = 8.0
+
+
+def spread_stop_logits(decoder, factor: float = STOP_SPREAD) -> None:
+    r = decoder.outputs_per_step
+    with torch.no_grad():
+        decoder.output_projection.weight[-r:].mul_(factor)
+        decoder.output_projection.bias[-r:].mul_(factor)
+
+
+def phase_baseline_decode(flagship_cap: int):
+    """The three specialisations of ``fused_decode`` that the flagship does not
+    launch, at narrow sizes with injected masks; the baseline (one source, no
+    self-attention) at full width with seeded weights, conditioning from its real
+    encoder; and the baseline beyond the flagship's largest step cap."""
+    steps = 24
+    single = {"encoder": "EncoderV1"}
+    for case, (name, overrides, lengths, src_len, spk) in enumerate((
+        ("narrow DualSourceDecoder B=3 S=11", {"decoder": "DualSourceDecoder"}, [11, 7, 4], 11, 0),
+        ("narrow ExtendedDecoder B=5 S=13, transition agent",
+         {**single, "decoder": "ExtendedDecoder", "attention": "forward_transition_agent"},
+         [13, 5, 9, 1, 12], 13, 0),
+        ("narrow SelfAttentionDecoder B=5 S=9, speaker embedding",
+         {**single, "decoder": "SelfAttentionDecoder", "use_speaker_embedding": True,
+          "num_speakers": 4, "speaker_embedding_dim": 6}, [9, 9, 3, 6, 2], 9, 6),
+        ("narrow ExtendedDecoder B=6 S=7 r=3, odd widths, prenet dropout 0",
+         {**single, "decoder": "ExtendedDecoder", "decoder_prenet_drop_rate": 0.0,
+          "decoder_prenet_out_units": (20, 12), "attention_out_units": 28,
+          "attention1_out_units": 10, "decoder_out_units": 36, "num_mels": 7,
+          "outputs_per_step": 3, "cbhg_out_units": 20}, [7, 2, 5, 7, 7, 3], 7, 0),
+    )):
+        rng = np.random.default_rng(31 + case)
+        decoder = seeded_decoder(narrow_hparams(**overrides), seed=len(lengths) + src_len)
+        if decoder.self_attention is None:
+            spread_stop_logits(decoder)
+        cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
+        check_fused_with_exit(name, fused_decode.pack_decoder(decoder), cond, rng, steps)
+
+    # the baseline at full width: seeded weights, conditioning from its encoder
+    net = load_network("baseline", seed=3)
+    hp = net.hparams
+    packed = fused_decode.pack_decoder(net.decoder)
+    spread_stop_logits(net.decoder)
+    packed_exit = fused_decode.pack_decoder(net.decoder)
+    spread_stop_logits(net.decoder, 1.0 / STOP_SPREAD)
+    rng = np.random.default_rng(32)
+    records = {}
+    for batch, longest in ((32, 128), (1, 97)):
+        req = ragged_request(rng, batch, longest)
+        cond = flagship_conditioning(net, req, seed=batch)
+        exit_rec = check_fused_with_exit(
+            f"baseline B={batch} S={longest}", packed_exit, cond, rng, FUSED_STEPS
+        )
+        masks = seeded_masks(packed, rng, hp.max_iters, batch)
+        records[batch] = time_fused(
+            f"baseline B={batch} S={longest}, {hp.max_iters} steps, time", packed, cond, masks,
+            req["source_lengths"], hp.max_iters,
+        )
+        records[batch]["exit_max_abs_err"] = exit_rec["max_abs_err"]
+        if batch == 1:
+            check_cap_beyond_the_flagship(packed, hp, cond, rng, flagship_cap + 1)
     return records
 
 
@@ -803,19 +1016,24 @@ def phase_bigru_bwd():
     return check_bigru_train(32, 128, 128, 128, lengths, timed=True, seed=3)
 
 
-def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zoneout):
-    """Operands of ``teacher_decode`` at the sizes ``z`` with weights from ``rng``."""
+def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zoneout,
+                            dual=True):
+    """Operands of ``teacher_decode`` at the sizes ``z`` with weights from ``rng``;
+    ``dual=False``: one source, and ``z``'s A2 and E2 are not used."""
     def arr(*shape, scale=0.3):
         return torch.tensor(
             rng.standard_normal(shape).astype(np.float32) * np.float32(scale), device=DEV)
 
     fan = lambda k: 1.0 / np.sqrt(k)  # noqa: E731
+    if not dual:
+        z = dict(z, A2=0, E2=0)
     A = z["A1"] + z["A2"]
     in_att = z["P2"] + spk + z["E1"] + z["E2"] + z["AU"]
     in1 = z["AU"] + z["E1"] + z["E2"] + z["DU"]
-    vblk = torch.zeros(A, 2, device=DEV)
+    vblk = torch.zeros(A, 2 if dual else 1, device=DEV)
     vblk[: z["A1"], 0] = arr(z["A1"])
-    vblk[z["A1"] :, 1] = arr(z["A2"])
+    if dual:
+        vblk[z["A1"] :, 1] = arr(z["A2"])
     weights = dict(
         w_p1=arr(z["F"], z["P1"]), b_p1=arr(z["P1"]),
         w_p2=arr(z["P1"], z["P2"], scale=fan(z["P1"])), b_p2=arr(z["P2"]),
@@ -827,11 +1045,12 @@ def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zon
     )
     lens = torch.tensor(lengths, device=DEV)
     return dict(
-        weights=weights, keys=arr(B, S, A), mem1=arr(B, S, z["E1"]), mem2=arr(B, S, z["E2"]),
+        weights=weights, keys=arr(B, S, A), mem1=arr(B, S, z["E1"]),
+        mem2=arr(B, S, z["E2"]) if dual else None,
         spk=arr(B, spk) if spk else None,
         score_bias=torch.where(torch.arange(S, device=DEV)[None] < lens[:, None], 0.0, -1e9).float(),
         hp_like=dict(
-            dual=True, use_ta=use_ta, att_units=z["AU"], att1_units=z["A1"],
+            dual=dual, use_ta=use_ta, att_units=z["AU"], att1_units=z["A1"],
             att2_units=z["A2"], dec_units=z["DU"], zoneout_cell=zc, zoneout_output=zo,
             prenet_drop_rate=0.0 if z.get("no_dropout") else 0.5, io_dtype="float32",
             src1_kind="forward", eval_zoneout=eval_zoneout,
@@ -849,9 +1068,11 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
     hp_like, w = ops["hp_like"], ops["weights"]
     B, N = feeds.shape[:2]
     S = ops["keys"].shape[1]
+    n_src = 1 if ops["mem2"] is None else 2
     z = dict(P2=w["w_p2"].shape[1], SPK=0 if ops["spk"] is None else ops["spk"].shape[1],
-             AU=hp_like["att_units"], A1=hp_like["att1_units"], A2=hp_like["att2_units"],
-             DU=hp_like["dec_units"], E1=ops["mem1"].shape[-1], E2=ops["mem2"].shape[-1])
+             AU=hp_like["att_units"], A1=hp_like["att1_units"],
+             A2=hp_like["att2_units"] if n_src == 2 else 0, DU=hp_like["dec_units"],
+             E1=ops["mem1"].shape[-1], E2=0 if n_src == 1 else ops["mem2"].shape[-1])
     A, E = z["A1"] + z["A2"], z["E1"] + z["E2"]
     core = [n for n in fused_teacher.CORE_WEIGHTS if hp_like["use_ta"] or n not in ("w_ta", "b_ta")]
     products = sum(w[n].numel() for n in core if n.startswith("w_"))
@@ -859,7 +1080,7 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
     valid = int(np.sum(np.minimum(lengths, S)))
     widths = {k: v[1] for k, v in fused_teacher.row_layouts(z, S).items()}
     conditioning = B * S * (A + E + 1) + B * z["SPK"]
-    outputs = B * N * (z["DU"] + 2 * S)
+    outputs = B * N * (z["DU"] + n_src * S)
     if not backward:
         flops = N * (B * 2 * products + valid * (4 * A + 2 * E))
         floats = (weight_floats + B * N * z["P2"] + conditioning + outputs
@@ -868,7 +1089,7 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
         flops = N * (B * 2 * products + valid * (10 * A + 4 * E))
         floats = (weight_floats + B * N * z["P2"] + conditioning + outputs
                   + B * N * (widths["carry"] + widths["acts"] + widths["stack"])
-                  + B * S * A + B * 2 * A + B * widths["stack"] + B * z["SPK"])
+                  + B * S * A + B * n_src * A + B * widths["stack"] + B * z["SPK"])
     return float(flops), 4.0 * floats
 
 
@@ -879,9 +1100,10 @@ def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=Fals
     both outputs."""
     B, N = feeds.shape[:2]
     S = ops["keys"].shape[1]
+    n_src = 1 if ops["mem2"] is None else 2
     gen = torch.Generator(device=DEV).manual_seed(seed)
     cot_f = torch.randn(B, N, ops["hp_like"]["dec_units"], device=DEV, generator=gen)
-    cot_a = torch.randn(B, N, 2 * S, device=DEV, generator=gen)
+    cot_a = torch.randn(B, N, n_src * S, device=DEV, generator=gen)
     if valid_steps is not None:
         # as a loss masks the frames beyond a lane's target length
         live = torch.arange(N, device=DEV)[None, :] < torch.as_tensor(valid_steps, device=DEV)[:, None]
@@ -915,12 +1137,12 @@ def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=Fals
     value_err = max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1]))
     grad_abs = max(max_abs_err(got[2][k], g) for k, g in want[2].items() if g is not None)
     finite = all(bool(torch.isfinite(x).all()) for x in (got[0], got[1], *got[2].values()))
-    sums = got[1].reshape(B, N, 2, S).sum(dim=-1)
+    sums = got[1].reshape(B, N, n_src, S).sum(dim=-1)
     ok = (finite and launches == (1, 1) and value_err <= tol
           and max(errs.values()) <= tol_grad and float((sums - 1.0).abs().max()) < 1e-4)
     hp_like = ops["hp_like"]
     rec = {
-        "kernel": "fused_teacher", "case": name,
+        "kernel": "fused_teacher", "case": name, "dual": n_src == 2,
         "shape": {"B": B, "S": S, "N": N, "F": feeds.shape[-1],
                   **{k: int(v) for k, v in hp_like.items() if k.endswith("_units")}},
         "transition_agent": hp_like["use_ta"], "speaker": ops["spk"] is not None,
@@ -976,16 +1198,7 @@ def phase_fused_teacher():
         ("odd widths B=6 S=7, zoneout 0, prenet dropout 0", dict(odd, no_dropout=True),
          [7, 2, 5, 7, 7, 3], 19, {}),
     ):
-        B, S = len(lengths), max(lengths)
-        ops = seeded_teacher_operands(
-            rng, z, B, S, lengths, kw.get("use_ta", False), kw.get("spk", 0),
-            kw.get("zc", 0.0), kw.get("zo", 0.0), kw.get("eval_zoneout", False),
-        )
-        feeds = torch.tensor(rng.standard_normal((B, steps, z["F"])).astype(np.float32), device=DEV)
-        masks = None
-        if ops["hp_like"]["prenet_drop_rate"] > 0.0:
-            masks = tuple(torch.tensor(rng.random((B, steps, z[k])) < 0.5, device=DEV)
-                          for k in ("P1", "P2"))
+        ops, feeds, masks = teacher_case_inputs(rng, z, lengths, steps, kw)
         check_teacher(name, ops, feeds, masks, lengths)
 
     # the flagship: trained weights, conditioning from the real encoder, the
@@ -1028,6 +1241,63 @@ def phase_fused_teacher():
     )
 
 
+def teacher_case_inputs(rng, z, lengths, steps, kw):
+    """Operands, teacher frames and prenet masks of one case at the sizes ``z``."""
+    B, S = len(lengths), max(lengths)
+    ops = seeded_teacher_operands(
+        rng, z, B, S, lengths, kw.get("use_ta", False), kw.get("spk", 0),
+        kw.get("zc", 0.0), kw.get("zo", 0.0), kw.get("eval_zoneout", False),
+        dual=kw.get("dual", True),
+    )
+    feeds = torch.tensor(rng.standard_normal((B, steps, z["F"])).astype(np.float32), device=DEV)
+    masks = None
+    if ops["hp_like"]["prenet_drop_rate"] > 0.0:
+        masks = tuple(torch.tensor(rng.random((B, steps, z[k])) < 0.5, device=DEV)
+                      for k in ("P1", "P2"))
+    return ops, feeds, masks
+
+
+def phase_baseline_teacher():
+    """``fused_teacher`` with one source (``dual=False``): narrow and off-tile sizes,
+    then the baseline at full width, seeded weights, conditioning from its real
+    encoder, 32 x 400 steps with prenet dropout and train zoneout, timed."""
+    narrow = dict(F=10, P1=12, P2=8, AU=12, A1=12, DU=16, E1=12)
+    odd = dict(F=7, P1=20, P2=12, AU=28, A1=10, DU=36, E1=20)
+    rng = np.random.default_rng(41)
+    for name, z, lengths, steps, kw in (
+        ("one source, narrow B=3 S=11", narrow, [11, 7, 4], 6, {}),
+        ("one source, narrow B=5 S=13, transition agent, speaker embedding, train zoneout",
+         narrow, [13, 5, 9, 1, 12], 20, dict(use_ta=True, spk=5, zc=0.1, zo=0.1)),
+        ("one source, odd widths B=6 S=7, eval zoneout", odd, [7, 2, 5, 7, 7, 3], 19,
+         dict(zc=0.1, zo=0.15, eval_zoneout=True)),
+    ):
+        ops, feeds, masks = teacher_case_inputs(rng, z, lengths, steps, dict(kw, dual=False))
+        check_teacher(name, ops, feeds, masks, lengths)
+
+    net = load_network("baseline", seed=5)
+    hp = net.hparams
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    with torch.no_grad():
+        cond, _ = net.encode(
+            torch.as_tensor(batch["source"], device=DEV),
+            torch.as_tensor(batch["source_lengths"], device=DEV),
+            generator=torch.Generator(device=DEV).manual_seed(0),
+        )
+        net.decoder.train()
+        ops = net.decoder.teacher_operands(cond)
+        feeds = net.decoder.make_teacher_feeds(torch.as_tensor(batch["mel"], device=DEV))
+    require(not ops["hp_like"]["dual"] and ops["mem2"] is None, "the baseline has one source")
+    total = feeds.shape[1]
+    masks = tuple(torch.tensor(rng.random((32, total, u)) < 0.5, device=DEV)
+                  for u in hp.decoder_prenet_out_units)
+    return check_teacher(
+        f"baseline B=32 S=128 ragged, {total} steps, seeded weights", ops, feeds, masks,
+        batch["source_lengths"], timed=True,
+        valid_steps=batch["target_lengths"] // hp.outputs_per_step,
+    )
+
+
 # --------------------------------------------------------------------------- #
 # Phase 4: the main path
 # --------------------------------------------------------------------------- #
@@ -1059,19 +1329,23 @@ def run_requests(predict, reqs, seed: int):
     return outs, stats
 
 
-def check_output(out, req, hp: HParams) -> None:
+def check_output(out, req, hp: HParams, steps: int = 0) -> None:
     batch, src = req["source"].shape
-    steps, r = hp.max_iters, hp.outputs_per_step
+    steps, r = steps or hp.max_iters, hp.outputs_per_step
+    dual = "DualSource" in hp.decoder
     require(out["mel"].shape == (batch, steps * r, hp.num_mels), f"mel {out['mel'].shape}")
     require(out["stop_probs"].shape == (batch, steps * r), "shape of stop_probs")
     require(
-        [tuple(a.shape) for a in out["alignments"]] == [(batch, steps, src)] * 2,
+        [tuple(a.shape) for a in out["alignments"]] == [(batch, steps, src)] * (2 if dual else 1),
         "shape of alignments",
     )
-    require(
-        out["encoder_sa_alignments"][0].shape == (batch, 2, src, src),
-        "shape of encoder_sa_alignments",
-    )
+    if "SelfAttention" in hp.encoder:
+        require(
+            out["encoder_sa_alignments"][0].shape == (batch, 2, src, src),
+            "shape of encoder_sa_alignments",
+        )
+    else:
+        require(out["encoder_sa_alignments"] == (), "a single-stream encoder has no alignments")
     for key in ("mel", "stop_probs"):
         require(bool(torch.isfinite(out[key]).all()), f"{key} is not finite")
     n = int(out["num_steps"])
@@ -1079,15 +1353,16 @@ def check_output(out, req, hp: HParams) -> None:
     for align in out["alignments"]:
         sums = align[:, :n].sum(dim=-1)
         require(float((sums - 1.0).abs().max()) < 1e-4, "alignment rows do not sum to 1")
-    sa = out["encoder_sa_alignments"][0].sum(dim=-1)
-    require(float((sa - 1.0).abs().max()) < 1e-4, "encoder attention rows do not sum to 1")
+    for sa in out["encoder_sa_alignments"]:
+        sums = sa.sum(dim=-1)
+        require(float((sums - 1.0).abs().max()) < 1e-4, "encoder attention rows do not sum to 1")
     lengths = out["lengths"]
     require(int(lengths.min()) >= 1 and int(lengths.max()) <= n * r, "lengths out of range")
 
 
 def output_errors(out, ref, steps: int, r: int):
     """Max absolute differences over the first ``steps`` decoder steps."""
-    return {
+    errs = {
         "mel": max_abs_err(out["mel"][:, : steps * r], ref["mel"][:, : steps * r]),
         "stop_probs": max_abs_err(
             out["stop_probs"][:, : steps * r], ref["stop_probs"][:, : steps * r]
@@ -1096,17 +1371,23 @@ def output_errors(out, ref, steps: int, r: int):
             max_abs_err(a[:, :steps], b[:, :steps])
             for a, b in zip(out["alignments"], ref["alignments"])
         ),
-        "encoder_sa_alignments": max_abs_err(
-            out["encoder_sa_alignments"][0], ref["encoder_sa_alignments"][0]
-        ),
     }
+    for a, b in zip(out["encoder_sa_alignments"], ref["encoder_sa_alignments"]):
+        errs["encoder_sa_alignments"] = max_abs_err(a, b)
+    return errs
 
 
 def launch_counts():
     return {
         "bigru": fused_rnn.launch_count, "mha_full": fused_attention.launch_count,
-        "fused_decode": fused_decode.launch_count,
+        "fused_decode": fused_decode.launch_count, "bilstm": fused_rnn.lstm_launch_count,
     }
+
+
+def reset_launch_counts():
+    fused_rnn.launch_count = fused_rnn.lstm_launch_count = 0
+    fused_attention.launch_count = fused_decode.launch_count = 0
+    fused_decode.variant_launches.clear()
 
 
 def phase_against_cpu(steps: int = 30) -> None:
@@ -1126,8 +1407,9 @@ def phase_against_cpu(steps: int = 30) -> None:
     on_card = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=steps)(req, prenet_masks=masks)
     torch.cuda.synchronize()
     require(
-        launch_counts() == {name: count + 1 for name, count in before.items()},
-        "one request must launch each kernel once",
+        launch_counts() == {**{name: count + 1 for name, count in before.items()},
+                            "bilstm": before["bilstm"]},
+        "one request must launch each kernel of the flagship once",
     )
     on_cpu = make_predict_fn(
         convert.load_npz(NPZ, hp, device="cpu"), max_iters=steps, device="cpu"
@@ -1181,15 +1463,15 @@ def phase_main_path():
     predict = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=hp.max_iters)
     run_requests(predict, reqs[:1], seed=0)            # warm-up: cuBLAS, cuDNN, allocator
 
-    fused_rnn.launch_count = 0
-    fused_attention.launch_count = 0
-    fused_decode.launch_count = 0
+    reset_launch_counts()
     outs, stats = run_requests(predict, reqs, seed=100)
     launches = launch_counts()
-    log("main_path kernels " + json.dumps({"launches": launches, "requests": stats}))
-    for name, count in launches.items():
-        if count < len(reqs):
-            raise SystemExit(f"the main path launched {name} {count} times in {len(reqs)} requests")
+    log("main_path kernels " + json.dumps({
+        "launches": launches, "fused_decode_specialisations": fused_decode.variant_launches,
+        "requests": stats,
+    }))
+    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0}
+    require(launches == expected, f"the main path launched {launches}, expected {expected}")
     for out, req in zip(outs, reqs):
         check_output(out, req, hp)
 
@@ -1200,14 +1482,20 @@ def phase_main_path():
     outs_plain, stats_plain = run_requests(predict_plain, reqs, seed=100)
     require(before == launch_counts(), "the plain path launched a kernel")
     log("main_path plain " + json.dumps({"requests": stats_plain}))
+    compare_paths(outs, outs_plain, hp)
+    phase_against_cpu()
+    return launches, stats, stats_plain
 
+
+def compare_paths(outs, outs_plain, hp, label: str = "") -> None:
+    """Kernel path against plain path, request by request, as set out at MAIN_MARGIN."""
     r = hp.outputs_per_step
     for out, ref in zip(outs, outs_plain):
         left_out = compare_lengths(out, ref, hp.stop_token_threshold, r)
         steps = min(int(out["num_steps"]), int(ref["num_steps"]))
         whole = output_errors(out, ref, steps, r)
         early = output_errors(out, ref, min(EARLY_STEPS, steps), r)
-        log("main_path agreement " + json.dumps({
+        log(f"main_path agreement{label} " + json.dumps({
             "batch": int(out["mel"].shape[0]),
             "num_steps": [int(out["num_steps"]), int(ref["num_steps"])],
             "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
@@ -1218,8 +1506,68 @@ def phase_main_path():
             raise SystemExit(f"kernel path and plain path differ early: {early}")
         if not max(whole.values()) <= TOL_MAIN:
             raise SystemExit(f"kernel path and plain path differ: {whole}")
-    phase_against_cpu()
-    return launches, stats, stats_plain
+
+
+# The baseline's zoneout request decodes this many steps on both paths.
+ZONEOUT_STEPS = 100
+
+
+def phase_baseline_main_path():
+    """Baseline synthesis at full width from seeded weights (no trained weights of
+    the family are committed), batch 1 and batch 32, through the kernels and with
+    ``use_pallas_kernels=False``, same generator seed. Seeded weights have no
+    trained stop token: the threshold is out of reach and every request decodes to
+    the cap, so that every lane's length and flag is held exactly. Then one
+    ZoneoutEncoderV1 request of batch 32, whose encoder is ``bilstm``."""
+    reqs = requests()
+    overrides = dict(stop_token_threshold=2.0)
+    net = load_network("baseline", seed=11, **overrides)
+    hp = net.hparams
+    predict = make_predict_fn(net, max_iters=hp.max_iters)
+    run_requests(predict, reqs[:1], seed=0)            # warm-up
+    reset_launch_counts()
+    outs, stats = run_requests(predict, reqs, seed=100)
+    launches = launch_counts()
+    variants = dict(fused_decode.variant_launches)
+    log("main_path baseline kernels " + json.dumps({
+        "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
+    }))
+    expected = {"bigru": len(reqs), "mha_full": 0, "fused_decode": len(reqs), "bilstm": 0}
+    require(launches == expected, f"baseline synthesis launched {launches}, expected {expected}")
+    require(variants == {fused_decode.variant_name(False, False): len(reqs)},
+            f"baseline synthesis launched the specialisations {variants}")
+    for out, req in zip(outs, reqs):
+        check_output(out, req, hp)
+    predict_plain = make_predict_fn(
+        load_network("baseline", seed=11, use_pallas_kernels=False, **overrides),
+        max_iters=hp.max_iters,
+    )
+    before = launch_counts()
+    outs_plain, stats_plain = run_requests(predict_plain, reqs, seed=100)
+    require(before == launch_counts(), "the plain path launched a kernel")
+    log("main_path baseline plain " + json.dumps({"requests": stats_plain}))
+    compare_paths(outs, outs_plain, hp, label=" baseline")
+
+    # ZoneoutEncoderV1: the same decoder behind the bidirectional ZoneoutLSTM
+    req = requests()[1]
+    zoneout = load_network("zoneout", seed=12, **overrides)
+    predict = make_predict_fn(zoneout, max_iters=ZONEOUT_STEPS)
+    run_requests(predict, [req], seed=0)               # warm-up
+    reset_launch_counts()
+    out, zstats = run_requests(predict, [req], seed=200)
+    zlaunches = launch_counts()
+    log("main_path zoneout kernels " + json.dumps({"launches": zlaunches, "requests": zstats}))
+    expected = {"bigru": 0, "mha_full": 0, "fused_decode": 1, "bilstm": 1}
+    require(zlaunches == expected, f"the ZoneoutEncoderV1 request launched {zlaunches}")
+    check_output(out[0], req, zoneout.hparams, steps=ZONEOUT_STEPS)
+    out_plain, _ = run_requests(
+        make_predict_fn(load_network("zoneout", seed=12, use_pallas_kernels=False, **overrides),
+                        max_iters=ZONEOUT_STEPS),
+        [req], seed=200,
+    )
+    compare_paths(out, out_plain, zoneout.hparams, label=" zoneout")
+    return {"launches": launches, "variants": variants, "stats": stats,
+            "stats_plain": stats_plain, "zoneout_launches": zlaunches}
 
 
 # --------------------------------------------------------------------------- #
@@ -1254,13 +1602,15 @@ def training_counts():
         "fused_teacher_fwd": fused_teacher.launch_count,
         "fused_teacher_bwd": fused_teacher.bwd_launch_count,
         "mha_full": fused_attention.launch_count, "fused_decode": fused_decode.launch_count,
+        "bilstm": fused_rnn.lstm_launch_count,
     }
 
 
 def reset_training_counts():
-    fused_rnn.launch_count = fused_rnn.bwd_launch_count = 0
+    reset_launch_counts()
+    fused_rnn.bwd_launch_count = 0
     fused_teacher.launch_count = fused_teacher.bwd_launch_count = 0
-    fused_attention.launch_count = fused_decode.launch_count = 0
+    fused_teacher.variant_launches.clear()
 
 
 def trained_network(hp, moved: float = 1.0):
@@ -1278,11 +1628,11 @@ def seeded_network(hp):
 
 
 def run_training(path: str, batch, overrides, make_net, steps: int, measure: bool,
-                 trace: bool = False):
-    """``steps`` updates from ``make_net(hp)`` with the launch counts read around
-    them. ``measure``: a warm-up on a state of its own and an evaluation step
-    first; ``trace``: one more step under ``torch.profiler`` after."""
-    hp = flagship_hparams(**overrides)
+                 trace: bool = False, config: str = "flagship"):
+    """``steps`` updates of ``config`` from ``make_net(hp)`` with the launch counts
+    read around them. ``measure``: a warm-up on a state of its own and an
+    evaluation step first; ``trace``: one more step under ``torch.profiler`` after."""
+    hp = config_hparams(config, **overrides)
     trainer = Trainer(tacotron_model_factory(hp))
     eval_losses, eval_counts = {}, {}
     if measure:
@@ -1308,6 +1658,7 @@ def run_training(path: str, batch, overrides, make_net, steps: int, measure: boo
         metrics.append({k: float(v) for k, v in m.items()})
         rows.append({**row, "frames_per_s": 1e3 * frames / row["wall_ms"]})
     counts = training_counts()
+    variants = {"_".join(k): v for k, v in fused_teacher.variant_launches.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     require(all(np.isfinite(v) for m in metrics for v in m.values()), f"{path}: a metric is not finite")
@@ -1324,10 +1675,12 @@ def run_training(path: str, batch, overrides, make_net, steps: int, measure: boo
     log(f"training {path} " + json.dumps({
         "card": gpu_line(), "batch": int(batch["mel"].shape[0]),
         "frames_per_lane": int(batch["mel"].shape[1]), "valid_frames": frames,
-        "launches": counts, "steps": rows, "metrics": metrics, "eval": eval_losses,
+        "launches": counts, "fused_teacher_specialisations": variants, "steps": rows,
+        "metrics": metrics, "eval": eval_losses,
         "eval_launches": eval_counts, "max_memory_allocated_gb": peak_gb, "device": busy,
     }))
-    return {"metrics": metrics, "rows": rows, "counts": counts, "peak_gb": peak_gb,
+    return {"metrics": metrics, "rows": rows, "counts": counts, "variants": variants,
+            "peak_gb": peak_gb,
             "first_grads": first_grads, "eval": eval_losses, "eval_counts": eval_counts,
             "device": busy}
 
@@ -1349,27 +1702,33 @@ def first_step_agreement(a, b):
     }
 
 
+def check_seeded_agreement(label: str, kernels, plain, **extra) -> None:
+    """From seeded weights every gradient leaf of the first step is held (see
+    TOL_TRAIN_LEAF_REL), with the loss parts and grad_norm."""
+    row = first_step_agreement(kernels, plain)
+    log(f"training agreement, {label} " + json.dumps({
+        **row, "tol_loss": TOL_TRAIN_LOSS, "tol_grad_norm_rel": TOL_TRAIN_NORM_REL,
+        "tol_leaf_rel": TOL_TRAIN_LEAF_REL, **extra,
+    }))
+    if not (max(row["loss_parts_abs"].values()) <= TOL_TRAIN_LOSS
+            and row["grad_norm_rel"] <= TOL_TRAIN_NORM_REL
+            and row["gradient_leaves_max_rel_err"] <= TOL_TRAIN_LEAF_REL):
+        raise SystemExit(f"kernel path and plain path differ from {label}: {row}")
+
+
 def phase_training():
     hp = flagship_hparams()
     batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
                            hp.outputs_per_step)
     one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
-                "mha_full": 0, "fused_decode": 0}
+                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
     plain_hp = {"use_pallas_kernels": False}
 
     # (a) one step from freshly initialised weights at full width: every gradient leaf
     seeded = run_training("kernels, seeded weights", batch, {}, seeded_network, 1, False)
     require(seeded["counts"] == one_step, f"one step launched {seeded['counts']}")
     seeded_plain = run_training("plain, seeded weights", batch, plain_hp, seeded_network, 1, False)
-    row = first_step_agreement(seeded, seeded_plain)
-    log("training agreement, seeded weights " + json.dumps({
-        **row, "tol_loss": TOL_TRAIN_LOSS, "tol_grad_norm_rel": TOL_TRAIN_NORM_REL,
-        "tol_leaf_rel": TOL_TRAIN_LEAF_REL,
-    }))
-    if not (max(row["loss_parts_abs"].values()) <= TOL_TRAIN_LOSS
-            and row["grad_norm_rel"] <= TOL_TRAIN_NORM_REL
-            and row["gradient_leaves_max_rel_err"] <= TOL_TRAIN_LEAF_REL):
-        raise SystemExit(f"kernel path and plain path differ from seeded weights: {row}")
+    check_seeded_agreement("seeded weights", seeded, seeded_plain)
     del seeded, seeded_plain
     torch.cuda.empty_cache()
 
@@ -1414,6 +1773,39 @@ def phase_training():
     return kernels, plain
 
 
+def phase_baseline_training():
+    """The baseline's ``train_step`` at full width, 32 lanes x 800 frames, from
+    seeded weights (the same on both paths): three timed steps through the kernels
+    (the one-source teacher kernels, ``bigru_train``), launch counts exact, and one
+    step with ``use_pallas_kernels=False``, every gradient leaf of the first step
+    held; an evaluation step on both paths."""
+    hp = config_hparams("baseline")
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
+                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    kernels = run_training("baseline kernels, seeded weights", batch, {}, seeded_network,
+                           TRAIN_STEPS, True, trace=True, config="baseline")
+    expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
+    require(kernels["counts"] == expected,
+            f"{TRAIN_STEPS} baseline steps launched {kernels['counts']}, expected {expected}")
+    require(kernels["variants"] == {"fwd_single": TRAIN_STEPS, "bwd_single": TRAIN_STEPS},
+            f"the baseline launched the teacher specialisations {kernels['variants']}")
+    require(kernels["eval_counts"] == {**one_step, "bigru_bwd": 0, "fused_teacher_bwd": 0},
+            f"a baseline evaluation step launched {kernels['eval_counts']}")
+    torch.cuda.empty_cache()
+    plain = run_training("baseline plain, seeded weights", batch, {"use_pallas_kernels": False},
+                         seeded_network, 1, True, config="baseline")
+    require(all(v == 0 for v in plain["counts"].values()), "the plain path launched a kernel")
+    require(all(v == 0 for v in plain["eval_counts"].values()), "the plain path launched a kernel")
+    eval_diffs = {k: abs(v - plain["eval"][k]) for k, v in kernels["eval"].items()}
+    check_seeded_agreement("baseline, seeded weights", kernels, plain,
+                           eval_loss_parts_abs=eval_diffs, tol_eval=TOL_EVAL)
+    if not max(eval_diffs.values()) <= TOL_EVAL:
+        raise SystemExit(f"baseline kernel path and plain path differ in evaluation: {eval_diffs}")
+    return kernels, plain
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -1426,30 +1818,41 @@ def main() -> int:
 
     use_full_float32()
 
-    def timed_phase(phase):
+    def timed_phase(phase, *args):
         begin = time.perf_counter()
-        result = phase()
+        result = phase(*args)
         log(f"phase {phase.__name__}: {time.perf_counter() - begin:.1f} s")
         return result
 
     records = timed_phase(phase_kernels)
     fused = timed_phase(phase_fused_decode)
+    baseline_fused = timed_phase(phase_baseline_decode, fused["largest_cap"])
     bigru_bwd = timed_phase(phase_bigru_bwd)
     teacher = timed_phase(phase_fused_teacher)
+    baseline_teacher = timed_phase(phase_baseline_teacher)
     launches, stats, stats_plain = timed_phase(phase_main_path)
+    baseline = timed_phase(phase_baseline_main_path)
     train, train_plain = timed_phase(phase_training)
+    baseline_train, baseline_train_plain = timed_phase(phase_baseline_training)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
         "mha_full": "self_attention_tacotron_tpu/ops/fused_attention.py:84",
+        "bilstm": "self_attention_tacotron_tpu/ops/fused_rnn.py:461",
+    }
+    # launches on the main paths: flagship synthesis (bigru, mha_full, fused_decode),
+    # baseline synthesis (bigru, fused_decode) and the ZoneoutEncoderV1 request (bilstm)
+    main_launches = {
+        k: launches[k] + baseline["launches"][k] + baseline["zoneout_launches"][k]
+        for k in launches
     }
     kernels = []
-    for name in ("bigru", "mha_full"):
+    for name in ("bigru", "mha_full", "bilstm"):
         rec = records[(name, torch.float32)]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"self_attention_tacotron_torch/csrc/{name}.cu",
-            "replaces": replaces[name], "launches": launches[name],
+            "replaces": replaces[name], "launches": main_launches[name],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
             "shape": rec["shape"], "dtype": rec["dtype"],
@@ -1459,17 +1862,29 @@ def main() -> int:
     # the BiGRU's forward kernel is also the primal of the training function
     kernels[0].update(
         also_replaces="self_attention_tacotron_tpu/ops/fused_rnn.py:216",
-        training_launches=train["counts"]["bigru"],
+        training_launches=train["counts"]["bigru"] + baseline_train["counts"]["bigru"],
     )
-    # the whole loop in one launch at the main path's shapes: flagship, B=32, T=500.
+    # torch.nn.LSTM (cuDNN) has no zoneout interpolation: another function, no library time
+    kernels[2]["zoneout"] = records[("bilstm", torch.float32)]["zoneout"]
+    # the whole loop in one launch at the main path's shapes: flagship, B=32, T=500;
+    # the baseline's specialisation (one source, no self-attention) beside it.
     # No single PyTorch call computes a decode loop, so there is no library time;
     # the step-by-step path's wall time for the batch-32 request stands beside it.
-    rec = fused[32]
+    rec, base = fused[32], baseline_fused[32]
+    specialisations = {
+        fused_decode.variant_name(True, True): launches["fused_decode"],
+        fused_decode.variant_name(False, False): (
+            baseline["launches"]["fused_decode"] + baseline["zoneout_launches"]["fused_decode"]
+        ),
+    }
     kernels.append({
         "name": "fused_decode", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
         "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
-        "launches": launches["fused_decode"], "max_abs_err": rec["max_abs_err"],
+        "launches": main_launches["fused_decode"], "specialisations": specialisations,
+        "specialisations_checked": ["dual=1,use_sa=1", "dual=1,use_sa=0", "dual=0,use_sa=0",
+                                    "dual=0,use_sa=1"],
+        "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
         "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": "float32",
@@ -1479,20 +1894,35 @@ def main() -> int:
         "step_by_step_request_ms": 1e3 * stats_plain[1]["wall_s"],
         "step_by_step_ms_per_step": stats_plain[1]["ms_per_step"],
         "fused_request_ms": 1e3 * stats[1]["wall_s"],
+        "baseline": {
+            "variant": base["variant"], "ms": base["ms"], "ms_per_step": base["ms_per_step"],
+            "plain_ms": base["plain_ms"], "bound_ms": base["bound_ms"],
+            "bound_by": base["bound_by"], "max_abs_err": base["max_abs_err"],
+            "batch1_ms": baseline_fused[1]["ms"],
+            "batch1_ms_per_step": baseline_fused[1]["ms_per_step"],
+            "batch1_bound_ms": baseline_fused[1]["bound_ms"],
+            "batch1_plain_ms": baseline_fused[1]["plain_ms"],
+            "fused_request_ms": 1e3 * baseline["stats"][1]["wall_s"],
+            "step_by_step_request_ms": 1e3 * baseline["stats_plain"][1]["wall_s"],
+        },
     })
-    # The training kernels: launches are those of the three training steps. No single
-    # PyTorch call computes any of them (``torch.nn.GRU`` has another candidate, and
-    # nothing computes a teacher-forced attention decoder), so there is no library
-    # time; the all-plain path's training step stands beside the kernel path's.
+    # The training kernels: launches are those of the training steps of both
+    # configurations. No single PyTorch call computes any of them (``torch.nn.GRU``
+    # has another candidate, and nothing computes a teacher-forced attention
+    # decoder), so there is no library time; the all-plain path's training step
+    # stands beside the kernel path's.
     step_ms = {
         "train_step_ms": min(r["step_ms"] for r in train["rows"]),
         "plain_train_step_ms": min(r["step_ms"] for r in train_plain["rows"]),
+        "baseline_train_step_ms": min(r["step_ms"] for r in baseline_train["rows"]),
+        "baseline_plain_train_step_ms": min(r["step_ms"] for r in baseline_train_plain["rows"]),
     }
     kernels.append({
         "name": "bigru_bwd", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/bigru_bwd.cu",
         "replaces": "self_attention_tacotron_tpu/ops/fused_rnn.py:293",
-        "launches": train["counts"]["bigru_bwd"], "max_abs_err": bigru_bwd["max_abs_err"],
+        "launches": train["counts"]["bigru_bwd"] + baseline_train["counts"]["bigru_bwd"],
+        "max_abs_err": bigru_bwd["max_abs_err"],
         "ms": bigru_bwd["ms"], "plain_ms": bigru_bwd["plain_ms"],
         "bound_ms": bigru_bwd["bound_ms"], "bound_by": bigru_bwd["bound_by"],
         "library_ms": None, "shape": bigru_bwd["shape"], "dtype": "float32",
@@ -1500,21 +1930,37 @@ def main() -> int:
         "train_fwd_bwd_ms": bigru_bwd["train_fwd_bwd_ms"],
         "plain_fwd_bwd_ms": bigru_bwd["plain_fwd_bwd_ms"], **step_ms,
     })
-    for which, line, err in (
-        ("fwd", 1219, max(teacher["features_max_abs_err"], teacher["alignments_max_abs_err"])),
-        ("bwd", 1310, teacher["grad_max_abs_err"]),
-    ):
+    for which, line in (("fwd", 1219), ("bwd", 1310)):
+        errs = {
+            label: (max(t["features_max_abs_err"], t["alignments_max_abs_err"])
+                    if which == "fwd" else t["grad_max_abs_err"])
+            for label, t in (("dual", teacher), ("single", baseline_teacher))
+        }
+        base = baseline_teacher[which]
         kernels.append({
             "name": f"fused_teacher_{which}", "route": "cuda",
             "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
             "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
-            "launches": train["counts"][f"fused_teacher_{which}"], "max_abs_err": err,
+            "launches": (train["counts"][f"fused_teacher_{which}"]
+                         + baseline_train["counts"][f"fused_teacher_{which}"]),
+            "specialisations": {
+                "dual": train["counts"][f"fused_teacher_{which}"],
+                "single": baseline_train["variants"].get(f"{which}_single", 0),
+            },
+            "max_abs_err": errs["dual"],
             "ms": teacher[which]["ms"], "plain_ms": teacher[which]["plain_ms"],
             "bound_ms": teacher[which]["bound_ms"], "bound_by": teacher[which]["bound_by"],
             "library_ms": None, "shape": teacher["shape"], "dtype": "float32",
             "ms_per_step": teacher[which]["ms_per_step"],
             "wrapper_ms": teacher[which]["wrapper_ms"],
-            "grad_max_rel_err": teacher["grad_max_rel_err"], **step_ms,
+            "grad_max_rel_err": teacher["grad_max_rel_err"],
+            "single": {
+                "ms": base["ms"], "ms_per_step": base["ms_per_step"], "plain_ms": base["plain_ms"],
+                "bound_ms": base["bound_ms"], "bound_by": base["bound_by"],
+                "max_abs_err": errs["single"], "shape": baseline_teacher["shape"],
+                "grad_max_rel_err": baseline_teacher["grad_max_rel_err"],
+            },
+            **step_ms,
         })
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())

@@ -1,14 +1,15 @@
-// Small products of a block that walks a decoder's steps on its own, shared by
-// fused_decode.cu and fused_teacher.cu.
+// Small products of a block that walks a recurrence's steps on its own, shared by
+// fused_decode.cu, fused_teacher.cu and bilstm.cu.
 //
 // A block owns LANES lanes and has NT threads. Every weight matrix is (in, out)
-// with its rows padded to 16 bytes, and is streamed through L2 at every step:
-// 16 bytes per thread and eight loads in flight, each weight read serving all
-// lanes. A product's reduction is split over the threads; the partial sums are
-// added in shared memory by gather().
+// with its rows padded to four values, and is streamed through L2 at every step:
+// four columns per thread (16 bytes of float, 8 of bfloat16) and eight loads in
+// flight, each weight read serving all lanes. A product's reduction is split over
+// the threads; the partial sums are added in shared memory by gather().
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 __host__ __device__ inline int r4(int n) { return (n + 3) / 4 * 4; }
@@ -29,6 +30,21 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
 
+// Four neighbouring weights as one load: 16 bytes of float, 8 of bfloat16, and
+// their values as float (a bfloat16 is the upper half of the float it stands for).
+template <typename WT> struct Weights4;
+template <> struct Weights4<float> {
+  using Vec = float4;
+  static __device__ __forceinline__ float4 values(const float4& v) { return v; }
+};
+template <> struct Weights4<__nv_bfloat16> {
+  using Vec = uint2;
+  static __device__ __forceinline__ float4 values(const uint2& v) {
+    return make_float4(__uint_as_float(v.x << 16), __uint_as_float(v.x & 0xffff0000u),
+                       __uint_as_float(v.y << 16), __uint_as_float(v.y & 0xffff0000u));
+  }
+};
+
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
   acc.x = fmaf(a, w.x, acc.x);
   acc.y = fmaf(a, w.y, acc.y);
@@ -37,13 +53,13 @@ __device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
 }
 
 // Partial sums of s_in (LANES rows of K values, row stride ldi, a multiple of 4)
-// times W (K rows of ld floats, ld a multiple of 4). The K rows are cut into
-// `parts` slices of a multiple of 8 rows; a thread owns four neighbouring columns
-// of one slice for all lanes:
+// times W (K rows of ld values, float or bfloat16, ld a multiple of 4). The K rows
+// are cut into `parts` slices of a multiple of 8 rows; a thread owns four
+// neighbouring columns of one slice for all lanes:
 //   s_part[(p * LANES + l) * ld + j] = sum over slice p of s_in[l][k] * W[k][j].
 // Returns `parts`. The caller synchronises, then adds the slices with gather().
-template <int LANES, int NT>
-__device__ __forceinline__ int dense_partial(const float* __restrict__ W, int ld, int K,
+template <int LANES, int NT, typename WT>
+__device__ __forceinline__ int dense_partial(const WT* __restrict__ W, int ld, int K,
                                              const float* s_in, int ldi, float* s_part,
                                              int tid) {
   const int nc4 = ld >> 2;
@@ -59,12 +75,15 @@ __device__ __forceinline__ int dense_partial(const float* __restrict__ W, int ld
     float4 acc[LANES];
 #pragma unroll
     for (int l = 0; l < LANES; ++l) acc[l] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float4* w4 = reinterpret_cast<const float4*>(W) + (size_t)k0 * nc4 + c;
+    // a pointer to whole groups of four (indexed by single values instead, the loop
+    // left fused_decode a quarter slower on an H100)
+    using Vec = typename Weights4<WT>::Vec;
+    const Vec* w4 = reinterpret_cast<const Vec*>(W) + (size_t)k0 * nc4 + c;
     int k = k0;
     for (; k + 8 <= k1; k += 8) {
       float4 w[8];
 #pragma unroll
-      for (int u = 0; u < 8; ++u) w[u] = __ldg(w4 + (size_t)u * nc4);
+      for (int u = 0; u < 8; ++u) w[u] = Weights4<WT>::values(__ldg(w4 + (size_t)u * nc4));
       w4 += (size_t)8 * nc4;
 #pragma unroll
       for (int l = 0; l < LANES; ++l) {
@@ -81,7 +100,7 @@ __device__ __forceinline__ int dense_partial(const float* __restrict__ W, int ld
       }
     }
     for (; k < k1; ++k) {
-      const float4 w = __ldg(w4);
+      const float4 w = Weights4<WT>::values(__ldg(w4));
       w4 += nc4;
 #pragma unroll
       for (int l = 0; l < LANES; ++l) fma4(acc[l], s_in[l * ldi + k], w);

@@ -1,4 +1,4 @@
-// The whole autoregressive decode loop of the flagship in one launch.
+// The whole autoregressive decode loop of the mel decoders in one launch.
 //
 // Replaces the Pallas kernel of self_attention_tacotron_tpu/ops/fused_decode.py
 // (_make_kernel / _run_fused). Per decoder step t this body computes, for every
@@ -21,6 +21,13 @@
 //
 // and leaves the loop at T steps or, with early_exit, as soon as every lane of
 // the launch has fired.
+//
+// The kernel is compiled four times, for two independent flags: DUAL (the two
+// sources above; without it the baseline's single forward attention, where Wqp is
+// the mechanism's own query layer, v has one column, A2 = E2 = 0 and there is no
+// second memory or alignment) and USE_SA (the self-attention block; without it the
+// output projection reads the feature h2 + h1 itself, there is no K/V cache, and
+// nothing in shared memory grows with T).
 //
 // What bounds it on an H100 is the serial chain of steps, not bytes or
 // operations: a step is a dozen dependent small products. The design is one
@@ -59,7 +66,8 @@ enum Entry {
   QKV_W, O_W, O_B, F1_W, F1_B, F2_W, F2_B, OUT_W, OUT_B, NUM_ENTRIES
 };
 
-// Sizes, flags and offsets (in floats), in the order the wrapper writes them.
+// Sizes, flags and offsets (in floats), in the order the wrapper writes them. The
+// widths name the specialisation: E2 > 0 two sources, SA > 0 the self-attention block.
 struct Dims {
   int B, S, T;
   int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2;
@@ -73,42 +81,47 @@ struct Scalars {
 
 struct Ptrs {
   const float* w;
-  const double* pe_rate;
+  const double* pe_rate;         // (SA,); a placeholder without self-attention
   const float* keys;             // (B, S, A1 + A2)
   const float* mem1;             // (B, S, E1)
-  const float* mem2;             // (B, S, E2)
+  const float* mem2;             // (B, S, E2); a placeholder with one source
   const float* bias;             // (B, S)
   const float* spk;              // (B, SPK) or null
   const unsigned char* mask1;    // (T, B, P1) or null
   const unsigned char* mask2;    // (T, B, P2) or null
-  float* kcache;                 // (B, SA, T4) scratch
-  float* vcache;                 // (B, T, SA) scratch
+  float* kcache;                 // (B, SA, T4) scratch; a placeholder without self-attention
+  float* vcache;                 // (B, T, SA) scratch; likewise
   float* frames;                 // (B, T, R * M)
   float* stops;                  // (B, T, R)
   float* align1;                 // (B, T, S)
-  float* align2;                 // (B, T, S)
+  float* align2;                 // (B, T, S); a placeholder with one source
   int* lengths;                  // (B,)
   unsigned char* finished;       // (B,)
   int* info;                     // [0] steps run, [1 + t] arrival counter of step t
 };
 
 // Offsets (in floats) of the arrays in dynamic shared memory. Every per-lane
-// array is LANES rows of r4(width) floats. The wrapper asks for this sum through
+// array is LANES rows of r4(width) floats; those of a stage a specialisation
+// does not have take no room. The wrapper asks for this sum through
 // fused_decode_smem_bytes below and keeps no copy of it.
 struct Layout {
   int part, feed, x1, attin, catt, f1, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, feat;
   int xs, xn, q, attn, y, logit, out, total;
 };
 
-__host__ __device__ inline Layout make_layout(const Dims& d) {
+// The kernel passes its compile-time flags; the host passes what the widths say
+// (E2 > 0, SA > 0). Read from the widths inside the kernel as well, the flagship's
+// instantiation ran 9 % slower on an H100, with the same registers and spills.
+__host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use_sa) {
   const int A = d.A1 + d.A2, OW = d.R * d.M + d.R, T4 = r4(d.T);
   const int KA = d.P2 + d.SPK + d.E1 + d.E2 + d.AU;
   const int KD1 = d.AU + d.E1 + d.E2 + d.DU;
+  const int sa = use_sa ? 1 : 0;   // without self-attention its arrays take no room
   int widest = imax(r4(d.P1), r4(d.P2));
   widest = imax(widest, imax(4 * d.AU, 4 * d.DU));
-  widest = imax(widest, imax(r4(A), 3 * d.SA));
-  widest = imax(widest, imax(r4(d.FFN), r4(OW)));
-  widest = imax(widest, imax(d.E1 + d.E2, d.H * T4));
+  widest = imax(widest, imax(r4(A), sa * 3 * d.SA));
+  widest = imax(widest, imax(sa * r4(d.FFN), r4(OW)));
+  widest = imax(widest, imax(d.E1 + d.E2, sa * d.H * T4));
   widest = r4(widest);
   Layout L;
   int at = 0;
@@ -117,10 +130,10 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.x1 = at;     at += LANES * r4(d.P1);
   L.attin = at;  at += LANES * r4(KA);
   L.catt = at;   at += LANES * r4(d.AU);
-  L.f1 = at;     at += LANES * r4(d.FFN);
+  L.f1 = at;     at += sa * LANES * r4(d.FFN);
   L.qp = at;     at += LANES * r4(A);
   L.e1 = at;     at += LANES * r4(d.S);
-  L.e2 = at;     at += LANES * r4(d.S);
+  L.e2 = at;     at += (dual ? 1 : 0) * LANES * r4(d.S);
   L.alpha1 = at; at += LANES * r4(d.S);
   L.tmp = at;    at += LANES * r4(d.S);
   L.din = at;    at += LANES * r4(KD1);
@@ -128,12 +141,12 @@ __host__ __device__ inline Layout make_layout(const Dims& d) {
   L.din2 = at;   at += LANES * r4(2 * d.DU);
   L.c2 = at;     at += LANES * r4(d.DU);
   L.feat = at;   at += LANES * r4(d.DU);
-  L.xs = at;     at += LANES * r4(d.SA);
-  L.xn = at;     at += LANES * r4(d.SA);
-  L.q = at;      at += LANES * r4(d.SA);
-  L.attn = at;   at += LANES * r4(d.SA);
-  L.y = at;      at += LANES * r4(d.SA);
-  L.logit = at;  at += LANES * r4(d.H * T4);
+  L.xs = at;     at += sa * LANES * r4(d.SA);
+  L.xn = at;     at += sa * LANES * r4(d.SA);
+  L.q = at;      at += sa * LANES * r4(d.SA);
+  L.attn = at;   at += sa * LANES * r4(d.SA);
+  L.y = at;      at += sa * LANES * r4(d.SA);
+  L.logit = at;  at += sa * LANES * r4(d.H * T4);
   L.out = at;    at += LANES * r4(OW);
   L.total = at;
   return L;
@@ -190,6 +203,7 @@ __device__ __forceinline__ void layer_norm(const float* s_x, float* s_y, int ldx
   }
 }
 
+template <bool DUAL, bool USE_SA>
 __global__ void __launch_bounds__(NT)
 fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   extern __shared__ float4 smem4[];
@@ -205,12 +219,12 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int B = d.B, S = d.S, T = d.T, T4 = r4(d.T);
   const int M = d.M, R = d.R, P1 = d.P1, P2 = d.P2, AU = d.AU, A1 = d.A1, DU = d.DU;
-  const int SA = d.SA, H = d.H, HD = d.SA / d.H, FFN = d.FFN, E1 = d.E1, E2 = d.E2;
+  const int SA = d.SA, H = d.H, HD = USE_SA ? d.SA / d.H : 1, FFN = d.FFN, E1 = d.E1, E2 = d.E2;
   const int A = d.A1 + d.A2, EW = d.E1 + d.E2, RM = d.R * d.M, OW = d.R * d.M + d.R;
   const int KA = P2 + d.SPK + EW + AU, KD1 = AU + EW + DU;
   const int nblocks = gridDim.x;
 
-  const Layout L = make_layout(d);
+  const Layout L = make_layout(d, DUAL, USE_SA);
   float* s_part = smem + L.part;
   float* s_feed = smem + L.feed;     const int ld_feed = r4(M);
   float* s_x1 = smem + L.x1;         const int ld_x1 = r4(P1);
@@ -311,20 +325,20 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
         float acc1 = 0.0f, acc2 = 0.0f;
         for (int a = lane; a < A; a += 32) {
           const float v = tanhf(__ldg(key + a) + s_qp[l * ld_a + a]) * __ldg(w + d.off[V_CAT] + a);
-          if (a < A1) acc1 += v; else acc2 += v;
+          if (!DUAL || a < A1) acc1 += v; else acc2 += v;
         }
         e1 = warp_sum(acc1) + bias;
-        e2 = warp_sum(acc2) + bias;
+        if (DUAL) e2 = warp_sum(acc2) + bias;
       }
       if (lane == 0) {
         s_e1[l * ld_s + s] = e1;
-        s_e2[l * ld_s + s] = e2;
+        if (DUAL) s_e2[l * ld_s + s] = e2;
       }
     }
     __syncthreads();
 
     // ------------------------------ alignments ---------------------------------
-    if (warp < 2 * LANES) {
+    if (warp < (DUAL ? 2 : 1) * LANES) {
       const int l = warp < LANES ? warp : warp - LANES;
       float* e = (warp < LANES ? s_e1 : s_e2) + l * ld_s;
       float m = -3.0e38f;
@@ -380,7 +394,7 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
         const int p = idx / G, g = idx - p * G;
         const int l = g / nc4, c = g - l * nc4;
         const int col = 4 * c;
-        const bool second = col >= E1;
+        const bool second = DUAL && col >= E1;
         const int width = second ? E2 : E1;
         const float* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
                                   : P.mem1 + (size_t)s_b[l] * S * E1 + col;
@@ -436,148 +450,158 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     __syncthreads();
 
     // ------------------------------ self-attention block -----------------------
-    parts = dense_partial<LANES, NT>(w + d.off[IN_W], r4(SA), DU, s_feat, ld_du, s_part, tid);
-    __syncthreads();
-    for (int i = tid; i < LANES * SA; i += NT) {
-      const int l = i / SA, j = i - l * SA;
-      const double angle = (double)t * P.pe_rate[j];
-      const float pe = (float)((j & 1) ? cos(angle) : sin(angle));
-      s_xs[l * ld_sa + j] = gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[IN_B] + j) + pe;
-    }
-    __syncthreads();
-    layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN1_S], w + d.off[LN1_B], sc.ln_eps, warp, lane);
-    __syncthreads();
-    parts = dense_partial<LANES, NT>(w + d.off[QKV_W], r4(3 * SA), SA, s_xn, ld_sa, s_part, tid);
-    __syncthreads();
-    for (int i = tid; i < LANES * 3 * SA; i += NT) {
-      const int l = i / (3 * SA), j = i - l * 3 * SA;
-      const float v = gather<LANES>(s_part, parts, r4(3 * SA), l, j);
-      if (j < SA) {
-        s_q[l * ld_sa + j] = v / sc.sqrt_hd;
-      } else if (s_valid[l]) {
-        if (j < 2 * SA) P.kcache[((size_t)s_b[l] * SA + (j - SA)) * T4 + t] = v;
-        else P.vcache[((size_t)s_b[l] * T + t) * SA + (j - 2 * SA)] = v;
-      }
-    }
-    __syncthreads();
-    // logits[l][h][p] = sum_d q[l][h][d] * K[b][h][d][p] for p <= t, four positions a thread
-    {
-      const int n4 = (t + 4) >> 2, G = LANES * H * n4;
-      int lparts = imax(1, imin(NT / G, (HD + 7) / 8));
-      const int chunk = (HD + lparts - 1) / lparts;
-      lparts = (HD + chunk - 1) / chunk;
-      const int t4 = T4 >> 2;
-      for (int idx = tid; idx < lparts * G; idx += NT) {
-        const int p = idx / G, g = idx - p * G;
-        const int lh = g / n4, p4 = g - lh * n4;
-        const int l = lh / H, h = lh - l * H;
-        const int d0 = p * chunk, d1 = imin(d0 + chunk, HD);
-        const float4* kp =
-            reinterpret_cast<const float4*>(P.kcache + ((size_t)s_b[l] * SA + h * HD + d0) * T4) + p4;
-        const float* q = s_q + l * ld_sa + h * HD;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        int dd = d0;
-        for (; dd + 8 <= d1; dd += 8) {
-          float4 k[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) k[u] = __ldcg(kp + (size_t)u * t4);
-          kp += (size_t)8 * t4;
-#pragma unroll
-          for (int u = 0; u < 8; ++u) fma4(acc, q[dd + u], k[u]);
-        }
-        for (; dd < d1; ++dd) {
-          fma4(acc, q[dd], __ldcg(kp));
-          kp += t4;
-        }
-        *reinterpret_cast<float4*>(s_part + (size_t)p * G * 4 + g * 4) = acc;
-      }
-      __syncthreads();
-      for (int pair = warp; pair < LANES * H; pair += NWARPS) {
-        float* row = s_logit + (pair / H) * ld_logit + (pair % H) * T4;
-        float m = -3.0e38f;
-        for (int p = lane; p <= t; p += 32) {
-          float v = 0.0f;
-          for (int pp = 0; pp < lparts; ++pp) v += s_part[(size_t)pp * G * 4 + pair * n4 * 4 + p];
-          row[p] = v;
-          m = fmaxf(m, v);
-        }
-        m = warp_max(m);
-        float sum = 0.0f;
-        for (int p = lane; p <= t; p += 32) {
-          const float v = expf(row[p] - m);
-          row[p] = v;
-          sum += v;
-        }
-        sum = warp_sum(sum);
-        for (int p = lane; p <= t; p += 32) row[p] = row[p] / sum;
-      }
-      __syncthreads();
-    }
-    // attn[l][col] = sum_{p <= t} probs[l][head(col)][p] * V[b][p][col]
-    {
-      const int nc4 = SA >> 2, G = LANES * nc4, n = t + 1;
-      int vparts = imax(1, imin(NT / G, (n + 7) / 8));
-      const int chunk = (n + vparts - 1) / vparts;
-      vparts = (n + chunk - 1) / chunk;
-      for (int idx = tid; idx < vparts * G; idx += NT) {
-        const int p = idx / G, g = idx - p * G;
-        const int l = g / nc4, c = g - l * nc4;
-        const int h = (4 * c) / HD;
-        const int p0 = p * chunk, p1 = imin(p0 + chunk, n);
-        const float4* vp =
-            reinterpret_cast<const float4*>(P.vcache + ((size_t)s_b[l] * T + p0) * SA) + c;
-        const float* pr = s_logit + l * ld_logit + h * T4;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        int pos = p0;
-        for (; pos + 8 <= p1; pos += 8) {
-          float4 v[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) v[u] = __ldcg(vp + (size_t)u * nc4);
-          vp += (size_t)8 * nc4;
-#pragma unroll
-          for (int u = 0; u < 8; ++u) fma4(acc, pr[pos + u], v[u]);
-        }
-        for (; pos < p1; ++pos) {
-          fma4(acc, pr[pos], __ldcg(vp));
-          vp += nc4;
-        }
-        *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * SA + 4 * c) = acc;
-      }
+    if (USE_SA) {
+      parts = dense_partial<LANES, NT>(w + d.off[IN_W], r4(SA), DU, s_feat, ld_du, s_part, tid);
       __syncthreads();
       for (int i = tid; i < LANES * SA; i += NT) {
         const int l = i / SA, j = i - l * SA;
-        s_attn[l * ld_sa + j] = gather<LANES>(s_part, vparts, SA, l, j);
+        const double angle = (double)t * P.pe_rate[j];
+        const float pe = (float)((j & 1) ? cos(angle) : sin(angle));
+        s_xs[l * ld_sa + j] =
+            gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[IN_B] + j) + pe;
       }
       __syncthreads();
-    }
-    parts = dense_partial<LANES, NT>(w + d.off[O_W], r4(SA), SA, s_attn, ld_sa, s_part, tid);
-    __syncthreads();
-    for (int i = tid; i < LANES * SA; i += NT) {
-      const int l = i / SA, j = i - l * SA;
-      s_xs[l * ld_sa + j] += gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[O_B] + j);
-    }
-    __syncthreads();
-    layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN2_S], w + d.off[LN2_B], sc.ln_eps, warp, lane);
-    __syncthreads();
-    parts = dense_partial<LANES, NT>(w + d.off[F1_W], r4(FFN), SA, s_xn, ld_sa, s_part, tid);
-    __syncthreads();
-    for (int i = tid; i < LANES * FFN; i += NT) {
-      const int l = i / FFN, j = i - l * FFN;
-      s_f1[l * ld_f1 + j] =
-          fmaxf(gather<LANES>(s_part, parts, r4(FFN), l, j) + __ldg(w + d.off[F1_B] + j), 0.0f);
-    }
-    __syncthreads();
-    parts = dense_partial<LANES, NT>(w + d.off[F2_W], r4(SA), FFN, s_f1, ld_f1, s_part, tid);
-    __syncthreads();
-    for (int i = tid; i < LANES * SA; i += NT) {
-      const int l = i / SA, j = i - l * SA;
-      s_y[l * ld_sa + j] =
-          s_xs[l * ld_sa + j] + gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[F2_B] + j);
-    }
-    __syncthreads();
+      layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN1_S], w + d.off[LN1_B], sc.ln_eps, warp, lane);
+      __syncthreads();
+      parts = dense_partial<LANES, NT>(w + d.off[QKV_W], r4(3 * SA), SA, s_xn, ld_sa, s_part, tid);
+      __syncthreads();
+      for (int i = tid; i < LANES * 3 * SA; i += NT) {
+        const int l = i / (3 * SA), j = i - l * 3 * SA;
+        const float v = gather<LANES>(s_part, parts, r4(3 * SA), l, j);
+        if (j < SA) {
+          s_q[l * ld_sa + j] = v / sc.sqrt_hd;
+        } else if (s_valid[l]) {
+          if (j < 2 * SA) P.kcache[((size_t)s_b[l] * SA + (j - SA)) * T4 + t] = v;
+          else P.vcache[((size_t)s_b[l] * T + t) * SA + (j - 2 * SA)] = v;
+        }
+      }
+      __syncthreads();
+      // logits[l][h][p] = sum_d q[l][h][d] * K[b][h][d][p] for p <= t, four positions a thread
+      {
+        const int n4 = (t + 4) >> 2, G = LANES * H * n4;
+        int lparts = imax(1, imin(NT / G, (HD + 7) / 8));
+        const int chunk = (HD + lparts - 1) / lparts;
+        lparts = (HD + chunk - 1) / chunk;
+        const int t4 = T4 >> 2;
+        for (int idx = tid; idx < lparts * G; idx += NT) {
+          const int p = idx / G, g = idx - p * G;
+          const int lh = g / n4, p4 = g - lh * n4;
+          const int l = lh / H, h = lh - l * H;
+          const int d0 = p * chunk, d1 = imin(d0 + chunk, HD);
+          const float4* kp =
+              reinterpret_cast<const float4*>(P.kcache + ((size_t)s_b[l] * SA + h * HD + d0) * T4) +
+              p4;
+          const float* q = s_q + l * ld_sa + h * HD;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+          int dd = d0;
+          for (; dd + 8 <= d1; dd += 8) {
+            float4 k[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) k[u] = __ldcg(kp + (size_t)u * t4);
+            kp += (size_t)8 * t4;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) fma4(acc, q[dd + u], k[u]);
+          }
+          for (; dd < d1; ++dd) {
+            fma4(acc, q[dd], __ldcg(kp));
+            kp += t4;
+          }
+          *reinterpret_cast<float4*>(s_part + (size_t)p * G * 4 + g * 4) = acc;
+        }
+        __syncthreads();
+        for (int pair = warp; pair < LANES * H; pair += NWARPS) {
+          float* row = s_logit + (pair / H) * ld_logit + (pair % H) * T4;
+          float m = -3.0e38f;
+          for (int p = lane; p <= t; p += 32) {
+            float v = 0.0f;
+            for (int pp = 0; pp < lparts; ++pp) v += s_part[(size_t)pp * G * 4 + pair * n4 * 4 + p];
+            row[p] = v;
+            m = fmaxf(m, v);
+          }
+          m = warp_max(m);
+          float sum = 0.0f;
+          for (int p = lane; p <= t; p += 32) {
+            const float v = expf(row[p] - m);
+            row[p] = v;
+            sum += v;
+          }
+          sum = warp_sum(sum);
+          for (int p = lane; p <= t; p += 32) row[p] = row[p] / sum;
+        }
+        __syncthreads();
+      }
+      // attn[l][col] = sum_{p <= t} probs[l][head(col)][p] * V[b][p][col]
+      {
+        const int nc4 = SA >> 2, G = LANES * nc4, n = t + 1;
+        int vparts = imax(1, imin(NT / G, (n + 7) / 8));
+        const int chunk = (n + vparts - 1) / vparts;
+        vparts = (n + chunk - 1) / chunk;
+        for (int idx = tid; idx < vparts * G; idx += NT) {
+          const int p = idx / G, g = idx - p * G;
+          const int l = g / nc4, c = g - l * nc4;
+          const int h = (4 * c) / HD;
+          const int p0 = p * chunk, p1 = imin(p0 + chunk, n);
+          const float4* vp =
+              reinterpret_cast<const float4*>(P.vcache + ((size_t)s_b[l] * T + p0) * SA) + c;
+          const float* pr = s_logit + l * ld_logit + h * T4;
+          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+          int pos = p0;
+          for (; pos + 8 <= p1; pos += 8) {
+            float4 v[8];
+#pragma unroll
+            for (int u = 0; u < 8; ++u) v[u] = __ldcg(vp + (size_t)u * nc4);
+            vp += (size_t)8 * nc4;
+#pragma unroll
+            for (int u = 0; u < 8; ++u) fma4(acc, pr[pos + u], v[u]);
+          }
+          for (; pos < p1; ++pos) {
+            fma4(acc, pr[pos], __ldcg(vp));
+            vp += nc4;
+          }
+          *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * SA + 4 * c) = acc;
+        }
+        __syncthreads();
+        for (int i = tid; i < LANES * SA; i += NT) {
+          const int l = i / SA, j = i - l * SA;
+          s_attn[l * ld_sa + j] = gather<LANES>(s_part, vparts, SA, l, j);
+        }
+        __syncthreads();
+      }
+      parts = dense_partial<LANES, NT>(w + d.off[O_W], r4(SA), SA, s_attn, ld_sa, s_part, tid);
+      __syncthreads();
+      for (int i = tid; i < LANES * SA; i += NT) {
+        const int l = i / SA, j = i - l * SA;
+        s_xs[l * ld_sa + j] +=
+            gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[O_B] + j);
+      }
+      __syncthreads();
+      layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN2_S], w + d.off[LN2_B], sc.ln_eps, warp, lane);
+      __syncthreads();
+      parts = dense_partial<LANES, NT>(w + d.off[F1_W], r4(FFN), SA, s_xn, ld_sa, s_part, tid);
+      __syncthreads();
+      for (int i = tid; i < LANES * FFN; i += NT) {
+        const int l = i / FFN, j = i - l * FFN;
+        s_f1[l * ld_f1 + j] =
+            fmaxf(gather<LANES>(s_part, parts, r4(FFN), l, j) + __ldg(w + d.off[F1_B] + j), 0.0f);
+      }
+      __syncthreads();
+      parts = dense_partial<LANES, NT>(w + d.off[F2_W], r4(SA), FFN, s_f1, ld_f1, s_part, tid);
+      __syncthreads();
+      for (int i = tid; i < LANES * SA; i += NT) {
+        const int l = i / SA, j = i - l * SA;
+        s_y[l * ld_sa + j] =
+            s_xs[l * ld_sa + j] + gather<LANES>(s_part, parts, r4(SA), l, j) +
+            __ldg(w + d.off[F2_B] + j);
+      }
+      __syncthreads();
+
+    }  // USE_SA
 
     // ------------------------------ output rows --------------------------------
-    parts = dense_partial<LANES, NT>(w + d.off[OUT_W], r4(OW), SA, s_y, ld_sa, s_part, tid);
+    // from the block's output, or without self-attention from the feature itself
+    parts = USE_SA
+        ? dense_partial<LANES, NT>(w + d.off[OUT_W], r4(OW), SA, s_y, ld_sa, s_part, tid)
+        : dense_partial<LANES, NT>(w + d.off[OUT_W], r4(OW), DU, s_feat, ld_du, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * OW; i += NT) {
       const int l = i / OW, j = i - l * OW;
@@ -637,11 +661,24 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
 }
 
 bool sizes_ok(const Dims& d) {
-  const int* v = &d.B;
-  for (int i = 0; i < 17; ++i)
-    if (v[i] <= 0 && i != 7) return false;   // every size but SPK is positive
-  return d.SPK >= 0 && d.E1 % 4 == 0 && d.E2 % 4 == 0 && d.SA % d.H == 0 &&
-         (d.SA / d.H) % 4 == 0 && (d.B + LANES - 1) / LANES <= 0xffff;
+  if (d.B <= 0 || d.S <= 0 || d.T <= 0 || d.M <= 0 || d.R <= 0 || d.P1 <= 0 || d.P2 <= 0 ||
+      d.SPK < 0 || d.AU <= 0 || d.A1 <= 0 || d.DU <= 0 || d.E1 <= 0 || d.E1 % 4 != 0 ||
+      (d.B + LANES - 1) / LANES > 0xffff)
+    return false;
+  // two sources (E2 > 0): a second mechanism and memory; one source: neither
+  const bool sources = (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
+  const bool block = d.SA == 0 ||
+                     (d.SA > 0 && d.H > 0 && d.FFN > 0 && d.SA % d.H == 0 && (d.SA / d.H) % 4 == 0);
+  return sources && block;
+}
+
+using Kernel = void (*)(const Ptrs, const Dims, const Scalars);
+
+// The kernel compiled for the specialisation of `d`'s widths.
+Kernel kernel_for(const Dims& d) {
+  const bool dual = d.E2 > 0, use_sa = d.SA > 0;
+  if (dual) return use_sa ? fused_decode_kernel<true, true> : fused_decode_kernel<true, false>;
+  return use_sa ? fused_decode_kernel<false, true> : fused_decode_kernel<false, false>;
 }
 
 }  // namespace
@@ -652,19 +689,21 @@ extern "C" {
 long long fused_decode_smem_bytes(const int* dims) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
-  return (long long)make_layout(d).total * (long long)sizeof(float);
+  return (long long)make_layout(d, d.E2 > 0, d.SA > 0).total * (long long)sizeof(float);
 }
 
-// Dynamic shared memory one block of this kernel may have on the current device,
-// in bytes: what a block can opt in to, less what the kernel declares statically.
-// Negative: minus the CUDA error code.
-long long fused_decode_smem_limit() {
+// Dynamic shared memory one block of the kernel (of the specialisation `dims`
+// names) may have on the current device, in bytes: what a block can opt in to,
+// less what the kernel declares statically. Negative: minus the CUDA error code.
+long long fused_decode_smem_limit(const int* dims) {
+  Dims d;
+  std::memcpy(&d, dims, sizeof(Dims));
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fused_decode_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kernel_for(d));
   if (err != cudaSuccess) return -(long long)err;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
@@ -681,6 +720,9 @@ int fused_decode_f32(const void* w, const void* pe_rate, const void* keys, const
   if (!sizes_ok(d)) return (int)cudaErrorInvalidValue;
   if (d.use_masks && (mask1 == nullptr || mask2 == nullptr)) return (int)cudaErrorInvalidValue;
   if (d.SPK > 0 && spk == nullptr) return (int)cudaErrorInvalidValue;
+  if (d.E2 > 0 && (mem2 == nullptr || align2 == nullptr)) return (int)cudaErrorInvalidValue;
+  if (d.SA > 0 && (pe_rate == nullptr || kcache == nullptr || vcache == nullptr))
+    return (int)cudaErrorInvalidValue;
   Ptrs P;
   P.w = (const float*)w;
   P.pe_rate = (const double*)pe_rate;
@@ -701,8 +743,9 @@ int fused_decode_f32(const void* w, const void* pe_rate, const void* keys, const
   P.finished = (unsigned char*)finished;
   P.info = (int*)info;
 
-  const size_t smem = (size_t)make_layout(d).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(fused_decode_kernel,
+  const Kernel kernel = kernel_for(d);
+  const size_t smem = (size_t)make_layout(d, d.E2 > 0, d.SA > 0).total * sizeof(float);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + LANES - 1) / LANES);
@@ -710,11 +753,11 @@ int fused_decode_f32(const void* w, const void* pe_rate, const void* keys, const
     // the per-step exit agreement needs every block resident: a launch that
     // cannot have that is refused here instead of waiting forever
     void* args[] = {(void*)&P, (void*)&d, (void*)&sc};
-    err = cudaLaunchCooperativeKernel((const void*)fused_decode_kernel, grid, dim3(NT), args, smem,
+    err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), args, smem,
                                       (cudaStream_t)stream);
     if (err != cudaSuccess) return (int)err;
   } else {
-    fused_decode_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(P, d, sc);
+    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(P, d, sc);
   }
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,11 @@
 //   source 2: a2 = softmax(e2);  contexts ctx_i = a_i . memory_i
 //   two ZoneoutLSTMs, feature = h1 + h2
 //
+// Both kernels are compiled twice, for DUAL (the two sources above) and for one
+// source, the baseline's single forward attention: there Wqp is the mechanism's
+// own query layer, vblk has one column, and there is no second key, memory,
+// context or alignment (E2 = A2 = 0, alignment rows of S instead of 2S).
+//
 // Zoneout keeps the previous state where a keep mask says so. In training the
 // mask of (step, draw, lane, unit) is a counter-based hash (murmur3 finalizer)
 // of the seed, so that the backward regenerates it and nothing random is stored;
@@ -97,15 +102,15 @@ struct Ptrs {
   const float* bias;      // (B, S)
   const float* spk;       // (B, SPK) or null
   float* features;        // (B, N, DU)
-  float* aligns;          // (B, N, 2S)
+  float* aligns;          // (B, N, 2S), (B, N, S) with one source
   float* carry;           // (B, N, CW)
   float* acts;            // (B, N, AW)
   // backward only
   const float* g_feat;    // (B, N, DU)
-  const float* g_align;   // (B, N, 2S) or null
+  const float* g_align;   // as aligns, or null
   float* stack;           // (B, N, SW)
   float* d_keys;          // (B, S, A1 + A2), zero on entry
-  float* d_vblk;          // (B, 2, A1 + A2) one partial per lane
+  float* d_vblk;          // (B, 2 or 1, A1 + A2) one partial per lane
   float* d_spk;           // (B, SPK), zero on entry
   float* d_brow;          // (B, SW), zero on entry
 };
@@ -216,8 +221,10 @@ __device__ __forceinline__ void lstm_forward(const float* s_part, int parts, int
   }
 }
 
+template <bool DUAL>
 __global__ void __launch_bounds__(NT)
 teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits) {
+  constexpr int NSRC = DUAL ? 2 : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_b[LANES];       // global lane, clamped into the batch
@@ -247,7 +254,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
 
   const float* w = P.w;
   const float* v1 = w + d.off[VBLK];
-  const float* v2 = v1 + r4(A);
+  const float* v2 = v1 + r4(A);   // read only with DUAL
 
   // ------------------------------ initial state ------------------------------
   for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
@@ -312,20 +319,20 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         for (int a = lane; a < A; a += 32) {
           const float tq = tanhf(__ldg(key + a) + s_qp[l * ld_a + a]);
           acc1 = fmaf(tq, __ldg(v1 + a), acc1);
-          acc2 = fmaf(tq, __ldg(v2 + a), acc2);
+          if (DUAL) acc2 = fmaf(tq, __ldg(v2 + a), acc2);
         }
         e1 = warp_sum(acc1) + bias;
-        e2 = warp_sum(acc2) + bias;
+        if (DUAL) e2 = warp_sum(acc2) + bias;
       }
       if (lane == 0) {
         s_e1[l * ld_s + s] = e1;
-        s_e2[l * ld_s + s] = e2;
+        if (DUAL) s_e2[l * ld_s + s] = e2;
       }
     }
     __syncthreads();
 
     // ------------------------------ alignments ---------------------------------
-    if (warp < 2 * LANES) {
+    if (warp < NSRC * LANES) {
       const int l = warp < LANES ? warp : warp - LANES;
       const size_t row = (size_t)s_b[l] * N + t;
       float* e = (warp < LANES ? s_e1 : s_e2) + l * ld_s;
@@ -359,7 +366,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
           const float v = hat[s] / total;
           prev[s] = v;
           if (s_valid[l]) {
-            P.aligns[row * 2 * S + s] = v;
+            P.aligns[row * NSRC * S + s] = v;
             P.carry[row * d.CW + d.carry[C_ALPHA] + s] = v;
           }
         }
@@ -368,7 +375,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
           const float v = e[s] / sum;
           e[s] = v;
           if (s_valid[l]) {
-            P.aligns[row * 2 * S + S + s] = v;
+            P.aligns[row * NSRC * S + S + s] = v;
             P.acts[row * d.AW + d.acts[A_ALPHA2] + s] = v;
           }
         }
@@ -387,7 +394,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         const int p = idx / G, g = idx - p * G;
         const int l = g / nc4, c = g - l * nc4;
         const int col = 4 * c;
-        const bool second = col >= E1;
+        const bool second = DUAL && col >= E1;
         const int width = second ? E2 : E1;
         const float* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
                                   : P.mem1 + (size_t)s_b[l] * S * E1 + col;
@@ -417,7 +424,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         if (s_valid[l]) {
           const size_t row = (size_t)s_b[l] * N + t;
           if (j < E1) P.carry[row * d.CW + d.carry[C_CTX1] + j] = v;
-          else P.carry[row * d.CW + d.carry[C_CTX2] + (j - E1)] = v;
+          else if (DUAL) P.carry[row * d.CW + d.carry[C_CTX2] + (j - E1)] = v;
         }
       }
       __syncthreads();
@@ -550,8 +557,10 @@ __device__ __forceinline__ void lstm_backward(int U, float* s_gc, float* s_gh, i
   }
 }
 
+template <bool DUAL>
 __global__ void __launch_bounds__(NT)
 teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits) {
+  constexpr int NSRC = DUAL ? 2 : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_b[LANES];
@@ -593,7 +602,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
 
   const float* w = P.w;
   const float* v1 = w + d.off[VBLK];
-  const float* v2 = v1 + r4(A);
+  const float* v2 = v1 + r4(A);   // read only with DUAL
 
   for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
   if (tid < LANES) {
@@ -622,7 +631,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const size_t row = (size_t)s_b[l] * N + t;
       const float* acts = P.acts + row * d.AW;
       s_y1[l * ld_s + s] = acts[d.acts[A_Y1] + s];
-      s_a2[l * ld_s + s] = acts[d.acts[A_ALPHA2] + s];
+      if (DUAL) s_a2[l * ld_s + s] = acts[d.acts[A_ALPHA2] + s];
       s_a1[l * ld_s + s] = P.carry[row * d.CW + d.carry[C_ALPHA] + s];
       s_aprev[l * ld_s + s] =
           t > 0 ? P.carry[(row - 1) * d.CW + d.carry[C_ALPHA] + s] : (s == 0 ? 1.0f : 0.0f);
@@ -714,16 +723,18 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       float acc1 = 0.0f, acc2 = 0.0f;
       if (s < s_hi[l]) {
         const float* m1 = P.mem1 + ((size_t)s_b[l] * S + s) * E1;
-        const float* m2 = P.mem2 + ((size_t)s_b[l] * S + s) * E2;
         const float* g = s_gctx + l * ld_ew;
         for (int e = lane; e < E1; e += 32) acc1 = fmaf(g[e], __ldg(m1 + e), acc1);
-        for (int e = lane; e < E2; e += 32) acc2 = fmaf(g[E1 + e], __ldg(m2 + e), acc2);
         acc1 = warp_sum(acc1);
-        acc2 = warp_sum(acc2);
+        if (DUAL) {
+          const float* m2 = P.mem2 + ((size_t)s_b[l] * S + s) * E2;
+          for (int e = lane; e < E2; e += 32) acc2 = fmaf(g[E1 + e], __ldg(m2 + e), acc2);
+          acc2 = warp_sum(acc2);
+        }
         if (P.g_align != nullptr) {
-          const float* ga = P.g_align + ((size_t)s_b[l] * N + t) * 2 * S;
+          const float* ga = P.g_align + ((size_t)s_b[l] * N + t) * NSRC * S;
           acc1 += ga[s];
-          acc2 += ga[S + s];
+          if (DUAL) acc2 += ga[S + s];
         }
         acc1 += s_galpha[l * ld_s + s];
       }
@@ -735,7 +746,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     __syncthreads();
 
     // ------------------------------ recursion and softmax adjoints -------------
-    if (warp < 2 * LANES) {
+    if (warp < NSRC * LANES) {
       const int l = warp < LANES ? warp : warp - LANES;
       if (warp < LANES) {
         const float u = s_uprev[l];
@@ -792,7 +803,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const int l = pair / A, a = pair - l * A;
       const size_t b = (size_t)s_b[l];
       const float q = s_qp[l * ld_a + a];
-      const float va = __ldg(v1 + a), vb = __ldg(v2 + a);
+      const float va = __ldg(v1 + a), vb = DUAL ? __ldg(v2 + a) : 0.0f;
       const float* bias = P.bias + b * S;
       const float* key = P.keys + b * S * A + a;
       float* dk = P.d_keys + b * S * A + a;
@@ -805,7 +816,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       for (int s = 0; s < hi; ++s) {
         if (__ldg(bias + s) <= -1e8f) continue;
         const float tq = tanhf(__ldg(key + (size_t)s * A) + q);
-        const float g1 = ge1[s], g2 = ge2[s];
+        const float g1 = ge1[s], g2 = DUAL ? ge2[s] : 0.0f;
         const float g_pre = (g1 * va + g2 * vb) * (1.0f - tq * tq);
         if (valid) dk[(size_t)s * A] += g_pre;
         g_q += g_pre;
@@ -813,8 +824,8 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         d2 = fmaf(g2, tq, d2);
       }
       s_gqp[l * ld_a + a] = g_q;
-      s_dv[(l * 2) * ld_a + a] += d1;
-      s_dv[(l * 2 + 1) * ld_a + a] += d2;
+      s_dv[(l * NSRC) * ld_a + a] += d1;
+      if (DUAL) s_dv[(l * NSRC + 1) * ld_a + a] += d2;
       if (valid) {
         const size_t at = (b * N + t) * d.SW + d.stack[G_QP] + a;
         P.stack[at] = g_q;
@@ -856,18 +867,19 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     __syncthreads();
   }
 
-  for (int i = tid; i < LANES * 2 * A; i += NT) {
-    const int l = i / (2 * A), j = i - l * 2 * A;
+  for (int i = tid; i < LANES * NSRC * A; i += NT) {
+    const int l = i / (NSRC * A), j = i - l * NSRC * A;
     if (s_valid[l])
-      P.d_vblk[(size_t)s_b[l] * 2 * A + j] = s_dv[(l * 2 + j / A) * ld_a + (j % A)];
+      P.d_vblk[(size_t)s_b[l] * NSRC * A + j] = s_dv[(l * NSRC + j / A) * ld_a + (j % A)];
   }
 }
 
 bool sizes_ok(const Dims& d) {
-  const int* v = &d.B;
-  for (int i = 0; i < 11; ++i)
-    if (v[i] <= 0 && i != 4) return false;   // every size but SPK is positive
-  return d.SPK >= 0 && d.E1 % 4 == 0 && d.E2 % 4 == 0;
+  if (d.B <= 0 || d.S <= 0 || d.N <= 0 || d.P2 <= 0 || d.AU <= 0 || d.A1 <= 0 || d.DU <= 0 ||
+      d.E1 <= 0 || d.SPK < 0 || d.E1 % 4 != 0)
+    return false;
+  // two sources (E2 > 0): a second mechanism and memory; one source: neither
+  return (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
 }
 
 Ptrs make_ptrs(const void* const* p, const Dims& d) {
@@ -893,9 +905,18 @@ Ptrs make_ptrs(const void* const* p, const Dims& d) {
   return P;
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, size_t smem, const void* const* pointers, const int* dims,
-           const float* scalars, const unsigned* bits, void* stream) {
+using Kernel = void (*)(const Ptrs, const Dims, const Scalars, const Bits);
+
+// The kernel of one direction compiled for the specialisation of `d`'s widths:
+// a second memory (E2 > 0) means two sources.
+Kernel kernel_for(const Dims& d, bool backward) {
+  const bool dual = d.E2 > 0;
+  if (backward) return dual ? teacher_bwd_kernel<true> : teacher_bwd_kernel<false>;
+  return dual ? teacher_fwd_kernel<true> : teacher_fwd_kernel<false>;
+}
+
+int launch(bool backward, const void* const* pointers, const int* dims, const float* scalars,
+           const unsigned* bits, void* stream) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
   Scalars sc;
@@ -904,9 +925,13 @@ int launch(Kernel kernel, size_t smem, const void* const* pointers, const int* d
   std::memcpy(&bt, bits, sizeof(Bits));
   if (!sizes_ok(d)) return (int)cudaErrorInvalidValue;
   if (d.SPK > 0 && pointers[6] == nullptr) return (int)cudaErrorInvalidValue;
+  if (d.E2 > 0 && pointers[4] == nullptr) return (int)cudaErrorInvalidValue;
   const Ptrs P = make_ptrs(pointers, d);
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int total = backward ? make_bwd_layout(d).total : make_fwd_layout(d).total;
+  const size_t smem = (size_t)total * sizeof(float);
+  const Kernel kernel = kernel_for(d, backward);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((d.B + LANES - 1) / LANES);
   kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(P, d, sc, bt);
@@ -926,38 +951,33 @@ long long fused_teacher_smem_bytes(const int* dims, int backward) {
   return (long long)total * (long long)sizeof(float);
 }
 
-// Dynamic shared memory one block of the kernel may have on the current device,
-// in bytes: what a block can opt in to, less what the kernel declares statically.
-// Negative: minus the CUDA error code.
-long long fused_teacher_smem_limit(int backward) {
+// Dynamic shared memory one block of the kernel (of the specialisation `dims`
+// names) may have on the current device, in bytes: what a block can opt in to,
+// less what the kernel declares statically. Negative: minus the CUDA error code.
+long long fused_teacher_smem_limit(const int* dims, int backward) {
+  Dims d;
+  std::memcpy(&d, dims, sizeof(Dims));
   int device = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess)
-    err = backward ? cudaFuncGetAttributes(&attr, teacher_bwd_kernel)
-                   : cudaFuncGetAttributes(&attr, teacher_fwd_kernel);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kernel_for(d, backward));
   if (err != cudaSuccess) return -(long long)err;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
 
 // `pointers`: 18 device pointers in the order of make_ptrs (host array); the
-// forward reads the first 11, null for the rest.
+// forward reads the first 11, null for the rest. With one source pointers[4]
+// (the second memory) is a placeholder that is never read.
 int fused_teacher_fwd_f32(const void* const* pointers, const int* dims, const float* scalars,
                           const unsigned* bits, void* stream) {
-  Dims d;
-  std::memcpy(&d, dims, sizeof(Dims));
-  return launch(teacher_fwd_kernel, (size_t)make_fwd_layout(d).total * sizeof(float), pointers,
-                dims, scalars, bits, stream);
+  return launch(false, pointers, dims, scalars, bits, stream);
 }
 
 int fused_teacher_bwd_f32(const void* const* pointers, const int* dims, const float* scalars,
                           const unsigned* bits, void* stream) {
-  Dims d;
-  std::memcpy(&d, dims, sizeof(Dims));
-  return launch(teacher_bwd_kernel, (size_t)make_bwd_layout(d).total * sizeof(float), pointers,
-                dims, scalars, bits, stream);
+  return launch(true, pointers, dims, scalars, bits, stream);
 }
 
 }  // extern "C"

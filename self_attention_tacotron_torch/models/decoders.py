@@ -1,10 +1,11 @@
-"""Autoregressive attention decoder (dual-source, with decoder self-attention).
+"""Autoregressive attention decoder: single or dual source, with or without self-attention.
 
-Counterpart of ``self_attention_tacotron_tpu/models/decoders.py`` for the
-flagship's ``DualSourceSelfAttentionDecoder``: prenet -> attention LSTM ->
-attention mechanism(s) -> decoder ZoneoutLSTM stack per step, then the output
-head with its K/V-cached self-attention block. All recurrence state is carried
-explicitly in :class:`DecoderState`.
+Counterpart of ``self_attention_tacotron_tpu/models/decoders.py`` for the four
+mel decoders (``ExtendedDecoder``, ``SelfAttentionDecoder``,
+``DualSourceDecoder``, ``DualSourceSelfAttentionDecoder``): prenet -> attention
+LSTM -> attention mechanism(s) -> decoder ZoneoutLSTM stack per step, then the
+output head, with a K/V-cached self-attention block where the decoder has one.
+All recurrence state is carried explicitly in :class:`DecoderState`.
 
 ``forward(cond, targets)`` is the teacher-forced pass of training and
 evaluation. On a CUDA device, with ``use_pallas`` and a decoder of the family
@@ -312,13 +313,20 @@ class Decoder(nn.Module):
         return torch.cat([go, prev], dim=1)
 
     def fused_teacher_supported(self) -> bool:
-        """Whether this decoder is of the family the teacher kernels serve."""
+        """Whether this decoder is of the family the teacher kernels serve: forward
+        attention on source 1, and on source 2, where there is one, additive."""
         mechs = self.attentions
+        if len(mechs) == 1:
+            sources_ok = mechs[0].query_layer is not None
+        else:
+            sources_ok = (
+                len(mechs) == 2
+                and isinstance(mechs[1], AdditiveAttention)
+                and self.query_projection is not None
+            )
         return (
-            len(mechs) == 2
+            sources_ok
             and isinstance(mechs[0], ForwardAttention)
-            and isinstance(mechs[1], AdditiveAttention)
-            and self.query_projection is not None
             and len(self.prenet.out_units) == 2
             and self.num_decoder_layers == 2
             and all(u % 4 == 0 for u in self.memory_units)
@@ -326,11 +334,13 @@ class Decoder(nn.Module):
         )
 
     def _teacher_hp_like(self) -> Dict:
-        mech1, mech2 = self.attentions
+        mech1 = self.attentions[0]
+        dual = self.num_attentions == 2
         return dict(
-            dual=True, use_ta=mech1.transition_factor is not None,
+            dual=dual, use_ta=mech1.transition_factor is not None,
             att_units=self.attention_rnn_out_units, att1_units=mech1.num_units,
-            att2_units=mech2.num_units, dec_units=self.decoder_out_units,
+            att2_units=self.attentions[1].num_units if dual else 0,
+            dec_units=self.decoder_out_units,
             zoneout_cell=self.attention_lstm.zoneout_factor_cell,
             zoneout_output=self.attention_lstm.zoneout_factor_output,
             forget_bias=self.attention_lstm.forget_bias,
@@ -339,11 +349,15 @@ class Decoder(nn.Module):
         )
 
     def teacher_operands(self, cond: DecoderConditioning) -> Dict:
-        """What ``fused_teacher.teacher_decode`` takes besides feeds, seed and masks:
-        ``vblk`` from the two score vectors, ``w_qp`` the fused query projection,
-        both mechanisms' keys side by side, the key mask as a bias."""
-        mech1, mech2 = self.attentions
-        v1, v2 = mech1.attention_v, mech2.attention_v
+        """What ``fused_teacher.teacher_decode`` takes besides feeds, seed and masks.
+
+        Dual source: ``vblk`` from the two score vectors, ``w_qp`` the fused query
+        projection, both mechanisms' keys side by side. One source: ``vblk`` is the
+        score vector, ``w_qp`` the mechanism's own query layer, and there is no
+        second key or memory. The key mask becomes a bias."""
+        mech1 = self.attentions[0]
+        dual = self.num_attentions == 2
+        v1 = mech1.attention_v
         e1 = self.memory_units[0]
         if mech1.transition_factor is not None:
             w_ta, b_ta = mech1.transition_factor.weight.t(), mech1.transition_factor.bias
@@ -354,17 +368,23 @@ class Decoder(nn.Module):
             w_p1=self.prenet.Dense_0.weight.t(), b_p1=self.prenet.Dense_0.bias,
             w_p2=self.prenet.Dense_1.weight.t(), b_p2=self.prenet.Dense_1.bias,
             w_attg=self.attention_lstm.gates.weight.t(), b_attg=self.attention_lstm.gates.bias,
-            w_qp=self.query_projection.weight.t(),
-            vblk=torch.cat([
-                torch.cat([v1, torch.zeros_like(v1)], dim=1),
-                torch.cat([torch.zeros_like(v2), v2], dim=1),
-            ], dim=0),
             w_ta=w_ta, b_ta=b_ta,
             w_l1=self.decoder_lstm_0.gates.weight.t(), b_l1=self.decoder_lstm_0.gates.bias,
             w_l2=self.decoder_lstm_1.gates.weight.t(), b_l2=self.decoder_lstm_1.gates.bias,
         )
+        if dual:
+            v2 = self.attentions[1].attention_v
+            weights["w_qp"] = self.query_projection.weight.t()
+            weights["vblk"] = torch.cat([
+                torch.cat([v1, torch.zeros_like(v1)], dim=1),
+                torch.cat([torch.zeros_like(v2), v2], dim=1),
+            ], dim=0)
+            mem1, mem2 = cond.memories
+        else:
+            weights["w_qp"] = mech1.query_layer.weight.t()
+            weights["vblk"] = v1
+            mem1, mem2 = cond.memories[0], None
         mask = cond.masks[0]
-        mem1, mem2 = cond.memories
         if mask is None:
             score_bias = mem1.new_zeros(mem1.shape[:2])
         else:
@@ -381,6 +401,8 @@ class Decoder(nn.Module):
         features, aligns = fused_teacher.teacher_decode(
             **self.teacher_operands(cond), feeds=feeds, seed=seed, prenet_masks=prenet_masks
         )
+        if self.num_attentions == 1:
+            return features, (aligns,)
         s = cond.memories[0].shape[1]
         return features, (aligns[..., :s], aligns[..., s:])
 
@@ -463,19 +485,26 @@ def mel_heads(hparams) -> Tuple[Tuple[str, int], ...]:
     return (("mel", hparams.num_mels),)
 
 
+# decoder name -> (attention sources, decoder self-attention)
+DECODERS = {
+    "ExtendedDecoder": (1, False),
+    "SelfAttentionDecoder": (1, True),
+    "DualSourceDecoder": (2, False),
+    "DualSourceSelfAttentionDecoder": (2, True),
+}
+
+
 def decoder_factory(
     hparams,
     attention_mechs: Sequence[nn.Module],
     memory_units: Sequence[int],
     speaker_units: int = 0,
 ) -> Decoder:
-    """Map ``hparams.decoder`` to a configured :class:`Decoder`."""
+    """Map ``hparams.decoder`` to a configured :class:`Decoder`: the four mel decoders."""
     name = hparams.decoder
-    if name == "DualSourceSelfAttentionDecoder":
-        expected_sources, use_sa = 2, True
-    elif name.startswith("MgcLf0") or name in (
-        "ExtendedDecoder", "SelfAttentionDecoder", "DualSourceDecoder"
-    ):
+    if name in DECODERS:
+        expected_sources, use_sa = DECODERS[name]
+    elif name.startswith("MgcLf0") and name[len("MgcLf0"):] in DECODERS:
         raise NotImplementedError(f"decoder {name!r} is not ported yet")
     else:
         raise ValueError(f"unknown decoder: {name!r}")

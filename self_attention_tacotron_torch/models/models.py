@@ -1,16 +1,18 @@
-"""Top-level network, the flagship model class, and the model factory.
+"""Top-level network, the model classes of the mel family, and the model factory.
 
 Counterpart of ``self_attention_tacotron_tpu/models/models.py``:
 :class:`TacotronNetwork` holds embeddings, encoder and decoder, with the
 teacher-forced ``forward`` of training and evaluation, and ``encode`` plus the
 incremental decode plumbing that ``synthesis.py`` drives. The model classes bind
-a network configuration to its loss. The postnets are not ported yet.
+a network configuration to its loss: the baseline ``ExtendedTacotronV1Model``
+and the flagship ``DualSourceSelfAttentionTacotronModel``. The MgcLf0 models and
+the postnets are not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,7 +25,7 @@ from self_attention_tacotron_torch.models.decoders import (
     DecoderConditioning,
     decoder_factory,
 )
-from self_attention_tacotron_torch.models.encoders import encoder_factory
+from self_attention_tacotron_torch.models.encoders import encoder_factory, encoder_out_units
 from self_attention_tacotron_torch.models.modules import Embedding, sequence_mask
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
 
@@ -77,7 +79,7 @@ class TacotronNetwork(nn.Module):
         else:
             names = (hp.attention,)
             units = (hp.attention1_out_units,)
-            memory_units = (hp.cbhg_out_units,)
+            memory_units = (encoder_out_units(hp),)
         mechs = tuple(
             attention_factory(
                 n, u, hp,
@@ -111,8 +113,16 @@ class TacotronNetwork(nn.Module):
             )
         else:
             enc_out = self.encoder(embedded, source_lengths, generator=generator)
-        memory1, memory2, sa_aligns = enc_out
-        memories = (memory1, memory2) if self.dual_source else (memory1,)
+        sa_aligns: Tuple[torch.Tensor, ...] = ()
+        if isinstance(enc_out, tuple):
+            memory1, memory2, sa_aligns = enc_out
+            memories = (memory1, memory2) if self.dual_source else (memory1,)
+        else:
+            if self.dual_source:
+                raise ValueError(
+                    f"decoder {hp.decoder!r} needs a dual-stream encoder, got {hp.encoder!r}"
+                )
+            memories = (enc_out,)
 
         mask = sequence_mask(source_lengths, source.shape[1])
         masks = tuple(mask for _ in memories)
@@ -174,11 +184,15 @@ class TacotronNetwork(nn.Module):
 class TacotronModelBase:
     """Binds a network configuration to its loss."""
 
+    #: hparams overrides pinned by the named model class
+    PINNED: Dict[str, Any] = {}
     #: target heads this model trains on
     HEADS: Tuple[str, ...] = ("mel",)
 
     def __init__(self, hparams: HParams):
         self.hparams = hparams
+        for key, value in self.PINNED.items():
+            setattr(hparams, key, value)
         self._validate()
 
     def _validate(self) -> None:
@@ -247,6 +261,18 @@ class TacotronModelBase:
         return parts
 
 
+class ExtendedTacotronV1Model(TacotronModelBase):
+    """Baseline Tacotron: single-source attention over EncoderV1 or ZoneoutEncoderV1, mel target."""
+
+    PINNED = {"decoder": "ExtendedDecoder"}
+
+    def _validate(self):
+        if "SelfAttention" in self.hparams.encoder:
+            raise ValueError(
+                "ExtendedTacotronV1Model is single-source; use a single-stream encoder"
+            )
+
+
 class DualSourceSelfAttentionTacotronModel(TacotronModelBase):
     """Self-Attention Tacotron: dual-source attention over the CBHG and SA streams."""
 
@@ -261,9 +287,11 @@ class DualSourceSelfAttentionTacotronModel(TacotronModelBase):
             )
 
 
-_MODELS = {"DualSourceSelfAttentionTacotronModel": DualSourceSelfAttentionTacotronModel}
+_MODELS = {
+    "ExtendedTacotronV1Model": ExtendedTacotronV1Model,
+    "DualSourceSelfAttentionTacotronModel": DualSourceSelfAttentionTacotronModel,
+}
 _NOT_PORTED = (
-    "ExtendedTacotronV1Model",
     "MgcLf0TacotronModel",
     "DualSourceSelfAttentionMgcLf0TacotronModel",
 )

@@ -189,6 +189,10 @@ class ZoneoutLSTMCell(nn.Module):
         z = torch.zeros(batch, num_units, dtype=dtype, device=device)
         return (z, z)
 
+    def kernel_params(self) -> fused_rnn.LSTMParams:
+        """The gate product as the LSTM kernel reads it: (in + H, 4H), rows ``[x | h]``."""
+        return {"kernel": self.gates.weight.t(), "bias": self.gates.bias}
+
 
 class DenseIO(nn.Module):
     """A dense layer whose kernel keeps the (in, out) layout.
@@ -248,24 +252,53 @@ def run_gru(
     return torch.stack(ys, dim=1)
 
 
+def run_lstm(
+    cell: ZoneoutLSTMCell, xs: torch.Tensor, lengths: torch.Tensor, reverse: bool = False,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Run ``cell`` over time axis 1 from a zero carry; padded steps keep both
+    carries and emit zero. ``reverse`` as in ``run_gru``. In train mode the
+    zoneout masks are drawn from ``generator``, one draw per step and kind."""
+    S = xs.shape[1]
+    carry = ZoneoutLSTMCell.initial_state(xs.shape[0], cell.num_units, xs.dtype, xs.device)
+    ys = [None] * S
+    for t in (range(S - 1, -1, -1) if reverse else range(S)):
+        (c, h), _ = cell(carry, xs[:, t], generator=generator)
+        valid = (t < lengths).unsqueeze(-1)
+        carry = (torch.where(valid, c, carry[0]), torch.where(valid, h, carry[1]))
+        ys[t] = torch.where(valid, carry[1], torch.zeros_like(h))
+    return torch.stack(ys, dim=1)
+
+
 class BiRNN(nn.Module):
-    """Bidirectional GRU over padded batches; concatenates both directions.
+    """Bidirectional GRU or ZoneoutLSTM over padded batches; concatenates both directions.
 
     With ``use_pallas`` (the flag keeps the JAX package's name) and on a
     tensor that is not on the CPU, both directions run as the hand-written
-    kernels of ``ops/fused_rnn.py``: ``bigru`` in eval mode, and in train mode
-    ``bigru_train``, whose backward is a kernel too. Without the flag, or on the
-    CPU, the cells run step by step under autograd.
+    kernels of ``ops/fused_rnn.py``: GRU cells as ``bigru`` in eval mode and in
+    train mode as ``bigru_train``, whose backward is a kernel too; ZoneoutLSTM
+    cells as ``bilstm`` in eval mode (the JAX package has no training kernel for
+    them). Otherwise, and on the CPU, the cells run step by step under autograd.
     """
 
-    def __init__(self, cell_fwd: GRUCell, cell_bwd: GRUCell, use_pallas: bool = False):
+    def __init__(self, cell_fwd: nn.Module, cell_bwd: nn.Module, use_pallas: bool = False):
         super().__init__()
         self.cell_fwd = cell_fwd
         self.cell_bwd = cell_bwd
         self.use_pallas = use_pallas
 
-    def forward(self, xs: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-        if self.use_pallas and xs.device.type != "cpu":
+    def forward(self, xs: torch.Tensor, lengths: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        lstm = isinstance(self.cell_fwd, ZoneoutLSTMCell)
+        kernel = self.use_pallas and xs.device.type != "cpu"
+        if kernel and lstm and not self.training:
+            cell = self.cell_fwd
+            return fused_rnn.bilstm(
+                xs, lengths, cell.kernel_params(), self.cell_bwd.kernel_params(),
+                hidden=cell.num_units, zoneout_cell=cell.zoneout_factor_cell,
+                zoneout_output=cell.zoneout_factor_output, forget_bias=cell.forget_bias,
+            )
+        if kernel and not lstm:
             run = fused_rnn.bigru_train if self.training else fused_rnn.bigru
             return run(
                 xs,
@@ -274,6 +307,10 @@ class BiRNN(nn.Module):
                 self.cell_bwd.kernel_params(),
                 hidden=self.cell_fwd.num_units,
             )
+        if lstm:
+            ys_f = run_lstm(self.cell_fwd, xs, lengths, generator=generator)
+            ys_b = run_lstm(self.cell_bwd, xs, lengths, reverse=True, generator=generator)
+            return torch.cat([ys_f, ys_b], dim=-1)
         h0 = torch.zeros(xs.shape[0], self.cell_fwd.num_units, dtype=xs.dtype, device=xs.device)
         ys_f = run_gru(self.cell_fwd, xs, lengths, h0)
         ys_b = run_gru(self.cell_bwd, xs, lengths, h0, reverse=True)

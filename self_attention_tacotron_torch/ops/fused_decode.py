@@ -3,12 +3,12 @@
 ``fused_decode`` replaces ``fused_decode`` of the JAX package
 (``self_attention_tacotron_tpu/ops/fused_decode.py``, ``_make_kernel`` /
 ``_run_fused``): every decoder step of a synthesis request (prenet with its
-always-on dropout, attention ZoneoutLSTM, the fused dual query projection, both
-sources' additive scores, the forward-attention recursion with or without the
-transition agent, contexts, two decoder ZoneoutLSTMs, the causal self-attention
-block over a growing K/V cache, the output projection, per-lane stop tracking
-and the early exit) runs inside one kernel (``csrc/fused_decode.cu``), with no
-host work per step.
+always-on dropout, attention ZoneoutLSTM, the query projection, the additive
+scores, the forward-attention recursion with or without the transition agent,
+contexts, two decoder ZoneoutLSTMs, the causal self-attention block over a
+growing K/V cache where the decoder has one, the output projection, per-lane
+stop tracking and the early exit) runs inside one kernel
+(``csrc/fused_decode.cu``), with no host work per step.
 
 What bounds it on an H100: the serial chain of steps. A step needs about
 2 * 3.5 M * B operations and re-reads 14 MB of float32 weights, far below what
@@ -20,17 +20,19 @@ once per step, on a counter in global memory, only to agree whether every lane
 has fired; that is why all blocks of a launch must be resident at once
 (cooperative launch), which bounds a launch at ``LANES`` lanes per SM. Larger
 batches run as sequential batch blocks. One block's shared memory grows with
-``max_iters`` (a step's attention logits over the prefix) and the source
-length; where it outgrows an SM the wrapper raises.
+the source length and, with self-attention, with ``max_iters`` (a step's
+attention logits over the prefix); where it outgrows an SM the wrapper raises.
 
 The prenet's dropout masks come in as arrays, one row per step, drawn by the
 caller: the kernel and the step-by-step path of ``ops/decode_loop.py`` are then
 the same function of the same generator.
 
-Specialised to the flagship family: dual source, forward attention (with or
-without transition agent) on source 1, additive attention on source 2, one
-decoder self-attention hop, optional speaker embedding, mel head,
-``n_feed_frame=1``, two prenet layers, float32.
+Specialised to the four mel decoders, compiled once for each pair of flags
+``dual`` (a second source with additive attention, queried through the fused
+projection; else the mechanism's own query layer) and ``use_sa`` (one decoder
+self-attention hop; else the output projection reads the feature): forward
+attention (with or without transition agent) on source 1, optional speaker
+embedding, mel head, ``n_feed_frame=1``, two prenet layers, float32.
 """
 
 from __future__ import annotations
@@ -43,12 +45,15 @@ from typing import Dict, Optional, Sequence, Tuple
 import torch
 
 from self_attention_tacotron_torch.models.attention import AdditiveAttention, ForwardAttention
-from self_attention_tacotron_torch.models.decoders import Decoder, DecoderConditioning
+from self_attention_tacotron_torch.models.decoders import DECODERS, Decoder, DecoderConditioning
+from self_attention_tacotron_torch.models.encoders import encoder_out_units
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
 # Launches of the CUDA kernel made by ``fused_decode`` in this process.
 launch_count = 0
+# Launches per specialisation, keyed by ``variant_name``.
+variant_launches: Dict[str, int] = {}
 
 # Lanes per block, as csrc/fused_decode.cu has it.
 LANES = 4
@@ -70,46 +75,59 @@ def _round4(n: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def supports_fused_decode(hp) -> bool:
-    """True for the flagship family that the kernel is specialised to.
+def variant_name(dual: bool, use_sa: bool) -> str:
+    """The name of a specialisation of the kernel, as ``variant_launches`` keys it."""
+    return f"dual={int(dual)},use_sa={int(use_sa)}"
 
-    Dual source with decoder self-attention (one hop), forward attention with
-    or without the transition agent on source 1, additive attention on source
-    2, mel head, ``n_feed_frame=1``, two prenet layers, float32. The kernel
-    reads memories and cache rows 16 bytes at a time, so those widths are
-    multiples of 4; and the first decoder LSTM has no residual, which holds
-    whenever its input and output widths differ.
+
+def supports_fused_decode(hp) -> bool:
+    """True for the family that the kernel is specialised to.
+
+    The four mel decoders (one or two sources, with or without one decoder
+    self-attention hop), forward attention with or without the transition agent
+    on source 1, additive attention on source 2 where there is one, mel head,
+    ``n_feed_frame=1``, two prenet layers, float32. The kernel reads memories and
+    cache rows 16 bytes at a time, so those widths are multiples of 4; and the
+    first decoder LSTM has no residual, which holds whenever its input and output
+    widths differ. Not served: location-sensitive attention, the MgcLf0 heads,
+    bfloat16.
     """
-    sa = hp.decoder_self_attention_out_units
-    heads = hp.decoder_self_attention_num_heads
+    if hp.decoder not in DECODERS:
+        return False
+    sources, use_sa = DECODERS[hp.decoder]
+    z = _hp_sizes(hp)
+    sa_ok = not use_sa or (
+        hp.decoder_self_attention_num_hop == 1
+        and z["SA"] % z["H"] == 0
+        and (z["SA"] // z["H"]) % 4 == 0
+    )
     return bool(
-        hp.decoder == "DualSourceSelfAttentionDecoder"
-        and hp.attention in ("forward", "forward_transition_agent")
-        and hp.attention2 == "additive"
-        and hp.decoder_self_attention_num_hop == 1
+        hp.attention in ("forward", "forward_transition_agent")
+        and (sources == 1 or hp.attention2 == "additive")
+        and sa_ok
         and hp.n_feed_frame == 1
         and len(hp.decoder_prenet_out_units) == 2
         and not hp.use_forced_alignment_mode
         and hp.compute_dtype == "float32"
-        and hp.cbhg_out_units % 4 == 0
-        and hp.self_attention_out_units % 4 == 0
-        and sa % heads == 0
-        and (sa // heads) % 4 == 0
-        and hp.attention_out_units + hp.cbhg_out_units + hp.self_attention_out_units
-        != hp.decoder_out_units
+        and z["E1"] % 4 == 0
+        and z["E2"] % 4 == 0
+        and z["AU"] + z["E1"] + z["E2"] != z["DU"]
     )
 
 
 def _hp_sizes(hp) -> Dict[str, int]:
     # FFN: ``decoder_factory`` leaves the block's feed-forward width at its default
+    sources, use_sa = DECODERS[hp.decoder]
+    dual = sources == 2
     return dict(
         M=hp.num_mels, R=hp.outputs_per_step,
         P1=hp.decoder_prenet_out_units[0], P2=hp.decoder_prenet_out_units[1],
         SPK=hp.speaker_embedding_dim if hp.use_speaker_embedding else 0,
-        AU=hp.attention_out_units, A1=hp.attention1_out_units, A2=hp.attention2_out_units,
-        DU=hp.decoder_out_units, SA=hp.decoder_self_attention_out_units,
-        H=hp.decoder_self_attention_num_heads, FFN=1024,
-        E1=hp.cbhg_out_units, E2=hp.self_attention_out_units,
+        AU=hp.attention_out_units, A1=hp.attention1_out_units,
+        A2=hp.attention2_out_units if dual else 0, DU=hp.decoder_out_units,
+        SA=hp.decoder_self_attention_out_units if use_sa else 0,
+        H=hp.decoder_self_attention_num_heads if use_sa else 0, FFN=1024 if use_sa else 0,
+        E1=encoder_out_units(hp), E2=hp.self_attention_out_units if dual else 0,
     )
 
 
@@ -142,8 +160,14 @@ _ENTRIES = (
     "l1_w", "l1_b", "l2_w", "l2_b", "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
     "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b", "out_w", "out_b",
 )
-# Order of the sizes handed to the kernel, before the offsets of the entries.
+# Order of the sizes handed to the kernel, before the offsets of the entries. They
+# name the specialisation: ``E2 > 0`` two sources, ``SA > 0`` decoder self-attention.
 _SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2")
+# The entries of the self-attention block: empty without it.
+_SA_ENTRIES = (
+    "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
+    "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b",
+)
 
 
 @dataclasses.dataclass
@@ -153,7 +177,9 @@ class PackedDecoder:
     ``flat`` holds every matrix as (in, out), what the plain version multiplies
     by, each row padded to a multiple of 4 floats and each entry starting at a
     multiple of 4 floats, so that the kernel reads 16 bytes at a time.
-    ``mat(name)`` is the (rows, cols) view of one entry, without the padding.
+    ``mat(name)`` is the (rows, cols) view of one entry, without the padding;
+    an entry the specialisation does not have is (0, 0). ``dual`` and ``use_sa``
+    name the specialisation, read from the widths.
     """
 
     flat: torch.Tensor
@@ -166,7 +192,15 @@ class PackedDecoder:
     forget_bias: float
     keep_prob: float
     ln_eps: float
-    pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates
+    pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates; empty without self-attention
+
+    @property
+    def dual(self) -> bool:
+        return self.sizes["E2"] > 0
+
+    @property
+    def use_sa(self) -> bool:
+        return self.sizes["SA"] > 0
 
     def mat(self, name: str) -> torch.Tensor:
         rows, cols = self.shapes[name]
@@ -185,40 +219,49 @@ def _require(condition: bool, message: str) -> None:
 def pack_decoder(decoder: Decoder) -> PackedDecoder:
     """Bring the weights of ``decoder`` into the kernel's layout, on their device.
 
-    Raises ``ValueError`` for a decoder outside the kernel's specialisation.
+    Raises ``ValueError`` for a decoder outside the kernel's specialisations.
     """
-    _require(decoder.num_attentions == 2, "the kernel is dual source")
-    mech1, mech2 = decoder.attentions
+    dual = decoder.num_attentions == 2
+    mech1 = decoder.attentions[0]
+    _require(decoder.num_attentions in (1, 2), "the kernel takes one or two sources")
     _require(isinstance(mech1, ForwardAttention), "source 1 must use forward attention")
-    _require(isinstance(mech2, AdditiveAttention), "source 2 must use additive attention")
-    _require(decoder.query_projection is not None, "no fused query projection")
+    if dual:
+        mech2 = decoder.attentions[1]
+        _require(isinstance(mech2, AdditiveAttention), "source 2 must use additive attention")
+        _require(decoder.query_projection is not None, "no fused query projection")
+    else:
+        _require(mech1.query_layer is not None, "the mechanism has no query layer")
     _require(decoder.n_feed_frame == 1, "n_feed_frame must be 1")
     _require(len(decoder.prenet.out_units) == 2, "the prenet must have two layers")
     _require(decoder.num_decoder_layers == 2, "the decoder must have two LSTM layers")
     _require(decoder.output_heads[0][0] == "mel" and len(decoder.output_heads) == 1,
              "the kernel serves the mel head")
     sa = decoder.self_attention
-    _require(sa is not None and sa.num_hop == 1 and sa.use_positional_encoding,
+    use_sa = sa is not None
+    _require(not use_sa or (sa.num_hop == 1 and sa.use_positional_encoding),
              "one decoder self-attention hop with positional encoding is required")
-    block = sa.block_0
     cells = (decoder.attention_lstm, *decoder.decoder_lstms)
     for attr in ("zoneout_factor_cell", "zoneout_factor_output", "forget_bias"):
         _require(len({getattr(c, attr) for c in cells}) == 1, f"the cells differ in {attr}")
     _require(not decoder.training, "the kernel computes eval-mode zoneout: call .eval()")
 
-    E1, E2 = decoder.memory_units
+    E1 = decoder.memory_units[0]
+    E2 = decoder.memory_units[1] if dual else 0
     P1, P2 = decoder.prenet.out_units
     AU, DU = decoder.attention_rnn_out_units, decoder.decoder_out_units
-    SA, H = sa.num_units, block.mha.num_heads
+    block = sa.block_0 if use_sa else None
+    SA, H = (sa.num_units, block.mha.num_heads) if use_sa else (0, 0)
     KA = decoder.attention_lstm.gates.in_features
     sizes = dict(
         M=decoder.out_dim, R=decoder.outputs_per_step, P1=P1, P2=P2,
-        SPK=KA - (P2 + E1 + E2 + AU), AU=AU, A1=mech1.num_units, A2=mech2.num_units,
-        DU=DU, SA=SA, H=H, FFN=block.ffn1.out_features, E1=E1, E2=E2,
+        SPK=KA - (P2 + E1 + E2 + AU), AU=AU, A1=mech1.num_units,
+        A2=decoder.attentions[1].num_units if dual else 0, DU=DU, SA=SA, H=H,
+        FFN=block.ffn1.out_features if use_sa else 0, E1=E1, E2=E2,
     )
     _require(sizes["SPK"] >= 0, "the attention LSTM is narrower than its inputs")
     _require(E1 % 4 == 0 and E2 % 4 == 0, "memory widths must be multiples of 4")
-    _require(SA % H == 0 and (SA // H) % 4 == 0, "head width must be a multiple of 4")
+    _require(not use_sa or (SA % H == 0 and (SA // H) % 4 == 0),
+             "head width must be a multiple of 4")
     _require(AU + E1 + E2 != DU, "the first decoder LSTM would take a residual")
     _require(decoder.decoder_lstm_1.gates.in_features == 2 * DU, "second LSTM input width")
 
@@ -235,29 +278,39 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         "p1_w": t(decoder.prenet.Dense_0), "p1_b": row(decoder.prenet.Dense_0.bias),
         "p2_w": t(decoder.prenet.Dense_1), "p2_b": row(decoder.prenet.Dense_1.bias),
         "attg_w": t(decoder.attention_lstm.gates), "attg_b": row(decoder.attention_lstm.gates.bias),
-        "qp_w": t(decoder.query_projection),
-        "v_cat": torch.cat([row(mech1.attention_v), row(mech2.attention_v)], dim=1),
+        # dual: both mechanisms' query projections as one product; one source: its own
+        "qp_w": t(decoder.query_projection) if dual else t(mech1.query_layer),
+        "v_cat": torch.cat([row(m.attention_v) for m in decoder.attentions], dim=1),
         # [context | query], as the mechanism concatenates them
         "ta_w": row(mech1.transition_factor.weight) if use_ta else zeros(1, E1 + AU),
         "ta_b": row(mech1.transition_factor.bias) if use_ta else zeros(1, 1),
         "l1_w": t(decoder.decoder_lstm_0.gates), "l1_b": row(decoder.decoder_lstm_0.gates.bias),
         "l2_w": t(decoder.decoder_lstm_1.gates), "l2_b": row(decoder.decoder_lstm_1.gates.bias),
-        "in_w": t(sa.in_proj), "in_b": row(sa.in_proj.bias),
-        "ln1_s": row(block.ln1.weight), "ln1_b": row(block.ln1.bias),
-        "ln2_s": row(block.ln2.weight), "ln2_b": row(block.ln2.bias),
-        "qkv_w": t(block.mha.qkv),
-        "o_w": t(block.mha.out), "o_b": row(block.mha.out.bias),
-        "f1_w": t(block.ffn1), "f1_b": row(block.ffn1.bias),
-        "f2_w": t(block.ffn2), "f2_b": row(block.ffn2.bias),
         "out_w": t(decoder.output_projection), "out_b": row(decoder.output_projection.bias),
     }
+    if use_sa:
+        tensors.update({
+            "in_w": t(sa.in_proj), "in_b": row(sa.in_proj.bias),
+            "ln1_s": row(block.ln1.weight), "ln1_b": row(block.ln1.bias),
+            "ln2_s": row(block.ln2.weight), "ln2_b": row(block.ln2.bias),
+            "qkv_w": t(block.mha.qkv),
+            "o_w": t(block.mha.out), "o_b": row(block.mha.out.bias),
+            "f1_w": t(block.ffn1), "f1_b": row(block.ffn1.bias),
+            "f2_w": t(block.ffn2), "f2_b": row(block.ffn2.bias),
+        })
+    else:
+        tensors.update({name: zeros(0, 0) for name in _SA_ENTRIES})
     A, OW = sizes["A1"] + sizes["A2"], sizes["R"] * sizes["M"] + sizes["R"]
     expected = {
         "p1_w": (sizes["M"], P1), "p2_w": (P1, P2), "attg_w": (KA, 4 * AU), "qp_w": (AU, A),
         "v_cat": (1, A), "ta_w": (1, E1 + AU), "l1_w": (AU + E1 + E2 + DU, 4 * DU),
-        "l2_w": (2 * DU, 4 * DU), "in_w": (DU, SA), "qkv_w": (SA, 3 * SA), "o_w": (SA, SA),
-        "f1_w": (SA, sizes["FFN"]), "f2_w": (sizes["FFN"], SA), "out_w": (SA, OW),
+        "l2_w": (2 * DU, 4 * DU), "out_w": (SA if use_sa else DU, OW),
     }
+    if use_sa:
+        expected.update({
+            "in_w": (DU, SA), "qkv_w": (SA, 3 * SA), "o_w": (SA, SA),
+            "f1_w": (SA, sizes["FFN"]), "f2_w": (sizes["FFN"], SA),
+        })
     offsets, shapes, total = {}, {}, 0
     for name in _ENTRIES:
         w = tensors[name]
@@ -275,7 +328,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         zoneout_output=float(cells[0].zoneout_factor_output),
         forget_bias=float(cells[0].forget_bias),
         keep_prob=1.0 - float(decoder.prenet.drop_rate),
-        ln_eps=float(block.ln1.eps),
+        ln_eps=float(block.ln1.eps) if use_sa else 0.0,
         pe_rate=_pe_rate(SA, ref.device),
     )
     for name in _ENTRIES:
@@ -298,7 +351,7 @@ class _Operands:
     keys_cat: torch.Tensor      # (B, S, A1 + A2)
     score_bias: torch.Tensor    # (B, S): 0 where valid, -1e9 where padded
     mem1: torch.Tensor          # (B, S, E1)
-    mem2: torch.Tensor          # (B, S, E2)
+    mem2: Optional[torch.Tensor]  # (B, S, E2), None with one source
     spk: Optional[torch.Tensor]  # (B, SPK) or None
     masks: Optional[Tuple[torch.Tensor, torch.Tensor]]   # (T, B, P1), (T, B, P2) bool
 
@@ -307,15 +360,20 @@ def _operands(packed: PackedDecoder, cond: DecoderConditioning, prenet_masks,
               max_iters: int) -> _Operands:
     z = packed.sizes
     device = packed.flat.device
-    _require(len(cond.memories) == 2 and len(cond.keys) == 2, "two attention sources expected")
-    mem1, mem2 = (m.detach().contiguous() for m in cond.memories)
+    n = 2 if packed.dual else 1
+    _require(len(cond.memories) == n and len(cond.keys) == n,
+             f"{n} attention source(s) expected")
+    mem1 = cond.memories[0].detach().contiguous()
+    mem2 = cond.memories[1].detach().contiguous() if packed.dual else None
     B, S, _ = mem1.shape
     _require(B >= 1 and S >= 1 and max_iters >= 1, "empty batch, source or step count")
-    for name, tensor, shape in (
-        ("memories[0]", mem1, (B, S, z["E1"])), ("memories[1]", mem2, (B, S, z["E2"])),
-        ("keys[0]", cond.keys[0], (B, S, z["A1"])), ("keys[1]", cond.keys[1], (B, S, z["A2"])),
-    ):
-        _require(tuple(tensor.shape) == shape, f"{name}: expected {shape}, got {tuple(tensor.shape)}")
+    checks = [("memories[0]", mem1, (B, S, z["E1"])), ("keys[0]", cond.keys[0], (B, S, z["A1"]))]
+    if packed.dual:
+        checks += [("memories[1]", mem2, (B, S, z["E2"])),
+                   ("keys[1]", cond.keys[1], (B, S, z["A2"]))]
+    for name, tensor, shape in checks:
+        _require(tuple(tensor.shape) == shape,
+                 f"{name}: expected {shape}, got {tuple(tensor.shape)}")
         _require(tensor.dtype == torch.float32, f"{name} is {tensor.dtype}, not float32")
         _require(tensor.device == device, f"{name} is on {tensor.device}, the weights on {device}")
     keys_cat = torch.cat([k.detach() for k in cond.keys], dim=-1).contiguous()
@@ -374,7 +432,7 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
     B, S, _ = ops.mem1.shape
     T, R, M, A1 = max_iters, z["R"], z["M"], z["A1"]
     SA, H = z["SA"], z["H"]
-    HD = SA // H
+    HD = SA // H if p.use_sa else 0
     device = p.flat.device
     f32 = dict(dtype=torch.float32, device=device)
     zeros = lambda *shape: torch.zeros(*shape, **f32)  # noqa: E731
@@ -394,6 +452,7 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
     alpha1 = zeros(B, S)
     alpha1[:, 0] = 1.0
     u = torch.full((B, 1), 0.5, **f32)
+    # one source: the second context has width 0 and so drops out of every input
     ctx1, ctx2 = zeros(B, z["E1"]), zeros(B, z["E2"])
 
     t = 0
@@ -408,11 +467,10 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         parts = [x] + ([ops.spk] if ops.spk is not None else []) + [ctx1, ctx2, h_att]
         c_att, h_att = _lstm(torch.cat(parts, dim=-1), W["attg_w"], W["attg_b"], c_att, h_att, p)
 
-        # both sources' scores from one tanh pass over the concatenated keys
+        # the sources' scores from one tanh pass over the concatenated keys
         qp = h_att @ W["qp_w"]
         hidden = torch.tanh(ops.keys_cat + qp[:, None, :]) * v_cat
         e1 = hidden[..., :A1].sum(dim=-1) + ops.score_bias
-        e2 = hidden[..., A1:].sum(dim=-1) + ops.score_bias
         y1 = torch.softmax(e1, dim=-1)
         shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
         alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
@@ -421,33 +479,39 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         if p.use_transition_agent:
             ta_in = torch.cat([ctx1, h_att], dim=-1)
             u = torch.sigmoid(ta_in @ p.vec("ta_w") + p.vec("ta_b"))[:, None]
-        alpha2 = torch.softmax(e2, dim=-1)
-        ctx2 = (alpha2[:, :, None] * ops.mem2).sum(dim=1)
+        if p.dual:
+            e2 = hidden[..., A1:].sum(dim=-1) + ops.score_bias
+            alpha2 = torch.softmax(e2, dim=-1)
+            ctx2 = (alpha2[:, :, None] * ops.mem2).sum(dim=1)
+            align2[:, t] = alpha2
 
         c1, h1 = _lstm(torch.cat([h_att, ctx1, ctx2, h1], dim=-1), W["l1_w"], W["l1_b"], c1, h1, p)
         c2, h2 = _lstm(torch.cat([h1, h2], dim=-1), W["l2_w"], W["l2_b"], c2, h2, p)
-        feature = h2 + h1
+        y = feature = h2 + h1
 
-        # causal self-attention block over the live prefix 0..t of the cache
-        angle = t * p.pe_rate
-        pe = torch.where(even, torch.sin(angle), torch.cos(angle)).to(torch.float32)
-        xs = feature @ W["in_w"] + W["in_b"] + pe
-        qkv = _layer_norm(xs, W["ln1_s"], W["ln1_b"], p.ln_eps) @ W["qkv_w"]
-        q, k_cache[:, t], v_cache[:, t] = qkv[:, :SA], qkv[:, SA : 2 * SA], qkv[:, 2 * SA :]
-        qh = (q / math.sqrt(HD)).reshape(B, H, HD)
-        keys = k_cache[:, : t + 1].reshape(B, t + 1, H, HD)
-        values = v_cache[:, : t + 1].reshape(B, t + 1, H, HD)
-        probs = torch.softmax(torch.einsum("bhd,bthd->bht", qh, keys), dim=-1)
-        attn = torch.einsum("bht,bthd->bhd", probs, values).reshape(B, SA)
-        xs = xs + attn @ W["o_w"] + W["o_b"]
-        ffn = torch.relu(_layer_norm(xs, W["ln2_s"], W["ln2_b"], p.ln_eps) @ W["f1_w"] + W["f1_b"])
-        y = xs + ffn @ W["f2_w"] + W["f2_b"]
+        if p.use_sa:
+            # causal self-attention block over the live prefix 0..t of the cache
+            angle = t * p.pe_rate
+            pe = torch.where(even, torch.sin(angle), torch.cos(angle)).to(torch.float32)
+            xs = feature @ W["in_w"] + W["in_b"] + pe
+            qkv = _layer_norm(xs, W["ln1_s"], W["ln1_b"], p.ln_eps) @ W["qkv_w"]
+            q, k_cache[:, t], v_cache[:, t] = qkv[:, :SA], qkv[:, SA : 2 * SA], qkv[:, 2 * SA :]
+            qh = (q / math.sqrt(HD)).reshape(B, H, HD)
+            keys = k_cache[:, : t + 1].reshape(B, t + 1, H, HD)
+            values = v_cache[:, : t + 1].reshape(B, t + 1, H, HD)
+            probs = torch.softmax(torch.einsum("bhd,bthd->bht", qh, keys), dim=-1)
+            attn = torch.einsum("bht,bthd->bhd", probs, values).reshape(B, SA)
+            xs = xs + attn @ W["o_w"] + W["o_b"]
+            ffn = torch.relu(
+                _layer_norm(xs, W["ln2_s"], W["ln2_b"], p.ln_eps) @ W["f1_w"] + W["f1_b"]
+            )
+            y = xs + ffn @ W["f2_w"] + W["f2_b"]
 
         out = y @ W["out_w"] + W["out_b"]
         frames[:, t] = out[:, : R * M]
         stop_probs = torch.sigmoid(out[:, R * M :])
         stops[:, t] = stop_probs
-        align1[:, t], align2[:, t] = alpha1, alpha2
+        align1[:, t] = alpha1
 
         fired_mask = stop_probs > stop_threshold
         fired = fired_mask.any(dim=-1)
@@ -466,7 +530,7 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         frames={"mel": frames.reshape(B, T * R, M)},
         stop_probs=stops.reshape(B, T * R),
         lengths=lengths,
-        alignments=(align1, align2),
+        alignments=(align1, align2) if p.dual else (align1,),
         finished=finished,
         num_steps=torch.tensor(t, dtype=torch.int32, device=device),
     )
@@ -482,10 +546,11 @@ def fused_decode_reference(
 ) -> DecodeResult:
     """Plain PyTorch version of one launch of ``fused_decode``, in the kernel's formulation.
 
-    Concatenated keys against ``[v1 | v2]``, the key mask as an added -1e9, the
-    query scaled by ``1 / sqrt(HD)`` before the dot, attention over the live
-    prefix of the cache, dropout as ``x * (1 / keep)`` where the mask keeps. All
-    lanes run until every lane has fired (``early_exit``) or to ``max_iters``.
+    Concatenated keys against ``[v1 | v2]`` (``v1`` alone with one source), the
+    key mask as an added -1e9, the query scaled by ``1 / sqrt(HD)`` before the
+    dot, attention over the live prefix of the cache, dropout as ``x * (1 /
+    keep)`` where the mask keeps; the specialisation's stages only. All lanes run
+    until every lane has fired (``early_exit``) or to ``max_iters``.
     """
     ops = _operands(packed, cond, prenet_masks, int(max_iters))
     with torch.no_grad():
@@ -524,13 +589,14 @@ def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int,
     lib = load_library("fused_decode")
     lib.fused_decode_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_decode_smem_bytes.restype = ctypes.c_longlong
-    lib.fused_decode_smem_limit.argtypes = []
+    lib.fused_decode_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_decode_smem_limit.restype = ctypes.c_longlong
+    dims = _dims(sizes, 1, src_len, max_iters)
     with torch.cuda.device(device):
-        limit = int(lib.fused_decode_smem_limit())
+        limit = int(lib.fused_decode_smem_limit(dims))
     if limit < 0:
         raise RuntimeError(f"fused_decode: CUDA error {-limit} on reading the device's limits")
-    return int(lib.fused_decode_smem_bytes(_dims(sizes, 1, src_len, max_iters))), limit
+    return int(lib.fused_decode_smem_bytes(dims)), limit
 
 
 def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device) -> int:
@@ -550,25 +616,32 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     f32 = dict(dtype=torch.float32, device=device)
     # rows at and beyond num_steps stay zero, as the step-by-step path leaves them
     frames, stops = torch.zeros(B, T, R * M, **f32), torch.zeros(B, T, R, **f32)
-    align1, align2 = torch.zeros(B, T, S, **f32), torch.zeros(B, T, S, **f32)
+    aligns = tuple(torch.zeros(B, T, S, **f32) for _ in range(2 if p.dual else 1))
     lengths = torch.zeros(B, dtype=torch.int32, device=device)
     finished = torch.zeros(B, dtype=torch.bool, device=device)
     # [0] num_steps, [1 + t] the blocks' arrival counter of step t
     info = torch.zeros(1 + T, dtype=torch.int32, device=device)
-    # scratch: K transposed (B, SA, T4), V (B, T, SA); only the written prefix is read
-    k_cache = torch.empty(B, SA, _round4(T), **f32)
-    v_cache = torch.empty(B, T, SA, **f32)
+    # what a specialisation does not have is a placeholder that the kernel never reads
+    placeholder = torch.zeros(4, **f32)
+    if p.use_sa:
+        # scratch: K transposed (B, SA, T4), V (B, T, SA); only the written prefix is read
+        k_cache = torch.empty(B, SA, _round4(T), **f32)
+        v_cache = torch.empty(B, T, SA, **f32)
+        pe_rate = p.pe_rate
+    else:
+        k_cache = v_cache = pe_rate = placeholder
 
     dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None),
                  p.offsets)
     scalars = (ctypes.c_float * 7)(
         p.zoneout_cell, p.zoneout_output, p.forget_bias, 1.0 / p.keep_prob,
-        stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]),
+        stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]) if p.use_sa else 1.0,
     )
     pointers = [
-        p.flat, p.pe_rate, ops.keys_cat, ops.mem1, ops.mem2, ops.score_bias, ops.spk,
-        *(ops.masks if ops.masks is not None else (None, None)),
-        k_cache, v_cache, frames, stops, align1, align2, lengths, finished, info,
+        p.flat, pe_rate, ops.keys_cat, ops.mem1, placeholder if ops.mem2 is None else ops.mem2,
+        ops.score_bias, ops.spk, *(ops.masks if ops.masks is not None else (None, None)),
+        k_cache, v_cache, frames, stops, aligns[0], aligns[-1] if p.dual else placeholder,
+        lengths, finished, info,
     ]
     fn = _kernel_fn()
     with torch.cuda.device(device):
@@ -577,11 +650,13 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")
     launch_count += 1
+    name = variant_name(p.dual, p.use_sa)
+    variant_launches[name] = variant_launches.get(name, 0) + 1
     return DecodeResult(
         frames={"mel": frames.view(B, T * R, M)},
         stop_probs=stops.view(B, T * R),
         lengths=lengths,
-        alignments=(align1, align2),
+        alignments=aligns,
         finished=finished,
         num_steps=info[0],
     )
@@ -659,7 +734,7 @@ def fused_decode(
             stop_probs=torch.cat([r.stop_probs for r in parts]),
             lengths=torch.cat([r.lengths for r in parts]),
             alignments=tuple(
-                torch.cat([r.alignments[i] for r in parts]) for i in range(2)
+                torch.cat([r.alignments[i] for r in parts]) for i in range(len(parts[0].alignments))
             ),
             finished=torch.cat([r.finished for r in parts]),
             num_steps=torch.stack([r.num_steps for r in parts]).max(),

@@ -25,6 +25,15 @@ gradients and ``d_x`` as batched products. That kernel moves 16 * B * S * H
 floats and does 12 * H * H operations per valid step; like the forward it is
 bounded by the chain of S dependent steps, and has the forward's layout.
 ``BiRNN`` takes ``bigru`` in eval mode and ``bigru_train`` in train mode.
+
+``bilstm`` replaces ``bilstm_pallas`` (``_make_lstm_kernel``): both directions
+of ZoneoutEncoderV1's LSTM in one launch (``csrc/bilstm.cu``), eval mode only,
+with zoneout as the interpolation ``z * prev + (1 - z) * new``. It has the
+BiGRU's shape and the same bound, the chain of S dependent steps: one block per
+(4 lanes, direction) keeps the carries in shared memory and streams the gate
+matrix through L2 at every step. Training runs the cells step by step under
+autograd, as the JAX package does (it has no training kernel for the LSTM).
+``torch.nn.LSTM`` computes another function: it has no zoneout interpolation.
 """
 
 from __future__ import annotations
@@ -40,8 +49,11 @@ from self_attention_tacotron_torch.utils.cuda_build import load_library
 launch_count = 0
 # Launches of the backward's carry kernel made by ``bigru_train`` in this process.
 bwd_launch_count = 0
+# Launches of the CUDA kernel made by ``bilstm`` in this process.
+lstm_launch_count = 0
 
 GRUParams = Dict[str, torch.Tensor]  # gates_kernel (C+H, 2H), gates_bias, candidate_kernel (C+H, H), candidate_bias
+LSTMParams = Dict[str, torch.Tensor]  # kernel (C+H, 4H) with gates i, g, f, o; bias (4H,)
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 _functions = {}
@@ -305,3 +317,121 @@ def bigru_train(
         raise TypeError(f"bigru_train takes float32, got {xs.dtype}")
     weights = [params_fwd[k] for k in _PARAM_KEYS] + [params_bwd[k] for k in _PARAM_KEYS]
     return _BiGRUTrain.apply(xs, lengths, int(hidden), *weights)
+
+
+# --------------------------------------------------------------------------- #
+# Bidirectional ZoneoutLSTM, eval mode
+# --------------------------------------------------------------------------- #
+
+
+def _lstm_direction(xs, lengths, p: LSTMParams, hidden: int, zc: float, zo: float,
+                    forget_bias: float, reverse: bool) -> torch.Tensor:
+    """One direction, with the kernel's roundings: io(h) enters the product, which
+    is summed in float32; the carries stay float32."""
+    B, S, _ = xs.shape
+    io = xs.dtype
+    w, b = p["kernel"].to(io).float(), p["bias"].to(io).float()
+    c = torch.zeros(B, hidden, dtype=torch.float32, device=xs.device)
+    h = torch.zeros(B, hidden, dtype=torch.float32, device=xs.device)
+    ys = torch.zeros(B, S, hidden, dtype=io, device=xs.device)
+    for t in (range(S - 1, -1, -1) if reverse else range(S)):
+        z = torch.cat([xs[:, t], h.to(io)], dim=-1).float() @ w + b
+        i, g, f, o = z.chunk(4, dim=-1)
+        new_c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
+        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        new_c = zc * c + (1.0 - zc) * new_c
+        new_h = zo * h + (1.0 - zo) * new_h
+        valid = (t < lengths).unsqueeze(-1)
+        c = torch.where(valid, new_c, c)
+        h = torch.where(valid, new_h, h)
+        ys[:, t] = torch.where(valid, h, torch.zeros_like(h)).to(io)
+    return ys
+
+
+def bilstm_reference(
+    xs: torch.Tensor,            # (B, S, C) float32 or bfloat16
+    lengths: torch.Tensor,       # (B,) integer
+    params_fwd: LSTMParams,
+    params_bwd: LSTMParams,
+    hidden: int,
+    zoneout_cell: float = 0.0,
+    zoneout_output: float = 0.0,
+    forget_bias: float = 1.0,
+) -> torch.Tensor:
+    """Plain PyTorch version of ``bilstm``: (B, S, 2H) in ``xs``'s type."""
+    lengths = lengths.to(xs.device)
+    args = (hidden, float(zoneout_cell), float(zoneout_output), float(forget_bias))
+    return torch.cat(
+        [
+            _lstm_direction(xs, lengths, params_fwd, *args, reverse=False),
+            _lstm_direction(xs, lengths, params_bwd, *args, reverse=True),
+        ],
+        dim=-1,
+    )
+
+
+def _lstm_kernel_fn(dtype: torch.dtype):
+    name = "bilstm_f32" if dtype == torch.float32 else "bilstm_bf16"
+    fn = _functions.get(name)
+    if fn is None:
+        fn = getattr(load_library("bilstm"), name)
+        fn.argtypes = (
+            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+        _functions[name] = fn
+    return fn
+
+
+def bilstm(
+    xs: torch.Tensor,            # (B, S, C) float32 or bfloat16
+    lengths: torch.Tensor,       # (B,) integer
+    params_fwd: LSTMParams,
+    params_bwd: LSTMParams,
+    hidden: int,
+    zoneout_cell: float = 0.0,
+    zoneout_output: float = 0.0,
+    forget_bias: float = 1.0,
+) -> torch.Tensor:
+    """Both directions of the eval-mode ZoneoutLSTM, (B, S, 2H) in ``xs``'s type.
+
+    A CUDA tensor goes to the kernel or raises; a CPU tensor goes to
+    ``bilstm_reference``. Not differentiable: the kernel serves evaluation.
+    """
+    global lstm_launch_count
+    if xs.dim() != 3:
+        raise ValueError(f"xs must be (B, S, C), got {tuple(xs.shape)}")
+    if xs.dtype not in _IO_DTYPES:
+        raise TypeError(f"xs must be float32 or bfloat16, got {xs.dtype}")
+    args = (hidden, zoneout_cell, zoneout_output, forget_bias)
+    if xs.device.type == "cpu":
+        return bilstm_reference(xs, lengths, params_fwd, params_bwd, *args)
+    if xs.device.type != "cuda":
+        raise RuntimeError(f"bilstm has no kernel for device {xs.device}")
+    B, S, C = xs.shape
+    H = int(hidden)
+    if lengths.shape != (B,):
+        raise ValueError(f"lengths must be ({B},), got {tuple(lengths.shape)}")
+    weights = []
+    for p in (params_fwd, params_bwd):
+        for key, shape in (("kernel", (C + H, 4 * H)), ("bias", (4 * H,))):
+            w = p[key]
+            if tuple(w.shape) != shape:
+                raise ValueError(f"{key}: expected shape {shape}, got {tuple(w.shape)}")
+            if w.device != xs.device:
+                raise ValueError(f"{key} is on {w.device}, the input on {xs.device}")
+            weights.append(w.detach().to(xs.dtype).contiguous())
+    xs_c = xs.detach().contiguous()
+    len_c = lengths.to(device=xs.device, dtype=torch.int32).contiguous()
+    y = torch.empty(B, S, 2 * H, dtype=xs.dtype, device=xs.device)
+    fn = _lstm_kernel_fn(xs.dtype)
+    with torch.cuda.device(xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            xs_c.data_ptr(), len_c.data_ptr(), *(w.data_ptr() for w in weights), y.data_ptr(),
+            B, S, C, H, float(zoneout_cell), float(zoneout_output), float(forget_bias), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"bilstm kernel launch failed: CUDA error {err}")
+    lstm_launch_count += 1
+    return y

@@ -5,14 +5,13 @@
 ``_run_fwd`` and ``_run_bwd``). In teacher forcing the decoder's inputs are
 known for all N steps, so the prenet runs here as two batched products over
 (B * N) rows, outside any kernel, and the scanned region (attention ZoneoutLSTM,
-the fused dual query projection, both sources' additive scores, the
-forward-attention recursion with or without the transition agent, contexts, two
-decoder ZoneoutLSTMs) runs as one kernel launch per direction
-(``csrc/fused_teacher.cu``):
+the query projection, the additive scores, the forward-attention recursion with
+or without the transition agent, contexts, two decoder ZoneoutLSTMs) runs as one
+kernel launch per direction (``csrc/fused_teacher.cu``):
 
 * forward: N steps in one launch; writes features (B, N, DU), alignments
-  (B, N, 2S), and per step one carry row and one activation row (see
-  ``row_layouts``) for the backward;
+  (B, N, S) per source side by side, and per step one carry row and one
+  activation row (see ``row_layouts``) for the backward;
 * backward: the adjoint chain N-1 .. 0 in one launch; reads those rows,
   regenerates the zoneout masks, recomputes only the (S, A) score tanh, writes
   ``d_keys``, ``d_spk``, one ``d_vblk`` partial per lane, one gradient row per step
@@ -33,9 +32,12 @@ row, so it does not depend on how lanes are grouped into blocks; the plain
 version draws the same masks (``hash_keep_masks``). In evaluation the mask is
 the constant zoneout factor.
 
-Specialised to the flagship family: dual source, forward attention (with or
-without transition agent) on source 1, additive attention on source 2, optional
-speaker embedding, two prenet layers, two decoder LSTMs, float32.
+Specialised to the mel decoders' family: forward attention (with or without
+transition agent) on source 1 and, in the dual-source specialisation, additive
+attention on source 2 over a second memory (``dual`` in ``hp_like``; the kernels
+are compiled once for each); optional speaker embedding, two prenet layers, two
+decoder LSTMs, float32. With one source the query projection is the mechanism's
+own query layer and there is no second key, memory, context or alignment.
 """
 
 from __future__ import annotations
@@ -50,6 +52,8 @@ from self_attention_tacotron_torch.utils.cuda_build import load_library
 # Launches of the forward and of the backward kernel made in this process.
 launch_count = 0
 bwd_launch_count = 0
+# Launches per kernel and specialisation: ("fwd" | "bwd", "dual" | "single") -> count.
+variant_launches: Dict[Tuple[str, str], int] = {}
 # CUDA events around the last launch of each kernel ("fwd", "bwd"); see ``last_launch_ms``.
 _launch_events = {}
 
@@ -86,33 +90,6 @@ def _round4(n: int) -> int:
 
 
 # --------------------------------------------------------------------------- #
-# Which configurations the kernels serve
-# --------------------------------------------------------------------------- #
-
-
-def supports_fused_teacher(hp) -> bool:
-    """True for the flagship family that the kernels are specialised to.
-
-    Dual source, forward attention with or without the transition agent on
-    source 1, additive attention on source 2, two prenet layers, float32. The
-    kernels read memory rows 16 bytes at a time, so those widths are multiples
-    of 4; and the first decoder LSTM has no residual, which holds whenever its
-    input and output widths differ.
-    """
-    return bool(
-        hp.decoder == "DualSourceSelfAttentionDecoder"
-        and hp.attention in ("forward", "forward_transition_agent")
-        and hp.attention2 == "additive"
-        and len(hp.decoder_prenet_out_units) == 2
-        and hp.compute_dtype == "float32"
-        and hp.cbhg_out_units % 4 == 0
-        and hp.self_attention_out_units % 4 == 0
-        and hp.attention_out_units + hp.cbhg_out_units + hp.self_attention_out_units
-        != hp.decoder_out_units
-    )
-
-
-# --------------------------------------------------------------------------- #
 # Row layouts and zoneout masks: one description for wrapper and plain version
 # --------------------------------------------------------------------------- #
 
@@ -122,12 +99,14 @@ def row_layouts(z: Dict[str, int], src_len: int) -> Dict[str, Tuple[Dict[str, Tu
 
     carry: the state after a step (what the next step starts from); acts: what a
     step computed on the way and the backward does not recompute; stack: the
-    cotangents a step hands to the batched weight-gradient products.
+    cotangents a step hands to the batched weight-gradient products. With one
+    source (``E2 == 0``) the second context, alignment and context cotangent
+    have width 0.
     """
     A, S = z["A1"] + z["A2"], src_len
     widths = {
         "carry": (z["AU"], z["AU"], z["DU"], z["DU"], z["DU"], z["DU"], z["E1"], z["E2"], S, 1),
-        "acts": (4 * z["AU"], 4 * z["DU"], 4 * z["DU"], A, S, S),
+        "acts": (4 * z["AU"], 4 * z["DU"], 4 * z["DU"], A, S, S if z["E2"] else 0),
         "stack": (4 * z["AU"], 4 * z["DU"], 4 * z["DU"], z["P2"], A, z["E1"], z["E2"], 1),
     }
     out = {}
@@ -261,11 +240,14 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
     fb = float(hp_like.get("forget_bias", 1.0))
     masks = zoneout_keep_masks(hp_like, seed, N, B, x2.device)
     step_mask = lambda m, t: m[t] if torch.is_tensor(m) else m  # noqa: E731
+    dual = mem2 is not None
 
     c_att, h_att = torch.zeros(B, AU, **f32), torch.zeros(B, AU, **f32)
     c1, h1, c2, h2 = (torch.zeros(B, DU, **f32) for _ in range(4))
     ctx1 = torch.zeros(B, mem1.shape[-1], **f32)
-    ctx2 = torch.zeros(B, mem2.shape[-1], **f32)
+    # one source: the second context has width 0 and so drops out of every input
+    ctx2 = torch.zeros(B, mem2.shape[-1] if dual else 0, **f32)
+    alpha2 = torch.zeros(B, 0, **f32)
     alpha1 = torch.zeros(B, keys.shape[1], **f32)
     alpha1[:, 0] = 1.0
     u = torch.full((B, 1), 0.5, **f32)
@@ -278,7 +260,7 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
             z_att, c_att, h_att, step_mask(masks[0][0], t), step_mask(masks[0][1], t), fb
         )
         qp = h_att @ w["w_qp"]
-        e = torch.tanh(keys + qp[:, None, :]) @ w["vblk"]          # (B, S, 2)
+        e = torch.tanh(keys + qp[:, None, :]) @ w["vblk"]          # (B, S, sources)
         y1 = torch.softmax(e[..., 0] + score_bias, dim=-1)
         shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
         alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
@@ -288,8 +270,9 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
         if hp_like["use_ta"]:
             u_pre = torch.cat([ctx1, h_att], dim=-1) @ w["w_ta"] + w["b_ta"]
             u = torch.sigmoid(u_pre)
-        alpha2 = torch.softmax(e[..., 1] + score_bias, dim=-1)
-        ctx2 = (alpha2[:, :, None] * mem2).sum(dim=1)
+        if dual:
+            alpha2 = torch.softmax(e[..., 1] + score_bias, dim=-1)
+            ctx2 = (alpha2[:, :, None] * mem2).sum(dim=1)
         z1 = torch.cat([h_att, ctx1, ctx2, h1], dim=-1) @ w["w_l1"] + w["b_l1"]
         c1, h1 = _zoneout_lstm(
             z1, c1, h1, step_mask(masks[1][0], t), step_mask(masks[1][1], t), fb
@@ -315,32 +298,36 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
 
 
 def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
-    _require(bool(hp_like.get("dual", True)), "the kernels are dual source")
+    """The sizes of the kernels' ``Dims``; ``E2 == A2 == 0`` means one source."""
+    dual = bool(hp_like.get("dual", True))
     _require(hp_like.get("src1_kind", "forward") == "forward",
              "source 1 must use forward attention")
     _require(hp_like.get("io_dtype", "float32") == "float32", "the kernels are float32")
-    _require(mem2 is not None, "a second memory is required")
+    _require((mem2 is not None) == dual,
+             "a second memory goes with dual=True, and only with it")
     z = dict(
         P2=int(x2.shape[-1]), SPK=0 if spk is None else int(spk.shape[-1]),
         AU=int(hp_like["att_units"]), A1=int(hp_like["att1_units"]),
-        A2=int(hp_like["att2_units"]), DU=int(hp_like["dec_units"]),
-        E1=int(mem1.shape[-1]), E2=int(mem2.shape[-1]),
+        A2=int(hp_like["att2_units"]) if dual else 0, DU=int(hp_like["dec_units"]),
+        E1=int(mem1.shape[-1]), E2=int(mem2.shape[-1]) if dual else 0,
     )
+    _require(not dual or (z["A2"] > 0 and z["E2"] > 0), "dual source needs a second mechanism")
     B, S = mem1.shape[:2]
     A, EW = z["A1"] + z["A2"], z["E1"] + z["E2"]
     expected = {
         "w_attg": (z["P2"] + z["SPK"] + EW + z["AU"], 4 * z["AU"]), "b_attg": (4 * z["AU"],),
-        "w_qp": (z["AU"], A), "vblk": (A, 2), "w_ta": (z["E1"] + z["AU"], 1), "b_ta": (1,),
+        "w_qp": (z["AU"], A), "vblk": (A, 2 if dual else 1), "w_ta": (z["E1"] + z["AU"], 1),
+        "b_ta": (1,),
         "w_l1": (z["AU"] + EW + z["DU"], 4 * z["DU"]), "b_l1": (4 * z["DU"],),
         "w_l2": (2 * z["DU"], 4 * z["DU"]), "b_l2": (4 * z["DU"],),
     }
     for name, shape in expected.items():
         _require(tuple(weights[name].shape) == shape,
                  f"{name}: expected shape {shape}, got {tuple(weights[name].shape)}")
-    for name, tensor, shape in (
-        ("keys", keys, (B, S, A)), ("mem2", mem2, (B, S, z["E2"])),
-        ("feeds", x2, (B, x2.shape[1], z["P2"])),
-    ):
+    checks = [("keys", keys, (B, S, A)), ("feeds", x2, (B, x2.shape[1], z["P2"]))]
+    if dual:
+        checks.append(("mem2", mem2, (B, S, z["E2"])))
+    for name, tensor, shape in checks:
         _require(tuple(tensor.shape) == shape,
                  f"{name}: expected {shape}, got {tuple(tensor.shape)}")
     _require(z["E1"] % 4 == 0 and z["E2"] % 4 == 0, "memory widths must be multiples of 4")
@@ -374,7 +361,8 @@ def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor]):
 def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=None):
     # the struct ``Dims`` of the source
     layouts = row_layouts(z, S)
-    values = [B, S, N] + [z[k] for k in _SIZES] + [int(use_ta), int(train_masks)]
+    values = [B, S, N] + [z[k] for k in _SIZES]
+    values += [int(use_ta), int(train_masks)]
     values += [layouts[kind][1] for kind in ("carry", "acts", "stack")]
     for kind, names in (("carry", _CARRY), ("acts", _ACTS), ("stack", _STACK)):
         values += [layouts[kind][0][name][0] for name in names]
@@ -395,7 +383,7 @@ def _library():
             _functions[key] = fn
         lib.fused_teacher_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         lib.fused_teacher_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_teacher_smem_limit.argtypes = [ctypes.c_int]
+        lib.fused_teacher_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
         lib.fused_teacher_smem_limit.restype = ctypes.c_longlong
     return lib
 
@@ -404,17 +392,18 @@ def block_shared_memory(z: Dict[str, int], src_len: int, device, backward: bool)
     """(bytes of shared memory one block of the kernel needs, bytes a block may
     have on ``device``), both as the built library reports them."""
     lib = _library()
+    dims = _dims(z, 1, src_len, 1, False, False)
     with torch.cuda.device(device):
-        limit = int(lib.fused_teacher_smem_limit(int(backward)))
+        limit = int(lib.fused_teacher_smem_limit(dims, int(backward)))
     if limit < 0:
         raise RuntimeError(f"fused_teacher: CUDA error {-limit} on reading the device's limits")
-    need = int(lib.fused_teacher_smem_bytes(_dims(z, 1, src_len, 1, False, False), int(backward)))
-    return need, limit
+    return int(lib.fused_teacher_smem_bytes(dims, int(backward))), limit
 
 
-def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], dims, hp_like, seed: int,
-            device) -> None:
+def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_like,
+            seed: int, device) -> None:
     global launch_count, bwd_launch_count
+    variant = (which, "dual" if z["E2"] else "single")
     zc, zo = float(hp_like["zoneout_cell"]), float(hp_like["zoneout_output"])
     scalars = (ctypes.c_float * 3)(zc, zo, float(hp_like.get("forget_bias", 1.0)))
     bits = (ctypes.c_uint * 9)(
@@ -434,6 +423,7 @@ def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], dims, hp_lik
         launch_count += 1
     else:
         bwd_launch_count += 1
+    variant_launches[variant] = variant_launches.get(variant, 0) + 1
 
 
 def last_launch_ms(which: str) -> float:
@@ -484,7 +474,7 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
         "b_l2": bias("g_z2"),
         "keys": d_keys,
         "mem1": torch.bmm(aligns[..., :S].transpose(1, 2), g("g_ctx1")),
-        "mem2": torch.bmm(aligns[..., S:].transpose(1, 2), g("g_ctx2")),
+        "mem2": torch.bmm(aligns[..., S:].transpose(1, 2), g("g_ctx2")) if z["E2"] else None,
         "feeds": g("g_feed"),
         "spk": None if spk is None else d_spk,
     }
@@ -516,24 +506,28 @@ class _TeacherCore(torch.autograd.Function):
                     f"{'backward' if backward else 'forward'} kernel needs {need} bytes of "
                     f"shared memory, an SM of this device offers {have}"
                 )
-        operands = [x2, keys, mem1, mem2, score_bias] + ([] if spk is None else [spk])
+        operands = [x2, keys, mem1, score_bias] + [x for x in (mem2, spk) if x is not None]
         for x in operands + list(core):
             if x.dtype != torch.float32 or x.device != device:
                 raise TypeError("fused_teacher takes float32 tensors on one CUDA device")
-        x2_c, keys_c, mem1_c, mem2_c, bias_c = (x.detach().contiguous() for x in operands[:5])
+        f32 = dict(dtype=torch.float32, device=device)
+        x2_c, keys_c, mem1_c, bias_c = (
+            x.detach().contiguous() for x in (x2, keys, mem1, score_bias)
+        )
+        # one source: a placeholder that the kernels never read stands for the second memory
+        mem2_c = torch.zeros(4, **f32) if mem2 is None else mem2.detach().contiguous()
         spk_c = None if spk is None else spk.detach().contiguous()
         flat, offsets = _pack(z, w)
         train_masks = not hp_like.get("eval_zoneout", False)
         dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets)
         layouts = row_layouts(z, S)
-        f32 = dict(dtype=torch.float32, device=device)
         features = torch.empty(B, N, z["DU"], **f32)
-        aligns = torch.empty(B, N, 2 * S, **f32)
+        aligns = torch.empty(B, N, (2 if z["E2"] else 1) * S, **f32)
         carries = torch.empty(B, N, layouts["carry"][1], **f32)
         acts = torch.empty(B, N, layouts["acts"][1], **f32)
         inputs = [flat, x2_c, keys_c, mem1_c, mem2_c, bias_c, spk_c]
-        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7, dims, hp_like,
-                seed, device)
+        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7, z, dims,
+                hp_like, seed, device)
         ctx.save_for_backward(*inputs, aligns, carries, acts)
         ctx.meta = (hp_like, seed, z, dims)
         # an output the loss does not read gets no cotangent (None), not a tensor of zeros
@@ -556,14 +550,14 @@ class _TeacherCore(torch.autograd.Function):
         g_aligns = None if g_aligns is None else g_aligns.to(torch.float32).contiguous()
         stack = torch.empty(B, N, stack_width, **f32)
         d_keys = torch.zeros_like(keys)
-        d_vblk = torch.empty(B, 2, keys.shape[-1], **f32)
+        d_vblk = torch.empty(B, 2 if z["E2"] else 1, keys.shape[-1], **f32)
         d_spk = torch.zeros(B, max(z["SPK"], 1), **f32)
         d_brow = torch.zeros(B, stack_width, **f32)
         _launch(
             "bwd",
             [flat, x2, keys, mem1, mem2, bias, spk, None, None, carries, acts,
              g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow],
-            dims, hp_like, seed, device,
+            z, dims, hp_like, seed, device,
         )
         g = grads_from_rows(
             z, hp_like["use_ta"], x2, spk, aligns, carries, stack, d_brow, d_keys, d_vblk,
@@ -600,15 +594,18 @@ def teacher_decode_reference(*, weights, keys, mem1, mem2, score_bias, spk, feed
 
 def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, hp_like,
                    prenet_masks=None, generator=None):
-    """Differentiable teacher-forced decode: ``(features (B, N, DU), alignments (B, N, 2S))``.
+    """Differentiable teacher-forced decode: ``(features (B, N, DU), alignments (B, N, n * S))``
+    for n sources.
 
     ``weights``: every matrix (in, out): the prenet's ``w_p1, b_p1, w_p2, b_p2``
-    and ``CORE_WEIGHTS`` (``vblk`` (A1 + A2, 2) holds each mechanism's score
-    vector in its own column and rows, ``w_qp`` is the fused query projection).
-    ``keys`` (B, S, A1 + A2) are both mechanisms' keys side by side,
+    and ``CORE_WEIGHTS``. Dual source (``hp_like["dual"]``, the default):
+    ``vblk`` (A1 + A2, 2) holds each mechanism's score vector in its own column
+    and rows, ``w_qp`` is the fused query projection, ``keys`` (B, S, A1 + A2)
+    are both mechanisms' keys side by side. One source: ``vblk`` (A1, 1),
+    ``w_qp`` the mechanism's query layer, ``keys`` (B, S, A1), ``mem2`` None.
     ``score_bias`` (B, S) is 0 where valid and -1e9 where padded, ``feeds``
     (B, N, F) the teacher frames, ``seed`` the zoneout masks' seed. ``hp_like``:
-    ``use_ta, att_units, att1_units, att2_units, dec_units, zoneout_cell,
+    ``dual, use_ta, att_units, att1_units, att2_units, dec_units, zoneout_cell,
     zoneout_output, prenet_drop_rate, eval_zoneout``.
 
     Tensors on a CUDA device go to the two kernels or raise; on the CPU they go

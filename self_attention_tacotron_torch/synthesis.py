@@ -64,7 +64,8 @@ def make_predict_fn(
 
     The output dictionary has ``mel`` (B, max_iters*r, num_mels), ``stop_probs``
     (B, max_iters*r), ``lengths`` (B,), ``alignments`` (per source, (B, max_iters,
-    S)), ``encoder_sa_alignments`` (per block, (B, H, S, S)), ``finished`` (B,) and
+    S)), ``encoder_sa_alignments`` (per block, (B, H, S, S); empty for a
+    single-stream encoder), ``finished`` (B,) and
     ``num_steps`` (), all tensors on ``device``.
     """
     dev = resolve_device(device)

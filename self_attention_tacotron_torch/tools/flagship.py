@@ -1,4 +1,12 @@
-"""The flagship configuration and request shapes that the GPU scripts drive."""
+"""The configurations and request shapes that the GPU scripts drive.
+
+Three configurations at full width, float32: ``flagship`` (the dual-source
+Self-Attention Tacotron, with the committed trained weights), ``baseline``
+(``configs/ljspeech_baseline.json``: ``ExtendedTacotronV1Model`` with
+``EncoderV1``) and ``zoneout`` (the same model with ``ZoneoutEncoderV1``). No
+trained weights of the baseline family are committed: its networks are made
+from a seed.
+"""
 
 from __future__ import annotations
 
@@ -10,11 +18,16 @@ from typing import Callable, Dict, List
 import numpy as np
 import torch
 
+from self_attention_tacotron_torch import convert
 from self_attention_tacotron_torch.hparams import HParams
+from self_attention_tacotron_torch.models.models import TacotronNetwork, tacotron_model_factory
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 # trained flagship weights (float32 leaves, num_symbols=256), committed in the repo
 TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_params.npz")
+# the baseline Tacotron's configuration, as the training command line reads it
+BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
+CONFIGS = ("flagship", "baseline", "zoneout")
 
 
 def flagship_hparams(**overrides) -> HParams:
@@ -30,6 +43,37 @@ def flagship_hparams(**overrides) -> HParams:
         max_iters=500,
     )
     return hp.override_from_dict(overrides)
+
+
+def baseline_hparams(**overrides) -> HParams:
+    """Full-width baseline Tacotron: ``configs/ljspeech_baseline.json`` over the
+    defaults (``ExtendedTacotronV1Model``, ``EncoderV1``, ``ExtendedDecoder``,
+    forward attention, r=2, 70 symbols), float32."""
+    hp = HParams(compute_dtype="float32", max_iters=500).override_from_json_file(BASELINE_JSON)
+    return hp.override_from_dict(overrides)
+
+
+def config_hparams(config: str, **overrides) -> HParams:
+    """The hyper-parameters of one of ``CONFIGS``; ``zoneout`` is the baseline with
+    ``ZoneoutEncoderV1``."""
+    if config == "flagship":
+        return flagship_hparams(**overrides)
+    if config == "baseline":
+        return baseline_hparams(**overrides)
+    if config == "zoneout":
+        return baseline_hparams(**{"encoder": "ZoneoutEncoderV1", **overrides})
+    raise ValueError(f"unknown configuration {config!r}; known: {CONFIGS}")
+
+
+def load_network(config: str, seed: int = 0, device="cuda", **overrides) -> TacotronNetwork:
+    """The network of ``config`` on ``device`` in eval mode: the flagship with its
+    trained weights, the baseline family with weights made from ``seed`` (on the
+    CPU's generator, so that every path of one seed holds the same weights)."""
+    hp = config_hparams(config, **overrides)
+    if config == "flagship":
+        return convert.load_npz(TRAINED_NPZ, hp, device=device)
+    torch.manual_seed(seed)
+    return tacotron_model_factory(hp).network(device=device).eval()
 
 
 def ragged_lengths(rng: np.random.Generator, batch: int, longest: int, shortest: int = 24):

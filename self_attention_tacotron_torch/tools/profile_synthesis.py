@@ -1,10 +1,12 @@
 """Where a synthesis request's time goes on the card.
 
-    python3 -m self_attention_tacotron_torch.tools.profile_synthesis
+    python3 -m self_attention_tacotron_torch.tools.profile_synthesis [--config baseline]
 
-Flagship at full width, trained weights, batch 32 (ragged source lengths up to
-128) and batch 1, ``max_iters`` decoder steps with the stop threshold out of
-reach, so that every run does the same work. It prints JSON lines:
+One configuration of ``tools/flagship.py`` at full width (``--config``: the
+flagship with its trained weights, the default; ``baseline`` or ``zoneout`` with
+weights made from a seed), batch 32 (ragged source lengths up to 128) and batch
+1, ``--steps`` decoder steps with the stop threshold out of reach, so that every
+run does the same work. It prints JSON lines:
 
 * ``encoder``: time of ``encode`` by CUDA events, kernel path and plain path;
 * ``decode``: time per decoder step of a whole request, in turns (a, b, b, a):
@@ -29,13 +31,12 @@ import time
 import numpy as np
 import torch
 
-from self_attention_tacotron_torch import convert
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 from self_attention_tacotron_torch.tools.flagship import (
-    TRAINED_NPZ,
+    CONFIGS,
     device_busy,
-    flagship_hparams,
     gpu_line,
+    load_network,
     ragged_request,
 )
 from self_attention_tacotron_torch.utils.platform import resolve_device
@@ -94,15 +95,15 @@ def device_row(predict, req, steps: int, untraced_ms: float, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=200, help="decoder steps per request")
+    parser.add_argument("--config", choices=CONFIGS, default="flagship")
     args = parser.parse_args()
     dev = resolve_device("cuda")
-    print(json.dumps({"card": gpu_line(), "steps": args.steps}), flush=True)
+    print(json.dumps({"card": gpu_line(), "config": args.config, "steps": args.steps}),
+          flush=True)
 
     # no probability exceeds a threshold of 2: no lane fires, every run does the same work
-    net = convert.load_npz(TRAINED_NPZ, flagship_hparams(stop_token_threshold=2.0))
-    net_plain = convert.load_npz(
-        TRAINED_NPZ, flagship_hparams(stop_token_threshold=2.0, use_pallas_kernels=False)
-    )
+    net = load_network(args.config, stop_token_threshold=2.0)
+    net_plain = load_network(args.config, stop_token_threshold=2.0, use_pallas_kernels=False)
     stepwise = {
         "sync": make_predict_fn(net, max_iters=args.steps, use_fused=False),
         "no_sync": make_predict_fn(net, max_iters=args.steps, use_fused=False, early_exit=False),

@@ -1,8 +1,10 @@
 """Where a training step's time goes on the card.
 
-    python3 -m self_attention_tacotron_torch.tools.profile_training
+    python3 -m self_attention_tacotron_torch.tools.profile_training [--config baseline]
 
-Flagship at full width from the committed trained weights, the seeded batch of
+One configuration of ``tools/flagship.py`` at full width (``--config``: the
+flagship from the committed trained weights, the default; ``baseline`` or
+``zoneout`` from weights made from a seed), the seeded batch of
 ``tools/flagship.py::training_batch`` (32 lanes x 800 frames, sources 24..128),
 ``Trainer.train_step`` through the kernels and with ``use_pallas_kernels=False``
 (eager encoder, the decoder's Python loop under autograd). It prints JSON lines:
@@ -34,15 +36,15 @@ import time
 import numpy as np
 import torch
 
-from self_attention_tacotron_torch import convert
 from self_attention_tacotron_torch.models.models import tacotron_model_factory
 from self_attention_tacotron_torch.ops import fused_teacher
 from self_attention_tacotron_torch.tools.flagship import (
-    TRAINED_NPZ,
+    CONFIGS,
     StepTimer,
+    config_hparams,
     device_busy,
-    flagship_hparams,
     gpu_line,
+    load_network,
     training_batch,
 )
 from self_attention_tacotron_torch.training.trainer import Trainer
@@ -67,11 +69,11 @@ def timed_step(trainer, state, batch, generator):
     return state, metrics, row
 
 
-def first_gradients(hp, batch, dev, double: bool = False, moved: float = 1.0):
+def first_gradients(config, overrides, batch, dev, double: bool = False, moved: float = 1.0):
     """``(gradients by parameter name in float64, loss, grad_norm)`` of the first
-    step from the trained weights, generator seed 0, nothing updated."""
-    trainer = Trainer(tacotron_model_factory(hp))
-    net = convert.load_npz(TRAINED_NPZ, hp)
+    step from the configuration's weights, generator seed 0, nothing updated."""
+    trainer = Trainer(tacotron_model_factory(config_hparams(config, **overrides)))
+    net = load_network(config, **overrides)
     batch = dict(batch)
     if double:
         net = net.double()
@@ -89,22 +91,22 @@ def first_gradients(hp, batch, dev, double: bool = False, moved: float = 1.0):
     return grads, float(loss.detach()), norm
 
 
-def conditioning(dev, frames: int) -> None:
-    hp = flagship_hparams()
+def conditioning(config, dev, frames: int) -> None:
+    hp = config_hparams(config)
     batch = training_batch(
         np.random.default_rng(1234), 32, frames, 128, hp.num_mels, hp.outputs_per_step
     )
-    plain = flagship_hparams(use_pallas_kernels=False)
-    ref, loss, norm = first_gradients(plain, batch, dev, double=True)
+    plain = {"use_pallas_kernels": False}
+    ref, loss, norm = first_gradients(config, plain, batch, dev, double=True)
     print(json.dumps({"conditioning": {
         "path": "plain, float64", "loss": loss, "grad_norm": norm}}), flush=True)
-    for path, hparams, kwargs in (
-        ("kernels, float32", hp, {}),
+    for path, overrides, kwargs in (
+        ("kernels, float32", {}, {}),
         ("plain, float32", plain, {}),
         ("plain, float32, embedding moved by 1e-7", plain, {"moved": 1.0 + 1e-7}),
         ("plain, float64, embedding moved by 1e-7", plain, {"double": True, "moved": 1.0 + 1e-7}),
     ):
-        grads, loss, norm = first_gradients(hparams, batch, dev, **kwargs)
+        grads, loss, norm = first_gradients(config, overrides, batch, dev, **kwargs)
         errs = sorted(
             float((grads[k] - g).abs().max()) / max(float(g.abs().max()), 1e-12)
             for k, g in ref.items()
@@ -121,17 +123,19 @@ def main() -> None:
     parser.add_argument("--frames", type=int, default=800, help="target frames per lane")
     parser.add_argument("--conditioning", action="store_true",
                         help="how well float32 determines the first step's gradients")
+    parser.add_argument("--config", choices=CONFIGS, default="flagship")
     args = parser.parse_args()
     dev = resolve_device("cuda")
-    print(json.dumps({"card": gpu_line(), "steps": args.steps, "frames": args.frames}), flush=True)
+    print(json.dumps({"card": gpu_line(), "config": args.config, "steps": args.steps,
+                      "frames": args.frames}), flush=True)
     if args.conditioning:
-        conditioning(dev, args.frames)
+        conditioning(args.config, dev, args.frames)
         return
 
     for path, overrides in (("kernels", {}), ("plain", {"use_pallas_kernels": False})):
-        hp = flagship_hparams(**overrides)
+        hp = config_hparams(args.config, **overrides)
         trainer = Trainer(tacotron_model_factory(hp))
-        state = trainer.init_state(convert.load_npz(TRAINED_NPZ, hp))
+        state = trainer.init_state(load_network(args.config, **overrides))
         batch = training_batch(
             np.random.default_rng(1234), 32, args.frames, 128, hp.num_mels, hp.outputs_per_step
         )

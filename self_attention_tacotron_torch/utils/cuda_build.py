@@ -7,10 +7,17 @@ by a hash of the source, the shared headers (``csrc/*.cuh``) and the compiler
 flags, and loaded once per process.
 There is no other way to a kernel: if the build fails, the caller gets the
 compiler's message as an exception.
+
+    python3 -m self_attention_tacotron_torch.utils.cuda_build SOURCE.cu [SOURCE.cu ...]
+
+prints what ``ptxas`` reports for every kernel of each source (registers, stack
+frame, spill stores and loads), compiled with the flags of the build; any
+checkout's sources can be named, so two trees' kernels can be set side by side.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import hashlib
 import os
@@ -30,7 +37,7 @@ NVCC_FLAGS: Tuple[str, ...] = (
 )
 
 KERNEL_SOURCES: Tuple[str, ...] = (
-    "bigru", "mha_full", "fused_decode", "bigru_bwd", "fused_teacher",
+    "bigru", "mha_full", "fused_decode", "bigru_bwd", "fused_teacher", "bilstm",
 )
 
 _libraries: Dict[str, ctypes.CDLL] = {}
@@ -108,3 +115,32 @@ def load_library(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _libraries[name] = lib
     return lib
+
+
+def resource_usage(source: str) -> str:
+    """``ptxas``'s report on the kernels of one ``.cu`` file, built as ``build_all``
+    builds a source; the library it makes is removed again."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    out = os.path.join(BUILD_DIR, f"resource-usage.{os.getpid()}.so")
+    try:
+        proc = subprocess.run(
+            [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out, source],
+            capture_output=True, text=True,
+        )
+    finally:
+        if os.path.exists(out):
+            os.remove(out)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stderr}")
+    return proc.stderr
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description="ptxas's report on the kernels of CUDA sources")
+    parser.add_argument("sources", nargs="+", help="paths of .cu files")
+    for source in parser.parse_args().sources:
+        print(f"== {source}\n{resource_usage(source)}", flush=True)
+
+
+if __name__ == "__main__":
+    main()

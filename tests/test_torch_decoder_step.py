@@ -141,11 +141,20 @@ def test_second_decoder_lstm_has_the_residual_and_the_first_has_not(pair):
 
 def test_factories_name_what_is_not_ported():
     with pytest.raises(NotImplementedError):
-        decoder_factory(HParams(decoder="ExtendedDecoder"), (), ())
+        decoder_factory(HParams(decoder="MgcLf0ExtendedDecoder"), (), ())
+    with pytest.raises(NotImplementedError):
+        decoder_factory(HParams(decoder="MgcLf0DualSourceSelfAttentionDecoder"), (), ())
     with pytest.raises(ValueError):
         decoder_factory(HParams(decoder="nope"), (), ())
     with pytest.raises(NotImplementedError):
-        tacotron_model_factory(HParams(tacotron_model="ExtendedTacotronV1Model"))
+        tacotron_model_factory(HParams(tacotron_model="MgcLf0TacotronModel"))
+    with pytest.raises(NotImplementedError):
+        tacotron_model_factory(
+            HParams(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel")
+        )
+    with pytest.raises(NotImplementedError):
+        TacotronNetwork(HParams(attention="location_sensitive", decoder="ExtendedDecoder",
+                                encoder="EncoderV1"))
     with pytest.raises(NotImplementedError):
         TacotronNetwork(HParams(decoder="DualSourceSelfAttentionDecoder", use_postnet_v2=True))
     with pytest.raises(NotImplementedError):

@@ -13,6 +13,12 @@ held here
   cannot take any): same flax weights, same numpy-seeded source; atol 1e-4 on
   mel, stop probabilities and alignments (two float32 implementations over 12
   fed-back steps), lengths, flags and step counts exact.
+
+Every specialisation of the kernel is held so, one variant per pair of flags
+(``dual``, ``use_sa``): the flagship's ``DualSourceSelfAttentionDecoder`` (with
+the transition agent and a speaker embedding as well), ``DualSourceDecoder``,
+the baseline's ``ExtendedDecoder`` and ``SelfAttentionDecoder``; no model class
+reaches the last, so it is built by ``TacotronModelBase`` on both sides.
 """
 
 import jax
@@ -22,11 +28,12 @@ import pytest
 import torch
 
 from self_attention_tacotron_tpu.hparams import HParams as JaxHParams
+from self_attention_tacotron_tpu.models.models import TacotronModelBase as JaxModelBase
 from self_attention_tacotron_tpu.models.models import tacotron_model_factory as jax_factory
 from self_attention_tacotron_tpu.synthesis import make_predict_fn as jax_make_predict_fn
 
 from self_attention_tacotron_torch.hparams import HParams
-from self_attention_tacotron_torch.models.models import tacotron_model_factory
+from self_attention_tacotron_torch.models.models import TacotronModelBase, tacotron_model_factory
 from self_attention_tacotron_torch.ops import fused_decode as fd
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 
@@ -42,7 +49,35 @@ VARIANTS = {
     "forward": {},
     "transition_agent": {"attention": "forward_transition_agent"},
     "speaker": {"use_speaker_embedding": True, "num_speakers": 4, "speaker_embedding_dim": 8},
+    # dual=1, use_sa=0
+    "dual_source_decoder": {"decoder": "DualSourceDecoder"},
+    # dual=0, use_sa=0: the baseline
+    "extended_decoder": {"tacotron_model": "ExtendedTacotronV1Model", "encoder": "EncoderV1",
+                         "decoder": "ExtendedDecoder"},
+    # dual=0, use_sa=1
+    "self_attention_decoder": {"encoder": "EncoderV1", "decoder": "SelfAttentionDecoder"},
 }
+
+
+# Variants whose narrow seeded decoder keeps its stop probabilities within a few
+# hundredths of 0.5, where no threshold separates the lanes with a margin: the
+# stop columns of their output projection are scaled by this much, which spreads
+# them and leaves the frames as they are (a negative factor turns them, so that
+# they rise over the steps on this seed).
+SPREAD = {"dual_source_decoder": 8.0, "extended_decoder": -8.0, "self_attention_decoder": 8.0}
+# the seed of the flax initialisation, where it is not 0
+INIT_SEED = {"dual_source_decoder": 1}
+
+
+def _sources(variant):
+    return 2 if "DualSource" in VARIANTS[variant].get("decoder", "DualSource") else 1
+
+
+def _model(variant, hp, jax_side=False):
+    """The model of ``hp``; ``SelfAttentionDecoder`` is reached by no model class."""
+    if hp.decoder == "SelfAttentionDecoder":
+        return (JaxModelBase if jax_side else TacotronModelBase)(hp)
+    return (jax_factory if jax_side else tacotron_model_factory)(hp)
 
 
 def _batch(variant, batch=B, seed=7):
@@ -64,22 +99,32 @@ def _flax_variables(variant):
     """Flax-initialised weights of the narrow flagship, one set per variant."""
     if variant not in _flax_cache:
         hp = JaxHParams(**{**_NARROW, **VARIANTS[variant]})
-        net = jax_factory(hp).network(is_training=True)
+        net = _model(variant, hp, jax_side=True).network(is_training=True)
         batch = {k: jnp.asarray(v) for k, v in _batch(variant).items()}
         variables = net.init(
-            {"params": jax.random.PRNGKey(0), "dropout": jax.random.PRNGKey(1),
+            {"params": jax.random.PRNGKey(INIT_SEED.get(variant, 0)),
+             "dropout": jax.random.PRNGKey(1),
              "zoneout": jax.random.PRNGKey(2)},
             batch["source"], batch["source_lengths"],
             jnp.zeros((B, 4, hp.num_mels), jnp.float32), jnp.full((B,), 4, jnp.int32),
             speaker_id=batch.get("speaker_id"),
         )
-        _flax_cache[variant] = dict(variables)
+        variables = dict(variables)
+        if variant in SPREAD:
+            params = dict(variables["params"])
+            params["decoder"] = dict(params["decoder"])
+            proj = dict(params["decoder"]["output_projection"])
+            r = _NARROW["outputs_per_step"]
+            proj["kernel"] = proj["kernel"].at[:, -r:].multiply(SPREAD[variant])
+            params["decoder"]["output_projection"] = proj
+            variables["params"] = params
+        _flax_cache[variant] = variables
     return _flax_cache[variant]
 
 
 def _torch_net(variant, **overrides):
     hp = HParams(**{**_NARROW, **VARIANTS[variant], **overrides})
-    net = tacotron_model_factory(hp).network(device="cpu")
+    net = _model(variant, hp).network(device="cpu")
     return load_from_flax(net, _flax_variables(variant), hp)
 
 
@@ -110,6 +155,7 @@ def _compare(got, want, atol):
     """got, want: output dictionaries or DecodeResults brought to dictionaries."""
     for key in ("mel", "stop_probs"):
         assert_close(got[key], np.asarray(want[key]), atol=atol)
+    assert len(got["alignments"]) == len(want["alignments"])
     for g, w in zip(got["alignments"], want["alignments"]):
         assert_close(g, np.asarray(w), atol=atol)
     for key in ("lengths", "finished"):
@@ -158,7 +204,7 @@ def test_plain_version_matches_the_step_by_step_path_to_the_cap(variant):
     plain, stepwise = _both_paths(variant, threshold=2.0)   # a probability never exceeds 2
     assert int(stepwise["num_steps"]) == MAX_ITERS and not bool(stepwise["finished"].any())
     assert plain["mel"].shape == (B, MAX_ITERS * R, 10)
-    assert [tuple(a.shape) for a in plain["alignments"]] == [(B, MAX_ITERS, S)] * 2
+    assert [tuple(a.shape) for a in plain["alignments"]] == [(B, MAX_ITERS, S)] * _sources(variant)
     assert float(plain["mel"].abs().max()) > 0.0
     _compare(plain, stepwise, atol=1e-5)
 
@@ -197,7 +243,8 @@ def _run_jax_fused(variant, threshold):
     if key not in _jax_runs:
         hp = JaxHParams(**{**_NARROW, **VARIANTS[variant], "decoder_prenet_drop_rate": 0.0,
                            "stop_token_threshold": threshold})
-        predict = jax_make_predict_fn(jax_factory(hp), max_iters=MAX_ITERS, use_fused=True)
+        predict = jax_make_predict_fn(_model(variant, hp, jax_side=True), max_iters=MAX_ITERS,
+                                      use_fused=True)
         batch = {k: jnp.asarray(v) for k, v in _batch(variant).items()}
         out = predict(_flax_variables(variant), batch, jax.random.PRNGKey(11))
         _jax_runs[key] = jax.tree.map(np.asarray, out)
@@ -284,15 +331,23 @@ def test_batch_blocks_with_early_exit_keep_the_contract():
 
 
 def test_supports_the_flagship_family_only():
+    """The four mel decoders are served; the location-sensitive branch, the MgcLf0
+    heads and bfloat16 are still to be ported."""
     assert fd.supports_fused_decode(HParams(**_NARROW))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "forward_transition_agent"}))
+    for variant in VARIANTS:
+        assert fd.supports_fused_decode(HParams(**{**_NARROW, **VARIANTS[variant]})), variant
     for overrides in (
         {"n_feed_frame": 2},
         {"decoder_prenet_out_units": (32, 16, 16)},
         {"decoder_self_attention_num_hop": 2},
         {"attention": "location_sensitive"},
-        {"decoder": "DualSourceDecoder"},
+        {"decoder": "ExtendedDecoder", "attention": "location_sensitive"},
+        {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
+        {"decoder": "MgcLf0ExtendedDecoder"},
         {"compute_dtype": "bfloat16"},
+        {"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"},
+        {"decoder": "ExtendedDecoder", "attention_out_units": 8, "cbhg_out_units": 24},
     ):
         hp = HParams(**{**_NARROW, **overrides})
         assert not fd.supports_fused_decode(hp), overrides

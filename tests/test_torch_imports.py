@@ -45,7 +45,7 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
                      "ops/fused_attention.py", "ops/fused_decode.py", "ops/decode_loop.py",
                      "models/models.py", "models/losses.py", "ops/fused_teacher.py",
                      "training/trainer.py", "training/schedules.py", "tools/flagship.py",
-                     "tools/profile_training.py"):
+                     "tools/profile_training.py", "models/encoders.py", "models/modules.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
 
 
@@ -86,6 +86,8 @@ def test_importing_the_port_loads_nothing_of_jax():
 def test_kernel_sources_are_cuda_for_sm_90a_and_are_built_into_an_ignored_directory():
     from self_attention_tacotron_torch.utils import cuda_build
 
+    assert {"bigru", "mha_full", "fused_decode", "bigru_bwd", "fused_teacher",
+            "bilstm"} <= set(cuda_build.KERNEL_SOURCES)
     for name in cuda_build.KERNEL_SOURCES:
         assert os.path.isfile(cuda_build.source_path(name))
         assert cuda_build.library_path(name).startswith(cuda_build.BUILD_DIR)
@@ -132,7 +134,7 @@ def test_a_cuda_tensor_never_reaches_the_plain_version():
     )
 
     for fn in (fused_rnn.bigru, fused_attention.mha_full, fused_decode.fused_decode,
-               fused_rnn.bigru_bwd_carry, fused_teacher.teacher_decode):
+               fused_rnn.bigru_bwd_carry, fused_teacher.teacher_decode, fused_rnn.bilstm):
         src = inspect.getsource(fn)
         assert "try:" not in src and "except" not in src
         assert 'device.type == "cpu"' in src
@@ -148,3 +150,33 @@ def test_fused_decode_on_a_device_without_a_kernel_raises():
     )
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fused_decode.fused_decode(packed, None, None, 3, 0.5)
+
+
+def test_kernel_sources_name_the_tpu_kernel_they_replace():
+    """Every CUDA source opens with the Pallas kernel it replaces."""
+    from self_attention_tacotron_torch.utils import cuda_build
+
+    for name in cuda_build.KERNEL_SOURCES:
+        with open(cuda_build.source_path(name)) as f:
+            head = f.read(1000)
+        assert "Replaces the" in head and "Pallas kernel" in head, name
+        assert "self_attention_tacotron_tpu/ops/" in head, name
+
+
+def test_bilstm_on_a_device_without_a_kernel_raises():
+    from self_attention_tacotron_torch.ops import fused_rnn
+
+    params = {"kernel": torch.zeros(12, 16, device="meta"), "bias": torch.zeros(16, device="meta")}
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        fused_rnn.bilstm(torch.zeros(2, 3, 8, device="meta"), torch.tensor([3, 1]), params,
+                         params, hidden=4)
+
+
+def test_resource_usage_reports_the_compilers_failure_and_leaves_no_library(monkeypatch, tmp_path):
+    from self_attention_tacotron_torch.utils import cuda_build
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(cuda_build, "find_nvcc", lambda: "false")
+    with pytest.raises(RuntimeError, match="nvcc failed on .*fused_decode.cu"):
+        cuda_build.resource_usage(cuda_build.source_path("fused_decode"))
+    assert os.listdir(tmp_path) == []

@@ -249,7 +249,8 @@ def test_encoder_factory_names():
 
     enc = encoders.encoder_factory(HParams(encoder="SelfAttentionCBHGEncoder"))
     assert isinstance(enc, encoders.SelfAttentionCBHGEncoder)
-    with pytest.raises(NotImplementedError):
-        encoders.encoder_factory(HParams(encoder="EncoderV1"))
+    for name in ("EncoderV1", "ZoneoutEncoderV1", "ZoneoutEncoderV1WithAccentType",
+                 "SelfAttentionCBHGEncoderWithAccentType"):
+        assert type(encoders.encoder_factory(HParams(encoder=name))).__name__ == name
     with pytest.raises(ValueError):
         encoders.encoder_factory(HParams(encoder="nope"))

@@ -81,7 +81,11 @@ def _batch():
 @pytest.fixture(scope="module", params=sorted(CASES))
 def runs(request, tmp_path_factory):
     """Three updates on both sides; everything a test reads, as numpy."""
-    kw = dict(_NARROW, **CASES[request.param])
+    return three_steps(dict(_NARROW, **CASES[request.param]), tmp_path_factory)
+
+
+def three_steps(kw, tmp_path_factory):
+    """Three updates of the configuration ``kw`` on both sides, from the same weights."""
     batch = _batch()
     assert len(set(batch["target_lengths"].tolist())) > 1 and batch["source_lengths"].min() < S
 
@@ -101,7 +105,7 @@ def runs(request, tmp_path_factory):
     )
     state = jax_trainer.TrainState(
         step=jnp.zeros((), jnp.int32), params=params, opt_state=jt.tx.init(params),
-        batch_stats=variables["batch_stats"],
+        batch_stats=variables.get("batch_stats", {}),   # none without a CBHG
     )
     start = flat_variables({"params": state.params, "batch_stats": state.batch_stats})
 
@@ -140,6 +144,11 @@ def runs(request, tmp_path_factory):
                 state=tstate)
 
 
+def _has_batch_norm(kw):
+    # the CBHG's convolutions carry batch norm; ZoneoutEncoderV1 has no CBHG
+    return not kw.get("encoder", "").startswith("ZoneoutEncoderV1")
+
+
 def _load_flat(model, flat, hp):
     net = model.network(device="cpu")
     return convert.load_state(net, convert.flax_to_torch_state(flat, hp, net))
@@ -150,7 +159,7 @@ def test_the_inverse_of_convert_gives_back_every_leaf(runs):
     net = _load_flat(tacotron_model_factory(hp), runs["start"], hp)
     back = convert.torch_to_flax_flat(net)
     assert set(back) == set(runs["start"])
-    assert any(k.startswith("batch_stats/") for k in back)
+    assert any(k.startswith("batch_stats/") for k in back) == _has_batch_norm(runs["kw"])
     for key, want in runs["start"].items():
         np.testing.assert_array_equal(back[key], want, err_msg=key)
     zeros = convert.torch_to_flax_flat(net, gradients=True)
@@ -198,9 +207,8 @@ def test_every_updated_parameter_and_batch_stats_leaf(runs, steps):
         moved += float(np.abs(want[key] - runs["start"][key]).max()) > 1e-5
     assert moved >= len(want) - 2
     stats = [k for k in want if k.startswith("batch_stats/") and k.endswith("/var")]
-    assert stats and all(
-        float(np.abs(want[k] - runs["start"][k]).max()) > 1e-5 for k in stats
-    )
+    assert bool(stats) == _has_batch_norm(runs["kw"])
+    assert all(float(np.abs(want[k] - runs["start"][k]).max()) > 1e-5 for k in stats)
 
 
 def test_the_state_counts_steps_and_sets_the_scheduled_rate(runs):
@@ -273,7 +281,8 @@ def test_eval_step_and_targets_from_batch(runs):
     losses, out = trainer.eval_step(runs["state"], batch)
     assert not runs["state"].net.training
     assert out.frames["mel"].shape == (B, FRAMES, 6) and out.stop_logits.shape == (B, FRAMES)
-    assert [a.shape for a in out.alignments] == [(B, FRAMES // 2, S)] * 2
+    sources = 2 if "DualSource" in hp.decoder else 1
+    assert [a.shape for a in out.alignments] == [(B, FRAMES // 2, S)] * sources
     assert all(np.isfinite(float(v)) for v in losses.values())
     after = convert.torch_to_flax_flat(runs["state"].net)
     assert all(np.array_equal(before[k], after[k]) for k in before)   # eval moves nothing
