@@ -13,14 +13,21 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
 3. kernels: each kernel against its plain PyTorch version on the card, at small
    ragged shapes and at the flagship shapes, with times by CUDA events: ``bigru``
    and ``mha_full`` in float32 and bfloat16; ``fused_decode`` (the whole decode
-   loop, float32) with prenet dropout 0.5 from injected masks, at narrow and
+   loop) in float32 with prenet dropout 0.5 from injected masks, at narrow and
    off-tile sizes (transition agent, speaker embedding, two batch blocks, a
    prefix of 320 steps), at the flagship sizes to the step cap, and with an
    early exit whose threshold is taken from the plain run's own stop
    probabilities, where lengths, flags, step counts and the zero tail must be
    equal; the timed 500-step launch against the plain version by windows of
-   steps; and a step cap beyond one block's shared memory, where the launch
-   limit is 0 and ``predict`` raises; the training kernels: ``bigru_train`` (the
+   steps; and the flagship at a step cap of 2500 (beyond the 1872 that one
+   block's shared memory held before the self-attention was tiled), B=32 and
+   B=1, one launch each, the block's shared memory the same as at 500 steps,
+   held by windows of steps; ``fused_decode``'s bfloat16 branch against its
+   bfloat16 plain version, every pair of flags at narrow and off-tile sizes with
+   early exits, the flagship from its trained weights, B=32 and B=1, timed over
+   500 steps and held by windows, and the two specialisations no configuration
+   runs timed at the flagship's widths in both io types; the training kernels:
+   ``bigru_train`` (the
    BiGRU's forward kernel and the kernel of its backward's carry recursion)
    against autograd through the plain version, outputs and the gradients of the
    input and of all eight weights; ``fused_teacher`` (the teacher-forced decoder
@@ -34,7 +41,7 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``fused_decode`` with one source or without self-attention (the three pairs
    of flags the flagship does not launch) at narrow sizes with early exits, the
    baseline at full width (B=32 and B=1, 500 steps, timed, and with an early
-   exit) and at a step cap beyond the flagship's largest, where it must run;
+   exit) and at the step cap of 2500;
    ``fused_teacher`` with one source, narrow and at full width over 400 steps;
 4. main path: flagship synthesis at full width from the committed trained
    weights through ``convert.load_npz`` and ``make_predict_fn``, batch 1 and
@@ -43,7 +50,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    generator seed; lengths and flags must be equal on every lane whose stop
    probabilities keep a margin from the threshold, frames and alignments within
    the stated tolerances, and every kernel's launch count exact; then a short
-   request on the card against the same request on the CPU; then the baseline
+   request on the card against the same request on the CPU; then the same at
+   compute_dtype="bfloat16" (the bfloat16 entry points of ``bigru`` and
+   ``mha_full``, ``fused_decode``'s bfloat16 branch) against the bfloat16 plain
+   path, lengths and flags on the lanes with a margin, launch counts exact, a
+   short bfloat16 request on the card against the CPU, and the drift from the
+   float32 requests printed; then the baseline
    (``configs/ljspeech_baseline.json``, seeded weights) the same way, and one
    ZoneoutEncoderV1 request, whose encoder is ``bilstm``;
 5. training main path: ``Trainer.train_step`` of the flagship from the trained
@@ -54,7 +66,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    must launch none; an evaluation step on both paths; then the baseline from
    seeded weights: three timed steps through the kernels, one plain, every
    gradient leaf of the first step held, launch counts exact, an evaluation step;
-6. report: one JSON line ``{"kernels": [...]}``, then the last line
+   and a bfloat16 ``train_step`` through the kernels, which must raise
+   ``NotImplementedError`` (their bfloat16 branches are the next slice) and
+   launch nothing;
+6. report: one JSON line ``{"kernels": [...]}`` (every kernel, fused_decode's
+   bfloat16 instantiation as an entry of its own), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -165,6 +181,43 @@ MAIN_MARGIN = 0.1
 # The card (kernel path) against the port on the CPU, 30 decoder steps at full
 # width with the same injected masks: float32 sums in another order.
 TOL_CPU = 1e-4
+# fused_decode in bfloat16 against its bfloat16 plain version on the card: both
+# round the same values at the same points, but their float32 sums run in
+# another order, and where a sum lands next to a rounding boundary the two round
+# one bfloat16 ulp apart, which the loop feeds back. Narrow decoders over 24 steps
+# at TOL_FUSED_BF16. The trained flagship amplifies such a flip on the lane where
+# it falls (in float32 too its runs leave each other, see FUSED_WINDOWS): over its
+# first BF16_EARLY_STEPS steps at B=32 the lane furthest off read 0.03 to 0.14 on
+# the draws of masks tried on an H100, the median lane 0.005, and the plain version
+# against itself with its memories moved by one bfloat16 ulp 0.50 (median 0.011).
+# So those steps are held at TOL_FUSED_BF16_WIDE on the median lane of a batch of
+# at least FUSED_MEDIAN_LANES (a fault of the kernel would move every lane) and on
+# the largest below that, later windows printed, and that yardstick printed.
+# An early exit's threshold needs a gap of BF16_MARGIN_FACTOR times the largest
+# difference of the stop logits.
+TOL_FUSED_BF16 = 1e-2
+TOL_FUSED_BF16_WIDE = 3e-2
+BF16_EARLY_STEPS = 50
+FUSED_BF16_WINDOWS = ((BF16_EARLY_STEPS, TOL_FUSED_BF16_WIDE, "median"), (256, None, "printed"),
+                      (500, None, "printed"))
+BF16_MARGIN_FACTOR = 10.0
+# A step cap beyond what the kernel took before its self-attention was tiled (1872
+# at source length 128): the flagship decodes it in one launch per batch block,
+# with the same shared memory as at 500 steps. Seeded weights, which do not spread,
+# are held over every step at LONG_CAP_TOL (float32); the trained model's first
+# FUSED_STEPS steps at TOL_FUSED and the rest by windows, printed.
+LONG_CAP = 2500
+LONG_CAP_TOL = 1e-3
+# The bfloat16 main path: the kernel path rounds where the Pallas kernel does, the
+# plain path (use_pallas_kernels=False) where flax does, so the two differ from the
+# first step by bfloat16 roundings, and the trained model's long runs then leave
+# each other's trajectory; lengths and flags are held on the lanes that keep
+# MAIN_MARGIN and whose two runs stay closer than it (compare_lengths), the floats
+# are printed. The card against the CPU (30 steps, the CPU taking the kernel's
+# plain version, same injected masks) at TOL_CPU_BF16: the card's encoder kernels
+# round like the Pallas kernels, the CPU's eager encoder like flax (6.4e-3 apart
+# on an H100).
+TOL_CPU_BF16 = 3e-2
 
 
 def log(msg: str) -> None:
@@ -476,12 +529,22 @@ def fused_flops_and_bytes(packed, lengths, steps: int):
     attention = batch * 4 * z["SA"] * steps * (steps + 1) // 2
     flops = steps * per_step + attention
     out_row = z["R"] * z["M"] + z["R"] + (2 if packed.dual else 1) * src_len
+    io = packed.flat.element_size()   # weights, keys, memories and cache in the io type
     nbytes = (
-        4 * packed.flat.numel() + 4 * batch * src_len * (a_tot + e_tot + 1)
+        io * packed.flat.numel() + 4 * packed.flat32.numel()
+        + batch * src_len * (io * (a_tot + e_tot) + 4)
         + steps * batch * (z["P1"] + z["P2"]) + 4 * batch * steps * out_row + 9 * batch
     )
-    cache_bytes = batch * 2 * z["SA"] * 4 * (steps + steps * (steps + 1) // 2)
+    cache_bytes = batch * 2 * z["SA"] * io * (steps + steps * (steps + 1) // 2)
     return float(flops), float(nbytes), float(cache_bytes)
+
+
+def bound(flops: float, nbytes: float, dtype) -> dict:
+    """The least time the card could take: operations at the peak rate of the
+    inputs' type, or bytes at the memory rate, whichever is larger."""
+    t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def compare_decodes(got, want, r: int):
@@ -517,7 +580,8 @@ def compare_decodes(got, want, r: int):
     return errs, exact, tail == 0.0, finite
 
 
-def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, slice_batch=None):
+def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, slice_batch=None,
+                tol=TOL_FUSED):
     batch, src_len = cond.memories[0].shape[:2]
     r = packed.sizes["R"]
     before = fused_decode.launch_count
@@ -533,18 +597,18 @@ def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, sl
     blocks = -(-batch // (slice_batch or batch))
     ok = (
         finite and exact and zero_tail and launches == blocks
-        and max(errs["mel"], errs["stop_probs"], errs["alignments"]) <= TOL_FUSED
+        and max(errs["mel"], errs["stop_probs"], errs["alignments"]) <= tol
     )
     rec = {
         "kernel": "fused_decode", "case": name,
-        "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype),
         "shape": {"B": batch, "S": src_len, "T": steps, **packed.sizes},
         "transition_agent": packed.use_transition_agent, "threshold": threshold,
         "early_exit": early_exit, "launches": launches, "num_steps": int(got.num_steps),
         "lengths": got.lengths.tolist() if batch <= 8 else None,
         "finished": int(got.finished.sum()),
         "max_abs_err": max(errs["mel"], errs["stop_probs"], errs["alignments"]), **errs,
-        "tol": TOL_FUSED, "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
+        "tol": tol, "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
     }
     log("check " + json.dumps(rec))
     if not ok:
@@ -573,9 +637,9 @@ def lane_errors(got, want, r: int, lo: int, hi: int) -> torch.Tensor:
     return torch.stack([(a - b).abs().flatten(1).amax(dim=1) for a, b in pairs]).amax(dim=0)
 
 
-def window_errors(got, want, r: int):
+def window_errors(got, want, r: int, spec=FUSED_WINDOWS):
     windows, lo = [], 0
-    for hi, tol, held in FUSED_WINDOWS:
+    for hi, tol, held in spec:
         errs = lane_errors(got, want, r, lo, hi)
         windows.append({
             "steps": [lo, hi], "max": float(errs.max()), "median": float(errs.median()),
@@ -585,18 +649,21 @@ def window_errors(got, want, r: int):
     return windows
 
 
-def check_fused_long(name, got, want, r: int):
+def check_fused_long(name, got, want, r: int, spec=FUSED_WINDOWS):
     """The trained model's long run to the cap against the plain version's, by
-    windows of steps (see FUSED_WINDOWS)."""
+    windows of steps (see FUSED_WINDOWS; FUSED_BF16_WINDOWS in bfloat16)."""
     errs, exact, zero_tail, finite = compare_decodes(got, want, r)
-    require(FUSED_WINDOWS[-1][0] == int(want.num_steps), "the windows must cover the run")
-    windows = window_errors(got, want, r)
+    require(spec[-1][0] == int(want.num_steps), "the windows must cover the run")
+    windows = window_errors(got, want, r, spec)
     batch = got.lengths.shape[0]
     ok = finite and exact and zero_tail
     for w in windows:
         if w["held"] == "median" and batch < FUSED_MEDIAN_LANES:
-            w["held"] = "not held: too few lanes for a median"
-        else:
+            # a few lanes are held on the largest in bfloat16; float32 holds its
+            # earlier windows
+            w["held"] = "max" if spec is FUSED_BF16_WINDOWS else (
+                "not held: too few lanes for a median")
+        if w["held"] in ("max", "median"):
             ok = ok and w[w["held"]] <= w["tol"]
     rec = {
         "kernel": "fused_decode", "case": name, "num_steps": int(got.num_steps), **errs,
@@ -605,61 +672,90 @@ def check_fused_long(name, got, want, r: int):
     log("check " + json.dumps(rec))
     if not ok:
         raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
+    return rec
 
 
-def check_fused_refusal(net, hp) -> None:
-    """Beyond what one block's shared memory holds, the limit is 0 and the wrapper
-    and ``predict`` raise: nothing is launched and nothing else decodes instead."""
+def check_long_cap(flagship, rng) -> dict:
+    """The flagship at LONG_CAP steps, beyond the 1872 that one block's shared memory
+    held before the decoder self-attention was tiled: one launch per request
+    (B=32 and B=1, the launch limit LANES per SM), one block's shared memory the same
+    as at the main path's step cap, every launch held against the plain version by
+    windows of steps: seeded weights at the flagship's widths on every step, the
+    trained weights on the first FUSED_STEPS (see LONG_CAP)."""
+    hp = flagship.hparams
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    fits = fused_decode.fused_decode_max_batch(hp, hp.max_iters, 128)
-    beyond = 100000
-    need, have = fused_decode.block_shared_memory(
-        fused_decode.pack_decoder(net.decoder).sizes, 128, beyond, DEV
-    )
-    limit = fused_decode.fused_decode_max_batch(hp, beyond, 128)
-    lo, hi = hp.max_iters, beyond   # the largest step cap at which a block still fits
-    while hi - lo > 1:
-        mid = (lo + hi) // 2
-        lo, hi = (mid, hi) if fused_decode.fused_decode_max_batch(hp, mid, 128) else (lo, mid)
-    before = launch_counts()
-    raised = None
-    try:
-        make_predict_fn(net, max_iters=beyond)(ragged_request(np.random.default_rng(5), 1, 128))
-    except RuntimeError as error:
-        raised = str(error)
-    log("check " + json.dumps({
-        "kernel": "fused_decode", "case": "launch limit", "lanes_per_launch": fits, "sms": sms,
-        "max_iters_beyond": beyond, "block_needs": need, "sm_offers": have,
-        "limit_beyond": limit, "largest_max_iters_that_fits": lo, "predict_raised": raised,
-    }))
-    require(fits == fused_decode.LANES * sms, "the launch limit is not LANES lanes per SM")
-    require(need > have and limit == 0, "a block beyond an SM must give a limit of 0")
-    require(raised is not None and "shared memory" in raised,
-            "predict must raise where the kernel cannot launch")
-    require(launch_counts()["fused_decode"] == before["fused_decode"],
-            "a refused launch was counted")
-    return lo
+    trained = fused_decode.pack_decoder(flagship.decoder)
+    need, have = fused_decode.block_shared_memory(trained.sizes, 128, hp.max_iters, DEV)
+    need_long, _ = fused_decode.block_shared_memory(trained.sizes, 128, LONG_CAP, DEV)
+    limit = fused_decode.fused_decode_max_batch(hp, LONG_CAP, 128)
+    rec = {
+        "kernel": "fused_decode", "case": f"step cap {LONG_CAP}: launch limit",
+        "lanes_per_launch": limit, "sms": sms, "block_needs_at_cap": need_long,
+        f"block_needs_at_{hp.max_iters}": need, "sm_offers": have,
+    }
+    log("check " + json.dumps(rec))
+    require(limit == fused_decode.LANES * sms, "the launch limit is not LANES lanes per SM")
+    require(need_long == need <= have, "one block's shared memory must not grow with the cap")
+    r = trained.sizes["R"]
+    wide = seeded_decoder(flagship_hparams(), seed=3)
+    seeded = fused_decode.pack_decoder(wide)
+    held = ((FUSED_STEPS, TOL_FUSED, "max"), (512, LONG_CAP_TOL, "max"),
+            (LONG_CAP, LONG_CAP_TOL, "max"))
+    printed = ((FUSED_STEPS, TOL_FUSED, "max"), (512, None, "printed"),
+               (LONG_CAP, None, "printed"))
+    records = {}
+    for label, packed, windows in (("seeded weights", seeded, held),
+                                   ("trained weights", trained, printed)):
+        for batch, longest in ((32, 128), (1, 97)):
+            req = ragged_request(rng, batch, longest)
+            if packed is trained:
+                cond = flagship_conditioning(flagship, req, seed=batch)
+            else:
+                cond = seeded_conditioning(wide, rng, req["source_lengths"].tolist(), longest)
+            masks = seeded_masks(packed, rng, LONG_CAP, batch)
+            before = fused_decode.launch_count
+            got, ms = timed_once(lambda: fused_decode.fused_decode(
+                packed, cond, masks, LONG_CAP, 2.0, early_exit=False))
+            launched = fused_decode.launch_count - before
+            want = fused_decode.fused_decode_reference(packed, cond, masks, LONG_CAP, 2.0, False)
+            errs, exact, zero_tail, finite = compare_decodes(got, want, r)
+            wins = window_errors(got, want, r, windows)
+            ok = finite and exact and zero_tail and launched == 1 and all(
+                w["max"] <= w["tol"] for w in wins if w["held"] == "max")
+            rec = {
+                "kernel": "fused_decode", "case": f"flagship {label}, B={batch}, {LONG_CAP} steps",
+                "launches": launched, "num_steps": int(got.num_steps), "ms": ms,
+                "ms_per_step": ms / LONG_CAP, **errs, "windows": wins,
+                "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
+            }
+            log("check " + json.dumps(rec))
+            if not ok:
+                raise SystemExit(f"fused_decode at step cap {LONG_CAP} disagrees: {rec}")
+            records[(label, batch)] = rec
+    return records
 
 
-def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None):
+def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None, tol=TOL_FUSED,
+                          margin_factor=FUSED_MARGIN_FACTOR):
     """To the cap first; then at a threshold from that run's own stop probabilities,
     with the early exit and without it, where every integer and flag must be equal."""
     batch = cond.memories[0].shape[0]
     masks = seeded_masks(packed, rng, steps, batch)
     rec, want = check_fused(name + ", to the cap", packed, cond, masks, steps, 2.0,
-                            slice_batch=slice_batch)
+                            slice_batch=slice_batch, tol=tol)
     threshold, gap = exit_threshold(want.stop_probs, steps, packed.sizes["R"])
-    need = FUSED_MARGIN_FACTOR * rec["stop_logits"]
+    need = margin_factor * rec["stop_logits"]
     log("check " + json.dumps({
         "kernel": "fused_decode", "case": name + ", threshold", "threshold": threshold,
         "gap_in_logits": gap, "needed": need,
     }))
     require(gap >= need, f"{name}: the widest gap between stop logits ({gap}) is under {need}")
-    rec_exit, _ = check_fused(name + ", early exit", packed, cond, masks, steps, threshold)
+    rec_exit, _ = check_fused(name + ", early exit", packed, cond, masks, steps, threshold,
+                              tol=tol)
     require(rec_exit["num_steps"] < steps and rec_exit["finished"] == batch,
             f"{name}: the threshold did not end the run early")
     rec_late, _ = check_fused(name + ", exit off", packed, cond, masks, steps, threshold,
-                              early_exit=False)
+                              early_exit=False, tol=tol)
     require(rec_late["num_steps"] == steps and rec_late["finished"] == batch,
             f"{name}: without the exit the run must reach the cap with every lane fired")
     return rec
@@ -678,7 +774,7 @@ def flagship_conditioning(net, req, seed: int):
 def phase_fused_decode():
     flagship = convert.load_npz(NPZ, flagship_hparams())
     packed = fused_decode.pack_decoder(flagship.decoder)
-    largest_cap = check_fused_refusal(flagship, flagship.hparams)
+    long_cap = check_long_cap(flagship, np.random.default_rng(14))
 
     # (a) narrow and off-tile sizes: B=3 S=11 as the CPU tests, B=5 (two blocks of
     # the grid, one lane in the second), odd S, transition agent, speaker embedding
@@ -758,11 +854,9 @@ def phase_fused_decode():
                     want, packed.sizes["R"]),
             }))
         flops, nbytes, cache_bytes = fused_flops_and_bytes(packed, req["source_lengths"], steps)
-        t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
         records[batch].update(
             ms=ms, ms_per_step=ms / steps, steps_timed=steps, plain_ms=plain_ms,
-            bound_ms=max(t_ops, t_bytes) * 1e3,
-            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            **bound(flops, nbytes, torch.float32),
             flops=flops, bytes=nbytes, cache_prefix_bytes=cache_bytes,
         )
         log("check " + json.dumps({
@@ -771,14 +865,14 @@ def phase_fused_decode():
                if k in ("ms", "ms_per_step", "steps_timed", "plain_ms", "bound_ms", "bound_by",
                         "flops", "bytes", "cache_prefix_bytes")},
         }))
-    records["largest_cap"] = largest_cap
+    records["long_cap"] = long_cap
     return records
 
 
 def time_fused(name, packed, cond, masks, lengths, steps: int):
     """Time of one launch to the cap (no exit) by CUDA events, that launch against
-    the plain version's run over all the steps (seeded weights: TOL_FUSED), and the
-    bound of the work these inputs need."""
+    the plain version's run over all the steps (seeded weights: TOL_FUSED in float32;
+    bfloat16 by FUSED_BF16_WINDOWS), and the bound of the work these inputs need."""
     def run():
         return fused_decode.fused_decode(packed, cond, masks, steps, 2.0, early_exit=False)
 
@@ -786,30 +880,35 @@ def time_fused(name, packed, cond, masks, lengths, steps: int):
     want, plain_ms = timed_once(
         lambda: fused_decode.fused_decode_reference(packed, cond, masks, steps, 2.0, False)
     )
-    errs, exact, zero_tail, finite = compare_decodes(run(), want, packed.sizes["R"])
+    got = run()
+    errs, exact, zero_tail, finite = compare_decodes(got, want, packed.sizes["R"])
     err = max(errs["mel"], errs["stop_probs"], errs["alignments"])
     flops, nbytes, _ = fused_flops_and_bytes(packed, lengths, steps)
-    t_ops, t_bytes = flops / PEAK_FLOPS[torch.float32], nbytes / PEAK_BYTES_PER_S
     rec = {
         "kernel": "fused_decode", "case": name,
-        "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype),
         "shape": {"B": len(lengths), "S": int(max(lengths)), "T": steps, **packed.sizes},
         "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes) * 1e3,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes", "flops": flops,
-        "bytes": nbytes, "max_abs_err": err, **errs, "tol": TOL_FUSED,
+        **bound(flops, nbytes, packed.io_dtype), "flops": flops,
+        "bytes": nbytes, "max_abs_err": err, **errs,
         "exact_lengths_flags_steps": exact, "zero_tail": zero_tail,
-        "ok": finite and exact and zero_tail and err <= TOL_FUSED,
     }
+    if packed.io_dtype == torch.float32:
+        rec.update(tol=TOL_FUSED, ok=finite and exact and zero_tail and err <= TOL_FUSED)
+    else:
+        spec = tuple((hi, tol, held) for hi, tol, held in FUSED_BF16_WINDOWS if hi < steps)
+        spec += ((steps, TOL_FUSED_BF16_WIDE, "max") if not spec else (steps, None, "printed"),)
+        rec["windows"] = window_errors(got, want, packed.sizes["R"], spec)
+        early = rec["windows"][0]
+        rec["ok"] = finite and exact and zero_tail and early["max"] <= early["tol"]
     log("check " + json.dumps(rec))
     if not rec["ok"]:
         raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
     return rec
 
 
-def check_cap_beyond_the_flagship(packed, hp, cond, rng, cap: int):
-    """Without self-attention nothing in a block grows with the step cap: the
-    baseline runs at a cap where a flagship block no longer fits an SM. Its first
+def check_baseline_long_cap(packed, hp, cond, rng, cap: int):
+    """The baseline (no self-attention) at a long step cap, one launch: its first
     FUSED_STEPS steps are held against the plain version's run of that length."""
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     limit = fused_decode.fused_decode_max_batch(hp, cap, 128)
@@ -831,7 +930,7 @@ def check_cap_beyond_the_flagship(packed, hp, cond, rng, cap: int):
     )
     finite = all(bool(torch.isfinite(x).all()) for x in (got.frames["mel"], got.stop_probs))
     rec = {
-        "kernel": "fused_decode", "case": "baseline beyond the flagship's step cap",
+        "kernel": "fused_decode", "case": f"baseline at step cap {cap}",
         "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
         "max_iters": cap, "lanes_per_launch": limit, "block_needs": need, "sm_offers": have,
         "launches": launched, "num_steps": int(got.num_steps), "ms": ms,
@@ -841,7 +940,7 @@ def check_cap_beyond_the_flagship(packed, hp, cond, rng, cap: int):
                  and int(got.num_steps) == cap and finite and err <= TOL_FUSED)
     log("check " + json.dumps(rec))
     if not rec["ok"]:
-        raise SystemExit(f"the baseline must decode beyond the flagship's step cap: {rec}")
+        raise SystemExit(f"the baseline must decode at step cap {cap}: {rec}")
 
 
 # Seeded decoders without self-attention keep their stop logits within a few tenths
@@ -859,11 +958,11 @@ def spread_stop_logits(decoder, factor: float = STOP_SPREAD) -> None:
         decoder.output_projection.bias[-r:].mul_(factor)
 
 
-def phase_baseline_decode(flagship_cap: int):
+def phase_baseline_decode():
     """The three specialisations of ``fused_decode`` that the flagship does not
     launch, at narrow sizes with injected masks; the baseline (one source, no
     self-attention) at full width with seeded weights, conditioning from its real
-    encoder; and the baseline beyond the flagship's largest step cap."""
+    encoder; and the baseline at LONG_CAP steps."""
     steps = 24
     single = {"encoder": "EncoderV1"}
     for case, (name, overrides, lengths, src_len, spk) in enumerate((
@@ -909,7 +1008,156 @@ def phase_baseline_decode(flagship_cap: int):
         )
         records[batch]["exit_max_abs_err"] = exit_rec["max_abs_err"]
         if batch == 1:
-            check_cap_beyond_the_flagship(packed, hp, cond, rng, flagship_cap + 1)
+            check_baseline_long_cap(packed, hp, cond, rng, LONG_CAP)
+    return records
+
+
+def check_model_threshold(name, packed, cond, masks, steps: int, threshold: float):
+    """The trained model at its own stop threshold with the early exit, against the
+    plain version's run: lengths and flags exact on the lanes whose plain stop
+    probabilities keep MAIN_MARGIN from the threshold and the two runs' stay closer
+    than that (see ``compare_lengths``), the first BF16_EARLY_STEPS steps as
+    FUSED_BF16_WINDOWS holds them; the number of lanes held is printed."""
+    r = packed.sizes["R"]
+    got = fused_decode.fused_decode(packed, cond, masks, steps, threshold)
+    want = fused_decode.fused_decode_reference(packed, cond, masks, steps, threshold)
+
+    def fields(res):
+        return {"stop_probs": res.stop_probs, "lengths": res.lengths,
+                "finished": res.finished, "num_steps": res.num_steps}
+
+    left_out = compare_lengths(fields(got), fields(want), threshold, r, apart_below_margin=True)
+    early = min(BF16_EARLY_STEPS, int(got.num_steps), int(want.num_steps))
+    errs = lane_errors(got, want, r, 0, early)
+    held = "median" if len(errs) >= FUSED_MEDIAN_LANES else "max"
+    err = float(errs.median() if held == "median" else errs.max())
+    finite = all(bool(torch.isfinite(x).all()) for x in (got.frames["mel"], got.stop_probs))
+    rec = {
+        "kernel": "fused_decode", "case": name, "threshold": threshold,
+        "num_steps": [int(got.num_steps), int(want.num_steps)],
+        "finished": [int(got.finished.sum()), int(want.finished.sum())],
+        "lanes_held": int(got.lengths.shape[0]) - len(left_out),
+        "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
+        "early_steps": early, "early_max": float(errs.max()), "early_median": float(errs.median()),
+        "held": held, "tol": TOL_FUSED_BF16_WIDE, "ok": finite and err <= TOL_FUSED_BF16_WIDE,
+    }
+    log("check " + json.dumps(rec))
+    if not rec["ok"]:
+        raise SystemExit(f"fused_decode disagrees with its plain version: {rec}")
+
+
+def phase_fused_decode_bf16():
+    """The bfloat16 branch of ``fused_decode`` against its bfloat16 plain version:
+    each pair of flags at narrow and off-tile sizes with injected masks and an early
+    exit (TOL_FUSED_BF16 over 24 steps), and two batch blocks; the flagship at full
+    width from the trained weights, B=32 and B=1: over BF16_EARLY_STEPS steps (B=1
+    with an early exit at a threshold from the plain run), at the model's own
+    threshold over 500 steps with the early exit, and timed over 500 steps, held by
+    FUSED_BF16_WINDOWS; then the
+    two specialisations that no configuration runs (``dual=1,use_sa=0``,
+    ``dual=0,use_sa=1``) at the flagship's widths from seeded weights, B=32, 500
+    steps, timed in both io types."""
+    steps = 24
+    single = {"encoder": "EncoderV1"}
+    odd = {"decoder_prenet_drop_rate": 0.0, "decoder_prenet_out_units": (20, 12),
+           "attention_out_units": 28, "attention1_out_units": 10, "decoder_out_units": 36,
+           "decoder_self_attention_out_units": 24, "num_mels": 7, "outputs_per_step": 3,
+           "cbhg_out_units": 20}
+    for case, (name, overrides, lengths, src_len, spk) in enumerate((
+        ("narrow B=3 S=11", {}, [11, 7, 4], 11, 0),
+        ("narrow B=5 S=13, transition agent",
+         {"attention": "forward_transition_agent"}, [13, 5, 9, 1, 12], 13, 0),
+        ("narrow DualSourceDecoder B=5 S=9, speaker embedding",
+         {"decoder": "DualSourceDecoder", "use_speaker_embedding": True, "num_speakers": 4,
+          "speaker_embedding_dim": 6}, [9, 9, 3, 6, 2], 9, 6),
+        ("narrow ExtendedDecoder B=3 S=11", {**single, "decoder": "ExtendedDecoder"},
+         [11, 7, 4], 11, 0),
+        ("narrow SelfAttentionDecoder B=6 S=7 r=3, odd widths, prenet dropout 0",
+         {**single, **odd, "decoder": "SelfAttentionDecoder"}, [7, 2, 5, 7, 7, 3], 7, 0),
+    )):
+        rng = np.random.default_rng(41 + case)
+        decoder = seeded_decoder(narrow_hparams(compute_dtype="bfloat16", **overrides),
+                                 seed=len(lengths) + src_len)
+        if decoder.self_attention is None:
+            spread_stop_logits(decoder)
+        cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
+        packed = fused_decode.pack_decoder(decoder)
+        check_fused_with_exit(f"bf16 {name}", packed, cond, rng, steps, tol=TOL_FUSED_BF16,
+                              margin_factor=BF16_MARGIN_FACTOR)
+    check_fused("bf16 narrow SelfAttentionDecoder B=6, two batch blocks", packed, cond,
+                seeded_masks(packed, rng, steps, 6), steps, 2.0, slice_batch=4,
+                tol=TOL_FUSED_BF16)
+
+    # the flagship from its trained weights, conditioning from its real encoder
+    flagship = convert.load_npz(NPZ, flagship_hparams(compute_dtype="bfloat16"))
+    packed = fused_decode.pack_decoder(flagship.decoder)
+    r, steps = packed.sizes["R"], flagship.hparams.max_iters
+    rng = np.random.default_rng(42)
+    records = {}
+    for batch, longest in ((32, 128), (1, 97)):
+        req = ragged_request(rng, batch, longest)
+        cond = flagship_conditioning(flagship, req, seed=batch)
+        name = f"bf16 flagship B={batch} S={longest}"
+        if batch == 1:
+            # 32 trained lanes crowd their early stop logits: no threshold that fires
+            # every lane within a short run keeps a gap; one lane does
+            check_fused_with_exit(name, packed, cond, rng, BF16_EARLY_STEPS,
+                                  tol=TOL_FUSED_BF16_WIDE, margin_factor=BF16_MARGIN_FACTOR)
+        masks = seeded_masks(packed, rng, steps, batch)
+        check_model_threshold(name + f", its own threshold, {steps} steps", packed, cond, masks,
+                              steps, flagship.hparams.stop_token_threshold)
+        run = lambda: fused_decode.fused_decode(  # noqa: E731
+            packed, cond, masks, steps, 2.0, early_exit=False
+        )
+        ms = time_ms(run, warmup=1, iters=3)
+        want, plain_ms = timed_once(
+            lambda: fused_decode.fused_decode_reference(packed, cond, masks, steps, 2.0, False)
+        )
+        long_rec = check_fused_long(f"bf16 flagship B={batch}, {steps} steps", run(), want, r,
+                                    FUSED_BF16_WINDOWS)
+        if batch == 32:
+            # the yardstick: how far the plain version itself moves in bfloat16
+            moved = dataclasses.replace(
+                cond, memories=tuple(m * (1.0 + 2.0 ** -8) for m in cond.memories))
+            log("check " + json.dumps({
+                "kernel": "fused_decode",
+                "case": f"bf16 flagship B={batch}, {steps} steps, plain version against itself "
+                        "with the memories moved by one bfloat16 ulp",
+                "windows": window_errors(
+                    fused_decode.fused_decode_reference(packed, moved, masks, steps, 2.0, False),
+                    want, r, FUSED_BF16_WINDOWS),
+            }))
+        flops, nbytes, cache_bytes = fused_flops_and_bytes(packed, req["source_lengths"], steps)
+        records[batch] = {
+            "shape": {"B": batch, "S": longest, **packed.sizes},
+            "max_abs_err": long_rec["windows"][0]["max"],
+            "median_lane_err": long_rec["windows"][0]["median"],
+            "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
+            **bound(flops, nbytes, torch.bfloat16), "flops": flops, "bytes": nbytes,
+            "cache_prefix_bytes": cache_bytes,
+        }
+        log("check " + json.dumps({
+            "kernel": "fused_decode", "case": f"bf16 flagship B={batch}, time",
+            **{k: v for k, v in records[batch].items()
+               if k in ("ms", "ms_per_step", "steps_timed", "plain_ms", "bound_ms", "bound_by",
+                        "flops", "bytes", "cache_prefix_bytes")},
+        }))
+    del flagship, packed
+
+    # the specialisations that no configuration of configs/ runs, at flagship widths
+    rng = np.random.default_rng(43)
+    lengths = ragged_lengths(rng, 32, 128).tolist()
+    for name, overrides in (("DualSourceDecoder", {"decoder": "DualSourceDecoder"}),
+                            ("SelfAttentionDecoder", {**single,
+                                                      "decoder": "SelfAttentionDecoder"})):
+        for dtype in ("float32", "bfloat16"):
+            decoder = seeded_decoder(flagship_hparams(compute_dtype=dtype, **overrides), seed=9)
+            packed = fused_decode.pack_decoder(decoder)
+            cond = seeded_conditioning(decoder, rng, lengths, 128)
+            masks = seeded_masks(packed, rng, steps, len(lengths))
+            rec = time_fused(f"{name} at the flagship's widths, seeded, {dtype}, B=32 S=128, "
+                             f"{steps} steps, time", packed, cond, masks, lengths, steps)
+            records[(name, dtype)] = rec
     return records
 
 
@@ -1426,20 +1674,26 @@ def phase_against_cpu(steps: int = 30) -> None:
         raise SystemExit(f"the card and the CPU differ: {errs}")
 
 
-def compare_lengths(out, ref, threshold: float, r: int):
+def compare_lengths(out, ref, threshold: float, r: int, apart_below_margin: bool = False):
     """Lengths and flags, exactly, on the lanes whose stop probabilities in the
     plain run keep MAIN_MARGIN from the threshold up to and including the frame
-    that fires; returns what was left out."""
+    that fires; returns what was left out. With ``apart_below_margin`` (bfloat16,
+    whose long runs from the trained weights leave each other's trajectory) a lane
+    is held only where, up to that frame, the two runs' stop probabilities also stay
+    closer to each other than the plain run's to the threshold: there "fired" cannot
+    differ; the other lanes are left out and printed with how far apart they came."""
     probs = ref["stop_probs"].cpu().numpy()
+    other = out["stop_probs"].cpu().numpy()
     lengths, fired = ref["lengths"].cpu().numpy(), ref["finished"].cpu().numpy()
     steps = int(ref["num_steps"])
     left_out = []
     for lane in range(probs.shape[0]):
         upto = int(lengths[lane]) if fired[lane] else steps * r
         margin = float(np.abs(probs[lane, :upto] - threshold).min())
-        if margin < MAIN_MARGIN:
+        apart = float(np.abs(other[lane, :upto] - probs[lane, :upto]).max())
+        if margin < MAIN_MARGIN or (apart_below_margin and apart >= margin):
             left_out.append({
-                "lane": lane, "margin": margin,
+                "lane": lane, "margin": margin, "apart": apart,
                 "lengths": [int(out["lengths"][lane]), int(lengths[lane])],
             })
             continue
@@ -1484,7 +1738,7 @@ def phase_main_path():
     log("main_path plain " + json.dumps({"requests": stats_plain}))
     compare_paths(outs, outs_plain, hp)
     phase_against_cpu()
-    return launches, stats, stats_plain
+    return launches, stats, stats_plain, outs
 
 
 def compare_paths(outs, outs_plain, hp, label: str = "") -> None:
@@ -1506,6 +1760,118 @@ def compare_paths(outs, outs_plain, hp, label: str = "") -> None:
             raise SystemExit(f"kernel path and plain path differ early: {early}")
         if not max(whole.values()) <= TOL_MAIN:
             raise SystemExit(f"kernel path and plain path differ: {whole}")
+
+
+def bf16_against_cpu(steps: int = 30) -> dict:
+    """A short bfloat16 request: the card's kernel path against the port on the CPU
+    taking the fused decode's plain version (which rounds where the kernel does),
+    same weights, source and injected masks, encoder prenet dropout off, no exit."""
+    hp = flagship_hparams(compute_dtype="bfloat16", encoder_prenet_drop_rate=0.0,
+                          stop_token_threshold=2.0)
+    rng = np.random.default_rng(78)
+    req = ragged_request(rng, 2, 40)
+    masks = tuple(
+        rng.random((steps, 2, units)) < 1.0 - hp.decoder_prenet_drop_rate
+        for units in hp.decoder_prenet_out_units
+    )
+    on_card = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=steps)(req, prenet_masks=masks)
+    on_cpu = make_predict_fn(convert.load_npz(NPZ, hp, device="cpu"), max_iters=steps,
+                             device="cpu", use_fused=True)(req, prenet_masks=masks)
+    card = {
+        k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu()
+        for k, v in on_card.items()
+    }
+    errs = output_errors(card, on_cpu, steps, hp.outputs_per_step)
+    log("main_path bf16 card_vs_cpu " + json.dumps({"steps": steps, **errs, "tol": TOL_CPU_BF16}))
+    if int(card["num_steps"]) != steps or not torch.equal(card["lengths"], on_cpu["lengths"]):
+        raise SystemExit("bfloat16: the card and the CPU disagree on the steps or the lengths")
+    if not max(errs.values()) <= TOL_CPU_BF16:
+        raise SystemExit(f"bfloat16: the card and the CPU differ: {errs}")
+    return errs
+
+
+def phase_main_path_bf16(outs_f32):
+    """Flagship synthesis at compute_dtype="bfloat16" from the trained weights,
+    batch 1 and 32, through the kernels (``bigru`` and ``mha_full`` in bfloat16,
+    ``fused_decode``'s bfloat16 branch) and with ``use_pallas_kernels=False``, same
+    generator seed: launch counts exact, lengths and flags on the lanes with a
+    margin; the floats of the two paths, and the drift from the float32 requests
+    of ``phase_main_path`` (same requests, same seeds), printed."""
+    reqs = requests()
+    hp = flagship_hparams(compute_dtype="bfloat16")
+    predict = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=hp.max_iters)
+    run_requests(predict, reqs[:1], seed=0)            # warm-up
+
+    reset_launch_counts()
+    outs, stats = run_requests(predict, reqs, seed=100)
+    launches = launch_counts()
+    variants = dict(fused_decode.variant_launches)
+    log("main_path bf16 kernels " + json.dumps({
+        "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
+    }))
+    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0}
+    require(launches == expected, f"the bf16 main path launched {launches}, expected {expected}")
+    require(variants == {fused_decode.variant_name(True, True, torch.bfloat16): len(reqs)},
+            f"the bf16 main path launched the specialisations {variants}")
+    for out, req in zip(outs, reqs):
+        check_output(out, req, hp)
+        require(out["mel"].dtype == torch.float32 and out["stop_probs"].dtype == torch.float32,
+                "the bfloat16 outputs must come back in float32")
+
+    hp_plain = flagship_hparams(compute_dtype="bfloat16", use_pallas_kernels=False)
+    predict_plain = make_predict_fn(convert.load_npz(NPZ, hp_plain), max_iters=hp.max_iters)
+    before = launch_counts()
+    outs_plain, stats_plain = run_requests(predict_plain, reqs, seed=100)
+    require(before == launch_counts(), "the bf16 plain path launched a kernel")
+    log("main_path bf16 plain " + json.dumps({"requests": stats_plain}))
+    r = hp.outputs_per_step
+    for out, ref, out32 in zip(outs, outs_plain, outs_f32):
+        left_out = compare_lengths(out, ref, hp.stop_token_threshold, r, apart_below_margin=True)
+        steps = min(int(out["num_steps"]), int(ref["num_steps"]))
+        log("main_path bf16 agreement " + json.dumps({
+            "batch": int(out["mel"].shape[0]),
+            "lanes_held": int(out["mel"].shape[0]) - len(left_out),
+            "num_steps": [int(out["num_steps"]), int(ref["num_steps"])],
+            "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
+            "early_steps": EARLY_STEPS,
+            "early": output_errors(out, ref, min(EARLY_STEPS, steps), r),
+            "whole": output_errors(out, ref, steps, r),
+        }))
+        steps32 = min(int(out["num_steps"]), int(out32["num_steps"]))
+        log("main_path bf16 against float32 (printed, not compared) " + json.dumps({
+            "batch": int(out["mel"].shape[0]),
+            "num_steps": {"bfloat16": int(out["num_steps"]), "float32": int(out32["num_steps"])},
+            "early": output_errors(out, out32, min(EARLY_STEPS, steps32), r),
+            "whole": output_errors(out, out32, steps32, r),
+            "lengths": {"bfloat16": out["lengths"].tolist(),
+                        "float32": out32["lengths"].tolist()},
+            "finished": {"bfloat16": int(out["finished"].sum()),
+                         "float32": int(out32["finished"].sum())},
+        }))
+    cpu_errs = bf16_against_cpu()
+    return launches, stats, stats_plain, cpu_errs
+
+
+def phase_bf16_training_refusal():
+    """``Trainer.train_step`` at compute_dtype="bfloat16" through the kernels on the
+    card raises NotImplementedError, naming the next slice, and launches nothing."""
+    hp = flagship_hparams(compute_dtype="bfloat16")
+    trainer = Trainer(tacotron_model_factory(hp))
+    state = trainer.init_state(convert.load_npz(NPZ, hp))
+    batch = training_batch(np.random.default_rng(5), batch=4, frames=64)
+    torch.cuda.synchronize()
+    reset_training_counts()
+    raised = None
+    try:
+        trainer.train_step(state, batch, torch.Generator(device=DEV).manual_seed(0))
+    except NotImplementedError as error:
+        raised = str(error)
+    counts = training_counts()
+    log("check " + json.dumps({"case": "bf16 train_step through the kernels",
+                               "raised": raised, "launches": counts}))
+    require(raised is not None and "next slice" in raised,
+            "bf16 training through the kernels must raise NotImplementedError")
+    require(all(v == 0 for v in counts.values()), f"a refused train_step launched {counts}")
 
 
 # The baseline's zoneout request decodes this many steps on both paths.
@@ -1826,24 +2192,31 @@ def main() -> int:
 
     records = timed_phase(phase_kernels)
     fused = timed_phase(phase_fused_decode)
-    baseline_fused = timed_phase(phase_baseline_decode, fused["largest_cap"])
+    fused_bf16 = timed_phase(phase_fused_decode_bf16)
+    baseline_fused = timed_phase(phase_baseline_decode)
     bigru_bwd = timed_phase(phase_bigru_bwd)
     teacher = timed_phase(phase_fused_teacher)
     baseline_teacher = timed_phase(phase_baseline_teacher)
-    launches, stats, stats_plain = timed_phase(phase_main_path)
+    launches, stats, stats_plain, outs_f32 = timed_phase(phase_main_path)
+    launches_bf16, stats_bf16, stats_plain_bf16, _ = timed_phase(phase_main_path_bf16, outs_f32)
+    del outs_f32
     baseline = timed_phase(phase_baseline_main_path)
     train, train_plain = timed_phase(phase_training)
     baseline_train, baseline_train_plain = timed_phase(phase_baseline_training)
+    timed_phase(phase_bf16_training_refusal)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
         "mha_full": "self_attention_tacotron_tpu/ops/fused_attention.py:84",
         "bilstm": "self_attention_tacotron_tpu/ops/fused_rnn.py:461",
     }
-    # launches on the main paths: flagship synthesis (bigru, mha_full, fused_decode),
-    # baseline synthesis (bigru, fused_decode) and the ZoneoutEncoderV1 request (bilstm)
+    # launches on the main paths: flagship synthesis in float32 and in bfloat16
+    # (bigru, mha_full, fused_decode), baseline synthesis (bigru, fused_decode) and
+    # the ZoneoutEncoderV1 request (bilstm); fused_decode's bfloat16 instantiation
+    # has an entry of its own
     main_launches = {
         k: launches[k] + baseline["launches"][k] + baseline["zoneout_launches"][k]
+        + (launches_bf16[k] if k != "fused_decode" else 0)
         for k in launches
     }
     kernels = []
@@ -1858,6 +2231,9 @@ def main() -> int:
             "shape": rec["shape"], "dtype": rec["dtype"],
             "bf16_ms": records[(name, torch.bfloat16)]["ms"],
             "bf16_max_abs_err": records[(name, torch.bfloat16)]["max_abs_err"],
+            "bf16_bound_ms": records[(name, torch.bfloat16)]["bound_ms"],
+            "bf16_plain_ms": records[(name, torch.bfloat16)]["plain_ms"],
+            "bf16_main_path_launches": launches_bf16[name],
         })
     # the BiGRU's forward kernel is also the primal of the training function
     kernels[0].update(
@@ -1877,13 +2253,31 @@ def main() -> int:
             baseline["launches"]["fused_decode"] + baseline["zoneout_launches"]["fused_decode"]
         ),
     }
+    instantiations = [
+        f"fused_decode_kernel<{dual}, {use_sa}, {io}>"
+        for io in ("float", "__nv_bfloat16") for dual in ("true", "false")
+        for use_sa in ("true", "false")
+    ]
+    long_cap = {
+        f"{label}, B={batch}": {k: cap[k] for k in ("ms", "ms_per_step", "launches")}
+        | {"windows_max": [w["max"] for w in cap["windows"]]}
+        for (label, batch), cap in fused["long_cap"].items()
+    }
+    unrun = {
+        f"{key[0]}, {key[1]}": {k: fused_bf16[key][k] for k in (
+            "ms", "ms_per_step", "plain_ms", "bound_ms", "bound_by", "max_abs_err")}
+        for key in fused_bf16 if isinstance(key, tuple)
+    }
     kernels.append({
         "name": "fused_decode", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
         "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
         "launches": main_launches["fused_decode"], "specialisations": specialisations,
+        "instantiations": instantiations,
         "specialisations_checked": ["dual=1,use_sa=1", "dual=1,use_sa=0", "dual=0,use_sa=0",
                                     "dual=0,use_sa=1"],
+        "flagship_widths_unrun_specialisations_B32_T500": unrun,
+        f"step_cap_{LONG_CAP}": long_cap,
         "max_abs_err": rec["max_abs_err"],
         "ms": rec["ms"], "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
         "bound_by": rec["bound_by"], "library_ms": None,
@@ -1905,6 +2299,24 @@ def main() -> int:
             "fused_request_ms": 1e3 * baseline["stats"][1]["wall_s"],
             "step_by_step_request_ms": 1e3 * baseline["stats_plain"][1]["wall_s"],
         },
+    })
+    b16 = fused_bf16[32]
+    kernels.append({
+        "name": "fused_decode_bf16", "route": "cuda",
+        "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+        "instantiation": "fused_decode_kernel<true, true, __nv_bfloat16>",
+        "launches": launches_bf16["fused_decode"],
+        "max_abs_err": b16["max_abs_err"], "ms": b16["ms"], "plain_ms": b16["plain_ms"],
+        "bound_ms": b16["bound_ms"], "bound_by": b16["bound_by"], "library_ms": None,
+        "shape": b16["shape"] | {"T": b16["steps_timed"]}, "dtype": "bfloat16",
+        "ms_per_step": b16["ms_per_step"], "compared_over_steps": BF16_EARLY_STEPS,
+        "median_lane_err": b16["median_lane_err"],
+        "tol": TOL_FUSED_BF16_WIDE,
+        "batch1_ms": fused_bf16[1]["ms"], "batch1_ms_per_step": fused_bf16[1]["ms_per_step"],
+        "batch1_bound_ms": fused_bf16[1]["bound_ms"], "batch1_plain_ms": fused_bf16[1]["plain_ms"],
+        "fused_request_ms": 1e3 * stats_bf16[1]["wall_s"],
+        "step_by_step_request_ms": 1e3 * stats_plain_bf16[1]["wall_s"],
     })
     # The training kernels: launches are those of the training steps of both
     # configurations. No single PyTorch call computes any of them (``torch.nn.GRU``

@@ -45,6 +45,24 @@ template <> struct Weights4<__nv_bfloat16> {
   }
 };
 
+// One value of a kernel's io type (float or bfloat16) as float, a float rounded to
+// that type (round to nearest even) and kept as float, and a float stored as it.
+template <typename IO> struct Io;
+template <> struct Io<float> {
+  static __device__ __forceinline__ float load(const float* p) { return __ldg(p); }
+  static __device__ __forceinline__ float round(float v) { return v; }
+  static __device__ __forceinline__ float from(float v) { return v; }
+};
+template <> struct Io<__nv_bfloat16> {
+  static __device__ __forceinline__ float load(const __nv_bfloat16* p) {
+    return __uint_as_float((unsigned int)__ldg(reinterpret_cast<const unsigned short*>(p)) << 16);
+  }
+  static __device__ __forceinline__ float round(float v) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 from(float v) { return __float2bfloat16_rn(v); }
+};
+
 __device__ __forceinline__ void fma4(float4& acc, float a, const float4& w) {
   acc.x = fmaf(a, w.x, acc.x);
   acc.y = fmaf(a, w.y, acc.y);

@@ -22,26 +22,42 @@
 // and leaves the loop at T steps or, with early_exit, as soon as every lane of
 // the launch has fired.
 //
-// The kernel is compiled four times, for two independent flags: DUAL (the two
-// sources above; without it the baseline's single forward attention, where Wqp is
-// the mechanism's own query layer, v has one column, A2 = E2 = 0 and there is no
-// second memory or alignment) and USE_SA (the self-attention block; without it the
-// output projection reads the feature h2 + h1 itself, there is no K/V cache, and
-// nothing in shared memory grows with T).
+// The kernel is compiled for two independent flags and two io types: DUAL (the
+// two sources above; without it the baseline's single forward attention, where
+// Wqp is the mechanism's own query layer, v has one column, A2 = E2 = 0 and there
+// is no second memory or alignment), USE_SA (the self-attention block; without it
+// the output projection reads the feature h2 + h1 itself and there is no K/V
+// cache), and IO, float or bfloat16. IO is the type of the weights, keys,
+// memories, speaker embedding and K/V cache in global memory. With bfloat16 the
+// kernel rounds the input of every product to bfloat16 where the Pallas kernel
+// casts it to its io_dtype (the fed-back frame, the prenet's second input, the
+// attention LSTM's input, the query, the transition agent's input, both decoder
+// LSTMs' inputs, the feature, both LayerNorm outputs, the attention output, the
+// FFN's hidden layer and the output projection's input) and keeps everything else
+// in float: the products' sums, the LSTM and attention state, the score bias,
+// score vectors, LayerNorm parameters, softmaxes, stop logits and the outputs.
+// The LSTMs' hidden states then live apart from their rounded copies.
+//
+// The decoder self-attention walks the cache's prefix in tiles of SA_TILE
+// positions with an online softmax (running maximum and sum per lane and head,
+// the output accumulator rescaled from tile to tile): nothing in shared memory
+// grows with T. A prefix of one tile (every step of a request of up to SA_TILE
+// steps) is normalised before its product with V, as a plain softmax is.
 //
 // What bounds it on an H100 is the serial chain of steps, not bytes or
 // operations: a step is a dozen dependent small products. The design is one
 // block per LANES lanes that walks all the steps on its own. State lives in
-// shared memory; the weights (one flat buffer, every matrix (in, out) with rows
-// padded to 16 bytes) are streamed through L2 every step, 16 bytes per thread and
-// eight loads in flight, each weight read serving LANES lanes; a product's
-// reduction is split over the threads and the partial sums are added in shared
-// memory. Conditioning and the K/V cache stay in global memory; K is cached
-// transposed (position minor), so that both passes of the attention read
-// consecutive addresses along the axis they do not reduce. Blocks share nothing
-// but the exit decision: each step every block adds (1, done?) to that step's
-// counter in global memory and waits until all have arrived. That needs all
-// blocks resident at once, so such a launch is cooperative.
+// shared memory; the weights (one flat buffer of the io type, every matrix (in,
+// out) with rows padded to four values, and a small float buffer of the score
+// vectors and LayerNorm parameters) are streamed through L2 every step, four
+// values per thread and eight loads in flight, each weight read serving LANES
+// lanes; a product's reduction is split over the threads and the partial sums are
+// added in shared memory. Conditioning and the K/V cache stay in global memory; K
+// is cached transposed (position minor), so that both passes of the attention
+// read consecutive addresses along the axis they do not reduce. Blocks share
+// nothing but the exit decision: each step every block adds (1, done?) to that
+// step's counter in global memory and waits until all have arrived. That needs
+// all blocks resident at once, so such a launch is cooperative.
 //
 // Plain C interface at the bottom: the function launches on the given stream,
 // allocates nothing, does not synchronise, and returns the CUDA error code.
@@ -49,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "dense.cuh"
 
@@ -58,20 +75,26 @@ constexpr int LANES = 4;
 constexpr int NT = 512;
 constexpr int NWARPS = NT / 32;
 static_assert(NWARPS >= 2 * LANES, "a warp per (lane, source) in the softmax stage");
+// Positions of the decoder self-attention's prefix per tile (a multiple of 4):
+// requests of up to this many steps attend in one tile.
+constexpr int SA_TILE = 512;
 
-// Order of the entries in the flat weight buffer (ops/fused_decode.py::_ENTRIES).
+// Order of the entries in the flat weight buffers (ops/fused_decode.py::_ENTRIES).
+// V_CAT and the LayerNorm parameters are in the float buffer, the rest in the
+// buffer of the io type.
 enum Entry {
   P1_W, P1_B, P2_W, P2_B, ATTG_W, ATTG_B, QP_W, V_CAT, TA_W, TA_B,
   L1_W, L1_B, L2_W, L2_B, IN_W, IN_B, LN1_S, LN1_B, LN2_S, LN2_B,
   QKV_W, O_W, O_B, F1_W, F1_B, F2_W, F2_B, OUT_W, OUT_B, NUM_ENTRIES
 };
 
-// Sizes, flags and offsets (in floats), in the order the wrapper writes them. The
-// widths name the specialisation: E2 > 0 two sources, SA > 0 the self-attention block.
+// Sizes, flags and offsets (in values of their buffer), in the order the wrapper
+// writes them. The widths name the specialisation: E2 > 0 two sources, SA > 0 the
+// self-attention block; bf16 the io type.
 struct Dims {
   int B, S, T;
   int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2;
-  int use_ta, early_exit, use_masks;
+  int use_ta, early_exit, use_masks, bf16;
   int off[NUM_ENTRIES];
 };
 
@@ -79,18 +102,20 @@ struct Scalars {
   float zc, zo, forget_bias, inv_keep, stop_threshold, ln_eps, sqrt_hd;
 };
 
+template <typename IO>
 struct Ptrs {
-  const float* w;
+  const IO* w;
+  const float* w32;              // score vectors and LayerNorm parameters
   const double* pe_rate;         // (SA,); a placeholder without self-attention
-  const float* keys;             // (B, S, A1 + A2)
-  const float* mem1;             // (B, S, E1)
-  const float* mem2;             // (B, S, E2); a placeholder with one source
+  const IO* keys;                // (B, S, A1 + A2)
+  const IO* mem1;                // (B, S, E1)
+  const IO* mem2;                // (B, S, E2); a placeholder with one source
   const float* bias;             // (B, S)
-  const float* spk;              // (B, SPK) or null
+  const IO* spk;                 // (B, SPK) or null
   const unsigned char* mask1;    // (T, B, P1) or null
   const unsigned char* mask2;    // (T, B, P2) or null
-  float* kcache;                 // (B, SA, T4) scratch; a placeholder without self-attention
-  float* vcache;                 // (B, T, SA) scratch; likewise
+  IO* kcache;                    // (B, SA, T4) scratch; a placeholder without self-attention
+  IO* vcache;                    // (B, T, SA) scratch; likewise
   float* frames;                 // (B, T, R * M)
   float* stops;                  // (B, T, R)
   float* align1;                 // (B, T, S)
@@ -106,22 +131,25 @@ struct Ptrs {
 // fused_decode_smem_bytes below and keeps no copy of it.
 struct Layout {
   int part, feed, x1, attin, catt, f1, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, feat;
-  int xs, xn, q, attn, y, logit, out, total;
+  int xs, xn, q, attn, y, logit, stat, out, hatt, h1, h2, total;
 };
 
-// The kernel passes its compile-time flags; the host passes what the widths say
-// (E2 > 0, SA > 0). Read from the widths inside the kernel as well, the flagship's
-// instantiation ran 9 % slower on an H100, with the same registers and spills.
-__host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use_sa) {
-  const int A = d.A1 + d.A2, OW = d.R * d.M + d.R, T4 = r4(d.T);
+// The kernel passes its compile-time flags; the host passes what the widths and
+// the io flag say (E2 > 0, SA > 0, bf16). Read from the widths inside the kernel
+// as well, the flagship's instantiation ran 9 % slower on an H100, with the same
+// registers and spills. `split`: the LSTMs' hidden states live apart from the
+// rounded copies that the products read (bfloat16 only).
+__host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use_sa, bool split) {
+  const int A = d.A1 + d.A2, OW = d.R * d.M + d.R;
   const int KA = d.P2 + d.SPK + d.E1 + d.E2 + d.AU;
   const int KD1 = d.AU + d.E1 + d.E2 + d.DU;
   const int sa = use_sa ? 1 : 0;   // without self-attention its arrays take no room
+  const int st = split ? 1 : 0;
   int widest = imax(r4(d.P1), r4(d.P2));
   widest = imax(widest, imax(4 * d.AU, 4 * d.DU));
   widest = imax(widest, imax(r4(A), sa * 3 * d.SA));
   widest = imax(widest, imax(sa * r4(d.FFN), r4(OW)));
-  widest = imax(widest, imax(d.E1 + d.E2, sa * d.H * T4));
+  widest = imax(widest, imax(d.E1 + d.E2, sa * d.H * SA_TILE));
   widest = r4(widest);
   Layout L;
   int at = 0;
@@ -146,29 +174,37 @@ __host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use
   L.q = at;      at += sa * LANES * r4(d.SA);
   L.attn = at;   at += sa * LANES * r4(d.SA);
   L.y = at;      at += sa * LANES * r4(d.SA);
-  L.logit = at;  at += sa * LANES * r4(d.H * T4);
+  L.logit = at;  at += sa * LANES * r4(d.H * SA_TILE);
+  L.stat = at;   at += sa * 3 * r4(LANES * d.H);   // running max, sum and rescale per (lane, head)
   L.out = at;    at += LANES * r4(OW);
+  L.hatt = at;   at += st * LANES * r4(d.AU);
+  L.h1 = at;     at += st * LANES * r4(d.DU);
+  L.h2 = at;     at += st * LANES * r4(d.DU);
   L.total = at;
   return L;
 }
 
 // Eval-mode ZoneoutLSTM from the partial sums of its gate product (4U columns,
-// i, g, f, o). c is s_c[l * ldc + j]; the previous h is s_h[l * ldh + j] and is
-// overwritten; the new h also goes to s_h2[l * ldh2 + j], and h + s_res[...] to
-// s_sum where those are given.
+// i, g, f, o). c is s_c[l * ldc + j] and the hidden state s_h[l * ldh + j], both
+// float and overwritten. The new h, rounded to the io type, also goes to s_in,
+// the cell's own input slot that the next step's product reads (with float io
+// s_in is s_h itself); and then either to s_cp (the next product's input) or,
+// where s_sum is given, h + s_res[...] rounded to s_sum.
+template <typename IO>
 __device__ __forceinline__ void lstm_pointwise(const float* s_part, int parts, int U,
-                                               const float* __restrict__ b, float* s_c, int ldc,
-                                               float* s_h, int ldh, float* s_h2, int ldh2,
-                                               float* s_sum, int ldsum, const Scalars& sc,
+                                               const IO* __restrict__ b, float* s_c, int ldc,
+                                               float* s_h, int ldh, float* s_in, int ldin,
+                                               float* s_cp, int ldcp, float* s_sum,
+                                               const float* s_res, int ldres, const Scalars& sc,
                                                int tid) {
   const int ld = 4 * U;
   for (int i = tid; i < LANES * U; i += NT) {
     const int l = i / U;
     const int j = i - l * U;
-    const float zi = gather<LANES>(s_part, parts, ld, l, j) + __ldg(b + j);
-    const float zg = gather<LANES>(s_part, parts, ld, l, U + j) + __ldg(b + U + j);
-    const float zf = gather<LANES>(s_part, parts, ld, l, 2 * U + j) + __ldg(b + 2 * U + j);
-    const float zo = gather<LANES>(s_part, parts, ld, l, 3 * U + j) + __ldg(b + 3 * U + j);
+    const float zi = gather<LANES>(s_part, parts, ld, l, j) + Io<IO>::load(b + j);
+    const float zg = gather<LANES>(s_part, parts, ld, l, U + j) + Io<IO>::load(b + U + j);
+    const float zf = gather<LANES>(s_part, parts, ld, l, 2 * U + j) + Io<IO>::load(b + 2 * U + j);
+    const float zo = gather<LANES>(s_part, parts, ld, l, 3 * U + j) + Io<IO>::load(b + 3 * U + j);
     const float c = s_c[l * ldc + j];
     const float h = s_h[l * ldh + j];
     const float new_c = sigmoidf_(zf + sc.forget_bias) * c + sigmoidf_(zi) * tanhf(zg);
@@ -177,12 +213,15 @@ __device__ __forceinline__ void lstm_pointwise(const float* s_part, int parts, i
     const float out_h = sc.zo * h + (1.0f - sc.zo) * new_h;
     s_c[l * ldc + j] = out_c;
     s_h[l * ldh + j] = out_h;
-    if (s_sum != nullptr) s_sum[l * ldsum + j] = out_h + s_h2[l * ldh2 + j];
-    else s_h2[l * ldh2 + j] = out_h;
+    const float rounded = Io<IO>::round(out_h);
+    if (!std::is_same<IO, float>::value) s_in[l * ldin + j] = rounded;
+    if (s_sum != nullptr) s_sum[l * ldcp + j] = Io<IO>::round(out_h + s_res[l * ldres + j]);
+    else s_cp[l * ldcp + j] = rounded;
   }
 }
 
-// LayerNorm of LANES rows of n values, a warp per row.
+// LayerNorm of LANES rows of n values, a warp per row; the output rounded to IO.
+template <typename IO>
 __device__ __forceinline__ void layer_norm(const float* s_x, float* s_y, int ldx, int n,
                                            const float* __restrict__ scale,
                                            const float* __restrict__ bias, float eps, int warp,
@@ -199,13 +238,16 @@ __device__ __forceinline__ void layer_norm(const float* s_x, float* s_y, int ldx
     }
     const float sd = sqrtf(warp_sum(sq) / (float)n + eps);
     for (int j = lane; j < n; j += 32)
-      s_y[warp * ldx + j] = (x[j] - mean) / sd * __ldg(scale + j) + __ldg(bias + j);
+      s_y[warp * ldx + j] =
+          Io<IO>::round((x[j] - mean) / sd * __ldg(scale + j) + __ldg(bias + j));
   }
 }
 
-template <bool DUAL, bool USE_SA>
+template <bool DUAL, bool USE_SA, typename IO>
 __global__ void __launch_bounds__(NT)
-fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
+fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
+  using Vec = typename Weights4<IO>::Vec;
+  constexpr bool SPLIT = !std::is_same<IO, float>::value;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_b[LANES];       // global lane, clamped into the batch
@@ -224,7 +266,7 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   const int KA = P2 + d.SPK + EW + AU, KD1 = AU + EW + DU;
   const int nblocks = gridDim.x;
 
-  const Layout L = make_layout(d, DUAL, USE_SA);
+  const Layout L = make_layout(d, DUAL, USE_SA, SPLIT);
   float* s_part = smem + L.part;
   float* s_feed = smem + L.feed;     const int ld_feed = r4(M);
   float* s_x1 = smem + L.x1;         const int ld_x1 = r4(P1);
@@ -246,10 +288,24 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   float* s_q = smem + L.q;
   float* s_attn = smem + L.attn;
   float* s_y = smem + L.y;
-  float* s_logit = smem + L.logit;   const int ld_logit = r4(H * T4);
+  float* s_logit = smem + L.logit;   const int ld_logit = r4(H * SA_TILE);
+  float* s_mrun = smem + L.stat;     const int ld_stat = r4(LANES * H);
+  float* s_lsum = s_mrun + ld_stat;
+  float* s_scale = s_lsum + ld_stat;
   float* s_out = smem + L.out;       const int ld_out = r4(OW);
+  // the LSTMs' hidden states: beside their rounded input copies, or (float io) those slots
+  float* st_att = SPLIT ? smem + L.hatt : s_attin + (KA - AU);
+  const int ld_st_att = SPLIT ? ld_au : ld_attin;
+  float* st_h1 = SPLIT ? smem + L.h1 : s_din + (KD1 - DU);
+  const int ld_st_h1 = SPLIT ? ld_du : ld_din;
+  float* st_h2 = SPLIT ? smem + L.h2 : s_din2 + DU;
+  const int ld_st_h2 = SPLIT ? ld_du : ld_din2;
+  // what the second LSTM's residual reads: h1's state (float io: its copy in s_din2)
+  const float* res_h1 = SPLIT ? st_h1 : s_din2;
+  const int ld_res_h1 = SPLIT ? ld_st_h1 : ld_din2;
 
-  const float* w = P.w;
+  const IO* w = P.w;
+  const float* w32 = P.w32;
 
   // ------------------------------ initial state ------------------------------
   for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
@@ -266,7 +322,7 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
   if (P.spk != nullptr)
     for (int i = tid; i < LANES * d.SPK; i += NT) {
       const int l = i / d.SPK, j = i - l * d.SPK;
-      s_attin[l * ld_attin + P2 + j] = __ldg(P.spk + (size_t)s_b[l] * d.SPK + j);
+      s_attin[l * ld_attin + P2 + j] = Io<IO>::load(P.spk + (size_t)s_b[l] * d.SPK + j);
     }
   if (warp < LANES) {
     int hi = 0;
@@ -285,18 +341,18 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     __syncthreads();
     for (int i = tid; i < LANES * P1; i += NT) {
       const int l = i / P1, j = i - l * P1;
-      float v = fmaxf(gather<LANES>(s_part, parts, r4(P1), l, j) + __ldg(w + d.off[P1_B] + j), 0.0f);
+      float v = fmaxf(gather<LANES>(s_part, parts, r4(P1), l, j) + Io<IO>::load(w + d.off[P1_B] + j), 0.0f);
       if (d.use_masks) v = P.mask1[((size_t)t * B + s_b[l]) * P1 + j] ? v * sc.inv_keep : 0.0f;
-      s_x1[l * ld_x1 + j] = v;
+      s_x1[l * ld_x1 + j] = Io<IO>::round(v);
     }
     __syncthreads();
     parts = dense_partial<LANES, NT>(w + d.off[P2_W], r4(P2), P1, s_x1, ld_x1, s_part, tid);
     __syncthreads();
     for (int i = tid; i < LANES * P2; i += NT) {
       const int l = i / P2, j = i - l * P2;
-      float v = fmaxf(gather<LANES>(s_part, parts, r4(P2), l, j) + __ldg(w + d.off[P2_B] + j), 0.0f);
+      float v = fmaxf(gather<LANES>(s_part, parts, r4(P2), l, j) + Io<IO>::load(w + d.off[P2_B] + j), 0.0f);
       if (d.use_masks) v = P.mask2[((size_t)t * B + s_b[l]) * P2 + j] ? v * sc.inv_keep : 0.0f;
-      s_attin[l * ld_attin + j] = v;
+      s_attin[l * ld_attin + j] = Io<IO>::round(v);
     }
     __syncthreads();
 
@@ -304,8 +360,8 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     // input [prenet | speaker | ctx1 | ctx2 | h_att]; the new h_att is the query
     parts = dense_partial<LANES, NT>(w + d.off[ATTG_W], 4 * AU, KA, s_attin, ld_attin, s_part, tid);
     __syncthreads();
-    lstm_pointwise(s_part, parts, AU, w + d.off[ATTG_B], s_catt, ld_au, s_attin + (KA - AU),
-                   ld_attin, s_din, ld_din, nullptr, 0, sc, tid);
+    lstm_pointwise<IO>(s_part, parts, AU, w + d.off[ATTG_B], s_catt, ld_au, st_att, ld_st_att,
+                       s_attin + (KA - AU), ld_attin, s_din, ld_din, nullptr, nullptr, 0, sc, tid);
     __syncthreads();
 
     // ------------------------------ both sources' scores -----------------------
@@ -321,10 +377,10 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
       const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
       float e1 = bias, e2 = bias;
       if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
-        const float* key = P.keys + ((size_t)s_b[l] * S + s) * A;
+        const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
         float acc1 = 0.0f, acc2 = 0.0f;
         for (int a = lane; a < A; a += 32) {
-          const float v = tanhf(__ldg(key + a) + s_qp[l * ld_a + a]) * __ldg(w + d.off[V_CAT] + a);
+          const float v = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]) * __ldg(w32 + d.off[V_CAT] + a);
           if (!DUAL || a < A1) acc1 += v; else acc2 += v;
         }
         e1 = warp_sum(acc1) + bias;
@@ -396,8 +452,8 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
         const int col = 4 * c;
         const bool second = DUAL && col >= E1;
         const int width = second ? E2 : E1;
-        const float* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
-                                  : P.mem1 + (size_t)s_b[l] * S * E1 + col;
+        const IO* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
+                               : P.mem1 + (size_t)s_b[l] * S * E1 + col;
         const float* alpha = (second ? s_e2 : s_alpha1) + l * ld_s;
         const int s0 = p * chunk;
         const int s1 = imin(imin(s0 + chunk, S), s_hi[l]);
@@ -407,18 +463,20 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
           float4 m[8];
 #pragma unroll
           for (int u = 0; u < 8; ++u)
-            m[u] = __ldg(reinterpret_cast<const float4*>(mem + (size_t)(s + u) * width));
+            m[u] = Weights4<IO>::values(
+                __ldg(reinterpret_cast<const Vec*>(mem + (size_t)(s + u) * width)));
 #pragma unroll
           for (int u = 0; u < 8; ++u) fma4(acc, alpha[s + u], m[u]);
         }
         for (; s < s1; ++s)
-          fma4(acc, alpha[s], __ldg(reinterpret_cast<const float4*>(mem + (size_t)s * width)));
+          fma4(acc, alpha[s],
+               Weights4<IO>::values(__ldg(reinterpret_cast<const Vec*>(mem + (size_t)s * width))));
         *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * EW + col) = acc;
       }
       __syncthreads();
       for (int i = tid; i < LANES * EW; i += NT) {
         const int l = i / EW, j = i - l * EW;
-        const float v = gather<LANES>(s_part, cparts, EW, l, j);
+        const float v = Io<IO>::round(gather<LANES>(s_part, cparts, EW, l, j));
         s_attin[l * ld_attin + P2 + d.SPK + j] = v;   // next step's attention LSTM input
         s_din[l * ld_din + AU + j] = v;               // [query | ctx1 | ctx2 | h1]
       }
@@ -427,26 +485,26 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
 
     // ------------------------------ transition agent ---------------------------
     if (d.use_ta && warp < LANES) {
-      const float* wt = w + d.off[TA_W];
+      const IO* wt = w + d.off[TA_W];
       const float* row = s_din + warp * ld_din;
       float acc = 0.0f;
       for (int i = lane; i < E1 + AU; i += 32)
-        acc += __ldg(wt + i) * (i < E1 ? row[AU + i] : row[i - E1]);   // [ctx1 | query]
+        acc += Io<IO>::load(wt + i) * (i < E1 ? row[AU + i] : row[i - E1]);   // [ctx1 | query]
       acc = warp_sum(acc);
-      if (lane == 0) s_u[warp] = sigmoidf_(acc + __ldg(w + d.off[TA_B]));
+      if (lane == 0) s_u[warp] = sigmoidf_(acc + Io<IO>::load(w + d.off[TA_B]));
     }
 
     // ------------------------------ decoder LSTMs ------------------------------
     parts = dense_partial<LANES, NT>(w + d.off[L1_W], 4 * DU, KD1, s_din, ld_din, s_part, tid);
     __syncthreads();
-    lstm_pointwise(s_part, parts, DU, w + d.off[L1_B], s_c1, ld_du, s_din + (KD1 - DU), ld_din,
-                   s_din2, ld_din2, nullptr, 0, sc, tid);
+    lstm_pointwise<IO>(s_part, parts, DU, w + d.off[L1_B], s_c1, ld_du, st_h1, ld_st_h1,
+                       s_din + (KD1 - DU), ld_din, s_din2, ld_din2, nullptr, nullptr, 0, sc, tid);
     __syncthreads();
     parts = dense_partial<LANES, NT>(w + d.off[L2_W], 4 * DU, 2 * DU, s_din2, ld_din2, s_part, tid);
     __syncthreads();
     // feature = h2 + h1
-    lstm_pointwise(s_part, parts, DU, w + d.off[L2_B], s_c2, ld_du, s_din2 + DU, ld_din2,
-                   s_din2, ld_din2, s_feat, ld_du, sc, tid);
+    lstm_pointwise<IO>(s_part, parts, DU, w + d.off[L2_B], s_c2, ld_du, st_h2, ld_st_h2,
+                       s_din2 + DU, ld_din2, nullptr, ld_du, s_feat, res_h1, ld_res_h1, sc, tid);
     __syncthreads();
 
     // ------------------------------ self-attention block -----------------------
@@ -458,10 +516,11 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
         const double angle = (double)t * P.pe_rate[j];
         const float pe = (float)((j & 1) ? cos(angle) : sin(angle));
         s_xs[l * ld_sa + j] =
-            gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[IN_B] + j) + pe;
+            gather<LANES>(s_part, parts, r4(SA), l, j) + Io<IO>::load(w + d.off[IN_B] + j) + pe;
       }
       __syncthreads();
-      layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN1_S], w + d.off[LN1_B], sc.ln_eps, warp, lane);
+      layer_norm<IO>(s_xs, s_xn, ld_sa, SA, w32 + d.off[LN1_S], w32 + d.off[LN1_B], sc.ln_eps,
+                     warp, lane);
       __syncthreads();
       parts = dense_partial<LANES, NT>(w + d.off[QKV_W], r4(3 * SA), SA, s_xn, ld_sa, s_part, tid);
       __syncthreads();
@@ -471,127 +530,159 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
         if (j < SA) {
           s_q[l * ld_sa + j] = v / sc.sqrt_hd;
         } else if (s_valid[l]) {
-          if (j < 2 * SA) P.kcache[((size_t)s_b[l] * SA + (j - SA)) * T4 + t] = v;
-          else P.vcache[((size_t)s_b[l] * T + t) * SA + (j - 2 * SA)] = v;
+          if (j < 2 * SA) P.kcache[((size_t)s_b[l] * SA + (j - SA)) * T4 + t] = Io<IO>::from(v);
+          else P.vcache[((size_t)s_b[l] * T + t) * SA + (j - 2 * SA)] = Io<IO>::from(v);
         }
       }
       __syncthreads();
-      // logits[l][h][p] = sum_d q[l][h][d] * K[b][h][d][p] for p <= t, four positions a thread
-      {
-        const int n4 = (t + 4) >> 2, G = LANES * H * n4;
-        int lparts = imax(1, imin(NT / G, (HD + 7) / 8));
-        const int chunk = (HD + lparts - 1) / lparts;
-        lparts = (HD + chunk - 1) / chunk;
-        const int t4 = T4 >> 2;
-        for (int idx = tid; idx < lparts * G; idx += NT) {
-          const int p = idx / G, g = idx - p * G;
-          const int lh = g / n4, p4 = g - lh * n4;
-          const int l = lh / H, h = lh - l * H;
-          const int d0 = p * chunk, d1 = imin(d0 + chunk, HD);
-          const float4* kp =
-              reinterpret_cast<const float4*>(P.kcache + ((size_t)s_b[l] * SA + h * HD + d0) * T4) +
-              p4;
-          const float* q = s_q + l * ld_sa + h * HD;
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          int dd = d0;
-          for (; dd + 8 <= d1; dd += 8) {
-            float4 k[8];
+      // attention over the prefix 0..t, SA_TILE positions at a time
+      const int n_all = t + 1;
+      const int ntiles = (n_all + SA_TILE - 1) / SA_TILE;
+      for (int tile = 0; tile < ntiles; ++tile) {
+        const int p0 = tile * SA_TILE;
+        const int np = imin(SA_TILE, n_all - p0);
+        // logits[l][h][p] = sum_d q[l][h][d] * K[b][h][d][p0 + p], four positions a thread
+        {
+          const int n4 = (np + 3) >> 2, G = LANES * H * n4;
+          int lparts = imax(1, imin(NT / G, (HD + 7) / 8));
+          const int chunk = (HD + lparts - 1) / lparts;
+          lparts = (HD + chunk - 1) / chunk;
+          const int t4 = T4 >> 2;
+          for (int idx = tid; idx < lparts * G; idx += NT) {
+            const int p = idx / G, g = idx - p * G;
+            const int lh = g / n4, p4 = g - lh * n4;
+            const int l = lh / H, h = lh - l * H;
+            const int d0 = p * chunk, d1 = imin(d0 + chunk, HD);
+            const Vec* kp = reinterpret_cast<const Vec*>(
+                                P.kcache + ((size_t)s_b[l] * SA + h * HD + d0) * T4 + p0) + p4;
+            const float* q = s_q + l * ld_sa + h * HD;
+            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            int dd = d0;
+            for (; dd + 8 <= d1; dd += 8) {
+              float4 k[8];
 #pragma unroll
-            for (int u = 0; u < 8; ++u) k[u] = __ldcg(kp + (size_t)u * t4);
-            kp += (size_t)8 * t4;
+              for (int u = 0; u < 8; ++u) k[u] = Weights4<IO>::values(__ldcg(kp + (size_t)u * t4));
+              kp += (size_t)8 * t4;
 #pragma unroll
-            for (int u = 0; u < 8; ++u) fma4(acc, q[dd + u], k[u]);
+              for (int u = 0; u < 8; ++u) fma4(acc, q[dd + u], k[u]);
+            }
+            for (; dd < d1; ++dd) {
+              fma4(acc, q[dd], Weights4<IO>::values(__ldcg(kp)));
+              kp += t4;
+            }
+            *reinterpret_cast<float4*>(s_part + (size_t)p * G * 4 + g * 4) = acc;
           }
-          for (; dd < d1; ++dd) {
-            fma4(acc, q[dd], __ldcg(kp));
-            kp += t4;
+          __syncthreads();
+          for (int pair = warp; pair < LANES * H; pair += NWARPS) {
+            float* row = s_logit + (pair / H) * ld_logit + (pair % H) * SA_TILE;
+            float m = -3.0e38f;
+            for (int p = lane; p < np; p += 32) {
+              float v = 0.0f;
+              for (int pp = 0; pp < lparts; ++pp) v += s_part[(size_t)pp * G * 4 + pair * n4 * 4 + p];
+              row[p] = v;
+              m = fmaxf(m, v);
+            }
+            m = warp_max(m);
+            if (ntiles == 1) {   // one tile: the plain softmax
+              float sum = 0.0f;
+              for (int p = lane; p < np; p += 32) {
+                const float v = expf(row[p] - m);
+                row[p] = v;
+                sum += v;
+              }
+              sum = warp_sum(sum);
+              for (int p = lane; p < np; p += 32) row[p] = row[p] / sum;
+            } else {             // online: rescale what the earlier tiles summed
+              const float m_old = tile == 0 ? -3.0e38f : s_mrun[pair];
+              const float m_new = fmaxf(m_old, m);
+              const float scale = tile == 0 ? 0.0f : expf(m_old - m_new);
+              float sum = 0.0f;
+              for (int p = lane; p < np; p += 32) {
+                const float v = expf(row[p] - m_new);
+                row[p] = v;
+                sum += v;
+              }
+              sum = warp_sum(sum);
+              if (lane == 0) {
+                s_lsum[pair] = (tile == 0 ? 0.0f : s_lsum[pair] * scale) + sum;
+                s_mrun[pair] = m_new;
+                s_scale[pair] = scale;
+              }
+            }
           }
-          *reinterpret_cast<float4*>(s_part + (size_t)p * G * 4 + g * 4) = acc;
+          __syncthreads();
         }
-        __syncthreads();
-        for (int pair = warp; pair < LANES * H; pair += NWARPS) {
-          float* row = s_logit + (pair / H) * ld_logit + (pair % H) * T4;
-          float m = -3.0e38f;
-          for (int p = lane; p <= t; p += 32) {
-            float v = 0.0f;
-            for (int pp = 0; pp < lparts; ++pp) v += s_part[(size_t)pp * G * 4 + pair * n4 * 4 + p];
-            row[p] = v;
-            m = fmaxf(m, v);
-          }
-          m = warp_max(m);
-          float sum = 0.0f;
-          for (int p = lane; p <= t; p += 32) {
-            const float v = expf(row[p] - m);
-            row[p] = v;
-            sum += v;
-          }
-          sum = warp_sum(sum);
-          for (int p = lane; p <= t; p += 32) row[p] = row[p] / sum;
-        }
-        __syncthreads();
-      }
-      // attn[l][col] = sum_{p <= t} probs[l][head(col)][p] * V[b][p][col]
-      {
-        const int nc4 = SA >> 2, G = LANES * nc4, n = t + 1;
-        int vparts = imax(1, imin(NT / G, (n + 7) / 8));
-        const int chunk = (n + vparts - 1) / vparts;
-        vparts = (n + chunk - 1) / chunk;
-        for (int idx = tid; idx < vparts * G; idx += NT) {
-          const int p = idx / G, g = idx - p * G;
-          const int l = g / nc4, c = g - l * nc4;
-          const int h = (4 * c) / HD;
-          const int p0 = p * chunk, p1 = imin(p0 + chunk, n);
-          const float4* vp =
-              reinterpret_cast<const float4*>(P.vcache + ((size_t)s_b[l] * T + p0) * SA) + c;
-          const float* pr = s_logit + l * ld_logit + h * T4;
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          int pos = p0;
-          for (; pos + 8 <= p1; pos += 8) {
-            float4 v[8];
+        // attn[l][col] (+)= sum_{p < np} probs[l][head(col)][p] * V[b][p0 + p][col]
+        {
+          const int nc4 = SA >> 2, G = LANES * nc4;
+          int vparts = imax(1, imin(NT / G, (np + 7) / 8));
+          const int chunk = (np + vparts - 1) / vparts;
+          vparts = (np + chunk - 1) / chunk;
+          for (int idx = tid; idx < vparts * G; idx += NT) {
+            const int p = idx / G, g = idx - p * G;
+            const int l = g / nc4, c = g - l * nc4;
+            const int h = (4 * c) / HD;
+            const int q0 = p * chunk, q1 = imin(q0 + chunk, np);
+            const Vec* vp =
+                reinterpret_cast<const Vec*>(P.vcache + ((size_t)s_b[l] * T + p0 + q0) * SA) + c;
+            const float* pr = s_logit + l * ld_logit + h * SA_TILE;
+            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            int pos = q0;
+            for (; pos + 8 <= q1; pos += 8) {
+              float4 v[8];
 #pragma unroll
-            for (int u = 0; u < 8; ++u) v[u] = __ldcg(vp + (size_t)u * nc4);
-            vp += (size_t)8 * nc4;
+              for (int u = 0; u < 8; ++u) v[u] = Weights4<IO>::values(__ldcg(vp + (size_t)u * nc4));
+              vp += (size_t)8 * nc4;
 #pragma unroll
-            for (int u = 0; u < 8; ++u) fma4(acc, pr[pos + u], v[u]);
+              for (int u = 0; u < 8; ++u) fma4(acc, pr[pos + u], v[u]);
+            }
+            for (; pos < q1; ++pos) {
+              fma4(acc, pr[pos], Weights4<IO>::values(__ldcg(vp)));
+              vp += nc4;
+            }
+            *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * SA + 4 * c) = acc;
           }
-          for (; pos < p1; ++pos) {
-            fma4(acc, pr[pos], __ldcg(vp));
-            vp += nc4;
+          __syncthreads();
+          const bool last = tile == ntiles - 1;
+          for (int i = tid; i < LANES * SA; i += NT) {
+            const int l = i / SA, j = i - l * SA;
+            float v = gather<LANES>(s_part, vparts, SA, l, j);
+            if (ntiles > 1) {
+              const int lh = l * H + j / HD;
+              if (tile > 0) v += s_attn[l * ld_sa + j] * s_scale[lh];
+              if (last) v /= s_lsum[lh];
+            }
+            s_attn[l * ld_sa + j] = last ? Io<IO>::round(v) : v;
           }
-          *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * SA + 4 * c) = acc;
+          __syncthreads();
         }
-        __syncthreads();
-        for (int i = tid; i < LANES * SA; i += NT) {
-          const int l = i / SA, j = i - l * SA;
-          s_attn[l * ld_sa + j] = gather<LANES>(s_part, vparts, SA, l, j);
-        }
-        __syncthreads();
       }
       parts = dense_partial<LANES, NT>(w + d.off[O_W], r4(SA), SA, s_attn, ld_sa, s_part, tid);
       __syncthreads();
       for (int i = tid; i < LANES * SA; i += NT) {
         const int l = i / SA, j = i - l * SA;
         s_xs[l * ld_sa + j] +=
-            gather<LANES>(s_part, parts, r4(SA), l, j) + __ldg(w + d.off[O_B] + j);
+            gather<LANES>(s_part, parts, r4(SA), l, j) + Io<IO>::load(w + d.off[O_B] + j);
       }
       __syncthreads();
-      layer_norm(s_xs, s_xn, ld_sa, SA, w + d.off[LN2_S], w + d.off[LN2_B], sc.ln_eps, warp, lane);
+      layer_norm<IO>(s_xs, s_xn, ld_sa, SA, w32 + d.off[LN2_S], w32 + d.off[LN2_B], sc.ln_eps,
+                     warp, lane);
       __syncthreads();
       parts = dense_partial<LANES, NT>(w + d.off[F1_W], r4(FFN), SA, s_xn, ld_sa, s_part, tid);
       __syncthreads();
       for (int i = tid; i < LANES * FFN; i += NT) {
         const int l = i / FFN, j = i - l * FFN;
-        s_f1[l * ld_f1 + j] =
-            fmaxf(gather<LANES>(s_part, parts, r4(FFN), l, j) + __ldg(w + d.off[F1_B] + j), 0.0f);
+        s_f1[l * ld_f1 + j] = Io<IO>::round(fmaxf(
+            gather<LANES>(s_part, parts, r4(FFN), l, j) + Io<IO>::load(w + d.off[F1_B] + j), 0.0f));
       }
       __syncthreads();
       parts = dense_partial<LANES, NT>(w + d.off[F2_W], r4(SA), FFN, s_f1, ld_f1, s_part, tid);
       __syncthreads();
       for (int i = tid; i < LANES * SA; i += NT) {
         const int l = i / SA, j = i - l * SA;
-        s_y[l * ld_sa + j] =
+        s_y[l * ld_sa + j] = Io<IO>::round(
             s_xs[l * ld_sa + j] + gather<LANES>(s_part, parts, r4(SA), l, j) +
-            __ldg(w + d.off[F2_B] + j);
+            Io<IO>::load(w + d.off[F2_B] + j));
       }
       __syncthreads();
 
@@ -605,11 +696,12 @@ fused_decode_kernel(const Ptrs P, const Dims d, const Scalars sc) {
     __syncthreads();
     for (int i = tid; i < LANES * OW; i += NT) {
       const int l = i / OW, j = i - l * OW;
-      const float v = gather<LANES>(s_part, parts, r4(OW), l, j) + __ldg(w + d.off[OUT_B] + j);
+      const float v = gather<LANES>(s_part, parts, r4(OW), l, j) + Io<IO>::load(w + d.off[OUT_B] + j);
       const size_t row = (size_t)s_b[l] * T + t;
       if (j < RM) {
         if (s_valid[l]) P.frames[row * RM + j] = v;
-        if (j >= RM - M) s_feed[l * ld_feed + (j - (RM - M))] = v;   // feed back the last frame
+        // feed back the last frame, rounded to the io type as the next prenet reads it
+        if (j >= RM - M) s_feed[l * ld_feed + (j - (RM - M))] = Io<IO>::round(v);
       } else {
         const float prob = sigmoidf_(v);
         s_out[l * ld_out + j] = prob;
@@ -672,29 +764,88 @@ bool sizes_ok(const Dims& d) {
   return sources && block;
 }
 
-using Kernel = void (*)(const Ptrs, const Dims, const Scalars);
+template <typename IO>
+using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars);
 
-// The kernel compiled for the specialisation of `d`'s widths.
-Kernel kernel_for(const Dims& d) {
+// The kernel compiled for the specialisation of `d`'s widths, with io type IO.
+template <typename IO>
+Kernel<IO> kernel_for(const Dims& d) {
   const bool dual = d.E2 > 0, use_sa = d.SA > 0;
-  if (dual) return use_sa ? fused_decode_kernel<true, true> : fused_decode_kernel<true, false>;
-  return use_sa ? fused_decode_kernel<false, true> : fused_decode_kernel<false, false>;
+  if (dual) return use_sa ? fused_decode_kernel<true, true, IO> : fused_decode_kernel<true, false, IO>;
+  return use_sa ? fused_decode_kernel<false, true, IO> : fused_decode_kernel<false, false, IO>;
+}
+
+const void* kernel_address(const Dims& d) {
+  return d.bf16 ? (const void*)kernel_for<__nv_bfloat16>(d) : (const void*)kernel_for<float>(d);
+}
+
+size_t smem_bytes(const Dims& d) {
+  return (size_t)make_layout(d, d.E2 > 0, d.SA > 0, d.bf16 != 0).total * sizeof(float);
+}
+
+template <typename IO>
+int launch(const Ptrs<IO>& P, const Dims& d, const Scalars& sc, cudaStream_t stream) {
+  const Kernel<IO> kernel = kernel_for<IO>(d);
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + LANES - 1) / LANES);
+  if (d.early_exit && grid.x > 1) {
+    // the per-step exit agreement needs every block resident: a launch that
+    // cannot have that is refused here instead of waiting forever
+    Ptrs<IO> p = P;
+    Dims dd = d;
+    Scalars s = sc;
+    void* args[] = {(void*)&p, (void*)&dd, (void*)&s};
+    err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), args, smem, stream);
+    if (err != cudaSuccess) return (int)err;
+  } else {
+    kernel<<<grid, NT, smem, stream>>>(P, d, sc);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename IO>
+Ptrs<IO> pointers(const void* const* ptr) {
+  Ptrs<IO> P;
+  P.w = (const IO*)ptr[0];
+  P.w32 = (const float*)ptr[1];
+  P.pe_rate = (const double*)ptr[2];
+  P.keys = (const IO*)ptr[3];
+  P.mem1 = (const IO*)ptr[4];
+  P.mem2 = (const IO*)ptr[5];
+  P.bias = (const float*)ptr[6];
+  P.spk = (const IO*)ptr[7];
+  P.mask1 = (const unsigned char*)ptr[8];
+  P.mask2 = (const unsigned char*)ptr[9];
+  P.kcache = (IO*)ptr[10];
+  P.vcache = (IO*)ptr[11];
+  P.frames = (float*)ptr[12];
+  P.stops = (float*)ptr[13];
+  P.align1 = (float*)ptr[14];
+  P.align2 = (float*)ptr[15];
+  P.lengths = (int*)ptr[16];
+  P.finished = (unsigned char*)ptr[17];
+  P.info = (int*)ptr[18];
+  return P;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes, for these sizes.
+// Dynamic shared memory of one block, in bytes, for these sizes and io type.
 long long fused_decode_smem_bytes(const int* dims) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
-  return (long long)make_layout(d, d.E2 > 0, d.SA > 0).total * (long long)sizeof(float);
+  return (long long)smem_bytes(d);
 }
 
-// Dynamic shared memory one block of the kernel (of the specialisation `dims`
-// names) may have on the current device, in bytes: what a block can opt in to,
-// less what the kernel declares statically. Negative: minus the CUDA error code.
+// Dynamic shared memory one block of the kernel (of the specialisation and io
+// type `dims` names) may have on the current device, in bytes: what a block can
+// opt in to, less what the kernel declares statically. Negative: minus the CUDA
+// error code.
 long long fused_decode_smem_limit(const int* dims) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
@@ -703,63 +854,30 @@ long long fused_decode_smem_limit(const int* dims) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kernel_for(d));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_address(d));
   if (err != cudaSuccess) return -(long long)err;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
 
-int fused_decode_f32(const void* w, const void* pe_rate, const void* keys, const void* mem1,
-                     const void* mem2, const void* bias, const void* spk, const void* mask1,
-                     const void* mask2, void* kcache, void* vcache, void* frames, void* stops,
-                     void* align1, void* align2, void* lengths, void* finished, void* info,
-                     const int* dims, const float* scalars, void* stream) {
+// One launch. `ptrs` holds the 19 device pointers in the order of the Ptrs struct
+// (w, w32, pe_rate, keys, mem1, mem2, bias, spk, mask1, mask2, kcache, vcache,
+// frames, stops, align1, align2, lengths, finished, info); the io type is dims'
+// bf16 flag.
+int fused_decode_launch(const void* const* ptrs, const int* dims, const float* scalars,
+                        void* stream) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
   Scalars sc;
   std::memcpy(&sc, scalars, sizeof(Scalars));
   if (!sizes_ok(d)) return (int)cudaErrorInvalidValue;
-  if (d.use_masks && (mask1 == nullptr || mask2 == nullptr)) return (int)cudaErrorInvalidValue;
-  if (d.SPK > 0 && spk == nullptr) return (int)cudaErrorInvalidValue;
-  if (d.E2 > 0 && (mem2 == nullptr || align2 == nullptr)) return (int)cudaErrorInvalidValue;
-  if (d.SA > 0 && (pe_rate == nullptr || kcache == nullptr || vcache == nullptr))
+  if (d.use_masks && (ptrs[8] == nullptr || ptrs[9] == nullptr)) return (int)cudaErrorInvalidValue;
+  if (d.SPK > 0 && ptrs[7] == nullptr) return (int)cudaErrorInvalidValue;
+  if (d.E2 > 0 && (ptrs[5] == nullptr || ptrs[15] == nullptr)) return (int)cudaErrorInvalidValue;
+  if (d.SA > 0 && (ptrs[2] == nullptr || ptrs[10] == nullptr || ptrs[11] == nullptr))
     return (int)cudaErrorInvalidValue;
-  Ptrs P;
-  P.w = (const float*)w;
-  P.pe_rate = (const double*)pe_rate;
-  P.keys = (const float*)keys;
-  P.mem1 = (const float*)mem1;
-  P.mem2 = (const float*)mem2;
-  P.bias = (const float*)bias;
-  P.spk = d.SPK > 0 ? (const float*)spk : nullptr;
-  P.mask1 = (const unsigned char*)mask1;
-  P.mask2 = (const unsigned char*)mask2;
-  P.kcache = (float*)kcache;
-  P.vcache = (float*)vcache;
-  P.frames = (float*)frames;
-  P.stops = (float*)stops;
-  P.align1 = (float*)align1;
-  P.align2 = (float*)align2;
-  P.lengths = (int*)lengths;
-  P.finished = (unsigned char*)finished;
-  P.info = (int*)info;
-
-  const Kernel kernel = kernel_for(d);
-  const size_t smem = (size_t)make_layout(d, d.E2 > 0, d.SA > 0).total * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.B + LANES - 1) / LANES);
-  if (d.early_exit && grid.x > 1) {
-    // the per-step exit agreement needs every block resident: a launch that
-    // cannot have that is refused here instead of waiting forever
-    void* args[] = {(void*)&P, (void*)&d, (void*)&sc};
-    err = cudaLaunchCooperativeKernel((const void*)kernel, grid, dim3(NT), args, smem,
-                                      (cudaStream_t)stream);
-    if (err != cudaSuccess) return (int)err;
-  } else {
-    kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(P, d, sc);
-  }
-  return (int)cudaGetLastError();
+  if (d.SPK == 0 && ptrs[7] != nullptr) return (int)cudaErrorInvalidValue;
+  if (d.bf16) return launch(pointers<__nv_bfloat16>(ptrs), d, sc, (cudaStream_t)stream);
+  return launch(pointers<float>(ptrs), d, sc, (cudaStream_t)stream);
 }
 
 }  // extern "C"

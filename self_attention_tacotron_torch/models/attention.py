@@ -2,7 +2,10 @@
 
 Counterpart of ``self_attention_tacotron_tpu/models/attention.py``. Every
 mechanism is a step function whose whole recursion state lives in an explicit
-:class:`AttentionState`. Scores and softmax are float32.
+:class:`AttentionState`. Scores and softmax are float32; in bfloat16 the tanh
+of keys plus query is taken in bfloat16 and then to float32, and the context is
+the alignments cast to the memory's dtype times the memory, as the JAX package
+does it.
 
 Forward attention follows Zhang & Ling (ICASSP 2018):
 a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + eps) * y_i(n), renormalised,
@@ -17,6 +20,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from self_attention_tacotron_torch.models.modules import Dense, sigmoid
 
 _EPS = 1e-6
 _NEG_INF = -1e9
@@ -77,9 +82,9 @@ class _AdditiveScore(nn.Module):
                  own_query_layer: bool = True):
         super().__init__()
         self.num_units = num_units
-        self.memory_layer = nn.Linear(memory_units, num_units, bias=False)
+        self.memory_layer = Dense(memory_units, num_units, bias=False)
         self.query_layer = (
-            nn.Linear(query_units, num_units, bias=False) if own_query_layer else None
+            Dense(query_units, num_units, bias=False) if own_query_layer else None
         )
         self.attention_v = nn.Parameter(torch.empty(num_units, 1))
         nn.init.xavier_uniform_(self.attention_v)
@@ -121,7 +126,7 @@ class ForwardAttention(_AdditiveScore):
                  use_transition_agent: bool = False, own_query_layer: bool = True):
         super().__init__(query_units, memory_units, num_units, own_query_layer)
         self.transition_factor = (
-            nn.Linear(memory_units + query_units, 1) if use_transition_agent else None
+            Dense(memory_units + query_units, 1) if use_transition_agent else None
         )
 
     def forward(self, query, keys, memory, mask, state: AttentionState, projected_query=None):
@@ -134,7 +139,7 @@ class ForwardAttention(_AdditiveScore):
         context = _context(probs, memory)
         if self.transition_factor is not None:
             ta_in = torch.cat([context, query.to(context.dtype)], dim=-1)
-            new_u = torch.sigmoid(self.transition_factor(ta_in)).float()
+            new_u = sigmoid(self.transition_factor(ta_in)).float()
         else:
             new_u = u
         new_state = state.replace(

@@ -10,10 +10,11 @@ All recurrence state is carried explicitly in :class:`DecoderState`.
 ``forward(cond, targets)`` is the teacher-forced pass of training and
 evaluation. On a CUDA device, with ``use_pallas`` and a decoder of the family
 ``ops/fused_teacher.py`` serves, the scanned region runs as that module's two
-kernels (or raises); otherwise, and on the CPU, it is a Python loop over
-``step`` under autograd. Both paths draw the prenet's dropout masks and the
-zoneout masks' seed from one generator in one order and build the zoneout
-masks from the same hash, so they compute the same function.
+kernels (or raises: in bfloat16, whose kernel branch is not ported yet);
+otherwise, and on the CPU, it is a Python loop over ``step`` under autograd.
+Both paths draw the prenet's dropout masks and the zoneout masks' seed from one
+generator in one order and build the zoneout masks from the same hash, so they
+compute the same function.
 """
 
 from __future__ import annotations
@@ -30,9 +31,22 @@ from self_attention_tacotron_torch.models.attention import (
     ForwardAttention,
     initial_attention_state,
 )
-from self_attention_tacotron_torch.models.modules import LSTMCarry, PreNet, ZoneoutLSTMCell
+from self_attention_tacotron_torch.models.modules import (
+    Dense,
+    LSTMCarry,
+    PreNet,
+    ZoneoutLSTMCell,
+)
 from self_attention_tacotron_torch.models.self_attention import SelfAttentionTransformer
 from self_attention_tacotron_torch.ops import fused_teacher
+
+
+# What the teacher-forced pass and the trainer raise for bfloat16 through the kernels.
+BF16_TRAINING_NOT_PORTED = (
+    "bfloat16 training through the kernels is not ported yet: the bfloat16 branches of the "
+    "teacher-forced decoder kernels (forward and backward) and of the BiGRU's backward are "
+    "the next slice of the port; train with use_pallas_kernels=False or in float32"
+)
 
 
 @dataclasses.dataclass
@@ -62,8 +76,11 @@ class Decoder(nn.Module):
     ``output_heads``: ((name, dim), ...). The frame block fed back through the
     prenet is the concatenation of all heads. ``memory_units`` gives the width
     of each attention source and ``speaker_units`` that of the speaker
-    embedding appended to the prenet output (0 for none).
+    embedding appended to the prenet output (0 for none). The recurrent state and
+    the contexts are in the compute dtype, the attention state float32.
     """
+
+    compute_dtype = torch.float32
 
     def __init__(
         self,
@@ -130,10 +147,10 @@ class Decoder(nn.Module):
         head_in = self_attention_out_units if use_self_attention else width
         r = outputs_per_step
         # one fused output product: [r x (all head dims) | r stop logits]
-        self.output_projection = nn.Linear(head_in, r * self.out_dim + r)
+        self.output_projection = Dense(head_in, r * self.out_dim + r)
         # dual-source: the query projections of both mechanisms as one product
         self.query_projection = (
-            nn.Linear(
+            Dense(
                 attention_rnn_out_units, sum(m.num_units for m in attention_mechs), bias=False
             )
             if len(attention_mechs) > 1 else None
@@ -153,7 +170,7 @@ class Decoder(nn.Module):
 
     def initial_state(self, cond: DecoderConditioning) -> DecoderState:
         mem0 = cond.memories[0]
-        batch, device, dtype = mem0.shape[0], mem0.device, mem0.dtype
+        batch, device, dtype = mem0.shape[0], mem0.device, self.compute_dtype
         att_states = tuple(
             initial_attention_state(
                 batch, mem.shape[1], initial_alignment=mech.initial_alignment, device=device
@@ -203,7 +220,8 @@ class Decoder(nn.Module):
         Returns ``(new_state, (feature, alignments))``.
         """
         zm = zoneout_masks or (None,) * (1 + self.num_decoder_layers)
-        x = self.prenet(feed, dropout_masks=prenet_masks, generator=generator)
+        x = self.prenet(feed.to(self.compute_dtype), dropout_masks=prenet_masks,
+                        generator=generator)
         if cond.speaker_embed is not None:
             x = torch.cat([x, cond.speaker_embed.to(x.dtype)], dim=-1)
         att_in = torch.cat([x, *state.contexts], dim=-1)
@@ -233,7 +251,7 @@ class Decoder(nn.Module):
             aligns.append(probs)
             new_att_states.append(new_as)
 
-        out = torch.cat([query, *contexts], dim=-1)
+        out = torch.cat([query, *contexts], dim=-1).to(self.compute_dtype)
         new_dec_states = []
         for i, (cell, carry) in enumerate(zip(self.decoder_lstms, state.decoder_lstms)):
             new_carry, y = cell(carry, out, zoneout_masks=zm[1 + i], generator=generator)
@@ -472,8 +490,11 @@ class Decoder(nn.Module):
         the deterministic interpolation.
         """
         feeds = self.make_teacher_feeds(targets)
+        kernels = self.use_pallas and feeds.device.type != "cpu" and self.fused_teacher_supported()
+        if kernels and self.compute_dtype != torch.float32:
+            raise NotImplementedError(BF16_TRAINING_NOT_PORTED)
         prenet_masks, seed = self.draw_teacher_masks(*feeds.shape[:2], feeds.device, generator)
-        if self.use_pallas and feeds.device.type != "cpu" and self.fused_teacher_supported():
+        if kernels:
             features, aligns = self._fused_teacher_call(cond, feeds, prenet_masks, seed)
         else:
             features, aligns = self._plain_teacher_scan(cond, feeds, prenet_masks, seed)

@@ -7,6 +7,10 @@ incremental decode plumbing that ``synthesis.py`` drives. The model classes bind
 a network configuration to its loss: the baseline ``ExtendedTacotronV1Model``
 and the flagship ``DualSourceSelfAttentionTacotronModel``. The MgcLf0 models and
 the postnets are not ported yet.
+
+``hparams.compute_dtype`` ("float32" or "bfloat16") is every module's compute
+dtype, flax's ``dtype`` of the JAX package (``_dtype_of``): the parameters stay
+float32 (``convert.py`` loads them so), the activations take the compute dtype.
 """
 
 from __future__ import annotations
@@ -26,7 +30,11 @@ from self_attention_tacotron_torch.models.decoders import (
     decoder_factory,
 )
 from self_attention_tacotron_torch.models.encoders import encoder_factory, encoder_out_units
-from self_attention_tacotron_torch.models.modules import Embedding, sequence_mask
+from self_attention_tacotron_torch.models.modules import (
+    Embedding,
+    sequence_mask,
+    set_compute_dtype,
+)
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
 
 
@@ -43,6 +51,19 @@ class NetworkOutput:
     decoder_sa_alignments: Tuple[torch.Tensor, ...]
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype_of(hparams: HParams) -> torch.dtype:
+    """The torch dtype of ``hparams.compute_dtype``."""
+    try:
+        return COMPUTE_DTYPES[hparams.compute_dtype]
+    except KeyError:
+        raise ValueError(
+            f"compute_dtype={hparams.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}"
+        ) from None
+
+
 class TacotronNetwork(nn.Module):
     """Embeddings + encoder + AR decoder, one module."""
 
@@ -53,10 +74,7 @@ class TacotronNetwork(nn.Module):
         super().__init__()
         hp = hparams
         self.hparams = hp
-        if hp.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={hp.compute_dtype!r}: only the float32 model is ported yet"
-            )
+        dtype = compute_dtype_of(hp)
         if hp.use_postnet_v2 or hp.use_linear_spectrogram_postnet:
             raise NotImplementedError("the postnets are not ported yet")
         self.dual_source = "DualSource" in hp.decoder
@@ -93,6 +111,7 @@ class TacotronNetwork(nn.Module):
             hp, mechs, memory_units,
             speaker_units=hp.speaker_embedding_dim if hp.use_speaker_embedding else 0,
         )
+        set_compute_dtype(self, dtype)   # self.compute_dtype and every module's
 
     def encode(
         self,
@@ -167,10 +186,10 @@ class TacotronNetwork(nn.Module):
         return self.decoder.initial_state(cond)
 
     def decoder_init_caches(self, batch: int, max_len: int, device=None):
-        return self.decoder.init_caches(batch, max_len, torch.float32, device)
+        return self.decoder.init_caches(batch, max_len, self.compute_dtype, device)
 
     def decoder_go_frame(self, batch: int, device=None):
-        return self.decoder.go_frame(batch, torch.float32, device)
+        return self.decoder.go_frame(batch, self.compute_dtype, device)
 
     def decoder_step(self, state, feed, cond: DecoderConditioning, prenet_masks=None,
                      generator=None):

@@ -4,6 +4,13 @@ Counterpart of ``self_attention_tacotron_tpu/models/modules.py``. Activations
 are (B, T, C) at every public function. Sub-module names follow the JAX
 package's parameter tree (``Dense_0``, ``Conv_0``, ``BatchNorm_0``,
 ``gru_fwd`` ...), so that ``convert.py`` can place trained weights by name.
+
+Every module follows flax's ``dtype`` semantics with its ``compute_dtype``
+(float32 unless ``set_compute_dtype`` says otherwise): parameters stay float32;
+a dense layer or convolution casts its input, kernel and bias to the compute
+dtype and returns that dtype; a normalisation takes its statistics and
+normalises in float32 and returns the compute dtype; every other operation runs
+in the dtype of what it is given.
 """
 
 from __future__ import annotations
@@ -19,6 +26,65 @@ from self_attention_tacotron_torch.ops import fused_rnn
 LSTMCarry = Tuple[torch.Tensor, torch.Tensor]  # (c, h)
 
 
+def set_compute_dtype(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Give ``module`` and every module inside it the compute dtype ``dtype``
+    (flax's ``dtype`` field of each module); returns ``module``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute dtype {dtype}: float32 or bfloat16")
+    for m in module.modules():
+        m.compute_dtype = dtype
+    return module
+
+
+class Dense(nn.Linear):
+    """``nn.Linear`` as flax's ``nn.Dense`` computes it in ``compute_dtype``: the
+    input, kernel and bias cast to it, the product in it, then the bias added in
+    it. In float32 it is ``nn.Linear`` itself."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = self.compute_dtype
+        if dtype == torch.float32:
+            return F.linear(x.to(dtype), self.weight, self.bias)
+        y = torch.matmul(x.to(dtype), self.weight.to(dtype).t())
+        return y if self.bias is None else y + self.bias.to(dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` as flax's ``nn.LayerNorm`` computes it in ``compute_dtype``
+    bfloat16: mean and E[x^2] - mean^2 of the input in float32, the float32 scale
+    and bias applied in float32, the result cast to bfloat16. In float32 it is
+    ``nn.LayerNorm`` itself."""
+
+    compute_dtype = torch.float32
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        x32 = x.float()
+        mean = x32.mean(dim=-1, keepdim=True)
+        var = ((x32 * x32).mean(dim=-1, keepdim=True) - mean * mean).clamp_min(0.0)
+        y = (x32 - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.compute_dtype)
+
+
+def in_dtype(value: float, dtype: torch.dtype) -> float:
+    """A Python constant as JAX applies it to an array of ``dtype``: rounded to that
+    dtype first (torch would apply it unrounded to a bfloat16 tensor)."""
+    return value if dtype == torch.float32 else float(torch.tensor(value, dtype=dtype))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA computes it: ``1 / (1 + exp(-x))``, each operation
+    in ``x``'s dtype, so that in bfloat16 each is rounded (``torch.sigmoid`` rounds
+    once, and differs in the last bit on a third of the values); ``torch.sigmoid``
+    in float32."""
+    if x.dtype == torch.float32:
+        return torch.sigmoid(x)
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     """(B, max_len) boolean mask, True where index < length."""
     return torch.arange(max_len, device=lengths.device)[None, :] < lengths[:, None]
@@ -26,6 +92,8 @@ def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
 
 class Embedding(nn.Module):
     """Symbol embedding with an index offset; ids are clipped into the table."""
+
+    compute_dtype = torch.float32
 
     def __init__(self, num_symbols: int, embedding_dim: int, index_offset: int = 0):
         super().__init__()
@@ -35,7 +103,7 @@ class Embedding(nn.Module):
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         ids = torch.clamp(ids.long() - self.index_offset, 0, self.num_symbols - 1)
-        return self.embedding[ids]
+        return self.embedding[ids].to(self.compute_dtype)
 
 
 class PreNet(nn.Module):
@@ -51,7 +119,7 @@ class PreNet(nn.Module):
         self.out_units = tuple(out_units)
         self.drop_rate = drop_rate
         for i, units in enumerate(self.out_units):
-            self.add_module(f"Dense_{i}", nn.Linear(in_units, units))
+            self.add_module(f"Dense_{i}", Dense(in_units, units))
             in_units = units
 
     def forward(
@@ -69,7 +137,7 @@ class PreNet(nn.Module):
                 mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
             else:
                 continue
-            x = torch.where(mask, x / keep, torch.zeros_like(x))
+            x = torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
         return x
 
 
@@ -85,8 +153,11 @@ class Conv1dBN(nn.Module):
     ones too, and the running averages are updated here, as the JAX package's
     batch norm does it: the variance is the biased one, E[x^2] - E[x]^2, both in
     the normalisation and in the running average (``nn.BatchNorm1d`` would store
-    the unbiased one).
+    the unbiased one). In bfloat16 the convolution runs in bfloat16 and the batch
+    norm in float32 (statistics and normalisation), its result cast back.
     """
+
+    compute_dtype = torch.float32
 
     def __init__(
         self,
@@ -103,19 +174,26 @@ class Conv1dBN(nn.Module):
         self.BatchNorm_0 = nn.BatchNorm1d(out_channels, eps=1e-3, momentum=0.01)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.Conv_0(F.pad(x.transpose(1, 2), _same_padding(self.kernel_size)))
+        dtype = self.compute_dtype
+        x = F.pad(x.to(dtype).transpose(1, 2), _same_padding(self.kernel_size))
+        x = F.conv1d(x, self.Conv_0.weight.to(dtype))
         bn = self.BatchNorm_0
         if self.training:
-            mean = x.mean(dim=(0, 2))
-            var = ((x * x).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            x32 = x.float()
+            mean = x32.mean(dim=(0, 2))
+            var = ((x32 * x32).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 bn.running_mean.lerp_(mean, bn.momentum)
                 bn.running_var.lerp_(var, bn.momentum)
             scale = bn.weight * torch.rsqrt(var + bn.eps)
-            x = (x - mean[None, :, None]) * scale[None, :, None] + bn.bias[None, :, None]
-        else:
+            x = (x32 - mean[None, :, None]) * scale[None, :, None] + bn.bias[None, :, None]
+        elif dtype == torch.float32:
             x = bn(x)
-        x = x.transpose(1, 2)
+        else:
+            scale = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+            x = (x.float() - bn.running_mean[None, :, None]) * scale[None, :, None]
+            x = x + bn.bias[None, :, None]
+        x = x.to(dtype).transpose(1, 2)
         if self.activation is not None:
             x = self.activation(x)
         return x
@@ -126,13 +204,13 @@ class HighwayNet(nn.Module):
 
     def __init__(self, units: int):
         super().__init__()
-        self.H = nn.Linear(units, units)
-        self.T = nn.Linear(units, units)
+        self.H = Dense(units, units)
+        self.T = Dense(units, units)
         nn.init.constant_(self.T.bias, -1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.relu(self.H(x))
-        t = torch.sigmoid(self.T(x))
+        t = sigmoid(self.T(x))
         return h * t + x * (1.0 - t)
 
 
@@ -157,7 +235,7 @@ class ZoneoutLSTMCell(nn.Module):
         self.zoneout_factor_cell = zoneout_factor_cell
         self.zoneout_factor_output = zoneout_factor_output
         self.forget_bias = forget_bias
-        self.gates = nn.Linear(in_units + num_units, 4 * num_units)
+        self.gates = Dense(in_units + num_units, 4 * num_units)
 
     def _zoneout(self, new, old, factor, mask, generator):
         if factor <= 0.0:
@@ -166,7 +244,7 @@ class ZoneoutLSTMCell(nn.Module):
             if mask is None:
                 mask = torch.rand(new.shape, device=new.device, generator=generator) < factor
             return torch.where(mask, old, new)
-        return factor * old + (1.0 - factor) * new
+        return in_dtype(factor, new.dtype) * old + in_dtype(1.0 - factor, new.dtype) * new
 
     def forward(
         self,
@@ -177,8 +255,8 @@ class ZoneoutLSTMCell(nn.Module):
     ) -> Tuple[LSTMCarry, torch.Tensor]:
         c, h = carry
         i, g, f, o = self.gates(torch.cat([x, h], dim=-1)).chunk(4, dim=-1)
-        new_c = torch.sigmoid(f + self.forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
-        new_h = torch.sigmoid(o) * torch.tanh(new_c)
+        new_c = sigmoid(f + in_dtype(self.forget_bias, f.dtype)) * c + sigmoid(i) * torch.tanh(g)
+        new_h = sigmoid(o) * torch.tanh(new_c)
         mc, mh = zoneout_masks if zoneout_masks is not None else (None, None)
         out_c = self._zoneout(new_c, c, self.zoneout_factor_cell, mc, generator)
         out_h = self._zoneout(new_h, h, self.zoneout_factor_output, mh, generator)
@@ -195,11 +273,13 @@ class ZoneoutLSTMCell(nn.Module):
 
 
 class DenseIO(nn.Module):
-    """A dense layer whose kernel keeps the (in, out) layout.
+    """A dense layer whose kernel keeps the (in, out) layout; ``Dense`` otherwise.
 
     The GRU kernels read their weights as (C + H, .) with the rows ordered
     ``[x | h]``; keeping that layout in the module spares a transpose per call.
     """
+
+    compute_dtype = torch.float32
 
     def __init__(self, in_units: int, out_units: int):
         super().__init__()
@@ -208,7 +288,10 @@ class DenseIO(nn.Module):
         nn.init.xavier_uniform_(self.kernel)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.addmm(self.bias, x, self.kernel)
+        dtype = self.compute_dtype
+        if dtype == torch.float32:
+            return torch.addmm(self.bias, x.to(dtype), self.kernel)
+        return torch.matmul(x.to(dtype), self.kernel.to(dtype)) + self.bias.to(dtype)
 
 
 class GRUCell(nn.Module):
@@ -221,7 +304,7 @@ class GRUCell(nn.Module):
         self.candidate = DenseIO(in_units + num_units, num_units)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        r, z = torch.sigmoid(self.gates(torch.cat([x, h], dim=-1))).chunk(2, dim=-1)
+        r, z = sigmoid(self.gates(torch.cat([x, h], dim=-1))).chunk(2, dim=-1)
         n = torch.tanh(self.candidate(torch.cat([x, r * h], dim=-1)))
         new_h = (1.0 - z) * n + z * h
         return new_h, new_h
@@ -347,7 +430,7 @@ class CBHG(nn.Module):
             projection1_out_channels, 3, projection2_out_channels, activation=None
         )
         self.highway_in = (
-            nn.Linear(projection2_out_channels, half)
+            Dense(projection2_out_channels, half)
             if projection2_out_channels != half else None
         )
         for i in range(num_highway):

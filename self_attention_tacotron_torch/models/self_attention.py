@@ -3,7 +3,9 @@
 Counterpart of ``self_attention_tacotron_tpu/models/self_attention.py``:
 pre-LN transformer blocks with sinusoidal positional encodings, full-sequence
 for the encoder and incremental, with explicit K/V cache buffers, for the
-autoregressive decoder. Softmax is always float32.
+autoregressive decoder. Softmax is always float32; in bfloat16 the logits are
+the bfloat16 product of q and k taken to float32, and the probabilities are
+cast to bfloat16 for their product with v, as the JAX package does it.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from self_attention_tacotron_torch.models.modules import Dense, LayerNorm, in_dtype
 from self_attention_tacotron_torch.ops import fused_attention
 
 _NEG_INF = -1e9
@@ -45,7 +48,7 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) 
     """Inverted dropout with the mask drawn from ``generator`` (or the default one)."""
     keep = 1.0 - rate
     mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
-    return torch.where(mask, x / keep, torch.zeros_like(x))
+    return torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
 
 
 def positional_encoding(length: int, dim: int, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -83,8 +86,8 @@ class MultiHeadAttention(nn.Module):
         self.num_units = num_units
         self.drop_rate = drop_rate
         self.use_pallas = use_pallas
-        self.qkv = nn.Linear(in_units, 3 * num_units, bias=False)
-        self.out = nn.Linear(num_units, num_units)
+        self.qkv = Dense(in_units, 3 * num_units, bias=False)
+        self.out = Dense(num_units, num_units)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -158,13 +161,13 @@ class SelfAttentionBlock(nn.Module):
     ):
         super().__init__()
         self.drop_rate = drop_rate
-        self.ln1 = nn.LayerNorm(num_units, eps=_LN_EPS)
-        self.ln2 = nn.LayerNorm(num_units, eps=_LN_EPS)
+        self.ln1 = LayerNorm(num_units, eps=_LN_EPS)
+        self.ln2 = LayerNorm(num_units, eps=_LN_EPS)
         self.mha = MultiHeadAttention(
             num_units, num_heads, num_units, drop_rate=drop_rate, use_pallas=use_pallas
         )
-        self.ffn1 = nn.Linear(num_units, ffn_units)
-        self.ffn2 = nn.Linear(ffn_units, num_units)
+        self.ffn1 = Dense(num_units, ffn_units)
+        self.ffn2 = Dense(ffn_units, num_units)
 
     def _ffn(self, x: torch.Tensor) -> torch.Tensor:
         return self.ffn2(F.relu(self.ffn1(x)))
@@ -206,7 +209,7 @@ class SelfAttentionTransformer(nn.Module):
         self.num_hop = num_hop
         self.num_units = num_units
         self.use_positional_encoding = use_positional_encoding
-        self.in_proj = nn.Linear(in_units, num_units)
+        self.in_proj = Dense(in_units, num_units)
         for i in range(num_hop):
             self.add_module(
                 f"block_{i}",

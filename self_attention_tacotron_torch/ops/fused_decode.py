@@ -11,17 +11,25 @@ stop tracking and the early exit) runs inside one kernel
 (``csrc/fused_decode.cu``), with no host work per step.
 
 What bounds it on an H100: the serial chain of steps. A step needs about
-2 * 3.5 M * B operations and re-reads 14 MB of float32 weights, far below what
-the card can do in the time one step's dependent stages take. The design gives
-every group of ``LANES`` lanes one block that walks all the steps on its own:
-state in shared memory, weights streamed through L2 (the same 14 MB for every
-block and step), conditioning and the K/V cache in global memory. Blocks meet
-once per step, on a counter in global memory, only to agree whether every lane
-has fired; that is why all blocks of a launch must be resident at once
-(cooperative launch), which bounds a launch at ``LANES`` lanes per SM. Larger
-batches run as sequential batch blocks. One block's shared memory grows with
-the source length and, with self-attention, with ``max_iters`` (a step's
-attention logits over the prefix); where it outgrows an SM the wrapper raises.
+2 * 3.5 M * B operations and re-reads 14 MB of float32 weights (7 MB in
+bfloat16), far below what the card can do in the time one step's dependent
+stages take. The design gives every group of ``LANES`` lanes one block that
+walks all the steps on its own: state in shared memory, weights streamed through
+L2 (the same weights for every block and step), conditioning and the K/V cache
+in global memory. Blocks meet once per step, on a counter in global memory,
+only to agree whether every lane has fired; that is why all blocks of a launch
+must be resident at once (cooperative launch), which bounds a launch at
+``LANES`` lanes per SM. Larger batches run as sequential batch blocks. The
+decoder self-attention walks the cache's prefix in tiles of ``SA_TILE``
+positions with an online softmax, so one block's shared memory grows with the
+source length only, never with ``max_iters``; where it outgrows an SM the
+wrapper raises.
+
+``compute_dtype="bfloat16"`` runs the kernel's bfloat16 branch: the weights,
+keys, memories, speaker embedding and K/V cache are bfloat16 (the score
+vectors and LayerNorm parameters stay float32, as the JAX package packs them),
+the input of every product is rounded to bfloat16 where the Pallas kernel
+casts it to its io dtype, and sums, state, softmaxes and outputs stay float32.
 
 The prenet's dropout masks come in as arrays, one row per step, drawn by the
 caller: the kernel and the step-by-step path of ``ops/decode_loop.py`` are then
@@ -30,9 +38,10 @@ the same function of the same generator.
 Specialised to the four mel decoders, compiled once for each pair of flags
 ``dual`` (a second source with additive attention, queried through the fused
 projection; else the mechanism's own query layer) and ``use_sa`` (one decoder
-self-attention hop; else the output projection reads the feature): forward
-attention (with or without transition agent) on source 1, optional speaker
-embedding, mel head, ``n_feed_frame=1``, two prenet layers, float32.
+self-attention hop; else the output projection reads the feature), and for
+each io type, float32 and bfloat16: forward attention (with or without
+transition agent) on source 1, optional speaker embedding, mel head,
+``n_feed_frame=1``, two prenet layers.
 """
 
 from __future__ import annotations
@@ -47,6 +56,7 @@ import torch
 from self_attention_tacotron_torch.models.attention import AdditiveAttention, ForwardAttention
 from self_attention_tacotron_torch.models.decoders import DECODERS, Decoder, DecoderConditioning
 from self_attention_tacotron_torch.models.encoders import encoder_out_units
+from self_attention_tacotron_torch.models.models import COMPUTE_DTYPES
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
@@ -59,6 +69,9 @@ variant_launches: Dict[str, int] = {}
 LANES = 4
 # Multiprocessors of an H100 SXM: the launch limit quoted where no card is present.
 H100_SM_COUNT = 132
+# Positions of the decoder self-attention's prefix per tile, as csrc/fused_decode.cu
+# has it: requests of up to this many steps attend in one tile.
+SA_TILE = 512
 
 _NEG_INF = -1e9
 _EPS = 1e-6
@@ -75,9 +88,10 @@ def _round4(n: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def variant_name(dual: bool, use_sa: bool) -> str:
+def variant_name(dual: bool, use_sa: bool, io_dtype=torch.float32) -> str:
     """The name of a specialisation of the kernel, as ``variant_launches`` keys it."""
-    return f"dual={int(dual)},use_sa={int(use_sa)}"
+    name = f"dual={int(dual)},use_sa={int(use_sa)}"
+    return name if io_dtype == torch.float32 else f"{name},bf16"
 
 
 def supports_fused_decode(hp) -> bool:
@@ -86,11 +100,11 @@ def supports_fused_decode(hp) -> bool:
     The four mel decoders (one or two sources, with or without one decoder
     self-attention hop), forward attention with or without the transition agent
     on source 1, additive attention on source 2 where there is one, mel head,
-    ``n_feed_frame=1``, two prenet layers, float32. The kernel reads memories and
-    cache rows 16 bytes at a time, so those widths are multiples of 4; and the
-    first decoder LSTM has no residual, which holds whenever its input and output
-    widths differ. Not served: location-sensitive attention, the MgcLf0 heads,
-    bfloat16.
+    ``n_feed_frame=1``, two prenet layers, float32 or bfloat16. The kernel reads
+    memories and cache rows four values at a time, so those widths are multiples
+    of 4; and the first decoder LSTM has no residual, which holds whenever its
+    input and output widths differ. Not served: location-sensitive attention, the
+    MgcLf0 heads.
     """
     if hp.decoder not in DECODERS:
         return False
@@ -108,7 +122,7 @@ def supports_fused_decode(hp) -> bool:
         and hp.n_feed_frame == 1
         and len(hp.decoder_prenet_out_units) == 2
         and not hp.use_forced_alignment_mode
-        and hp.compute_dtype == "float32"
+        and hp.compute_dtype in COMPUTE_DTYPES
         and z["E1"] % 4 == 0
         and z["E2"] % 4 == 0
         and z["AU"] + z["E1"] + z["E2"] != z["DU"]
@@ -138,28 +152,32 @@ def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
     for the per-step exit agreement, one block per SM: ``LANES`` times the
     multiprocessors of the current CUDA device, or of an H100 where there is no
     card. On a card the built kernel is also asked whether one block's shared
-    memory, which grows with ``max_iters`` and ``src_len``, fits an SM: if not,
-    nothing can be launched.
+    memory, which grows with ``src_len`` (and not with ``max_iters``), fits an SM:
+    if not, nothing can be launched.
     """
     if not supports_fused_decode(hp):
         return 0
     if not torch.cuda.is_available():
         return LANES * H100_SM_COUNT
     device = torch.device("cuda", torch.cuda.current_device())
-    return _launch_limit(_hp_sizes(hp), src_len, max_iters, device)
+    io = COMPUTE_DTYPES[hp.compute_dtype]
+    return _launch_limit(_hp_sizes(hp), src_len, max_iters, device, io)
 
 
 # --------------------------------------------------------------------------- #
 # Operand packing
 # --------------------------------------------------------------------------- #
 
-# Order of the matrices and vectors in the flat weight buffer; the enum
+# Order of the matrices and vectors in the flat weight buffers; the enum
 # ``Entry`` of the source lists the same names in the same order.
 _ENTRIES = (
     "p1_w", "p1_b", "p2_w", "p2_b", "attg_w", "attg_b", "qp_w", "v_cat", "ta_w", "ta_b",
     "l1_w", "l1_b", "l2_w", "l2_b", "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
     "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b", "out_w", "out_b",
 )
+# The entries that stay float32 whatever the io type (the JAX package packs them
+# so): the score vectors and the LayerNorm parameters. They have their own buffer.
+_F32_ENTRIES = ("v_cat", "ln1_s", "ln1_b", "ln2_s", "ln2_b")
 # Order of the sizes handed to the kernel, before the offsets of the entries. They
 # name the specialisation: ``E2 > 0`` two sources, ``SA > 0`` decoder self-attention.
 _SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2")
@@ -175,11 +193,13 @@ class PackedDecoder:
     """A decoder's weights in the kernel's layout.
 
     ``flat`` holds every matrix as (in, out), what the plain version multiplies
-    by, each row padded to a multiple of 4 floats and each entry starting at a
-    multiple of 4 floats, so that the kernel reads 16 bytes at a time.
-    ``mat(name)`` is the (rows, cols) view of one entry, without the padding;
-    an entry the specialisation does not have is (0, 0). ``dual`` and ``use_sa``
-    name the specialisation, read from the widths.
+    by, in the io type (float32 or bfloat16: the decoder's compute dtype), each
+    row padded to a multiple of 4 values and each entry starting at a multiple of
+    4 values, so that the kernel reads four values at a time. ``flat32`` holds the
+    entries of ``_F32_ENTRIES`` the same way in float32. ``mat(name)`` is the
+    (rows, cols) view of one entry, without the padding; an entry the
+    specialisation does not have is (0, 0). ``dual`` and ``use_sa`` name the
+    specialisation, read from the widths.
     """
 
     flat: torch.Tensor
@@ -193,6 +213,7 @@ class PackedDecoder:
     keep_prob: float
     ln_eps: float
     pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates; empty without self-attention
+    flat32: Optional[torch.Tensor] = None
 
     @property
     def dual(self) -> bool:
@@ -202,10 +223,15 @@ class PackedDecoder:
     def use_sa(self) -> bool:
         return self.sizes["SA"] > 0
 
+    @property
+    def io_dtype(self) -> torch.dtype:
+        return self.flat.dtype
+
     def mat(self, name: str) -> torch.Tensor:
         rows, cols = self.shapes[name]
         start = self.offsets[name]
-        return self.flat[start : start + rows * _round4(cols)].view(rows, _round4(cols))[:, :cols]
+        buffer = self.flat32 if name in _F32_ENTRIES else self.flat
+        return buffer[start : start + rows * _round4(cols)].view(rows, _round4(cols))[:, :cols]
 
     def vec(self, name: str) -> torch.Tensor:
         return self.mat(name)[0]
@@ -217,7 +243,9 @@ def _require(condition: bool, message: str) -> None:
 
 
 def pack_decoder(decoder: Decoder) -> PackedDecoder:
-    """Bring the weights of ``decoder`` into the kernel's layout, on their device.
+    """Bring the weights of ``decoder`` into the kernel's layout, on their device,
+    in the decoder's compute dtype (rounded from its float32 parameters, as the
+    JAX package casts every packed weight).
 
     Raises ``ValueError`` for a decoder outside the kernel's specialisations.
     """
@@ -311,25 +339,30 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
             "in_w": (DU, SA), "qkv_w": (SA, 3 * SA), "o_w": (SA, SA),
             "f1_w": (SA, sizes["FFN"]), "f2_w": (sizes["FFN"], SA),
         })
-    offsets, shapes, total = {}, {}, 0
+    io = decoder.compute_dtype
+    _require(io in COMPUTE_DTYPES.values(),
+             f"compute dtype {io}: the kernel takes float32 or bfloat16")
+    offsets, shapes, totals = {}, {}, {False: 0, True: 0}
     for name in _ENTRIES:
         w = tensors[name]
-        _require(w.dtype == torch.float32, f"{name} is {w.dtype}, the kernel takes float32")
+        _require(w.dtype == torch.float32, f"{name} is {w.dtype}, the parameters are float32")
         _require(w.device == ref.device, f"{name} is on {w.device}, not on {ref.device}")
         if name in expected:
             _require(tuple(w.shape) == expected[name],
                      f"{name}: expected shape {expected[name]}, got {tuple(w.shape)}")
-        offsets[name], shapes[name] = total, tuple(w.shape)
-        total += w.shape[0] * _round4(w.shape[1])
-    flat = torch.zeros(total, dtype=torch.float32, device=ref.device)
+        in_f32 = name in _F32_ENTRIES
+        offsets[name], shapes[name] = totals[in_f32], tuple(w.shape)
+        totals[in_f32] += w.shape[0] * _round4(w.shape[1])
     packed = PackedDecoder(
-        flat=flat, offsets=offsets, shapes=shapes, sizes=sizes, use_transition_agent=use_ta,
+        flat=torch.zeros(totals[False], dtype=io, device=ref.device),
+        offsets=offsets, shapes=shapes, sizes=sizes, use_transition_agent=use_ta,
         zoneout_cell=float(cells[0].zoneout_factor_cell),
         zoneout_output=float(cells[0].zoneout_factor_output),
         forget_bias=float(cells[0].forget_bias),
         keep_prob=1.0 - float(decoder.prenet.drop_rate),
         ln_eps=float(block.ln1.eps) if use_sa else 0.0,
         pe_rate=_pe_rate(SA, ref.device),
+        flat32=torch.zeros(max(totals[True], 4), dtype=torch.float32, device=ref.device),
     )
     for name in _ENTRIES:
         packed.mat(name).copy_(tensors[name])
@@ -346,10 +379,11 @@ def _pe_rate(dim: int, device) -> torch.Tensor:
 
 @dataclasses.dataclass
 class _Operands:
-    """Conditioning and masks as both the kernel and the plain version read them."""
+    """Conditioning and masks as both the kernel and the plain version read them;
+    keys, memories and speaker embedding in the io type."""
 
     keys_cat: torch.Tensor      # (B, S, A1 + A2)
-    score_bias: torch.Tensor    # (B, S): 0 where valid, -1e9 where padded
+    score_bias: torch.Tensor    # (B, S) float32: 0 where valid, -1e9 where padded
     mem1: torch.Tensor          # (B, S, E1)
     mem2: Optional[torch.Tensor]  # (B, S, E2), None with one source
     spk: Optional[torch.Tensor]  # (B, SPK) or None
@@ -359,24 +393,27 @@ class _Operands:
 def _operands(packed: PackedDecoder, cond: DecoderConditioning, prenet_masks,
               max_iters: int) -> _Operands:
     z = packed.sizes
-    device = packed.flat.device
+    device, io = packed.flat.device, packed.io_dtype
     n = 2 if packed.dual else 1
     _require(len(cond.memories) == n and len(cond.keys) == n,
              f"{n} attention source(s) expected")
-    mem1 = cond.memories[0].detach().contiguous()
-    mem2 = cond.memories[1].detach().contiguous() if packed.dual else None
-    B, S, _ = mem1.shape
+    B, S, _ = cond.memories[0].shape
     _require(B >= 1 and S >= 1 and max_iters >= 1, "empty batch, source or step count")
-    checks = [("memories[0]", mem1, (B, S, z["E1"])), ("keys[0]", cond.keys[0], (B, S, z["A1"]))]
+    checks = [("memories[0]", cond.memories[0], (B, S, z["E1"])),
+              ("keys[0]", cond.keys[0], (B, S, z["A1"]))]
     if packed.dual:
-        checks += [("memories[1]", mem2, (B, S, z["E2"])),
+        checks += [("memories[1]", cond.memories[1], (B, S, z["E2"])),
                    ("keys[1]", cond.keys[1], (B, S, z["A2"]))]
     for name, tensor, shape in checks:
         _require(tuple(tensor.shape) == shape,
                  f"{name}: expected {shape}, got {tuple(tensor.shape)}")
-        _require(tensor.dtype == torch.float32, f"{name} is {tensor.dtype}, not float32")
+        _require(tensor.dtype in COMPUTE_DTYPES.values(),
+                 f"{name} is {tensor.dtype}, not float32 or bfloat16")
         _require(tensor.device == device, f"{name} is on {tensor.device}, the weights on {device}")
-    keys_cat = torch.cat([k.detach() for k in cond.keys], dim=-1).contiguous()
+    # in the io type, as the JAX package casts them
+    mem1 = cond.memories[0].detach().to(io).contiguous()
+    mem2 = cond.memories[1].detach().to(io).contiguous() if packed.dual else None
+    keys_cat = torch.cat([k.detach().to(io) for k in cond.keys], dim=-1).contiguous()
     mask = cond.masks[0]
     if mask is None:
         score_bias = torch.zeros(B, S, dtype=torch.float32, device=device)
@@ -388,7 +425,7 @@ def _operands(packed: PackedDecoder, cond: DecoderConditioning, prenet_masks,
     if z["SPK"]:
         _require(spk is not None and tuple(spk.shape) == (B, z["SPK"]),
                  f"a (B, {z['SPK']}) speaker embedding is required")
-        spk = spk.detach().to(device=device, dtype=torch.float32).contiguous()
+        spk = spk.detach().to(device=device, dtype=io).contiguous()
     else:
         _require(spk is None, "the decoder takes no speaker embedding")
     masks = None
@@ -426,17 +463,56 @@ def _layer_norm(x, scale, bias, eps: float):
     return centred / torch.sqrt(var + eps) * scale + bias
 
 
+def _attend(q, k_cache, v_cache, n: int, H: int, tile: int):
+    """softmax(q . K[0..n-1]) . V[0..n-1] per head: q (B, SA), caches (B, T, SA) float32.
+
+    As the kernel does it: over ``tile`` positions at a time; a prefix of one tile
+    is normalised before its product with V, a longer one takes an online softmax
+    (running maximum and sum, the accumulator rescaled from tile to tile)."""
+    B, SA = q.shape
+    qh = q.reshape(B, H, SA // H)
+
+    def split(cache, lo, hi):
+        return cache[:, lo:hi].reshape(B, hi - lo, H, SA // H)
+
+    if n <= tile:
+        probs = torch.softmax(torch.einsum("bhd,bthd->bht", qh, split(k_cache, 0, n)), dim=-1)
+        return torch.einsum("bht,bthd->bhd", probs, split(v_cache, 0, n)).reshape(B, SA)
+    m = torch.full((B, H), -torch.inf, dtype=q.dtype, device=q.device)
+    total = torch.zeros(B, H, dtype=q.dtype, device=q.device)
+    acc = torch.zeros(B, H, SA // H, dtype=q.dtype, device=q.device)
+    for lo in range(0, n, tile):
+        hi = min(lo + tile, n)
+        logits = torch.einsum("bhd,bthd->bht", qh, split(k_cache, lo, hi))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        scale = torch.exp(m - m_new)
+        p = torch.exp(logits - m_new[..., None])
+        total = total * scale + p.sum(dim=-1)
+        acc = acc * scale[..., None] + torch.einsum("bht,bthd->bhd", p, split(v_cache, lo, hi))
+        m = m_new
+    return (acc / total[..., None]).reshape(B, SA)
+
+
 def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_threshold: float,
-                  early_exit: bool) -> DecodeResult:
+                  early_exit: bool, sa_tile: int = SA_TILE) -> DecodeResult:
     z = p.sizes
     B, S, _ = ops.mem1.shape
     T, R, M, A1 = max_iters, z["R"], z["M"], z["A1"]
     SA, H = z["SA"], z["H"]
     HD = SA // H if p.use_sa else 0
-    device = p.flat.device
+    device, io = p.flat.device, p.io_dtype
     f32 = dict(dtype=torch.float32, device=device)
     zeros = lambda *shape: torch.zeros(*shape, **f32)  # noqa: E731
-    W = {name: p.mat(name) for name in _ENTRIES}
+
+    def rnd(x):
+        # a product's input, rounded to the io type where the Pallas kernel casts it
+        return x if io == torch.float32 else x.to(io).float()
+
+    # io-type weights and conditioning as float32: exact, and summed in float32
+    W = {name: p.mat(name).float() for name in _ENTRIES}
+    keys_cat, mem1 = ops.keys_cat.float(), ops.mem1.float()
+    mem2 = None if ops.mem2 is None else ops.mem2.float()
+    spk = None if ops.spk is None else ops.spk.float()
     v_cat, inv_keep = p.vec("v_cat"), 1.0 / p.keep_prob
     even = (torch.arange(SA, device=device) % 2) == 0
 
@@ -460,54 +536,53 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         x = torch.relu(feed @ W["p1_w"] + W["p1_b"])
         if ops.masks is not None:
             x = torch.where(ops.masks[0][t], x * inv_keep, torch.zeros_like(x))
-        x = torch.relu(x @ W["p2_w"] + W["p2_b"])
+        x = torch.relu(rnd(x) @ W["p2_w"] + W["p2_b"])
         if ops.masks is not None:
             x = torch.where(ops.masks[1][t], x * inv_keep, torch.zeros_like(x))
 
-        parts = [x] + ([ops.spk] if ops.spk is not None else []) + [ctx1, ctx2, h_att]
-        c_att, h_att = _lstm(torch.cat(parts, dim=-1), W["attg_w"], W["attg_b"], c_att, h_att, p)
+        parts = [x] + ([spk] if spk is not None else []) + [ctx1, ctx2, h_att]
+        c_att, h_att = _lstm(rnd(torch.cat(parts, dim=-1)), W["attg_w"], W["attg_b"],
+                             c_att, h_att, p)
 
         # the sources' scores from one tanh pass over the concatenated keys
-        qp = h_att @ W["qp_w"]
-        hidden = torch.tanh(ops.keys_cat + qp[:, None, :]) * v_cat
+        qp = rnd(h_att) @ W["qp_w"]
+        hidden = torch.tanh(keys_cat + qp[:, None, :]) * v_cat
         e1 = hidden[..., :A1].sum(dim=-1) + ops.score_bias
         y1 = torch.softmax(e1, dim=-1)
         shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
         alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
         alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
-        ctx1 = (alpha1[:, :, None] * ops.mem1).sum(dim=1)
+        ctx1 = (alpha1[:, :, None] * mem1).sum(dim=1)
         if p.use_transition_agent:
-            ta_in = torch.cat([ctx1, h_att], dim=-1)
-            u = torch.sigmoid(ta_in @ p.vec("ta_w") + p.vec("ta_b"))[:, None]
+            ta_in = rnd(torch.cat([ctx1, h_att], dim=-1))
+            u = torch.sigmoid(ta_in @ p.vec("ta_w").float() + p.vec("ta_b").float())[:, None]
         if p.dual:
             e2 = hidden[..., A1:].sum(dim=-1) + ops.score_bias
             alpha2 = torch.softmax(e2, dim=-1)
-            ctx2 = (alpha2[:, :, None] * ops.mem2).sum(dim=1)
+            ctx2 = (alpha2[:, :, None] * mem2).sum(dim=1)
             align2[:, t] = alpha2
 
-        c1, h1 = _lstm(torch.cat([h_att, ctx1, ctx2, h1], dim=-1), W["l1_w"], W["l1_b"], c1, h1, p)
-        c2, h2 = _lstm(torch.cat([h1, h2], dim=-1), W["l2_w"], W["l2_b"], c2, h2, p)
+        din = rnd(torch.cat([h_att, ctx1, ctx2, h1], dim=-1))
+        c1, h1 = _lstm(din, W["l1_w"], W["l1_b"], c1, h1, p)
+        c2, h2 = _lstm(rnd(torch.cat([h1, h2], dim=-1)), W["l2_w"], W["l2_b"], c2, h2, p)
         y = feature = h2 + h1
 
         if p.use_sa:
             # causal self-attention block over the live prefix 0..t of the cache
             angle = t * p.pe_rate
             pe = torch.where(even, torch.sin(angle), torch.cos(angle)).to(torch.float32)
-            xs = feature @ W["in_w"] + W["in_b"] + pe
-            qkv = _layer_norm(xs, W["ln1_s"], W["ln1_b"], p.ln_eps) @ W["qkv_w"]
-            q, k_cache[:, t], v_cache[:, t] = qkv[:, :SA], qkv[:, SA : 2 * SA], qkv[:, 2 * SA :]
-            qh = (q / math.sqrt(HD)).reshape(B, H, HD)
-            keys = k_cache[:, : t + 1].reshape(B, t + 1, H, HD)
-            values = v_cache[:, : t + 1].reshape(B, t + 1, H, HD)
-            probs = torch.softmax(torch.einsum("bhd,bthd->bht", qh, keys), dim=-1)
-            attn = torch.einsum("bht,bthd->bhd", probs, values).reshape(B, SA)
-            xs = xs + attn @ W["o_w"] + W["o_b"]
+            xs = rnd(feature) @ W["in_w"] + W["in_b"] + pe
+            qkv = rnd(_layer_norm(xs, W["ln1_s"], W["ln1_b"], p.ln_eps)) @ W["qkv_w"]
+            q = qkv[:, :SA] / math.sqrt(HD)
+            k_cache[:, t], v_cache[:, t] = rnd(qkv[:, SA : 2 * SA]), rnd(qkv[:, 2 * SA :])
+            attn = _attend(q, k_cache, v_cache, t + 1, H, sa_tile)
+            xs = xs + rnd(attn) @ W["o_w"] + W["o_b"]
             ffn = torch.relu(
-                _layer_norm(xs, W["ln2_s"], W["ln2_b"], p.ln_eps) @ W["f1_w"] + W["f1_b"]
+                rnd(_layer_norm(xs, W["ln2_s"], W["ln2_b"], p.ln_eps)) @ W["f1_w"] + W["f1_b"]
             )
-            y = xs + ffn @ W["f2_w"] + W["f2_b"]
+            y = xs + rnd(ffn) @ W["f2_w"] + W["f2_b"]
 
-        out = y @ W["out_w"] + W["out_b"]
+        out = rnd(y) @ W["out_w"] + W["out_b"]
         frames[:, t] = out[:, : R * M]
         stop_probs = torch.sigmoid(out[:, R * M :])
         stops[:, t] = stop_probs
@@ -519,7 +594,7 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         newly = fired & ~finished
         lengths = torch.where(newly, (t * R + first_fire + 1).to(torch.int32), lengths)
         finished = finished | fired
-        feed = out[:, (R - 1) * M : R * M]
+        feed = rnd(out[:, (R - 1) * M : R * M])
 
         t += 1
         if early_exit and bool(finished.all()):
@@ -543,18 +618,23 @@ def fused_decode_reference(
     max_iters: int,
     stop_threshold: float,
     early_exit: bool = True,
+    sa_tile: int = SA_TILE,
 ) -> DecodeResult:
     """Plain PyTorch version of one launch of ``fused_decode``, in the kernel's formulation.
 
     Concatenated keys against ``[v1 | v2]`` (``v1`` alone with one source), the
     key mask as an added -1e9, the query scaled by ``1 / sqrt(HD)`` before the
-    dot, attention over the live prefix of the cache, dropout as ``x * (1 /
-    keep)`` where the mask keeps; the specialisation's stages only. All lanes run
-    until every lane has fired (``early_exit``) or to ``max_iters``.
+    dot, attention over the live prefix of the cache in tiles of ``sa_tile``
+    positions (the kernel's is ``SA_TILE``; a test may take a smaller one to
+    reach the online softmax in a few steps), dropout as ``x * (1 / keep)`` where
+    the mask keeps; the specialisation's stages only; in bfloat16 the inputs of
+    the products rounded where the kernel rounds them, everything else float32.
+    All lanes run until every lane has fired (``early_exit``) or to ``max_iters``.
     """
     ops = _operands(packed, cond, prenet_masks, int(max_iters))
     with torch.no_grad():
-        return _decode_plain(packed, ops, int(max_iters), float(stop_threshold), bool(early_exit))
+        return _decode_plain(packed, ops, int(max_iters), float(stop_threshold), bool(early_exit),
+                             int(sa_tile))
 
 
 # --------------------------------------------------------------------------- #
@@ -565,33 +645,37 @@ def fused_decode_reference(
 def _kernel_fn():
     global _function
     if _function is None:
-        fn = load_library("fused_decode").fused_decode_f32
-        # 18 device pointers, the sizes (host), the scalars (host), the stream
-        fn.argtypes = [ctypes.c_void_p] * 18 + [
-            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
+        fn = load_library("fused_decode").fused_decode_launch
+        # the 19 device pointers (an array), the sizes (host), the scalars (host), the stream
+        fn.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
+            ctypes.POINTER(ctypes.c_float), ctypes.c_void_p,
         ]
         fn.restype = ctypes.c_int
         _function = fn
     return _function
 
 
-def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0), offsets=None):
-    # the struct ``Dims`` of the source: sizes, (transition agent, early exit, masks), offsets
+def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0),
+          io_dtype=torch.float32, offsets=None):
+    # the struct ``Dims`` of the source: sizes, (transition agent, early exit, masks,
+    # bfloat16), offsets
     values = [B, S, T] + [sizes[k] for k in _SIZES] + [int(f) for f in flags]
+    values += [int(io_dtype == torch.bfloat16)]
     values += [0] * len(_ENTRIES) if offsets is None else [offsets[name] for name in _ENTRIES]
     return (ctypes.c_int * len(values))(*values)
 
 
-def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int,
-                        device) -> Tuple[int, int]:
+def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int, device,
+                        io_dtype=torch.float32) -> Tuple[int, int]:
     """(bytes of shared memory one block needs, bytes a block may have on ``device``),
-    both as the built kernel reports them."""
+    both as the built kernel reports them. The first does not grow with ``max_iters``."""
     lib = load_library("fused_decode")
     lib.fused_decode_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_decode_smem_bytes.restype = ctypes.c_longlong
     lib.fused_decode_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_decode_smem_limit.restype = ctypes.c_longlong
-    dims = _dims(sizes, 1, src_len, max_iters)
+    dims = _dims(sizes, 1, src_len, max_iters, io_dtype=io_dtype)
     with torch.cuda.device(device):
         limit = int(lib.fused_decode_smem_limit(dims))
     if limit < 0:
@@ -599,8 +683,9 @@ def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int,
     return int(lib.fused_decode_smem_bytes(dims)), limit
 
 
-def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device) -> int:
-    need, have = block_shared_memory(sizes, src_len, max_iters, device)
+def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device,
+                  io_dtype=torch.float32) -> int:
+    need, have = block_shared_memory(sizes, src_len, max_iters, device, io_dtype)
     if need > have:
         return 0
     return LANES * torch.cuda.get_device_properties(device).multi_processor_count
@@ -612,7 +697,7 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     z = p.sizes
     B, S, _ = ops.mem1.shape
     T, R, M, SA = max_iters, z["R"], z["M"], z["SA"]
-    device = p.flat.device
+    device, io = p.flat.device, p.io_dtype
     f32 = dict(dtype=torch.float32, device=device)
     # rows at and beyond num_steps stay zero, as the step-by-step path leaves them
     frames, stops = torch.zeros(B, T, R * M, **f32), torch.zeros(B, T, R, **f32)
@@ -624,33 +709,38 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     # what a specialisation does not have is a placeholder that the kernel never reads
     placeholder = torch.zeros(4, **f32)
     if p.use_sa:
-        # scratch: K transposed (B, SA, T4), V (B, T, SA); only the written prefix is read
-        k_cache = torch.empty(B, SA, _round4(T), **f32)
-        v_cache = torch.empty(B, T, SA, **f32)
+        # scratch in the io type: K transposed (B, SA, T4), V (B, T, SA); only the
+        # written prefix is read
+        k_cache = torch.empty(B, SA, _round4(T), dtype=io, device=device)
+        v_cache = torch.empty(B, T, SA, dtype=io, device=device)
         pe_rate = p.pe_rate
     else:
         k_cache = v_cache = pe_rate = placeholder
 
     dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None),
-                 p.offsets)
+                 io, p.offsets)
     scalars = (ctypes.c_float * 7)(
         p.zoneout_cell, p.zoneout_output, p.forget_bias, 1.0 / p.keep_prob,
         stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]) if p.use_sa else 1.0,
     )
-    pointers = [
-        p.flat, pe_rate, ops.keys_cat, ops.mem1, placeholder if ops.mem2 is None else ops.mem2,
-        ops.score_bias, ops.spk, *(ops.masks if ops.masks is not None else (None, None)),
+    tensors = [
+        p.flat, p.flat32, pe_rate, ops.keys_cat, ops.mem1,
+        placeholder if ops.mem2 is None else ops.mem2, ops.score_bias, ops.spk,
+        *(ops.masks if ops.masks is not None else (None, None)),
         k_cache, v_cache, frames, stops, aligns[0], aligns[-1] if p.dual else placeholder,
         lengths, finished, info,
     ]
+    pointers = (ctypes.c_void_p * len(tensors))(
+        *(None if x is None else x.data_ptr() for x in tensors)
+    )
     fn = _kernel_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(*(0 if x is None else x.data_ptr() for x in pointers), dims, scalars, stream)
+        err = fn(pointers, dims, scalars, stream)
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")
     launch_count += 1
-    name = variant_name(p.dual, p.use_sa)
+    name = variant_name(p.dual, p.use_sa, io)
     variant_launches[name] = variant_launches.get(name, 0) + 1
     return DecodeResult(
         frames={"mel": frames.view(B, T * R, M)},
@@ -707,12 +797,12 @@ def fused_decode(
     B, S = cond.memories[0].shape[:2]
     limit = B   # the plain version takes any batch
     if device.type == "cuda":
-        limit = _launch_limit(packed.sizes, S, max_iters, device)
+        limit = _launch_limit(packed.sizes, S, max_iters, device, packed.io_dtype)
         if limit < 1:
-            need, have = block_shared_memory(packed.sizes, S, max_iters, device)
+            need, have = block_shared_memory(packed.sizes, S, max_iters, device, packed.io_dtype)
             raise RuntimeError(
-                f"fused_decode cannot launch at max_iters={max_iters}, src_len={S}: one block "
-                f"needs {need} bytes of shared memory, an SM of this device offers {have}"
+                f"fused_decode cannot launch at src_len={S}: one block needs {need} bytes of "
+                f"shared memory, an SM of this device offers {have}"
             )
     if slice_batch is not None:
         limit = int(slice_batch)

@@ -52,8 +52,8 @@ def make_predict_fn(
 
     ``use_fused``: decode with the whole-loop kernel of ``ops/fused_decode.py``.
     Default: on where ``hparams.use_pallas_kernels`` is set, the configuration is
-    one the kernel serves (``supports_fused_decode``) and the device is the card;
-    else the step-by-step loop. ``True`` raises for a configuration the kernel does
+    one the kernel serves (``supports_fused_decode``, float32 and bfloat16 alike)
+    and the device is the card; else the step-by-step loop. ``True`` raises for a configuration the kernel does
     not serve, and with ``device="cpu"`` runs the kernel's plain version. On the
     card the fused decode launches its kernel or raises (``RuntimeError`` where
     ``max_iters`` or the source is so long that one block outgrows an SM's shared
@@ -66,7 +66,8 @@ def make_predict_fn(
     (B, max_iters*r), ``lengths`` (B,), ``alignments`` (per source, (B, max_iters,
     S)), ``encoder_sa_alignments`` (per block, (B, H, S, S); empty for a
     single-stream encoder), ``finished`` (B,) and
-    ``num_steps`` (), all tensors on ``device``.
+    ``num_steps`` (), all tensors on ``device``; the floats are float32 whatever
+    ``hparams.compute_dtype``, as the JAX package returns them.
     """
     dev = resolve_device(device)
     use_full_float32()

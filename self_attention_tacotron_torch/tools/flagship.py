@@ -1,6 +1,7 @@
 """The configurations and request shapes that the GPU scripts drive.
 
-Three configurations at full width, float32: ``flagship`` (the dual-source
+Three configurations at full width, float32 unless ``compute_dtype`` is
+overridden (``DTYPES``; the scripts' ``--dtype``): ``flagship`` (the dual-source
 Self-Attention Tacotron, with the committed trained weights), ``baseline``
 (``configs/ljspeech_baseline.json``: ``ExtendedTacotronV1Model`` with
 ``EncoderV1``) and ``zoneout`` (the same model with ``ZoneoutEncoderV1``). No
@@ -28,6 +29,8 @@ TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_p
 # the baseline Tacotron's configuration, as the training command line reads it
 BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
 CONFIGS = ("flagship", "baseline", "zoneout")
+# the compute dtypes a script may ask for (hparams.compute_dtype)
+DTYPES = ("float32", "bfloat16")
 
 
 def flagship_hparams(**overrides) -> HParams:

@@ -1,12 +1,15 @@
 """Where a synthesis request's time goes on the card.
 
     python3 -m self_attention_tacotron_torch.tools.profile_synthesis [--config baseline]
+        [--dtype bfloat16] [--steps N]
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
 flagship with its trained weights, the default; ``baseline`` or ``zoneout`` with
-weights made from a seed), batch 32 (ragged source lengths up to 128) and batch
-1, ``--steps`` decoder steps with the stop threshold out of reach, so that every
-run does the same work. It prints JSON lines:
+weights made from a seed) in ``--dtype`` (``compute_dtype``, float32 by
+default), batch 32 (ragged source lengths up to 128) and batch 1, ``--steps``
+decoder steps with the stop threshold out of reach, so that every run does the
+same work. The first line names the card and its power limit. It prints JSON
+lines:
 
 * ``encoder``: time of ``encode`` by CUDA events, kernel path and plain path;
 * ``decode``: time per decoder step of a whole request, in turns (a, b, b, a):
@@ -34,6 +37,7 @@ import torch
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 from self_attention_tacotron_torch.tools.flagship import (
     CONFIGS,
+    DTYPES,
     device_busy,
     gpu_line,
     load_network,
@@ -96,14 +100,16 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=200, help="decoder steps per request")
     parser.add_argument("--config", choices=CONFIGS, default="flagship")
+    parser.add_argument("--dtype", choices=DTYPES, default="float32", help="compute dtype")
     args = parser.parse_args()
     dev = resolve_device("cuda")
-    print(json.dumps({"card": gpu_line(), "config": args.config, "steps": args.steps}),
-          flush=True)
+    print(json.dumps({"card": gpu_line(), "config": args.config, "dtype": args.dtype,
+                      "steps": args.steps}), flush=True)
 
     # no probability exceeds a threshold of 2: no lane fires, every run does the same work
-    net = load_network(args.config, stop_token_threshold=2.0)
-    net_plain = load_network(args.config, stop_token_threshold=2.0, use_pallas_kernels=False)
+    net = load_network(args.config, stop_token_threshold=2.0, compute_dtype=args.dtype)
+    net_plain = load_network(args.config, stop_token_threshold=2.0, use_pallas_kernels=False,
+                             compute_dtype=args.dtype)
     stepwise = {
         "sync": make_predict_fn(net, max_iters=args.steps, use_fused=False),
         "no_sync": make_predict_fn(net, max_iters=args.steps, use_fused=False, early_exit=False),

@@ -45,7 +45,9 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
                      "ops/fused_attention.py", "ops/fused_decode.py", "ops/decode_loop.py",
                      "models/models.py", "models/losses.py", "ops/fused_teacher.py",
                      "training/trainer.py", "training/schedules.py", "tools/flagship.py",
-                     "tools/profile_training.py", "models/encoders.py", "models/modules.py"):
+                     "tools/profile_training.py", "models/encoders.py", "models/modules.py",
+                     "tools/profile_synthesis.py", "models/self_attention.py",
+                     "models/attention.py", "models/decoders.py", "utils/cuda_build.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
 
 
