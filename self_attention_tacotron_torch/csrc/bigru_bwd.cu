@@ -18,6 +18,13 @@
 // and g_ag (2H) and g_ac (H) of every step are the outputs. Rows at and beyond a
 // lane's length stay as the wrapper zeroed them.
 //
+// The kernel is compiled for two weight types, float and bfloat16 (WT). With
+// bfloat16 it rounds what enters each product where the Pallas kernel casts to
+// its io_dtype: the cotangents g_ac and g_ag before their products with the
+// bfloat16 transposed weights. g_y, rz, n, h_prev, the sums, the carry's
+// cotangent and the outputs stay float; g_ac keeps its float value for the output
+// and a rounded copy for the product.
+//
 // The bound is the serial chain, as in bigru.cu, and the layout is the same: grid
 // (ceil(B / LANES), 2 directions); a block owns LANES lanes of one direction,
 // keeps their carries' cotangents in shared memory, walks to the longest length
@@ -30,13 +37,18 @@
 
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "dense.cuh"
+
 namespace {
 
 constexpr int LANES = 4;
 constexpr int MAX_THREADS = 1024;
 
 // s_part[(p * LANES + l) * H + j] = sum over the p-th slice of k of s_in[l * K + k] * w[k * H + j]
-__device__ __forceinline__ void partial_products(const float* __restrict__ w, int H, int K,
+template <typename WT>
+__device__ __forceinline__ void partial_products(const WT* __restrict__ w, int H, int K,
                                                  const float* s_in, float* s_part, int parts,
                                                  int tid, int nt) {
   const int chunk = (K + parts - 1) / parts;
@@ -50,7 +62,7 @@ __device__ __forceinline__ void partial_products(const float* __restrict__ w, in
     for (int l = 0; l < LANES; ++l) acc[l] = 0.0f;
 #pragma unroll 8
     for (int k = k0; k < k1; ++k) {
-      const float wv = __ldg(w + (size_t)k * H + j);
+      const float wv = Io<WT>::load(w + (size_t)k * H + j);
 #pragma unroll
       for (int l = 0; l < LANES; ++l) acc[l] = fmaf(s_in[l * K + k], wv, acc[l]);
     }
@@ -59,24 +71,28 @@ __device__ __forceinline__ void partial_products(const float* __restrict__ w, in
   }
 }
 
+template <typename WT>
 __global__ void __launch_bounds__(MAX_THREADS)
 bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, backward half
                  const float* __restrict__ rz,      // (2, B, S, 2H)
                  const float* __restrict__ n,       // (2, B, S, H)
                  const float* __restrict__ hp,      // (2, B, S, H)
                  const int* __restrict__ lengths,   // (B,)
-                 const float* __restrict__ wgh_t,   // (2, 2H, H)
-                 const float* __restrict__ wch_t,   // (2, H, H)
+                 const WT* __restrict__ wgh_t,      // (2, 2H, H)
+                 const WT* __restrict__ wch_t,      // (2, H, H)
                  float* __restrict__ g_ag,          // (2, B, S, 2H), zero on entry
-                 float* __restrict__ g_ac,          // (2, B, S, H), zero on entry
+                 float* __restrict__ g_ac_out,      // (2, B, S, H), zero on entry
                  int B, int S, int H) {
+  // float: s_gac holds g_ac itself; bfloat16: its rounded copy, and the output
+  // is written from the float value
+  constexpr bool ROUNDED = !std::is_same<WT, float>::value;
   extern __shared__ float smem[];
   const int H2 = 2 * H;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   float* s_g = smem;                    // LANES * H    cotangent of the carry
   float* s_gh = s_g + LANES * H;        // LANES * H    g_h of this step
-  float* s_gac = s_gh + LANES * H;      // LANES * H
+  float* s_gac = s_gh + LANES * H;      // LANES * H    g_ac as the product reads it
   float* s_grh = s_gac + LANES * H;     // LANES * H
   float* s_gag = s_grh + LANES * H;     // LANES * 2H
   float* s_part = s_gag + LANES * H2;   // LANES * max(nt, H) partial sums
@@ -84,8 +100,8 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
 
   const int dir = blockIdx.y;
   const int lane0 = blockIdx.x * LANES;
-  const float* wg = wgh_t + (size_t)dir * H2 * H;
-  const float* wc = wch_t + (size_t)dir * H * H;
+  const WT* wg = wgh_t + (size_t)dir * H2 * H;
+  const WT* wc = wch_t + (size_t)dir * H * H;
   const int parts = nt / H > 0 ? nt / H : 1;   // threads per column of a product
 
   if (tid < LANES) {
@@ -118,9 +134,10 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
         const float z = rz[row * H2 + H + j];
         g_h = s_g[i] + g_y[((size_t)(lane0 + l) * S + t) * H2 + dir * H + j];
         g_ac = g_h * (1.0f - z) * (1.0f - nv * nv);
+        if (ROUNDED) g_ac_out[row * H + j] = g_ac;
       }
       s_gh[i] = g_h;
-      s_gac[i] = g_ac;
+      s_gac[i] = Io<WT>::round(g_ac);
     }
     __syncthreads();
 
@@ -146,10 +163,10 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
         g_az = g_h * (h_prev - n[row * H + j]) * z * (1.0f - z);
         g_ag[row * H2 + j] = g_ar;
         g_ag[row * H2 + H + j] = g_az;
-        g_ac[row * H + j] = s_gac[i];
+        if (!ROUNDED) g_ac_out[row * H + j] = s_gac[i];
       }
-      s_gag[l * H2 + j] = g_ar;
-      s_gag[l * H2 + H + j] = g_az;
+      s_gag[l * H2 + j] = Io<WT>::round(g_ar);
+      s_gag[l * H2 + H + j] = Io<WT>::round(g_az);
     }
     __syncthreads();
 
@@ -170,29 +187,45 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-int bigru_bwd_f32(const void* g_y, const void* rz, const void* n, const void* hp,
-                  const void* lengths, const void* wgh_t, const void* wch_t, void* g_ag,
-                  void* g_ac, int B, int S, int H, void* stream) {
+template <typename WT>
+int launch(const void* g_y, const void* rz, const void* n, const void* hp, const void* lengths,
+           const void* wgh_t, const void* wch_t, void* g_ag, void* g_ac, int B, int S, int H,
+           void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   int threads = ((4 * H + 31) / 32) * 32;   // four threads per column
   if (threads > MAX_THREADS) threads = MAX_THREADS;
   const int part_cols = threads > H ? threads : H;
   const size_t smem = sizeof(float) * (size_t)LANES * (6 * H + part_cols);
   if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(bigru_bwd_kernel,
+    cudaError_t err = cudaFuncSetAttribute(bigru_bwd_kernel<WT>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
   dim3 grid((B + LANES - 1) / LANES, 2);
-  bigru_bwd_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(
+  bigru_bwd_kernel<WT><<<grid, threads, smem, (cudaStream_t)stream>>>(
       (const float*)g_y, (const float*)rz, (const float*)n, (const float*)hp,
-      (const int*)lengths, (const float*)wgh_t, (const float*)wch_t, (float*)g_ag, (float*)g_ac,
+      (const int*)lengths, (const WT*)wgh_t, (const WT*)wch_t, (float*)g_ag, (float*)g_ac,
       B, S, H);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// g_y, rz, n, hp, g_ag and g_ac are float; the transposed weights float (_f32)
+// or bfloat16 (_bf16).
+int bigru_bwd_f32(const void* g_y, const void* rz, const void* n, const void* hp,
+                  const void* lengths, const void* wgh_t, const void* wch_t, void* g_ag,
+                  void* g_ac, int B, int S, int H, void* stream) {
+  return launch<float>(g_y, rz, n, hp, lengths, wgh_t, wch_t, g_ag, g_ac, B, S, H, stream);
+}
+
+int bigru_bwd_bf16(const void* g_y, const void* rz, const void* n, const void* hp,
+                   const void* lengths, const void* wgh_t, const void* wch_t, void* g_ag,
+                   void* g_ac, int B, int S, int H, void* stream) {
+  return launch<__nv_bfloat16>(g_y, rz, n, hp, lengths, wgh_t, wch_t, g_ag, g_ac, B, S, H,
+                               stream);
 }
 
 }  // extern "C"

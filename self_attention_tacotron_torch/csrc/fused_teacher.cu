@@ -15,10 +15,23 @@
 //   source 2: a2 = softmax(e2);  contexts ctx_i = a_i . memory_i
 //   two ZoneoutLSTMs, feature = h1 + h2
 //
-// Both kernels are compiled twice, for DUAL (the two sources above) and for one
-// source, the baseline's single forward attention: there Wqp is the mechanism's
-// own query layer, vblk has one column, and there is no second key, memory,
-// context or alignment (E2 = A2 = 0, alignment rows of S instead of 2S).
+// Both kernels are compiled for DUAL (the two sources above) and for one source,
+// the baseline's single forward attention: there Wqp is the mechanism's own query
+// layer, vblk has one column, and there is no second key, memory, context or
+// alignment (E2 = A2 = 0, alignment rows of S instead of 2S); and each of those
+// for two io types, float and bfloat16 (IO). IO is the type of the weights, the
+// feeds, keys, memories and speaker embedding, and of the gradient rows. With
+// bfloat16 the kernels round where the Pallas kernels cast to their io_dtype:
+// forward, the input of every product (the attention LSTM's input, the query,
+// the transition agent's input, both decoder LSTMs' inputs); backward, the
+// cotangent entering every product with a transposed weight (the three gate
+// pre-activations', the transition agent's, g_qp), and the gradient row as it is
+// stored. The LSTM states live in float beside their rounded copies; everything
+// else stays float: the products' sums, states, scores, softmaxes, the recursion,
+// contexts, the carry and activation rows, the running sum the bias gradients
+// come from, d_keys, d_vblk and d_spk. The forward's scores use vblk rounded in
+// the io buffer, the backward's the float score vectors (v32), as the Pallas
+// kernels read vblk and vcol1 / vcol2.
 //
 // Zoneout keeps the previous state where a keep mask says so. In training the
 // mask of (step, draw, lane, unit) is a counter-based hash (murmur3 finalizer)
@@ -52,6 +65,7 @@
 #include <cuda_runtime.h>
 
 #include <cstring>
+#include <type_traits>
 
 #include "dense.cuh"
 
@@ -72,11 +86,12 @@ enum Carry { C_CATT, C_HATT, C_C1, C_H1, C_C2, C_H2, C_CTX1, C_CTX2, C_ALPHA, C_
 enum Acts { A_ZATT, A_Z1, A_Z2, A_QP, A_Y1, A_ALPHA2, NUM_ACTS };
 enum Stack { G_ZATT, G_Z1, G_Z2, G_FEED, G_QP, G_CTX1, G_CTX2, G_UPRE, NUM_STACK };
 
-// Sizes, flags, row widths and offsets (in floats), in the order the wrapper writes them.
+// Sizes, flags, row widths and offsets (in values), in the order the wrapper writes
+// them; bf16: the io type.
 struct Dims {
   int B, S, N;
   int P2, SPK, AU, A1, A2, DU, E1, E2;
-  int use_ta, train_masks;
+  int use_ta, train_masks, bf16;
   int CW, AW, SW;
   int carry[NUM_CARRY], acts[NUM_ACTS], stack[NUM_STACK];
   int off[NUM_ENTRIES];
@@ -93,14 +108,15 @@ struct Bits {
   unsigned draw[6];
 };
 
+template <typename IO>
 struct Ptrs {
-  const float* w;
-  const float* feeds;     // (B, N, P2) the prenet's output
-  const float* keys;      // (B, S, A1 + A2)
-  const float* mem1;      // (B, S, E1)
-  const float* mem2;      // (B, S, E2)
+  const IO* w;
+  const IO* feeds;        // (B, N, P2) the prenet's output
+  const IO* keys;         // (B, S, A1 + A2)
+  const IO* mem1;         // (B, S, E1)
+  const IO* mem2;         // (B, S, E2)
   const float* bias;      // (B, S)
-  const float* spk;       // (B, SPK) or null
+  const IO* spk;          // (B, SPK) or null
   float* features;        // (B, N, DU)
   float* aligns;          // (B, N, 2S), (B, N, S) with one source
   float* carry;           // (B, N, CW)
@@ -108,11 +124,12 @@ struct Ptrs {
   // backward only
   const float* g_feat;    // (B, N, DU)
   const float* g_align;   // as aligns, or null
-  float* stack;           // (B, N, SW)
+  IO* stack;              // (B, N, SW)
   float* d_keys;          // (B, S, A1 + A2), zero on entry
   float* d_vblk;          // (B, 2 or 1, A1 + A2) one partial per lane
   float* d_spk;           // (B, SPK), zero on entry
   float* d_brow;          // (B, SW), zero on entry
+  const float* v32;       // (2 or 1, A1 + A2 padded to 4) the score vectors, float
 };
 
 __device__ __forceinline__ unsigned mix32(unsigned x) {
@@ -139,7 +156,7 @@ __device__ __forceinline__ float keep_old(int train, unsigned step_seed, unsigne
 // ------------------------------------------------------------------------------------
 
 struct FwdLayout {
-  int part, attin, catt, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, total;
+  int part, attin, catt, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, hatt, h1, h2, total;
 };
 
 __host__ __device__ inline int widest_product(const Dims& d) {
@@ -151,8 +168,11 @@ __host__ __device__ inline int widest_product(const Dims& d) {
   return r4(widest);
 }
 
-__host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d) {
+// `split`: the LSTMs' hidden states live apart from the rounded copies that the
+// products read (bfloat16 only; with float io those arrays take no room).
+__host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d, bool split) {
   const int A = d.A1 + d.A2;
+  const int st = split ? 1 : 0;
   const int KA = d.P2 + d.SPK + d.E1 + d.E2 + d.AU;
   const int KD1 = d.AU + d.E1 + d.E2 + d.DU;
   FwdLayout L;
@@ -169,31 +189,38 @@ __host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d) {
   L.c1 = at;     at += LANES * r4(d.DU);
   L.din2 = at;   at += LANES * r4(2 * d.DU);
   L.c2 = at;     at += LANES * r4(d.DU);
+  L.hatt = at;   at += st * LANES * r4(d.AU);
+  L.h1 = at;     at += st * LANES * r4(d.DU);
+  L.h2 = at;     at += st * LANES * r4(d.DU);
   L.total = at;
   return L;
 }
 
 // ZoneoutLSTM from the partial sums of its gate product (4U columns i, g, f, o).
-// c is s_c[l * ldc + j]; the previous h is s_h[l * ldh + j] and is overwritten.
-// The new h also goes to s_h2[l * ldh2 + j], or, where `features` is given,
-// h + s_h2[...] goes to the feature row instead. Pre-activations go to the
-// activation row, the new c and h to the carry row.
+// c is s_c[l * ldc + j] and the hidden state s_h[l * ldh + j], both float and
+// overwritten. The new h, rounded to the io type, also goes to s_in, the cell's
+// own input slot that the next step's product reads (with float io s_in is s_h
+// itself); and then either to s_cp (the next product's input) or, where
+// `features` is given, h + s_res[...] goes to the feature row. Pre-activations go
+// to the activation row, the new c and h to the carry row.
+template <typename IO>
 __device__ __forceinline__ void lstm_forward(const float* s_part, int parts, int U,
-                                             const float* __restrict__ b, float* s_c, int ldc,
-                                             float* s_h, int ldh, float* s_h2, int ldh2,
-                                             float* features, const Ptrs& P, const Dims& d,
-                                             const Scalars& sc, const Bits& bits, int cell,
-                                             int z_off, int c_off, int h_off, const int* s_b,
-                                             const int* s_valid, int t, int tid) {
+                                             const IO* __restrict__ b, float* s_c, int ldc,
+                                             float* s_h, int ldh, float* s_in, int ldin,
+                                             float* s_cp, int ldcp, float* features,
+                                             const float* s_res, int ldres, const Ptrs<IO>& P,
+                                             const Dims& d, const Scalars& sc, const Bits& bits,
+                                             int cell, int z_off, int c_off, int h_off,
+                                             const int* s_b, const int* s_valid, int t, int tid) {
   const int ld = 4 * U;
   const unsigned step_seed = bits.seed + (unsigned)t;
   for (int i = tid; i < LANES * U; i += NT) {
     const int l = i / U;
     const int j = i - l * U;
-    const float zi = gather<LANES>(s_part, parts, ld, l, j) + __ldg(b + j);
-    const float zg = gather<LANES>(s_part, parts, ld, l, U + j) + __ldg(b + U + j);
-    const float zf = gather<LANES>(s_part, parts, ld, l, 2 * U + j) + __ldg(b + 2 * U + j);
-    const float zo = gather<LANES>(s_part, parts, ld, l, 3 * U + j) + __ldg(b + 3 * U + j);
+    const float zi = gather<LANES>(s_part, parts, ld, l, j) + Io<IO>::load(b + j);
+    const float zg = gather<LANES>(s_part, parts, ld, l, U + j) + Io<IO>::load(b + U + j);
+    const float zf = gather<LANES>(s_part, parts, ld, l, 2 * U + j) + Io<IO>::load(b + 2 * U + j);
+    const float zo = gather<LANES>(s_part, parts, ld, l, 3 * U + j) + Io<IO>::load(b + 3 * U + j);
     const float c = s_c[l * ldc + j];
     const float h = s_h[l * ldh + j];
     const float new_c = sigmoidf_(zf + sc.forget_bias) * c + sigmoidf_(zi) * tanhf(zg);
@@ -206,7 +233,9 @@ __device__ __forceinline__ void lstm_forward(const float* s_part, int parts, int
     const float out_h = h * mh + new_h * (1.0f - mh);
     s_c[l * ldc + j] = out_c;
     s_h[l * ldh + j] = out_h;
-    if (features == nullptr) s_h2[l * ldh2 + j] = out_h;
+    const float rounded = Io<IO>::round(out_h);
+    if (!std::is_same<IO, float>::value) s_in[l * ldin + j] = rounded;
+    if (features == nullptr) s_cp[l * ldcp + j] = rounded;
     if (s_valid[l]) {
       const size_t row = (size_t)s_b[l] * d.N + t;
       float* z = P.acts + row * d.AW + z_off;
@@ -216,15 +245,17 @@ __device__ __forceinline__ void lstm_forward(const float* s_part, int parts, int
       z[3 * U + j] = zo;
       P.carry[row * d.CW + c_off + j] = out_c;
       P.carry[row * d.CW + h_off + j] = out_h;
-      if (features != nullptr) features[row * U + j] = out_h + s_h2[l * ldh2 + j];
+      if (features != nullptr) features[row * U + j] = out_h + s_res[l * ldres + j];
     }
   }
 }
 
-template <bool DUAL>
+template <bool DUAL, typename IO>
 __global__ void __launch_bounds__(NT)
-teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits) {
+teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits bits) {
   constexpr int NSRC = DUAL ? 2 : 1;
+  constexpr bool SPLIT = !std::is_same<IO, float>::value;
+  using Vec = typename Weights4<IO>::Vec;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_b[LANES];       // global lane, clamped into the batch
@@ -238,7 +269,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
   const int A = d.A1 + d.A2, EW = d.E1 + d.E2;
   const int KA = P2 + d.SPK + EW + AU, KD1 = AU + EW + DU;
 
-  const FwdLayout L = make_fwd_layout(d);
+  const FwdLayout L = make_fwd_layout(d, SPLIT);
   float* s_part = smem + L.part;
   float* s_attin = smem + L.attin;   const int ld_attin = r4(KA);
   float* s_catt = smem + L.catt;     const int ld_au = r4(AU);
@@ -251,10 +282,20 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
   float* s_c1 = smem + L.c1;         const int ld_du = r4(DU);
   float* s_din2 = smem + L.din2;     const int ld_din2 = r4(2 * DU);
   float* s_c2 = smem + L.c2;
+  // the LSTMs' hidden states: beside their rounded input copies, or (float io) those slots
+  float* st_att = SPLIT ? smem + L.hatt : s_attin + (KA - AU);
+  const int ld_st_att = SPLIT ? ld_au : ld_attin;
+  float* st_h1 = SPLIT ? smem + L.h1 : s_din + (KD1 - DU);
+  const int ld_st_h1 = SPLIT ? ld_du : ld_din;
+  float* st_h2 = SPLIT ? smem + L.h2 : s_din2 + DU;
+  const int ld_st_h2 = SPLIT ? ld_du : ld_din2;
+  // what the feature adds to h2: h1's state (float io: its copy in s_din2)
+  const float* res_h1 = SPLIT ? st_h1 : s_din2;
+  const int ld_res_h1 = SPLIT ? ld_st_h1 : ld_din2;
 
-  const float* w = P.w;
-  const float* v1 = w + d.off[VBLK];
-  const float* v2 = v1 + r4(A);   // read only with DUAL
+  const IO* w = P.w;
+  const IO* v1 = w + d.off[VBLK];
+  const IO* v2 = v1 + r4(A);   // read only with DUAL
 
   // ------------------------------ initial state ------------------------------
   for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
@@ -269,7 +310,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
   if (P.spk != nullptr)
     for (int i = tid; i < LANES * d.SPK; i += NT) {
       const int l = i / d.SPK, j = i - l * d.SPK;
-      s_attin[l * ld_attin + P2 + j] = __ldg(P.spk + (size_t)s_b[l] * d.SPK + j);
+      s_attin[l * ld_attin + P2 + j] = Io<IO>::load(P.spk + (size_t)s_b[l] * d.SPK + j);
     }
   if (warp < LANES) {
     int hi = 0;
@@ -285,7 +326,7 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     // ------------------------------ the step's input ---------------------------
     for (int i = tid; i < LANES * P2; i += NT) {
       const int l = i / P2, j = i - l * P2;
-      s_attin[l * ld_attin + j] = __ldg(P.feeds + ((size_t)s_b[l] * N + t) * P2 + j);
+      s_attin[l * ld_attin + j] = Io<IO>::load(P.feeds + ((size_t)s_b[l] * N + t) * P2 + j);
     }
     __syncthreads();
 
@@ -294,9 +335,10 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     int parts = dense_partial<LANES, NT>(w + d.off[ATTG_W], 4 * AU, KA, s_attin, ld_attin,
                                          s_part, tid);
     __syncthreads();
-    lstm_forward(s_part, parts, AU, w + d.off[ATTG_B], s_catt, ld_au, s_attin + (KA - AU),
-                 ld_attin, s_din, ld_din, nullptr, P, d, sc, bits, 0, d.acts[A_ZATT],
-                 d.carry[C_CATT], d.carry[C_HATT], s_b, s_valid, t, tid);
+    lstm_forward<IO>(s_part, parts, AU, w + d.off[ATTG_B], s_catt, ld_au, st_att, ld_st_att,
+                     s_attin + (KA - AU), ld_attin, s_din, ld_din, nullptr, nullptr, 0, P, d, sc,
+                     bits, 0, d.acts[A_ZATT], d.carry[C_CATT], d.carry[C_HATT], s_b, s_valid, t,
+                     tid);
     __syncthreads();
 
     // ------------------------------ both sources' scores -----------------------
@@ -314,12 +356,12 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
       float e1 = bias, e2 = bias;
       if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
-        const float* key = P.keys + ((size_t)s_b[l] * S + s) * A;
+        const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
         float acc1 = 0.0f, acc2 = 0.0f;
         for (int a = lane; a < A; a += 32) {
-          const float tq = tanhf(__ldg(key + a) + s_qp[l * ld_a + a]);
-          acc1 = fmaf(tq, __ldg(v1 + a), acc1);
-          if (DUAL) acc2 = fmaf(tq, __ldg(v2 + a), acc2);
+          const float tq = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]);
+          acc1 = fmaf(tq, Io<IO>::load(v1 + a), acc1);
+          if (DUAL) acc2 = fmaf(tq, Io<IO>::load(v2 + a), acc2);
         }
         e1 = warp_sum(acc1) + bias;
         if (DUAL) e2 = warp_sum(acc2) + bias;
@@ -396,8 +438,8 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         const int col = 4 * c;
         const bool second = DUAL && col >= E1;
         const int width = second ? E2 : E1;
-        const float* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
-                                  : P.mem1 + (size_t)s_b[l] * S * E1 + col;
+        const IO* mem = second ? P.mem2 + (size_t)s_b[l] * S * E2 + (col - E1)
+                               : P.mem1 + (size_t)s_b[l] * S * E1 + col;
         const float* alpha = (second ? s_e2 : s_alpha1) + l * ld_s;
         const int s0 = p * chunk;
         const int s1 = imin(imin(s0 + chunk, S), s_hi[l]);
@@ -407,20 +449,23 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
           float4 m[8];
 #pragma unroll
           for (int u = 0; u < 8; ++u)
-            m[u] = __ldg(reinterpret_cast<const float4*>(mem + (size_t)(s + u) * width));
+            m[u] = Weights4<IO>::values(
+                __ldg(reinterpret_cast<const Vec*>(mem + (size_t)(s + u) * width)));
 #pragma unroll
           for (int u = 0; u < 8; ++u) fma4(acc, alpha[s + u], m[u]);
         }
         for (; s < s1; ++s)
-          fma4(acc, alpha[s], __ldg(reinterpret_cast<const float4*>(mem + (size_t)s * width)));
+          fma4(acc, alpha[s],
+               Weights4<IO>::values(__ldg(reinterpret_cast<const Vec*>(mem + (size_t)s * width))));
         *reinterpret_cast<float4*>(s_part + (size_t)(p * LANES + l) * EW + col) = acc;
       }
       __syncthreads();
       for (int i = tid; i < LANES * EW; i += NT) {
         const int l = i / EW, j = i - l * EW;
         const float v = gather<LANES>(s_part, cparts, EW, l, j);
-        s_attin[l * ld_attin + P2 + d.SPK + j] = v;   // next step's attention LSTM input
-        s_din[l * ld_din + AU + j] = v;               // [query | ctx1 | ctx2 | h1]
+        const float rounded = Io<IO>::round(v);
+        s_attin[l * ld_attin + P2 + d.SPK + j] = rounded;   // next step's attention LSTM input
+        s_din[l * ld_din + AU + j] = rounded;               // [query | ctx1 | ctx2 | h1]
         if (s_valid[l]) {
           const size_t row = (size_t)s_b[l] * N + t;
           if (j < E1) P.carry[row * d.CW + d.carry[C_CTX1] + j] = v;
@@ -433,13 +478,13 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     // ------------------------------ transition agent ---------------------------
     if (warp < LANES) {
       if (d.use_ta) {
-        const float* wt = w + d.off[TA_W];
+        const IO* wt = w + d.off[TA_W];
         const float* row = s_din + warp * ld_din;
         float acc = 0.0f;
         for (int i = lane; i < E1 + AU; i += 32)
-          acc += __ldg(wt + i) * (i < E1 ? row[AU + i] : row[i - E1]);   // [ctx1 | query]
+          acc += Io<IO>::load(wt + i) * (i < E1 ? row[AU + i] : row[i - E1]);   // [ctx1 | query]
         acc = warp_sum(acc);
-        if (lane == 0) s_u[warp] = sigmoidf_(acc + __ldg(w + d.off[TA_B]));
+        if (lane == 0) s_u[warp] = sigmoidf_(acc + Io<IO>::load(w + d.off[TA_B]));
       }
       __syncwarp();
       if (lane == 0 && s_valid[warp])
@@ -449,17 +494,17 @@ teacher_fwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     // ------------------------------ decoder LSTMs ------------------------------
     parts = dense_partial<LANES, NT>(w + d.off[L1_W], 4 * DU, KD1, s_din, ld_din, s_part, tid);
     __syncthreads();
-    lstm_forward(s_part, parts, DU, w + d.off[L1_B], s_c1, ld_du, s_din + (KD1 - DU), ld_din,
-                 s_din2, ld_din2, nullptr, P, d, sc, bits, 1, d.acts[A_Z1], d.carry[C_C1],
-                 d.carry[C_H1], s_b, s_valid, t, tid);
+    lstm_forward<IO>(s_part, parts, DU, w + d.off[L1_B], s_c1, ld_du, st_h1, ld_st_h1,
+                     s_din + (KD1 - DU), ld_din, s_din2, ld_din2, nullptr, nullptr, 0, P, d, sc,
+                     bits, 1, d.acts[A_Z1], d.carry[C_C1], d.carry[C_H1], s_b, s_valid, t, tid);
     __syncthreads();
     parts = dense_partial<LANES, NT>(w + d.off[L2_W], 4 * DU, 2 * DU, s_din2, ld_din2, s_part,
                                      tid);
     __syncthreads();
     // feature = h2 + h1
-    lstm_forward(s_part, parts, DU, w + d.off[L2_B], s_c2, ld_du, s_din2 + DU, ld_din2, s_din2,
-                 ld_din2, P.features, P, d, sc, bits, 2, d.acts[A_Z2], d.carry[C_C2],
-                 d.carry[C_H2], s_b, s_valid, t, tid);
+    lstm_forward<IO>(s_part, parts, DU, w + d.off[L2_B], s_c2, ld_du, st_h2, ld_st_h2,
+                     s_din2 + DU, ld_din2, nullptr, 0, P.features, res_h1, ld_res_h1, P, d, sc,
+                     bits, 2, d.acts[A_Z2], d.carry[C_C2], d.carry[C_H2], s_b, s_valid, t, tid);
     __syncthreads();
   }
 }
@@ -506,11 +551,12 @@ __host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d) {
 // Adjoint of one ZoneoutLSTM's pointwise stage. On entry s_gc and s_gh hold the
 // cotangents of the step's c and h outputs (s_add, where given, is added to the
 // latter); on exit they hold those of the previous c and h as far as this stage
-// gives them. The cotangents of the gate pre-activations go to s_gz (4U a lane,
-// for the product with the transposed weights), to the gradient row and to the
-// running sum.
+// gives them. The cotangents of the gate pre-activations go to s_gz rounded to the
+// io type (4U a lane, for the product with the transposed weights), to the
+// gradient row in the io type and to the float running sum.
+template <typename IO>
 __device__ __forceinline__ void lstm_backward(int U, float* s_gc, float* s_gh, int ldu,
-                                              const float* s_add, float* s_gz, const Ptrs& P,
+                                              const float* s_add, float* s_gz, const Ptrs<IO>& P,
                                               const Dims& d, const Scalars& sc, const Bits& bits,
                                               int cell, int z_off, int c_off, int g_off,
                                               const int* s_b, const int* s_valid, int t,
@@ -542,24 +588,24 @@ __device__ __forceinline__ void lstm_backward(int U, float* s_gc, float* s_gh, i
     s_gc[l * ldu + j] = g_c_out * mc + g_c_new * sf;
     s_gh[l * ldu + j] = g_h_out * mh;
     float* gz = s_gz + l * 4 * U;
-    gz[j] = g_i;
-    gz[U + j] = g_g;
-    gz[2 * U + j] = g_f;
-    gz[3 * U + j] = g_o;
+    gz[j] = Io<IO>::round(g_i);
+    gz[U + j] = Io<IO>::round(g_g);
+    gz[2 * U + j] = Io<IO>::round(g_f);
+    gz[3 * U + j] = Io<IO>::round(g_o);
     if (s_valid[l]) {
-      float* out = P.stack + row * d.SW + g_off;
+      IO* out = P.stack + row * d.SW + g_off;
       float* sum = P.d_brow + (size_t)s_b[l] * d.SW + g_off;
-      out[j] = g_i;            sum[j] += g_i;
-      out[U + j] = g_g;        sum[U + j] += g_g;
-      out[2 * U + j] = g_f;    sum[2 * U + j] += g_f;
-      out[3 * U + j] = g_o;    sum[3 * U + j] += g_o;
+      out[j] = Io<IO>::from(g_i);            sum[j] += g_i;
+      out[U + j] = Io<IO>::from(g_g);        sum[U + j] += g_g;
+      out[2 * U + j] = Io<IO>::from(g_f);    sum[2 * U + j] += g_f;
+      out[3 * U + j] = Io<IO>::from(g_o);    sum[3 * U + j] += g_o;
     }
   }
 }
 
-template <bool DUAL>
+template <bool DUAL, typename IO>
 __global__ void __launch_bounds__(NT)
-teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits) {
+teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits bits) {
   constexpr int NSRC = DUAL ? 2 : 1;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
@@ -600,8 +646,8 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
   float* s_ge2 = smem + L.ge2;
   float* s_dv = smem + L.dv;
 
-  const float* w = P.w;
-  const float* v1 = w + d.off[VBLK];
+  const IO* w = P.w;
+  const float* v1 = P.v32;        // the score vectors, float
   const float* v2 = v1 + r4(A);   // read only with DUAL
 
   for (int i = tid; i < L.total; i += NT) smem[i] = 0.0f;
@@ -652,7 +698,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     __syncthreads();
 
     // ------------------------------ decoder LSTM 2 -----------------------------
-    lstm_backward(DU, s_gc2, s_gh2, ld_du, nullptr, s_gz, P, d, sc, bits, 2, d.acts[A_Z2],
+    lstm_backward<IO>(DU, s_gc2, s_gh2, ld_du, nullptr, s_gz, P, d, sc, bits, 2, d.acts[A_Z2],
                   d.carry[C_C2], d.stack[G_Z2], s_b, s_valid, t, tid);
     __syncthreads();
     int parts = dense_partial<LANES, NT>(w + d.off[L2_WT], r4(2 * DU), 4 * DU, s_gz, 4 * DU,
@@ -667,7 +713,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     __syncthreads();
 
     // ------------------------------ decoder LSTM 1 -----------------------------
-    lstm_backward(DU, s_gc1, s_gh1, ld_du, nullptr, s_gz, P, d, sc, bits, 1, d.acts[A_Z1],
+    lstm_backward<IO>(DU, s_gc1, s_gh1, ld_du, nullptr, s_gz, P, d, sc, bits, 1, d.acts[A_Z1],
                   d.carry[C_C1], d.stack[G_Z1], s_b, s_valid, t, tid);
     __syncthreads();
     parts = dense_partial<LANES, NT>(w + d.off[L1_WT], r4(KD1), 4 * DU, s_gz, 4 * DU, s_part,
@@ -689,9 +735,10 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       if (d.use_ta) {
         const float u_new = P.carry[((size_t)s_b[warp] * N + t) * d.CW + d.carry[C_U]];
         g_u_pre = s_gu[warp] * u_new * (1.0f - u_new);
-        const float* wt = w + d.off[TA_W];
+        const float g_u_in = Io<IO>::round(g_u_pre);        // what enters the product
+        const IO* wt = w + d.off[TA_W];
         for (int i = lane; i < E1 + AU; i += 32) {           // [ctx1 | query]
-          const float g = g_u_pre * __ldg(wt + i);
+          const float g = g_u_in * Io<IO>::load(wt + i);
           if (i < E1) s_gctx[warp * ld_ew + i] += g;
           else s_gq[warp * ld_au + (i - E1)] += g;
         }
@@ -700,7 +747,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       if (lane == 0) {
         s_gupass[warp] = d.use_ta ? 0.0f : s_gu[warp];
         if (s_valid[warp]) {
-          P.stack[((size_t)s_b[warp] * N + t) * d.SW + d.stack[G_UPRE]] = g_u_pre;
+          P.stack[((size_t)s_b[warp] * N + t) * d.SW + d.stack[G_UPRE]] = Io<IO>::from(g_u_pre);
           P.d_brow[(size_t)s_b[warp] * d.SW + d.stack[G_UPRE]] += g_u_pre;
         }
       }
@@ -711,7 +758,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       if (s_valid[l]) {
         const int at = j < E1 ? d.stack[G_CTX1] + j : d.stack[G_CTX2] + (j - E1);
         const float v = s_gctx[l * ld_ew + j];
-        P.stack[((size_t)s_b[l] * N + t) * d.SW + at] = v;
+        P.stack[((size_t)s_b[l] * N + t) * d.SW + at] = Io<IO>::from(v);
         P.d_brow[(size_t)s_b[l] * d.SW + at] += v;
       }
     }
@@ -722,13 +769,13 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const int l = pair / S, s = pair - l * S;
       float acc1 = 0.0f, acc2 = 0.0f;
       if (s < s_hi[l]) {
-        const float* m1 = P.mem1 + ((size_t)s_b[l] * S + s) * E1;
+        const IO* m1 = P.mem1 + ((size_t)s_b[l] * S + s) * E1;
         const float* g = s_gctx + l * ld_ew;
-        for (int e = lane; e < E1; e += 32) acc1 = fmaf(g[e], __ldg(m1 + e), acc1);
+        for (int e = lane; e < E1; e += 32) acc1 = fmaf(g[e], Io<IO>::load(m1 + e), acc1);
         acc1 = warp_sum(acc1);
         if (DUAL) {
-          const float* m2 = P.mem2 + ((size_t)s_b[l] * S + s) * E2;
-          for (int e = lane; e < E2; e += 32) acc2 = fmaf(g[E1 + e], __ldg(m2 + e), acc2);
+          const IO* m2 = P.mem2 + ((size_t)s_b[l] * S + s) * E2;
+          for (int e = lane; e < E2; e += 32) acc2 = fmaf(g[E1 + e], Io<IO>::load(m2 + e), acc2);
           acc2 = warp_sum(acc2);
         }
         if (P.g_align != nullptr) {
@@ -805,7 +852,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const float q = s_qp[l * ld_a + a];
       const float va = __ldg(v1 + a), vb = DUAL ? __ldg(v2 + a) : 0.0f;
       const float* bias = P.bias + b * S;
-      const float* key = P.keys + b * S * A + a;
+      const IO* key = P.keys + b * S * A + a;
       float* dk = P.d_keys + b * S * A + a;
       const float* ge1 = s_ge1 + l * ld_s;
       const float* ge2 = s_ge2 + l * ld_s;
@@ -815,7 +862,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
 #pragma unroll 4
       for (int s = 0; s < hi; ++s) {
         if (__ldg(bias + s) <= -1e8f) continue;
-        const float tq = tanhf(__ldg(key + (size_t)s * A) + q);
+        const float tq = tanhf(Io<IO>::load(key + (size_t)s * A) + q);
         const float g1 = ge1[s], g2 = DUAL ? ge2[s] : 0.0f;
         const float g_pre = (g1 * va + g2 * vb) * (1.0f - tq * tq);
         if (valid) dk[(size_t)s * A] += g_pre;
@@ -823,12 +870,12 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
         d1 = fmaf(g1, tq, d1);
         d2 = fmaf(g2, tq, d2);
       }
-      s_gqp[l * ld_a + a] = g_q;
+      s_gqp[l * ld_a + a] = Io<IO>::round(g_q);   // what enters the product with Wqp^T
       s_dv[(l * NSRC) * ld_a + a] += d1;
       if (DUAL) s_dv[(l * NSRC + 1) * ld_a + a] += d2;
       if (valid) {
         const size_t at = (b * N + t) * d.SW + d.stack[G_QP] + a;
-        P.stack[at] = g_q;
+        P.stack[at] = Io<IO>::from(g_q);
         P.d_brow[b * d.SW + d.stack[G_QP] + a] += g_q;
       }
     }
@@ -842,7 +889,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
     __syncthreads();
 
     // ------------------------------ attention LSTM -----------------------------
-    lstm_backward(AU, s_gcatt, s_ghatt, ld_au, s_gq, s_gz, P, d, sc, bits, 0, d.acts[A_ZATT],
+    lstm_backward<IO>(AU, s_gcatt, s_ghatt, ld_au, s_gq, s_gz, P, d, sc, bits, 0, d.acts[A_ZATT],
                   d.carry[C_CATT], d.stack[G_ZATT], s_b, s_valid, t, tid);
     __syncthreads();
     parts = dense_partial<LANES, NT>(w + d.off[ATTG_WT], r4(KA), 4 * AU, s_gz, 4 * AU, s_part,
@@ -853,7 +900,7 @@ teacher_bwd_kernel(const Ptrs P, const Dims d, const Scalars sc, const Bits bits
       const float v = gather<LANES>(s_part, parts, r4(KA), l, j);
       if (j < P2) {
         if (s_valid[l]) {
-          P.stack[((size_t)s_b[l] * N + t) * d.SW + d.stack[G_FEED] + j] = v;
+          P.stack[((size_t)s_b[l] * N + t) * d.SW + d.stack[G_FEED] + j] = Io<IO>::from(v);
           P.d_brow[(size_t)s_b[l] * d.SW + d.stack[G_FEED] + j] += v;
         }
       } else if (j < P2 + SPK) {
@@ -882,37 +929,65 @@ bool sizes_ok(const Dims& d) {
   return (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
 }
 
-Ptrs make_ptrs(const void* const* p, const Dims& d) {
-  Ptrs P;
-  P.w = (const float*)p[0];
-  P.feeds = (const float*)p[1];
-  P.keys = (const float*)p[2];
-  P.mem1 = (const float*)p[3];
-  P.mem2 = (const float*)p[4];
+template <typename IO>
+Ptrs<IO> make_ptrs(const void* const* p, const Dims& d) {
+  Ptrs<IO> P;
+  P.w = (const IO*)p[0];
+  P.feeds = (const IO*)p[1];
+  P.keys = (const IO*)p[2];
+  P.mem1 = (const IO*)p[3];
+  P.mem2 = (const IO*)p[4];
   P.bias = (const float*)p[5];
-  P.spk = d.SPK > 0 ? (const float*)p[6] : nullptr;
+  P.spk = d.SPK > 0 ? (const IO*)p[6] : nullptr;
   P.features = (float*)p[7];
   P.aligns = (float*)p[8];
   P.carry = (float*)p[9];
   P.acts = (float*)p[10];
   P.g_feat = (const float*)p[11];
   P.g_align = (const float*)p[12];
-  P.stack = (float*)p[13];
+  P.stack = (IO*)p[13];
   P.d_keys = (float*)p[14];
   P.d_vblk = (float*)p[15];
   P.d_spk = (float*)p[16];
   P.d_brow = (float*)p[17];
+  P.v32 = (const float*)p[18];
   return P;
 }
 
-using Kernel = void (*)(const Ptrs, const Dims, const Scalars, const Bits);
+template <typename IO>
+using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars, const Bits);
 
-// The kernel of one direction compiled for the specialisation of `d`'s widths:
-// a second memory (E2 > 0) means two sources.
-Kernel kernel_for(const Dims& d, bool backward) {
+// The kernel of one direction compiled for the specialisation of `d`'s widths
+// (a second memory, E2 > 0, means two sources), with io type IO.
+template <typename IO>
+Kernel<IO> kernel_for(const Dims& d, bool backward) {
   const bool dual = d.E2 > 0;
-  if (backward) return dual ? teacher_bwd_kernel<true> : teacher_bwd_kernel<false>;
-  return dual ? teacher_fwd_kernel<true> : teacher_fwd_kernel<false>;
+  if (backward) return dual ? teacher_bwd_kernel<true, IO> : teacher_bwd_kernel<false, IO>;
+  return dual ? teacher_fwd_kernel<true, IO> : teacher_fwd_kernel<false, IO>;
+}
+
+const void* kernel_address(const Dims& d, bool backward) {
+  return d.bf16 ? (const void*)kernel_for<__nv_bfloat16>(d, backward)
+                : (const void*)kernel_for<float>(d, backward);
+}
+
+size_t smem_bytes(const Dims& d, bool backward) {
+  const int total = backward ? make_bwd_layout(d).total : make_fwd_layout(d, d.bf16 != 0).total;
+  return (size_t)total * sizeof(float);
+}
+
+template <typename IO>
+int launch_io(bool backward, const void* const* pointers, const Dims& d, const Scalars& sc,
+              const Bits& bt, cudaStream_t stream) {
+  const Ptrs<IO> P = make_ptrs<IO>(pointers, d);
+  const size_t smem = smem_bytes(d, backward);
+  const Kernel<IO> kernel = kernel_for<IO>(d, backward);
+  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((d.B + LANES - 1) / LANES);
+  kernel<<<grid, NT, smem, stream>>>(P, d, sc, bt);
+  return (int)cudaGetLastError();
 }
 
 int launch(bool backward, const void* const* pointers, const int* dims, const float* scalars,
@@ -926,16 +1001,9 @@ int launch(bool backward, const void* const* pointers, const int* dims, const fl
   if (!sizes_ok(d)) return (int)cudaErrorInvalidValue;
   if (d.SPK > 0 && pointers[6] == nullptr) return (int)cudaErrorInvalidValue;
   if (d.E2 > 0 && pointers[4] == nullptr) return (int)cudaErrorInvalidValue;
-  const Ptrs P = make_ptrs(pointers, d);
-  const int total = backward ? make_bwd_layout(d).total : make_fwd_layout(d).total;
-  const size_t smem = (size_t)total * sizeof(float);
-  const Kernel kernel = kernel_for(d, backward);
-  cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((d.B + LANES - 1) / LANES);
-  kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(P, d, sc, bt);
-  return (int)cudaGetLastError();
+  if (backward && pointers[18] == nullptr) return (int)cudaErrorInvalidValue;
+  if (d.bf16) return launch_io<__nv_bfloat16>(backward, pointers, d, sc, bt, (cudaStream_t)stream);
+  return launch_io<float>(backward, pointers, d, sc, bt, (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -947,12 +1015,11 @@ extern "C" {
 long long fused_teacher_smem_bytes(const int* dims, int backward) {
   Dims d;
   std::memcpy(&d, dims, sizeof(Dims));
-  const int total = backward ? make_bwd_layout(d).total : make_fwd_layout(d).total;
-  return (long long)total * (long long)sizeof(float);
+  return (long long)smem_bytes(d, backward != 0);
 }
 
-// Dynamic shared memory one block of the kernel (of the specialisation `dims`
-// names) may have on the current device, in bytes: what a block can opt in to,
+// Dynamic shared memory one block of the kernel (of the specialisation and io type
+// `dims` names) may have on the current device, in bytes: what a block can opt in to,
 // less what the kernel declares statically. Negative: minus the CUDA error code.
 long long fused_teacher_smem_limit(const int* dims, int backward) {
   Dims d;
@@ -962,21 +1029,22 @@ long long fused_teacher_smem_limit(const int* dims, int backward) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, (const void*)kernel_for(d, backward));
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_address(d, backward != 0));
   if (err != cudaSuccess) return -(long long)err;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
 
-// `pointers`: 18 device pointers in the order of make_ptrs (host array); the
-// forward reads the first 11, null for the rest. With one source pointers[4]
-// (the second memory) is a placeholder that is never read.
-int fused_teacher_fwd_f32(const void* const* pointers, const int* dims, const float* scalars,
-                          const unsigned* bits, void* stream) {
+// `pointers`: 19 device pointers in the order of make_ptrs (host array); the
+// forward reads the first 11, the backward all but 7..8. With one source
+// pointers[4] (the second memory) is a placeholder that is never read. The io
+// type is dims' bf16 flag: pointers 0..4, 6 and 13 are of it.
+int fused_teacher_fwd(const void* const* pointers, const int* dims, const float* scalars,
+                      const unsigned* bits, void* stream) {
   return launch(false, pointers, dims, scalars, bits, stream);
 }
 
-int fused_teacher_bwd_f32(const void* const* pointers, const int* dims, const float* scalars,
-                          const unsigned* bits, void* stream) {
+int fused_teacher_bwd(const void* const* pointers, const int* dims, const float* scalars,
+                      const unsigned* bits, void* stream) {
   return launch(true, pointers, dims, scalars, bits, stream);
 }
 

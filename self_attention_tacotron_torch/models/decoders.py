@@ -10,7 +10,7 @@ All recurrence state is carried explicitly in :class:`DecoderState`.
 ``forward(cond, targets)`` is the teacher-forced pass of training and
 evaluation. On a CUDA device, with ``use_pallas`` and a decoder of the family
 ``ops/fused_teacher.py`` serves, the scanned region runs as that module's two
-kernels (or raises: in bfloat16, whose kernel branch is not ported yet);
+kernels, in float32 or bfloat16 as the decoder computes (or raises);
 otherwise, and on the CPU, it is a Python loop over ``step`` under autograd.
 Both paths draw the prenet's dropout masks and the zoneout masks' seed from one
 generator in one order and build the zoneout masks from the same hash, so they
@@ -39,14 +39,6 @@ from self_attention_tacotron_torch.models.modules import (
 )
 from self_attention_tacotron_torch.models.self_attention import SelfAttentionTransformer
 from self_attention_tacotron_torch.ops import fused_teacher
-
-
-# What the teacher-forced pass and the trainer raise for bfloat16 through the kernels.
-BF16_TRAINING_NOT_PORTED = (
-    "bfloat16 training through the kernels is not ported yet: the bfloat16 branches of the "
-    "teacher-forced decoder kernels (forward and backward) and of the BiGRU's backward are "
-    "the next slice of the port; train with use_pallas_kernels=False or in float32"
-)
 
 
 @dataclasses.dataclass
@@ -362,7 +354,9 @@ class Decoder(nn.Module):
             zoneout_cell=self.attention_lstm.zoneout_factor_cell,
             zoneout_output=self.attention_lstm.zoneout_factor_output,
             forget_bias=self.attention_lstm.forget_bias,
-            prenet_drop_rate=self.prenet.drop_rate, io_dtype="float32", src1_kind="forward",
+            prenet_drop_rate=self.prenet.drop_rate,
+            io_dtype="bfloat16" if self.compute_dtype == torch.bfloat16 else "float32",
+            src1_kind="forward",
             eval_zoneout=not self.training,
         )
 
@@ -372,7 +366,9 @@ class Decoder(nn.Module):
         Dual source: ``vblk`` from the two score vectors, ``w_qp`` the fused query
         projection, both mechanisms' keys side by side. One source: ``vblk`` is the
         score vector, ``w_qp`` the mechanism's own query layer, and there is no
-        second key or memory. The key mask becomes a bias."""
+        second key or memory. The key mask becomes a bias. Keys and memories are in
+        the compute dtype, the weights and the speaker embedding float32 (the
+        kernels round them)."""
         mech1 = self.attentions[0]
         dual = self.num_attentions == 2
         v1 = mech1.attention_v
@@ -397,28 +393,31 @@ class Decoder(nn.Module):
                 torch.cat([v1, torch.zeros_like(v1)], dim=1),
                 torch.cat([torch.zeros_like(v2), v2], dim=1),
             ], dim=0)
-            mem1, mem2 = cond.memories
+            mem1, mem2 = (m.to(self.compute_dtype) for m in cond.memories)
         else:
             weights["w_qp"] = mech1.query_layer.weight.t()
             weights["vblk"] = v1
-            mem1, mem2 = cond.memories[0], None
+            mem1, mem2 = cond.memories[0].to(self.compute_dtype), None
         mask = cond.masks[0]
         if mask is None:
-            score_bias = mem1.new_zeros(mem1.shape[:2])
+            score_bias = torch.zeros(mem1.shape[:2], dtype=torch.float32, device=mem1.device)
         else:
             score_bias = torch.where(mask, 0.0, -1e9).to(torch.float32)
         spk = cond.speaker_embed
         return dict(
-            weights=weights, keys=torch.cat(cond.keys, dim=-1), mem1=mem1, mem2=mem2,
+            weights=weights, keys=torch.cat(cond.keys, dim=-1).to(self.compute_dtype),
+            mem1=mem1, mem2=mem2,
             score_bias=score_bias, spk=None if spk is None else spk.to(torch.float32),
             hp_like=self._teacher_hp_like(),
         )
 
     def _fused_teacher_call(self, cond: DecoderConditioning, feeds, prenet_masks, seed: int):
-        """The scanned region through ``ops/fused_teacher.py``."""
+        """The scanned region through ``ops/fused_teacher.py``; the features (float32
+        there) in the compute dtype, as ``post`` takes them."""
         features, aligns = fused_teacher.teacher_decode(
             **self.teacher_operands(cond), feeds=feeds, seed=seed, prenet_masks=prenet_masks
         )
+        features = features.to(self.compute_dtype)
         if self.num_attentions == 1:
             return features, (aligns,)
         s = cond.memories[0].shape[1]
@@ -491,8 +490,6 @@ class Decoder(nn.Module):
         """
         feeds = self.make_teacher_feeds(targets)
         kernels = self.use_pallas and feeds.device.type != "cpu" and self.fused_teacher_supported()
-        if kernels and self.compute_dtype != torch.float32:
-            raise NotImplementedError(BF16_TRAINING_NOT_PORTED)
         prenet_masks, seed = self.draw_teacher_masks(*feeds.shape[:2], feeds.device, generator)
         if kernels:
             features, aligns = self._fused_teacher_call(cond, feeds, prenet_masks, seed)

@@ -75,14 +75,33 @@ def in_dtype(value: float, dtype: torch.dtype) -> float:
     return value if dtype == torch.float32 else float(torch.tensor(value, dtype=dtype))
 
 
+class _Logistic(torch.autograd.Function):
+    """``lax.logistic`` in a low-precision dtype: the forward ``1 / (1 + exp(-x))``,
+    each operation in ``x``'s dtype; the backward JAX's rule for the primitive,
+    ``g * (s * (1 - s))``, each operation in that dtype. Autograd through the
+    composed forward would give ``0 * inf``, not a number, where ``exp(-x)``
+    overflows (x below about -88.7)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1.0 / (1.0 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        (s,) = ctx.saved_tensors
+        return g * (s * (1.0 - s))
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.sigmoid`` as XLA computes it: ``1 / (1 + exp(-x))``, each operation
     in ``x``'s dtype, so that in bfloat16 each is rounded (``torch.sigmoid`` rounds
-    once, and differs in the last bit on a third of the values); ``torch.sigmoid``
-    in float32."""
+    once, and differs in the last bit on a third of the values), differentiated as
+    JAX differentiates it (``_Logistic``); ``torch.sigmoid`` in float32."""
     if x.dtype == torch.float32:
         return torch.sigmoid(x)
-    return 1.0 / (1.0 + torch.exp(-x))
+    return _Logistic.apply(x)
 
 
 def sequence_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:

@@ -25,6 +25,12 @@ gradients and ``d_x`` as batched products. That kernel moves 16 * B * S * H
 floats and does 12 * H * H operations per valid step; like the forward it is
 bounded by the chain of S dependent steps, and has the forward's layout.
 ``BiRNN`` takes ``bigru`` in eval mode and ``bigru_train`` in train mode.
+In bfloat16 the backward rounds where the JAX package's does: every product's
+inputs (the recomputed gates' inputs, the cotangents entering the carry
+kernel's products and the batched products, the transposed weights), with
+float32 sums, float32 unrounded biases in the recompute (the forward kernel
+rounds them: the reference's own skew of about one ulp), and float32 weight
+gradients.
 
 ``bilstm`` replaces ``bilstm_pallas`` (``_make_lstm_kernel``): both directions
 of ZoneoutEncoderV1's LSTM in one launch (``csrc/bilstm.cu``), eval mode only,
@@ -181,15 +187,25 @@ def bigru(
 _PARAM_KEYS = ("gates_kernel", "gates_bias", "candidate_kernel", "candidate_bias")
 
 
+def rounded(x: torch.Tensor, io: torch.dtype) -> torch.Tensor:
+    """``x`` rounded to the io type and held as float32: what enters a product
+    whose sum is float32 (``preferred_element_type=float32`` in the JAX package).
+    float32 io: ``x`` itself."""
+    return x if io == torch.float32 else x.to(io).float()
+
+
 def bigru_bwd_carry_reference(g_y, rz, n, hp, lengths, wgh_t, wch_t):
     """Plain PyTorch version of the carry kernel: ``(g_ag (2, B, S, 2H), g_ac (2, B, S, H))``.
 
     ``g_y`` (B, S, 2H) holds both directions' cotangents side by side; ``rz``,
-    ``n``, ``hp`` are stacked over the direction; ``wgh_t`` (2, 2H, H) and
-    ``wch_t`` (2, H, H) are the transposed h rows of the gate and candidate
-    kernels. The forward direction's cotangent walks S-1 -> 0, the other 0 -> S-1.
+    ``n``, ``hp`` are stacked over the direction, all float32; ``wgh_t`` (2, 2H, H)
+    and ``wch_t`` (2, H, H) are the transposed h rows of the gate and candidate
+    kernels in the io type, whose products take their cotangents rounded to it.
+    The forward direction's cotangent walks S-1 -> 0, the other 0 -> S-1.
     """
     _, B, S, H = n.shape
+    io = wgh_t.dtype
+    wg, wc = wgh_t.float(), wch_t.float()
     g_ag, g_ac = torch.zeros_like(rz), torch.zeros_like(n)
     for d in range(2):
         g = torch.zeros(B, H, dtype=n.dtype, device=n.device)
@@ -199,27 +215,30 @@ def bigru_bwd_carry_reference(g_y, rz, n, hp, lengths, wgh_t, wch_t):
             g_h = g + g_y[:, t, d * H : (d + 1) * H] * v
             g_hat = g_h * v
             ac = g_hat * (1.0 - z) * (1.0 - n[d, :, t] * n[d, :, t])
-            g_rh = ac @ wch_t[d]
+            g_rh = rounded(ac, io) @ wc[d]
             ag = torch.cat([g_rh * hp[d, :, t], g_hat * (hp[d, :, t] - n[d, :, t])], dim=-1)
             ag = ag * rz[d, :, t] * (1.0 - rz[d, :, t])
-            g = g_h * (1.0 - v) + g_hat * z + g_rh * r + ag @ wgh_t[d]
+            g = g_h * (1.0 - v) + g_hat * z + g_rh * r + rounded(ag, io) @ wg[d]
             g_ag[d, :, t], g_ac[d, :, t] = ag, ac
     return g_ag, g_ac
 
 
-def _bwd_kernel_fn():
-    fn = _functions.get("bigru_bwd_f32")
+def _bwd_kernel_fn(dtype: torch.dtype):
+    name = "bigru_bwd_f32" if dtype == torch.float32 else "bigru_bwd_bf16"
+    fn = _functions.get(name)
     if fn is None:
-        fn = load_library("bigru_bwd").bigru_bwd_f32
+        fn = getattr(load_library("bigru_bwd"), name)
         fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _functions["bigru_bwd_f32"] = fn
+        _functions[name] = fn
     return fn
 
 
 def bigru_bwd_carry(g_y, rz, n, hp, lengths, wgh_t, wch_t):
     """The recursion of the carry's cotangent: the kernel on CUDA tensors (or
-    it raises), ``bigru_bwd_carry_reference`` on CPU tensors."""
+    it raises), ``bigru_bwd_carry_reference`` on CPU tensors. ``g_y``, ``rz``,
+    ``n``, ``hp`` are float32; the transposed weights float32 or bfloat16, the
+    kernel's io type."""
     global bwd_launch_count
     if g_y.device.type == "cpu":
         return bigru_bwd_carry_reference(g_y, rz, n, hp, lengths, wgh_t, wch_t)
@@ -229,14 +248,18 @@ def bigru_bwd_carry(g_y, rz, n, hp, lengths, wgh_t, wch_t):
     operands = [x.contiguous() for x in (g_y, rz, n, hp)]
     operands.append(lengths.to(device=g_y.device, dtype=torch.int32).contiguous())
     operands += [wgh_t.contiguous(), wch_t.contiguous()]
-    for x in operands[:4] + operands[5:]:
+    for x in operands[:4]:
         if x.dtype != torch.float32 or x.device != g_y.device:
-            raise TypeError("bigru_train's backward takes float32 tensors on one device")
+            raise TypeError("bigru_train's backward takes float32 cotangents and gates on one device")
+    io = wgh_t.dtype
+    for x in operands[5:]:
+        if x.dtype != io or io not in _IO_DTYPES or x.device != g_y.device:
+            raise TypeError("the transposed weights are both float32 or both bfloat16, on one device")
     # rows at and beyond a lane's length are never written
     g_ag, g_ac = torch.zeros_like(operands[1]), torch.zeros_like(operands[2])
     with torch.cuda.device(g_y.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _bwd_kernel_fn()(
+        err = _bwd_kernel_fn(io)(
             *(x.data_ptr() for x in operands), g_ag.data_ptr(), g_ac.data_ptr(), B, S, H, stream
         )
     if err != 0:
@@ -260,47 +283,56 @@ class _BiGRUTrain(torch.autograd.Function):
         xs, lengths, y, *weights = ctx.saved_tensors
         H = ctx.hidden
         B, S, C = xs.shape
+        io = xs.dtype
         rz, n, hp, inps, inp2s, wgh_t, wch_t = bwd_operands(xs, y, weights, H)
-        g_ag, g_ac = bigru_bwd_carry(g_y, rz, n, hp, lengths.to(xs.device), wgh_t, wch_t)
+        g_ag, g_ac = bigru_bwd_carry(
+            g_y.float(), rz, n, hp, lengths.to(xs.device), wgh_t, wch_t
+        )
         grads, g_x = [], 0.0
         for d in range(2):
             wg, _, wc, _ = weights[4 * d : 4 * d + 4]
             ag, ac = g_ag[d].reshape(B * S, 2 * H), g_ac[d].reshape(B * S, H)
+            # every product: inputs in the io type, float32 sums (bias gradients unrounded)
+            ag_r, ac_r = rounded(ag, io), rounded(ac, io)
             grads += [
-                inps[d].reshape(B * S, C + H).t() @ ag, ag.sum(dim=0),
-                inp2s[d].reshape(B * S, C + H).t() @ ac, ac.sum(dim=0),
+                rounded(inps[d].reshape(B * S, C + H), io).t() @ ag_r, ag.sum(dim=0),
+                rounded(inp2s[d].reshape(B * S, C + H), io).t() @ ac_r, ac.sum(dim=0),
             ]
-            g_x = g_x + ag @ wg[:C].t() + ac @ wc[:C].t()
-        return (g_x.reshape(B, S, C), None, None, *grads)
+            g_x = g_x + ag_r @ rounded(wg[:C], io).t() + ac_r @ rounded(wc[:C], io).t()
+        return (g_x.reshape(B, S, C).to(io), None, None, *grads)
 
 
 def bwd_operands(xs, y, weights, H: int):
     """What the backward recomputes in parallel from the outputs shifted by one
     step: ``(rz (2, B, S, 2H), n (2, B, S, H), h_prev (2, B, S, H), the gate and
     candidate products' inputs per direction, wgh_t (2, 2H, H), wch_t (2, H, H))``.
-    ``weights`` are the eight leaves, forward direction first."""
+    ``weights`` are the eight leaves, forward direction first. Everything is
+    float32 but the transposed weights, which are in ``xs``'s io type; in
+    bfloat16 the products take rounded inputs and unrounded float32 biases."""
     B, S, C = xs.shape
-    zero = torch.zeros(B, 1, H, dtype=y.dtype, device=y.device)
+    io = xs.dtype
+    x32, y32 = xs.float(), y.float()
+    zero = torch.zeros(B, 1, H, dtype=torch.float32, device=y.device)
     # the carry entering step t is the output of the step before it: y is the
     # carry masked by validity, and a masked step gets no gradient
-    hps = (torch.cat([zero, y[:, :-1, :H]], dim=1), torch.cat([y[:, 1:, H:], zero], dim=1))
+    hps = (torch.cat([zero, y32[:, :-1, :H]], dim=1), torch.cat([y32[:, 1:, H:], zero], dim=1))
     rzs, ns, inps, inp2s = [], [], [], []
     for d, hp in enumerate(hps):
         wg, bg, wc, bc = weights[4 * d : 4 * d + 4]
-        inp = torch.cat([xs, hp], dim=-1)
-        rz = torch.sigmoid(inp @ wg + bg)
-        inp2 = torch.cat([xs, rz[..., :H] * hp], dim=-1)
+        inp = torch.cat([x32, hp], dim=-1)
+        rz = torch.sigmoid(rounded(inp, io) @ rounded(wg, io) + bg)
+        inp2 = torch.cat([x32, rz[..., :H] * hp], dim=-1)
         rzs.append(rz)
-        ns.append(torch.tanh(inp2 @ wc + bc))
+        ns.append(torch.tanh(rounded(inp2, io) @ rounded(wc, io) + bc))
         inps.append(inp)
         inp2s.append(inp2)
-    wgh_t = torch.stack([weights[0][C:].t(), weights[4][C:].t()])
-    wch_t = torch.stack([weights[2][C:].t(), weights[6][C:].t()])
+    wgh_t = torch.stack([weights[0][C:].t(), weights[4][C:].t()]).to(io)
+    wch_t = torch.stack([weights[2][C:].t(), weights[6][C:].t()]).to(io)
     return torch.stack(rzs), torch.stack(ns), torch.stack(hps), inps, inp2s, wgh_t, wch_t
 
 
 def bigru_train(
-    xs: torch.Tensor,            # (B, S, C) float32
+    xs: torch.Tensor,            # (B, S, C) float32 or bfloat16
     lengths: torch.Tensor,       # (B,) integer
     params_fwd: GRUParams,
     params_bwd: GRUParams,
@@ -309,12 +341,14 @@ def bigru_train(
     """Differentiable ``bigru``: the same forward, and a backward whose serial
     part is the kernel of ``csrc/bigru_bwd.cu``.
 
-    Gradients flow to ``xs`` and to the eight weight tensors. CUDA tensors go
-    to the two kernels or raise; CPU tensors go through the same function with
-    the kernels' plain versions. float32 only.
+    Gradients flow to ``xs`` (in its type) and to the eight weight tensors (in
+    theirs, float32). CUDA tensors go to the two kernels or raise; CPU tensors
+    go through the same function with the kernels' plain versions. ``xs`` in
+    float32 or bfloat16, the io type of both kernels; the weights are cast
+    inside.
     """
-    if xs.dtype != torch.float32:
-        raise TypeError(f"bigru_train takes float32, got {xs.dtype}")
+    if xs.dtype not in _IO_DTYPES:
+        raise TypeError(f"bigru_train takes float32 or bfloat16, got {xs.dtype}")
     weights = [params_fwd[k] for k in _PARAM_KEYS] + [params_bwd[k] for k in _PARAM_KEYS]
     return _BiGRUTrain.apply(xs, lengths, int(hidden), *weights)
 

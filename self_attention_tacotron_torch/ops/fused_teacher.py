@@ -36,8 +36,24 @@ Specialised to the mel decoders' family: forward attention (with or without
 transition agent) on source 1 and, in the dual-source specialisation, additive
 attention on source 2 over a second memory (``dual`` in ``hp_like``; the kernels
 are compiled once for each); optional speaker embedding, two prenet layers, two
-decoder LSTMs, float32. With one source the query projection is the mechanism's
-own query layer and there is no second key, memory, context or alignment.
+decoder LSTMs. With one source the query projection is the mechanism's own query
+layer and there is no second key, memory, context or alignment.
+
+The io type (``hp_like["io_dtype"]``) is float32 or bfloat16; both kernels are
+compiled for each. In bfloat16 they round where the JAX package's kernels cast to
+their io_dtype, and everything else is float32 (``rounded``). Forward: every
+product's input, the weights, biases and ``vblk`` (the scores use the rounded
+one), the feeds, keys, memories and speaker embedding; the LSTM states, scores,
+softmaxes, the recursion and the contexts stay float32. Backward: the cotangent
+entering each product with a transposed weight, the gradient row (stored in
+bfloat16; the bias gradients come from the float32 running sum); the scores'
+cotangents use the unrounded float32 score vectors; each weight gradient is a
+float32 product of rounded inputs and the rounded row. The prenet rounds its
+products' inputs and adds its float32 bias unrounded; its output is the kernels'
+bfloat16 feed. Gradients come back in the type of their primal: float32 for the
+weights and the speaker embedding, bfloat16 for keys, memories and the prenet's
+output. The plain version rounds at the same points in both directions
+(``_Product``, ``_Scores``, ``_Context``).
 """
 
 from __future__ import annotations
@@ -47,6 +63,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from self_attention_tacotron_torch.ops.fused_rnn import rounded
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
 # Launches of the forward and of the backward kernel made in this process.
@@ -78,6 +95,13 @@ CORE_WEIGHTS = (
 )
 
 _functions = {}
+_IO = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def io_dtype(hp_like: Dict) -> torch.dtype:
+    name = hp_like.get("io_dtype", "float32")
+    _require(name in _IO, f"io_dtype must be float32 or bfloat16, got {name!r}")
+    return _IO[name]
 
 
 def _require(condition: bool, message: str) -> None:
@@ -201,14 +225,22 @@ def zoneout_keep_masks(hp_like: Dict, seed: int, num_steps: int, batch: int, dev
 # --------------------------------------------------------------------------- #
 
 
-def _prenet(weights, feeds, drop_rate: float, prenet_masks, generator):
+def _prenet(weights, feeds, drop_rate: float, prenet_masks, generator, io=torch.float32):
     """Both prenet layers over all (B, N) rows; dropout from the masks given
-    ((B, N, units) boolean keep masks per layer) or drawn from ``generator``."""
+    ((B, N, units) boolean keep masks per layer) or drawn from ``generator``.
+
+    bfloat16: each product's inputs rounded (by differentiable casts, whose
+    gradients are rounded back as the JAX package's autodiff does), the bias
+    added in float32 unrounded, ReLU and dropout in float32, the output rounded
+    to bfloat16: the kernels' feed."""
     keep = 1.0 - drop_rate
     x = feeds
     for i, (w, b) in enumerate((("w_p1", "b_p1"), ("w_p2", "b_p2"))):
+        x_in, w_in = x, weights[w]
+        if io != torch.float32:
+            x_in, w_in = x.to(io).float(), w_in.to(io).float()
         # torch.relu gives gradient 0 at exactly 0, where the zero go frame lands
-        x = torch.relu(x @ weights[w] + weights[b])
+        x = torch.relu(x_in @ w_in + weights[b])
         if prenet_masks is not None:
             mask = prenet_masks[i]
         elif drop_rate > 0.0:
@@ -216,7 +248,68 @@ def _prenet(weights, feeds, drop_rate: float, prenet_masks, generator):
         else:
             continue
         x = torch.where(mask, x / keep, torch.zeros_like(x))
-    return x
+    return x.to(io)
+
+
+class _Product(torch.autograd.Function):
+    """``x @ w (+ b)`` with the kernels' rounding points in both directions: the
+    forward rounds x, w and b; the backward gives x the rounded cotangent times
+    the rounded weight, w the rounded x times the rounded cotangent, b the
+    unrounded cotangent's sum, all float32 (float32 io: autograd's own formulas)."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, io):
+        xr, wr = rounded(x, io), rounded(w, io)
+        ctx.save_for_backward(xr, wr)
+        ctx.io = io
+        out = xr @ wr
+        return out if b is None else out + rounded(b, io)
+
+    @staticmethod
+    def backward(ctx, g):
+        xr, wr = ctx.saved_tensors
+        gr = rounded(g, ctx.io)
+        g_x = gr @ wr.t() if ctx.needs_input_grad[0] else None
+        g_w = xr.t() @ gr if ctx.needs_input_grad[1] else None
+        g_b = g.sum(dim=0) if ctx.needs_input_grad[2] else None
+        return g_x, g_w, g_b, None
+
+
+class _Scores(torch.autograd.Function):
+    """``tanh . vblk`` (B, S, A) x (A, n) -> (B, S, n): the forward reads the
+    rounded ``vblk``, the backward the unrounded float32 one (the JAX package's
+    ``vcol1`` / ``vcol2``); ``vblk``'s gradient is float32."""
+
+    @staticmethod
+    def forward(ctx, tq, v, io):
+        ctx.save_for_backward(tq, v)
+        return tq @ rounded(v, io)
+
+    @staticmethod
+    def backward(ctx, g_e):
+        tq, v = ctx.saved_tensors
+        g_v = tq.reshape(-1, tq.shape[-1]).t() @ g_e.reshape(-1, g_e.shape[-1])
+        return g_e @ v.t(), g_v, None
+
+
+class _Context(torch.autograd.Function):
+    """``sum_s alpha[b, s] * mem[b, s, :]`` in float32; the memory's gradient is the
+    rounded alignment times the rounded cotangent (the JAX package forms it after
+    the backward kernel from both stacks), the alignment's the unrounded
+    cotangent against the memory."""
+
+    @staticmethod
+    def forward(ctx, alpha, mem, io):
+        ctx.save_for_backward(alpha, mem)
+        ctx.io = io
+        return (alpha[:, :, None] * mem).sum(dim=1)
+
+    @staticmethod
+    def backward(ctx, g):
+        alpha, mem = ctx.saved_tensors
+        g_alpha = (g[:, None, :] * mem).sum(dim=-1)
+        g_mem = rounded(alpha, ctx.io)[:, :, None] * rounded(g, ctx.io)[:, None, :]
+        return g_alpha, g_mem, None
 
 
 def _zoneout_lstm(z, c, h, keep_c, keep_h, forget_bias: float):
@@ -229,12 +322,16 @@ def _zoneout_lstm(z, c, h, keep_c, keep_h, forget_bias: float):
 
 
 def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, taps=None):
-    """The scanned region step by step, in the kernels' formulation.
+    """The scanned region step by step, in the kernels' formulation and with
+    their rounding points (``x2``, ``keys`` and the memories in the io type).
 
     ``taps``: a list that receives, per step, the tensors of the carry and
     activation rows and those whose gradients make the gradient row.
     """
     B, N, _ = x2.shape
+    io = io_dtype(hp_like)
+    x2, keys, mem1 = x2.float(), keys.float(), mem1.float()
+    mem2 = None if mem2 is None else mem2.float()
     f32 = dict(dtype=torch.float32, device=x2.device)
     AU, DU = hp_like["att_units"], hp_like["dec_units"]
     fb = float(hp_like.get("forget_bias", 1.0))
@@ -255,29 +352,29 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
     for t in range(N):
         x_t = x2[:, t]
         parts = [x_t] + ([spk] if spk is not None else []) + [ctx1, ctx2, h_att]
-        z_att = torch.cat(parts, dim=-1) @ w["w_attg"] + w["b_attg"]
+        z_att = _Product.apply(torch.cat(parts, dim=-1), w["w_attg"], w["b_attg"], io)
         c_att, h_att = _zoneout_lstm(
             z_att, c_att, h_att, step_mask(masks[0][0], t), step_mask(masks[0][1], t), fb
         )
-        qp = h_att @ w["w_qp"]
-        e = torch.tanh(keys + qp[:, None, :]) @ w["vblk"]          # (B, S, sources)
+        qp = _Product.apply(h_att, w["w_qp"], None, io)
+        e = _Scores.apply(torch.tanh(keys + qp[:, None, :]), w["vblk"], io)   # (B, S, sources)
         y1 = torch.softmax(e[..., 0] + score_bias, dim=-1)
         shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
         alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
         alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
-        ctx1 = (alpha1[:, :, None] * mem1).sum(dim=1)
+        ctx1 = _Context.apply(alpha1, mem1, io)
         u_pre = None
         if hp_like["use_ta"]:
-            u_pre = torch.cat([ctx1, h_att], dim=-1) @ w["w_ta"] + w["b_ta"]
+            u_pre = _Product.apply(torch.cat([ctx1, h_att], dim=-1), w["w_ta"], w["b_ta"], io)
             u = torch.sigmoid(u_pre)
         if dual:
             alpha2 = torch.softmax(e[..., 1] + score_bias, dim=-1)
-            ctx2 = (alpha2[:, :, None] * mem2).sum(dim=1)
-        z1 = torch.cat([h_att, ctx1, ctx2, h1], dim=-1) @ w["w_l1"] + w["b_l1"]
+            ctx2 = _Context.apply(alpha2, mem2, io)
+        z1 = _Product.apply(torch.cat([h_att, ctx1, ctx2, h1], dim=-1), w["w_l1"], w["b_l1"], io)
         c1, h1 = _zoneout_lstm(
             z1, c1, h1, step_mask(masks[1][0], t), step_mask(masks[1][1], t), fb
         )
-        z2 = torch.cat([h1, h2], dim=-1) @ w["w_l2"] + w["b_l2"]
+        z2 = _Product.apply(torch.cat([h1, h2], dim=-1), w["w_l2"], w["b_l2"], io)
         c2, h2 = _zoneout_lstm(
             z2, c2, h2, step_mask(masks[2][0], t), step_mask(masks[2][1], t), fb
         )
@@ -298,13 +395,21 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
 
 
 def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
-    """The sizes of the kernels' ``Dims``; ``E2 == A2 == 0`` means one source."""
+    """The sizes of the kernels' ``Dims``; ``E2 == A2 == 0`` means one source.
+    Also holds the types: ``x2`` (the prenet's output), keys and memories in the
+    io type; the speaker embedding, the score bias and the weights float32."""
     dual = bool(hp_like.get("dual", True))
     _require(hp_like.get("src1_kind", "forward") == "forward",
              "source 1 must use forward attention")
-    _require(hp_like.get("io_dtype", "float32") == "float32", "the kernels are float32")
+    io = io_dtype(hp_like)
     _require((mem2 is not None) == dual,
              "a second memory goes with dual=True, and only with it")
+    for name, tensor in (("feeds", x2), ("keys", keys), ("mem1", mem1), ("mem2", mem2)):
+        _require(tensor is None or tensor.dtype == io,
+                 f"{name} must be in the io type {io}, got {None if tensor is None else tensor.dtype}")
+    _require(spk is None or spk.dtype == torch.float32, "spk must be float32 (the kernels round it)")
+    _require(all(weights[name].dtype == torch.float32 for name in CORE_WEIGHTS),
+             "the weights must be float32 (the kernels round them)")
     z = dict(
         P2=int(x2.shape[-1]), SPK=0 if spk is None else int(spk.shape[-1]),
         AU=int(hp_like["att_units"]), A1=int(hp_like["att1_units"]),
@@ -335,9 +440,11 @@ def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
     return z
 
 
-def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor]):
-    """The flat weight buffer of the kernels and the offsets of its entries:
-    every matrix (in, out), rows padded to 4 floats, transposed copies last."""
+def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor], io=torch.float32):
+    """The flat weight buffer of the kernels in the io type and the offsets of
+    its entries: every matrix (in, out), rows padded to 4 values, transposed
+    copies last; and the float32 score vectors that the backward reads,
+    (sources, A1 + A2 padded to 4)."""
     tensors = {
         "attg_w": w["w_attg"], "attg_b": w["b_attg"][None], "qp_w": w["w_qp"],
         "vblk": w["vblk"].t(), "ta_w": w["w_ta"].t(), "ta_b": w["b_ta"][None],
@@ -350,19 +457,23 @@ def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor]):
         offsets[name] = total
         total += tensors[name].shape[0] * _round4(tensors[name].shape[1])
     ref = w["w_attg"]
-    flat = torch.zeros(total, dtype=torch.float32, device=ref.device)
+    flat = torch.zeros(total, dtype=io, device=ref.device)
     for name in _ENTRIES:
         t = tensors[name].detach()
         rows, cols = t.shape
         flat[offsets[name] : offsets[name] + rows * _round4(cols)].view(rows, -1)[:, :cols] = t
-    return flat, offsets
+    v = tensors["vblk"].detach()
+    v32 = torch.zeros(v.shape[0], _round4(v.shape[1]), dtype=torch.float32, device=ref.device)
+    v32[:, : v.shape[1]] = v
+    return flat, v32, offsets
 
 
-def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=None):
+def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=None,
+          io=torch.float32):
     # the struct ``Dims`` of the source
     layouts = row_layouts(z, S)
     values = [B, S, N] + [z[k] for k in _SIZES]
-    values += [int(use_ta), int(train_masks)]
+    values += [int(use_ta), int(train_masks), int(io == torch.bfloat16)]
     values += [layouts[kind][1] for kind in ("carry", "acts", "stack")]
     for kind, names in (("carry", _CARRY), ("acts", _ACTS), ("stack", _STACK)):
         values += [layouts[kind][0][name][0] for name in names]
@@ -373,7 +484,7 @@ def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=No
 def _library():
     lib = load_library("fused_teacher")
     if "fwd" not in _functions:
-        for key, name in (("fwd", "fused_teacher_fwd_f32"), ("bwd", "fused_teacher_bwd_f32")):
+        for key, name in (("fwd", "fused_teacher_fwd"), ("bwd", "fused_teacher_bwd")):
             fn = getattr(lib, name)
             fn.argtypes = [
                 ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_int),
@@ -388,11 +499,12 @@ def _library():
     return lib
 
 
-def block_shared_memory(z: Dict[str, int], src_len: int, device, backward: bool) -> Tuple[int, int]:
+def block_shared_memory(z: Dict[str, int], src_len: int, device, backward: bool,
+                        io=torch.float32) -> Tuple[int, int]:
     """(bytes of shared memory one block of the kernel needs, bytes a block may
     have on ``device``), both as the built library reports them."""
     lib = _library()
-    dims = _dims(z, 1, src_len, 1, False, False)
+    dims = _dims(z, 1, src_len, 1, False, False, io=io)
     with torch.cuda.device(device):
         limit = int(lib.fused_teacher_smem_limit(dims, int(backward)))
     if limit < 0:
@@ -409,7 +521,7 @@ def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_
     bits = (ctypes.c_uint * 9)(
         keep_threshold(zc), keep_threshold(zo), int(seed) & _MASK32, *_draw_numbers(zc, zo)
     )
-    array = (ctypes.c_void_p * 18)(*(None if x is None else x.data_ptr() for x in pointers))
+    array = (ctypes.c_void_p * 19)(*(None if x is None else x.data_ptr() for x in pointers))
     fn = _functions[which]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.cuda.device(device):
@@ -448,21 +560,32 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
     from the carry rows of steps t-1 and t. Bias gradients come from the
     float32 running sum of the gradient rows, the memories' gradients from the
     alignments and the contexts' cotangents, ``vblk``'s from the per-lane partials.
+
+    The io type is the gradient rows' (``stack``): in bfloat16 the carry rows are
+    rounded once, and every product takes rounded inputs with a float32 result.
+    Gradients come back in the type of their primal: the weights' and the
+    speaker embedding's float32, keys', memories' and feeds' the io type.
     """
     B, N, _ = x2.shape
     S = d_keys.shape[1]
+    io = stack.dtype
     layouts = row_layouts(z, S)
+    carries = rounded(carries, io)
     prev = torch.cat([torch.zeros_like(carries[:, :1]), carries[:, :-1]], dim=1)
     cur = lambda name: _col(carries, layouts["carry"], name)   # noqa: E731
     old = lambda name: _col(prev, layouts["carry"], name)      # noqa: E731
     g = lambda name: _col(stack, layouts["stack"], name)       # noqa: E731
     bias = lambda name: _col(d_brow, layouts["stack"], name).sum(dim=0)   # noqa: E731
 
-    def product(inputs: Sequence[torch.Tensor], cotangent: torch.Tensor) -> torch.Tensor:
-        x = torch.cat(inputs, dim=-1).reshape(B * N, -1)
-        return x.t() @ cotangent.reshape(B * N, -1)
+    def memory(alpha: torch.Tensor, g_ctx: torch.Tensor) -> torch.Tensor:
+        return torch.bmm(rounded(alpha, io).transpose(1, 2), rounded(g_ctx, io)).to(io)
 
-    speaker = [] if spk is None else [spk[:, None, :].expand(B, N, spk.shape[-1])]
+    def product(inputs: Sequence[torch.Tensor], cotangent: torch.Tensor) -> torch.Tensor:
+        x = rounded(torch.cat(inputs, dim=-1).reshape(B * N, -1), io)
+        return x.t() @ rounded(cotangent.reshape(B * N, -1), io)
+
+    x2 = x2.float()
+    speaker = [] if spk is None else [spk.float()[:, None, :].expand(B, N, spk.shape[-1])]
     grads = {
         "w_attg": product([x2, *speaker, old("ctx1"), old("ctx2"), old("h_att")], g("g_z_att")),
         "b_attg": bias("g_z_att"),
@@ -472,18 +595,18 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
         "b_l1": bias("g_z1"),
         "w_l2": product([cur("h1"), old("h2")], g("g_z2")),
         "b_l2": bias("g_z2"),
-        "keys": d_keys,
-        "mem1": torch.bmm(aligns[..., :S].transpose(1, 2), g("g_ctx1")),
-        "mem2": torch.bmm(aligns[..., S:].transpose(1, 2), g("g_ctx2")) if z["E2"] else None,
-        "feeds": g("g_feed"),
+        "keys": d_keys.to(io),
+        "mem1": memory(aligns[..., :S], g("g_ctx1")),
+        "mem2": memory(aligns[..., S:], g("g_ctx2")) if z["E2"] else None,
+        "feeds": g("g_feed").to(io),
         "spk": None if spk is None else d_spk,
     }
     if use_ta:
         grads["w_ta"] = product([cur("ctx1"), cur("h_att")], g("g_u_pre"))
         grads["b_ta"] = bias("g_u_pre")
     else:
-        grads["w_ta"] = torch.zeros(z["E1"] + z["AU"], 1, dtype=x2.dtype, device=x2.device)
-        grads["b_ta"] = torch.zeros(1, dtype=x2.dtype, device=x2.device)
+        grads["w_ta"] = torch.zeros(z["E1"] + z["AU"], 1, dtype=torch.float32, device=x2.device)
+        grads["b_ta"] = torch.zeros(1, dtype=torch.float32, device=x2.device)
     return grads
 
 
@@ -494,12 +617,13 @@ class _TeacherCore(torch.autograd.Function):
     def forward(ctx, hp_like, seed, x2, keys, mem1, mem2, score_bias, spk, *core):
         w = dict(zip(CORE_WEIGHTS, core))
         z = _sizes(hp_like, w, keys, mem1, mem2, spk, x2)
+        io = io_dtype(hp_like)
         device = x2.device
         B, N, _ = x2.shape
         S = keys.shape[1]
         _library()
         for backward in (False, True):
-            need, have = block_shared_memory(z, S, device, backward)
+            need, have = block_shared_memory(z, S, device, backward, io)
             if need > have:
                 raise RuntimeError(
                     f"fused_teacher cannot launch at src_len={S}: one block of the "
@@ -508,27 +632,28 @@ class _TeacherCore(torch.autograd.Function):
                 )
         operands = [x2, keys, mem1, score_bias] + [x for x in (mem2, spk) if x is not None]
         for x in operands + list(core):
-            if x.dtype != torch.float32 or x.device != device:
-                raise TypeError("fused_teacher takes float32 tensors on one CUDA device")
+            if x.device != device:
+                raise TypeError("fused_teacher takes tensors on one CUDA device")
+        _require(score_bias.dtype == torch.float32, "score_bias must be float32")
         f32 = dict(dtype=torch.float32, device=device)
         x2_c, keys_c, mem1_c, bias_c = (
             x.detach().contiguous() for x in (x2, keys, mem1, score_bias)
         )
         # one source: a placeholder that the kernels never read stands for the second memory
-        mem2_c = torch.zeros(4, **f32) if mem2 is None else mem2.detach().contiguous()
-        spk_c = None if spk is None else spk.detach().contiguous()
-        flat, offsets = _pack(z, w)
+        mem2_c = torch.zeros(4, dtype=io, device=device) if mem2 is None else mem2.detach().contiguous()
+        spk_c = None if spk is None else spk.detach().to(io).contiguous()
+        flat, v32, offsets = _pack(z, w, io)
         train_masks = not hp_like.get("eval_zoneout", False)
-        dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets)
+        dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets, io)
         layouts = row_layouts(z, S)
         features = torch.empty(B, N, z["DU"], **f32)
         aligns = torch.empty(B, N, (2 if z["E2"] else 1) * S, **f32)
         carries = torch.empty(B, N, layouts["carry"][1], **f32)
         acts = torch.empty(B, N, layouts["acts"][1], **f32)
         inputs = [flat, x2_c, keys_c, mem1_c, mem2_c, bias_c, spk_c]
-        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7, z, dims,
+        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7 + [v32], z, dims,
                 hp_like, seed, device)
-        ctx.save_for_backward(*inputs, aligns, carries, acts)
+        ctx.save_for_backward(*inputs, v32, aligns, carries, acts)
         ctx.meta = (hp_like, seed, z, dims)
         # an output the loss does not read gets no cotangent (None), not a tensor of zeros
         ctx.set_materialize_grads(False)
@@ -536,7 +661,7 @@ class _TeacherCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_features, g_aligns):
-        flat, x2, keys, mem1, mem2, bias, spk, aligns, carries, acts = ctx.saved_tensors
+        flat, x2, keys, mem1, mem2, bias, spk, v32, aligns, carries, acts = ctx.saved_tensors
         hp_like, seed, z, dims = ctx.meta
         device = x2.device
         B, N, _ = x2.shape
@@ -548,15 +673,16 @@ class _TeacherCore(torch.autograd.Function):
         g_features = g_features.to(torch.float32).contiguous()
         # the loss does not read the alignments: no cotangent means zeros
         g_aligns = None if g_aligns is None else g_aligns.to(torch.float32).contiguous()
-        stack = torch.empty(B, N, stack_width, **f32)
-        d_keys = torch.zeros_like(keys)
+        # the gradient rows in the io type; everything the kernel sums, float32
+        stack = torch.empty(B, N, stack_width, dtype=x2.dtype, device=device)
+        d_keys = torch.zeros(keys.shape, **f32)
         d_vblk = torch.empty(B, 2 if z["E2"] else 1, keys.shape[-1], **f32)
         d_spk = torch.zeros(B, max(z["SPK"], 1), **f32)
         d_brow = torch.zeros(B, stack_width, **f32)
         _launch(
             "bwd",
             [flat, x2, keys, mem1, mem2, bias, spk, None, None, carries, acts,
-             g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow],
+             g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow, v32],
             z, dims, hp_like, seed, device,
         )
         g = grads_from_rows(
@@ -575,7 +701,8 @@ class _TeacherCore(torch.autograd.Function):
 def _decode(core, *, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, hp_like,
             prenet_masks, generator):
     _require(feeds.dim() == 3, f"feeds must be (B, N, F), got {tuple(feeds.shape)}")
-    x2 = _prenet(weights, feeds, float(hp_like["prenet_drop_rate"]), prenet_masks, generator)
+    x2 = _prenet(weights, feeds, float(hp_like["prenet_drop_rate"]), prenet_masks, generator,
+                 io_dtype(hp_like))
     return core(hp_like, int(seed), x2, keys, mem1, mem2, score_bias, spk)
 
 
@@ -606,7 +733,8 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
     ``score_bias`` (B, S) is 0 where valid and -1e9 where padded, ``feeds``
     (B, N, F) the teacher frames, ``seed`` the zoneout masks' seed. ``hp_like``:
     ``dual, use_ta, att_units, att1_units, att2_units, dec_units, zoneout_cell,
-    zoneout_output, prenet_drop_rate, eval_zoneout``.
+    zoneout_output, prenet_drop_rate, eval_zoneout, io_dtype``. The weights,
+    ``spk`` and ``score_bias`` are float32; keys and memories in the io type.
 
     Tensors on a CUDA device go to the two kernels or raise; on the CPU they go
     to ``teacher_decode_reference``.

@@ -10,11 +10,10 @@ The network and the optimizer carry their state themselves, so ``train_step``
 updates them in place and hands back a :class:`TrainState` around the same
 objects with the step count advanced.
 
-``compute_dtype="bfloat16"`` trains on the plain path (``use_pallas_kernels=False``,
-or on the CPU), as the JAX package's XLA path does; through the kernels on the
-card it raises ``NotImplementedError`` before anything runs: the bfloat16
-branches of the teacher-forced decoder kernels and of the BiGRU's backward are
-not ported yet.
+``compute_dtype="bfloat16"`` trains through the kernels' bfloat16 branches on the
+card (``bigru_train``, the teacher-forced decoder's forward and backward), as the
+JAX package's fused path does, and on the plain path (``use_pallas_kernels=False``,
+or on the CPU) as its XLA path does; the parameters and Adam's state stay float32.
 """
 
 from __future__ import annotations
@@ -25,7 +24,6 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from self_attention_tacotron_torch.models.decoders import BF16_TRAINING_NOT_PORTED
 from self_attention_tacotron_torch.models.models import (
     NetworkOutput,
     TacotronModelBase,
@@ -94,12 +92,6 @@ class Trainer:
             if not (isinstance(value, np.ndarray) and value.dtype.kind in "US")
         }
 
-    def _refuse_unported(self) -> None:
-        hp = self.hparams
-        if (self.device.type == "cuda" and hp.use_pallas_kernels
-                and hp.compute_dtype != "float32"):
-            raise NotImplementedError(BF16_TRAINING_NOT_PORTED)
-
     def _forward(self, net: TacotronNetwork, batch, generator) -> NetworkOutput:
         return net(
             batch["source"], batch["source_lengths"], targets_from_batch(self.model, batch),
@@ -117,7 +109,6 @@ class Trainer:
         ``"optimizer"`` as each of these parts has been queued (a profiler's hook).
         """
         hp = self.hparams
-        self._refuse_unported()
         mark = mark or (lambda name: None)
         net, optimizer = state.net, state.optimizer
         batch = self._batch(batch)
@@ -145,7 +136,6 @@ class Trainer:
     ) -> Tuple[Dict[str, torch.Tensor], NetworkOutput]:
         """Teacher-forced losses and outputs in eval mode (running batch-norm
         averages, zoneout as interpolation; the prenet's dropout stays on)."""
-        self._refuse_unported()
         batch = self._batch(batch)
         state.net.eval()
         with torch.no_grad():

@@ -41,6 +41,7 @@ from self_attention_tacotron_tpu.synthesis import make_predict_fn as jax_make_pr
 from self_attention_tacotron_torch.hparams import HParams
 from self_attention_tacotron_torch.models import attention, encoders, modules
 from self_attention_tacotron_torch.models import self_attention as sa
+from self_attention_tacotron_torch.models.decoders import DecoderConditioning
 from self_attention_tacotron_torch.models.models import TacotronNetwork, tacotron_model_factory
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 
@@ -411,7 +412,7 @@ def test_synthesis_early_exit_matches_jax(jax_side):
 
 
 # --------------------------------------------------------------------------- #
-# Training in bfloat16: the plain path runs, the kernels' branch is the next slice
+# Training in bfloat16: the plain path runs, and through the kernels it reaches them
 # --------------------------------------------------------------------------- #
 
 
@@ -435,17 +436,27 @@ def test_bf16_training_step_runs_the_plain_path_on_the_cpu():
     assert all(p.dtype == torch.float32 for p in state.net.parameters())
 
 
-def test_bf16_training_through_the_kernels_raises_before_anything_runs():
-    """On the card with use_pallas_kernels the trainer and the teacher-forced pass
-    refuse bfloat16 (no silent plain scan): the device is stood in for here."""
+def test_bf16_training_through_the_kernels_reaches_the_kernels():
+    """On the card with use_pallas_kernels a bfloat16 train step and evaluation step,
+    and the teacher-forced pass, go to the kernels' wrappers (no refusal, no silent
+    plain scan): a device without kernels, ``meta``, stands in for the card, and
+    the wrappers raise for it. What the kernels compute in bfloat16 is held in
+    ``test_torch_fused_teacher_bf16.py``, ``test_torch_bigru_train_bf16.py`` and
+    ``test_torch_training_bf16.py``."""
     trainer, state, batch = _bf16_trainer()
-    trainer.device = torch.device("cuda")
-    with pytest.raises(NotImplementedError, match="next slice"):
+    trainer.device = torch.device("meta")
+    state.net.to("meta")
+    with pytest.raises(RuntimeError, match="bigru has no kernel for device meta"):
         trainer.train_step(state, batch)
-    with pytest.raises(NotImplementedError, match="next slice"):
+    with pytest.raises(RuntimeError, match="bigru has no kernel for device meta"):
         trainer.eval_step(state, batch)
     decoder = state.net.decoder
     assert decoder.use_pallas and decoder.fused_teacher_supported()
-    targets = torch.zeros(3, 8, 10, device="meta")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        decoder(None, targets)
+    mems = tuple(torch.zeros(3, S, u, dtype=torch.bfloat16, device="meta")
+                 for u in decoder.memory_units)
+    cond = DecoderConditioning(
+        memories=mems, keys=decoder.compute_keys(mems),
+        masks=tuple(torch.ones(3, S, dtype=torch.bool, device="meta") for _ in mems),
+    )
+    with pytest.raises(RuntimeError, match="fused_teacher has no kernel for device meta"):
+        decoder(cond, torch.zeros(3, 8, 10, device="meta"))

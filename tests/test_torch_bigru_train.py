@@ -104,11 +104,14 @@ def test_the_function_equals_autograd_through_the_plain_version(name):
             )
 
 
-def test_bfloat16_and_unknown_devices_raise():
+def test_other_dtypes_and_unknown_devices_raise():
+    """float32 and bfloat16 are the kernels' io types (bfloat16:
+    ``test_torch_bigru_train_bf16.py``); another type, or a device without a
+    kernel, raises."""
     xs, lengths, params, _ = _inputs(SHAPES["H8_all_full"])
     ps = [{k: torch.tensor(v) for k, v in p.items()} for p in params]
-    with pytest.raises(TypeError, match="float32"):
-        fused_rnn.bigru_train(torch.tensor(xs).bfloat16(), torch.tensor(lengths), ps[0], ps[1], 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fused_rnn.bigru_train(torch.tensor(xs).half(), torch.tensor(lengths), ps[0], ps[1], 8)
     meta = torch.zeros(2, 2, 5, 8, device="meta")
     with pytest.raises(RuntimeError, match="no kernel for device meta"):
         fused_rnn.bigru_bwd_carry(

@@ -24,6 +24,7 @@ import torch
 from self_attention_tacotron_tpu.ops import fused_teacher as jax_teacher
 
 from self_attention_tacotron_torch.hparams import HParams
+from self_attention_tacotron_torch.models.decoders import DecoderConditioning
 from self_attention_tacotron_torch.models.models import TacotronNetwork
 from self_attention_tacotron_torch.ops import fused_teacher
 
@@ -293,8 +294,8 @@ _UNPORTED = (
     {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
     {"decoder": "ExtendedDecoder", "attention": "location_sensitive"},
 )
-# bfloat16 builds, but the teacher kernels' bfloat16 branch is not ported: through
-# the kernels the teacher-forced pass raises instead of launching them
+# bfloat16 decoders are of the kernels' family: through them the teacher-forced
+# pass hands its operands over in bfloat16
 _BF16 = (
     {"compute_dtype": "bfloat16"},
     {"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"},
@@ -307,7 +308,7 @@ _BF16 = (
     ({"use_speaker_embedding": True}, True),
     ({"attention": "location_sensitive"}, False),
     ({"attention2": "forward"}, False),
-    ({"compute_dtype": "bfloat16"}, False),
+    ({"compute_dtype": "bfloat16"}, True),
     ({"decoder_prenet_out_units": (256, 128, 64)}, False),
     ({"cbhg_out_units": 254}, False),
     ({"decoder_out_units": 768}, False),
@@ -322,28 +323,35 @@ _BF16 = (
     ({"decoder": "MgcLf0ExtendedDecoder"}, False),
     ({"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}, False),
     ({"decoder": "ExtendedDecoder", "attention": "location_sensitive"}, False),
-    ({"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"}, False),
+    ({"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"}, True),
 ])
 def test_supports_fused_teacher(overrides, expected):
     """``Decoder.fused_teacher_supported`` of the built decoder; what is not ported
     yet (location-sensitive attention, the MgcLf0 heads) builds no network at all,
     so no decoder reaches the kernels; a bfloat16 decoder is of the kernels'
-    family, and its teacher-forced pass through them raises (the device a tensor
-    would be on is stood in for by ``meta``)."""
+    family and hands the kernels bfloat16 keys and memories, float32 weights,
+    speaker embedding and score bias."""
     hp = _flagship_hp(**overrides)
     if overrides in _UNPORTED:
         assert expected is False
         with pytest.raises(NotImplementedError):
             TacotronNetwork(hp)
         return
+    decoder = TacotronNetwork(hp).decoder
+    assert decoder.fused_teacher_supported() is expected
     if overrides in _BF16:
-        assert expected is False
-        decoder = TacotronNetwork(hp).decoder
-        assert decoder.fused_teacher_supported()
-        with pytest.raises(NotImplementedError, match="next slice"):
-            decoder(None, torch.zeros(2, 4, hp.num_mels, device="meta"))
-        return
-    assert TacotronNetwork(hp).decoder.fused_teacher_supported() is expected
+        assert decoder.compute_dtype == torch.bfloat16
+        assert decoder._teacher_hp_like()["io_dtype"] == "bfloat16"
+        n_src = decoder.num_attentions
+        mems = tuple(torch.randn(2, 5, u).bfloat16() for u in decoder.memory_units)
+        cond = DecoderConditioning(
+            memories=mems, keys=decoder.compute_keys(mems),
+            masks=tuple(torch.ones(2, 5, dtype=torch.bool) for _ in range(n_src)),
+        )
+        ops = decoder.teacher_operands(cond)
+        assert ops["keys"].dtype == ops["mem1"].dtype == torch.bfloat16
+        assert ops["score_bias"].dtype == torch.float32
+        assert all(w.dtype == torch.float32 for w in ops["weights"].values())
 
 
 def test_what_the_kernels_do_not_serve_raises():
@@ -355,10 +363,21 @@ def test_what_the_kernels_do_not_serve_raises():
         mem1=t(conds["mem1"]), mem2=t(conds["mem2"]), score_bias=t(conds["score_bias"]),
         spk=None, feeds=t(feeds), seed=0,
     )
-    # still unported: the location-sensitive branch and bfloat16
-    for change in ({"src1_kind": "location_sensitive"}, {"io_dtype": "bfloat16"}):
-        with pytest.raises(ValueError, match="fused_teacher"):
-            fused_teacher.teacher_decode(hp_like=dict(_hp_like(case), **change), **kwargs)
+    # still unported: the location-sensitive branch
+    with pytest.raises(ValueError, match="fused_teacher"):
+        fused_teacher.teacher_decode(
+            hp_like=dict(_hp_like(case), src1_kind="location_sensitive"), **kwargs)
+    # bfloat16 runs with keys and memories in bfloat16; in float32 they are refused,
+    # as is an io type the kernels are not compiled for
+    bf16 = dict(kwargs, **{k: kwargs[k].bfloat16() for k in ("keys", "mem1", "mem2")})
+    features, aligns = fused_teacher.teacher_decode(
+        hp_like=dict(_hp_like(case), io_dtype="bfloat16"), **bf16)
+    assert features.dtype == aligns.dtype == torch.float32
+    assert bool(torch.isfinite(features).all()) and features.shape == (B, N, D["DU"])
+    with pytest.raises(ValueError, match="io type"):
+        fused_teacher.teacher_decode(hp_like=dict(_hp_like(case), io_dtype="bfloat16"), **kwargs)
+    with pytest.raises(ValueError, match="io_dtype"):
+        fused_teacher.teacher_decode(hp_like=dict(_hp_like(case), io_dtype="float16"), **kwargs)
     # a second memory goes with the dual-source specialisation, and only with it
     with pytest.raises(ValueError, match="second memory"):
         fused_teacher.teacher_decode(hp_like=dict(_hp_like(case), dual=False), **kwargs)
