@@ -502,11 +502,12 @@ def stop_logits(stop_probs: torch.Tensor) -> np.ndarray:
         return np.clip(np.log(p) - np.log1p(-p), -80.0, 30.0)
 
 
-def exit_threshold(stop_probs: torch.Tensor, steps: int, r: int):
+def exit_threshold(stop_probs: torch.Tensor, steps: int, r: int, required: bool = True):
     """(threshold, gap in logits): the middle of the widest gap between the run's own
     stop logits at which every lane fires before the cap and not all at one step.
     A trained model's early stop probabilities are tiny (1e-10 to 1e-6); float32
-    resolves those relatively, so only thresholds near 1 are left out."""
+    resolves those relatively, so only thresholds near 1 are left out. Where there
+    is none: a failure, or (None, 0.0) if not ``required``."""
     logits = stop_logits(stop_probs)
     values = np.unique(logits)
     best_gap, best_mid = 0.0, None
@@ -521,6 +522,8 @@ def exit_threshold(stop_probs: torch.Tensor, steps: int, r: int):
         spread = len(set(first_step.tolist())) > 1 or len(first_step) == 1
         if first_step.max() < steps - 2 and spread:
             best_gap, best_mid = hi - lo, mid
+    if best_mid is None and not required:
+        return None, 0.0
     require(best_mid is not None, "no threshold lets every lane fire at its own step")
     return float(1.0 / (1.0 + np.exp(-best_mid))), float(best_gap)
 
@@ -535,10 +538,12 @@ def fused_flops_and_bytes(packed, lengths, steps: int):
     src_len = int(np.max(lengths))
     products = sum(
         rows * cols for name, (rows, cols) in packed.shapes.items()
-        if name.endswith("_w") and (name != "ta_w" or packed.use_transition_agent)
+        if name.endswith("_w") and name != "ls_w"
+        and (name != "ta_w" or packed.use_transition_agent)
     )
     a_tot, e_tot = z["A1"] + z["A2"], z["E1"] + z["E2"]
-    per_step = batch * 2 * products + valid * (4 * a_tot + 2 * e_tot)
+    # location-sensitive: K taps times the folded matrix at every valid position
+    per_step = batch * 2 * products + valid * (4 * a_tot + 2 * e_tot + 2 * z["K"] * z["A1"])
     attention = batch * 4 * z["SA"] * steps * (steps + 1) // 2
     flops = steps * per_step + attention
     out_row = z["R"] * z["M"] + z["R"] + (2 if packed.dual else 1) * src_len
@@ -614,7 +619,8 @@ def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, sl
     )
     rec = {
         "kernel": "fused_decode", "case": name,
-        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype),
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype,
+                                             packed.ls),
         "shape": {"B": batch, "S": src_len, "T": steps, **packed.sizes},
         "transition_agent": packed.use_transition_agent, "threshold": threshold,
         "early_exit": early_exit, "launches": launches, "num_steps": int(got.num_steps),
@@ -749,11 +755,13 @@ def check_long_cap(flagship, rng) -> dict:
 
 
 def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None, tol=TOL_FUSED,
-                          margin_factor=FUSED_MARGIN_FACTOR):
+                          margin_factor=FUSED_MARGIN_FACTOR, masks=None):
     """To the cap first; then at a threshold from that run's own stop probabilities,
-    with the early exit and without it, where every integer and flag must be equal."""
+    with the early exit and without it, where every integer and flag must be equal.
+    The prenet masks are drawn from ``rng`` unless given."""
     batch = cond.memories[0].shape[0]
-    masks = seeded_masks(packed, rng, steps, batch)
+    if masks is None:
+        masks = seeded_masks(packed, rng, steps, batch)
     rec, want = check_fused(name + ", to the cap", packed, cond, masks, steps, 2.0,
                             slice_batch=slice_batch, tol=tol)
     threshold, gap = exit_threshold(want.stop_probs, steps, packed.sizes["R"])
@@ -899,7 +907,8 @@ def time_fused(name, packed, cond, masks, lengths, steps: int):
     flops, nbytes, _ = fused_flops_and_bytes(packed, lengths, steps)
     rec = {
         "kernel": "fused_decode", "case": name,
-        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype),
+        "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype,
+                                             packed.ls),
         "shape": {"B": len(lengths), "S": int(max(lengths)), "T": steps, **packed.sizes},
         "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
         **bound(flops, nbytes, packed.io_dtype), "flops": flops,
@@ -969,6 +978,29 @@ def spread_stop_logits(decoder, factor: float = STOP_SPREAD) -> None:
     with torch.no_grad():
         decoder.output_projection.weight[-r:].mul_(factor)
         decoder.output_projection.bias[-r:].mul_(factor)
+
+
+def shape_stop_rows(decoder, factor: float, shift: float) -> None:
+    """The stop logits mapped to ``factor * logit - shift`` (rows scaled, bias shifted)."""
+    spread_stop_logits(decoder, factor)
+    with torch.no_grad():
+        decoder.output_projection.bias[-decoder.outputs_per_step:] -= shift
+
+
+def spread_for_exit(decoder, cond, masks, steps: int) -> float:
+    """Spread the stop rows of a decoder with seeded weights (which never stops on
+    its own) so that its plain run to the cap on these masks has a threshold at
+    which every lane fires at a step of its own: not at all, by STOP_SPREAD, or by
+    -STOP_SPREAD (which of them rises over the steps depends on the weights), the
+    first that has one. Returns the factor applied; fails where none has."""
+    for factor in (1.0, STOP_SPREAD, -STOP_SPREAD):
+        spread_stop_logits(decoder, factor)
+        run = fused_decode.fused_decode_reference(
+            fused_decode.pack_decoder(decoder), cond, masks, steps, 2.0, early_exit=False)
+        if exit_threshold(run.stop_probs, steps, decoder.outputs_per_step, required=False)[0]:
+            return factor
+        spread_stop_logits(decoder, 1.0 / factor)
+    raise SystemExit("no spread of the stop rows lets every lane fire at a step of its own")
 
 
 def phase_baseline_decode():
@@ -1357,9 +1389,11 @@ def phase_bigru_bwd():
 
 
 def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zoneout,
-                            dual=True):
+                            dual=True, ls=None, taps=31):
     """Operands of ``teacher_decode`` at the sizes ``z`` with weights from ``rng``;
-    ``dual=False``: one source, and ``z``'s A2 and E2 are not used."""
+    ``dual=False``: one source, and ``z``'s A2 and E2 are not used; ``ls``
+    ("cum" or "prev"): location-sensitive attention of ``taps`` taps over the
+    cumulative or the previous alignments."""
     def arr(*shape, scale=0.3):
         return torch.tensor(
             rng.standard_normal(shape).astype(np.float32) * np.float32(scale), device=DEV)
@@ -1383,6 +1417,8 @@ def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zon
         w_l1=arr(in1, 4 * z["DU"], scale=fan(in1)), b_l1=arr(4 * z["DU"]),
         w_l2=arr(2 * z["DU"], 4 * z["DU"], scale=fan(2 * z["DU"])), b_l2=arr(4 * z["DU"]),
     )
+    if ls:
+        weights.update(w_lsW=arr(taps, z["A1"]), ls_bias=arr(z["A1"]))
     lens = torch.tensor(lengths, device=DEV)
     return dict(
         weights=weights, keys=arr(B, S, A), mem1=arr(B, S, z["E1"]),
@@ -1393,7 +1429,8 @@ def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zon
             dual=dual, use_ta=use_ta, att_units=z["AU"], att1_units=z["A1"],
             att2_units=z["A2"], dec_units=z["DU"], zoneout_cell=zc, zoneout_output=zo,
             prenet_drop_rate=0.0 if z.get("no_dropout") else 0.5, io_dtype="float32",
-            src1_kind="forward", eval_zoneout=eval_zoneout,
+            src1_kind="location_sensitive" if ls else "forward", ls_cumulative=ls != "prev",
+            ls_kernel=taps if ls else 0, eval_zoneout=eval_zoneout,
         ),
     )
 
@@ -1415,20 +1452,25 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
              A2=hp_like["att2_units"] if n_src == 2 else 0, DU=hp_like["dec_units"],
              E1=ops["mem1"].shape[-1], E2=0 if n_src == 1 else ops["mem2"].shape[-1])
     A, E = z["A1"] + z["A2"], z["E1"] + z["E2"]
-    core = [n for n in fused_teacher.CORE_WEIGHTS if hp_like["use_ta"] or n not in ("w_ta", "b_ta")]
-    products = sum(w[n].numel() for n in core if n.startswith("w_"))
+    core = [n for n in fused_teacher.core_weights(hp_like)
+            if hp_like["use_ta"] or n not in ("w_ta", "b_ta")]
+    # the folded location taps are no product of a lane's row: counted per position
+    products = sum(w[n].numel() for n in core if n.startswith("w_") and n != "w_lsW")
     weight_floats = sum(w[n].numel() for n in core)
     valid = int(np.sum(np.minimum(lengths, S)))
+    taps = hp_like.get("ls_kernel", 0) if fused_teacher.is_location_sensitive(hp_like) else 0
+    z.update(K=taps, CUM=int(bool(taps) and hp_like.get("ls_cumulative", True)))
     widths = {k: v[1] for k, v in fused_teacher.row_layouts(z, S).items()}
     io_bytes = 2.0 if ops["hp_like"].get("io_dtype") == "bfloat16" else 4.0
     conditioning = B * S * (A + E) + B * z["SPK"]
     outputs = B * N * (z["DU"] + n_src * S)
     if not backward:
-        flops = N * (B * 2 * products + valid * (4 * A + 2 * E))
+        flops = N * (B * 2 * products + valid * (4 * A + 2 * E + 2 * taps * z["A1"]))
         io_values = weight_floats + B * N * z["P2"] + conditioning
         floats = B * S + outputs + B * N * (widths["carry"] + widths["acts"])
     else:
-        flops = N * (B * 2 * products + valid * (10 * A + 4 * E))
+        # location-sensitive: the taps again, w_lsW's gradient and the taps' adjoint
+        flops = N * (B * 2 * products + valid * (10 * A + 4 * E + 6 * taps * z["A1"]))
         io_values = weight_floats + B * N * z["P2"] + conditioning + B * N * widths["stack"]
         floats = (B * S + outputs + B * N * (widths["carry"] + widths["acts"])
                   + B * S * A + B * n_src * A + B * widths["stack"] + B * z["SPK"] + n_src * A)
@@ -1638,7 +1680,7 @@ def teacher_case_inputs(rng, z, lengths, steps, kw):
     ops = seeded_teacher_operands(
         rng, z, B, S, lengths, kw.get("use_ta", False), kw.get("spk", 0),
         kw.get("zc", 0.0), kw.get("zo", 0.0), kw.get("eval_zoneout", False),
-        dual=kw.get("dual", True),
+        dual=kw.get("dual", True), ls=kw.get("ls"), taps=kw.get("taps", 31),
     )
     feeds = torch.tensor(rng.standard_normal((B, steps, z["F"])).astype(np.float32), device=DEV)
     masks = None
@@ -2385,6 +2427,407 @@ def phase_baseline_training():
     return kernels, plain
 
 
+# --------------------------------------------------------------------------- #
+# The location-sensitive branch of the three loop kernels: the `ls` family
+# --------------------------------------------------------------------------- #
+
+LS = {"attention": "location_sensitive"}
+# The span, in logits, that the main path spreads a seeded ``ls`` decoder's stop
+# logits to (they lie within a few hundredths of each other), centred on the
+# threshold 0.5: wide enough that most lanes keep MAIN_MARGIN from it up to their
+# firing frame.
+LS_STOP_SPAN = 20.0
+
+
+def phase_ls_decode():
+    """``fused_decode``'s location-sensitive instantiations against their plain
+    version: at narrow and off-tile sizes (7 and 31 taps, cumulative and previous
+    alignments, one source and two with self-attention, ragged lanes shorter than
+    the source), float32 to the cap and with early exits, bfloat16 to the cap (the
+    narrow seeded decoders' stop logits lie closer together than BF16_MARGIN_FACTOR
+    times a bfloat16 run's error, so "fired" could differ at any threshold; the
+    bfloat16 exit is held on the main path, ``phase_ls_main_path``); at full width
+    from seeded weights with conditioning from the real encoder: ``ls`` B=32
+    (ragged 24..128) with an early exit in float32, and over 500 steps B=32 and
+    B=1 in both io types; ``flagship-ls`` B=32 over 500 steps. Returns
+    ``{(config, dtype, batch): record}``."""
+    rng = np.random.default_rng(51)
+    single = {"encoder": "EncoderV1", "decoder": "ExtendedDecoder"}
+    narrow = dict(LS, attention_filters=4)
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        for case, (name, overrides, lengths, src_len) in enumerate((
+            ("ExtendedDecoder B=5 S=13, 7 taps, cumulative",
+             dict(single, attention_kernel=7), [13, 5, 9, 1, 12], 13),
+            ("ExtendedDecoder B=6 S=40, 31 taps, previous alignments",
+             dict(single, cumulative_weights=False), [40, 12, 33, 5, 40, 27], 40),
+            ("DualSourceSelfAttentionDecoder B=3 S=11, 7 taps, previous alignments",
+             dict(attention_kernel=7, cumulative_weights=False), [11, 7, 4], 11),
+            ("DualSourceSelfAttentionDecoder B=5 S=37, 31 taps, cumulative",
+             {}, [37, 20, 9, 37, 2], 37),
+        )):
+            hp = narrow_hparams(**narrow, **overrides, compute_dtype=dtype)
+            decoder = seeded_decoder(hp, seed=60 + case)
+            cond = seeded_conditioning(decoder, rng, lengths, src_len)
+            masks = seeded_masks(fused_decode.pack_decoder(decoder), rng, 24, len(lengths))
+            if bf16:
+                check_fused(f"ls bfloat16 narrow {name}, to the cap",
+                            fused_decode.pack_decoder(decoder), cond, masks, 24, 2.0,
+                            tol=TOL_FUSED_BF16)
+                continue
+            factor = spread_for_exit(decoder, cond, masks, 24)
+            check_fused_with_exit(f"ls float32 narrow {name}, stop rows x {factor}",
+                                  fused_decode.pack_decoder(decoder), cond, rng, 24, masks=masks)
+
+    records = {}
+    for config, dtype, seed in (("ls", "float32", 52), ("ls", "bfloat16", 52),
+                                ("flagship-ls", "float32", 53)):
+        bf16 = dtype == "bfloat16"
+        net = load_network(config, seed=seed, compute_dtype=dtype)
+        packed = fused_decode.pack_decoder(net.decoder)
+        require(packed.ls and packed.sizes["K"] == 31, f"{config}: 31 location taps")
+        steps = net.hparams.max_iters
+        for batch, longest in ((32, 128), (1, 97)):
+            if config == "flagship-ls" and batch == 1:
+                continue
+            req = ragged_request(rng, batch, longest)
+            cond = flagship_conditioning(net, req, seed=batch)
+            label = f"{config} {dtype} B={batch} S={longest}"
+            if config == "ls" and batch == 32 and not bf16:
+                # seeded weights never stop: the early exit is held with the stop rows spread
+                masks = seeded_masks(packed, rng, FUSED_STEPS, batch)
+                factor = spread_for_exit(net.decoder, cond, masks, FUSED_STEPS)
+                check_fused_with_exit(
+                    f"{label}, stop rows x {factor}", fused_decode.pack_decoder(net.decoder),
+                    cond, rng, FUSED_STEPS, masks=masks)
+                spread_stop_logits(net.decoder, 1.0 / factor)
+            masks = seeded_masks(packed, rng, steps, batch)
+            records[(config, dtype, batch)] = time_fused(
+                f"{label}, {steps} steps, time", packed, cond, masks, req["source_lengths"], steps)
+    return records
+
+
+def ls_teacher_batch(config: str, dtype: str, seed: int):
+    """(operands, teacher frames, prenet masks, source lengths, valid steps) of one
+    training batch (32 x 800 frames) through the seeded network of ``config``."""
+    net = load_network(config, seed=seed, compute_dtype=dtype)
+    hp = net.hparams
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    with torch.no_grad():
+        cond, _ = net.encode(
+            torch.as_tensor(batch["source"], device=DEV),
+            torch.as_tensor(batch["source_lengths"], device=DEV),
+            generator=torch.Generator(device=DEV).manual_seed(0),
+        )
+        net.decoder.train()
+        ops = net.decoder.teacher_operands(cond)
+        feeds = net.decoder.make_teacher_feeds(torch.as_tensor(batch["mel"], device=DEV))
+    rng = np.random.default_rng(seed)
+    masks = tuple(torch.tensor(rng.random((32, feeds.shape[1], u)) < 0.5, device=DEV)
+                  for u in hp.decoder_prenet_out_units)
+    return (ops, feeds, masks, batch["source_lengths"],
+            batch["target_lengths"] // hp.outputs_per_step)
+
+
+def phase_ls_teacher():
+    """``fused_teacher``'s location-sensitive instantiations (forward and backward)
+    against autograd through the plain version, every gradient (``w_lsW`` and
+    ``ls_bias`` among them): narrow and off-tile sizes (7 and 31 taps, cumulative
+    and previous alignments, one source and two, zoneout, a speaker embedding) in
+    float32 and bfloat16; at full width over 400 steps with conditioning from the
+    real encoder, prenet dropout and train zoneout: ``ls`` in both io types and
+    ``flagship-ls`` in float32, timed. Returns ``{(config, dtype): record}``."""
+    narrow = dict(F=10, P1=12, P2=8, AU=12, A1=12, A2=6, DU=16, E1=12, E2=8)
+    odd = dict(F=7, P1=20, P2=12, AU=28, A1=10, A2=7, DU=36, E1=20, E2=12)
+    rng = np.random.default_rng(54)
+    cases = (
+        ("one source, narrow B=3 S=11, 7 taps, cumulative", narrow, [11, 7, 4], 6,
+         dict(dual=False, ls="cum", taps=7)),
+        ("one source, odd widths B=6 S=40, 31 taps, previous alignments, train zoneout", odd,
+         [40, 12, 33, 5, 40, 27], 19, dict(dual=False, ls="prev", zc=0.3, zo=0.2)),
+        ("two sources, narrow B=5 S=13, 7 taps, previous alignments, speaker embedding", narrow,
+         [13, 5, 9, 1, 12], 20, dict(ls="prev", taps=7, spk=5)),
+        ("two sources, odd widths B=5 S=37, 31 taps, cumulative, eval zoneout", odd,
+         [37, 20, 9, 37, 2], 19, dict(ls="cum", zc=0.1, zo=0.15, eval_zoneout=True)),
+    )
+    for dtype in ("float32", "bfloat16"):
+        for name, z, lengths, steps, kw in cases:
+            ops, feeds, masks = teacher_case_inputs(rng, z, lengths, steps, kw)
+            check_teacher(f"ls {dtype} {name}", bf16_operands(ops) if dtype == "bfloat16" else ops,
+                          feeds, masks, lengths)
+    records = {}
+    for config, dtype in (("ls", "float32"), ("ls", "bfloat16"), ("flagship-ls", "float32")):
+        ops, feeds, masks, lengths, valid_steps = ls_teacher_batch(config, dtype, seed=55)
+        require(fused_teacher.is_location_sensitive(ops["hp_like"])
+                and ops["hp_like"]["ls_kernel"] == 31, f"{config}: 31 location taps")
+        records[(config, dtype)] = check_teacher(
+            f"{config} {dtype} B=32 S=128 ragged, {feeds.shape[1]} steps, seeded weights", ops,
+            feeds, masks, lengths, timed=True, valid_steps=valid_steps)
+    return records
+
+
+def phase_ls_main_path():
+    """``ls`` synthesis through ``make_predict_fn`` from seeded weights, batch 1 and
+    32, through the kernels (``bilstm`` and the location-sensitive ``fused_decode``)
+    and with ``use_pallas_kernels=False``, same generator seed, in float32 and in
+    bfloat16. Seeded weights never stop: their stop rows are spread as
+    ``phase_baseline_decode`` spreads them, here so that a run of the batch-32
+    request to the cap spans LS_STOP_SPAN in logits, centred on the threshold 0.5
+    at the median lane, so that about half its lanes fire, at steps of their own. Launch counts exact, lengths and flags on the lanes
+    with a margin (float32 as ``compare_paths`` holds them, bfloat16 as
+    ``phase_main_path_bf16``); a short request on the card against the same on the
+    CPU in both io types. Then ``flagship-ls`` (float32, to the cap) through the
+    kernels and the plain path, the same way. Returns ``{(config, dtype):
+    {"launches", "variants", "stats", "stats_plain", "threshold"}}``."""
+    reqs = requests()
+    out = {}
+    for config, dtype in (("ls", "float32"), ("ls", "bfloat16"), ("flagship-ls", "float32")):
+        bf16 = dtype == "bfloat16"
+        threshold, factor, shift = 2.0, 1.0, 0.0
+
+        def network(**overrides):
+            net = load_network(config, seed=61, compute_dtype=dtype,
+                               **{"stop_token_threshold": threshold, **overrides})
+            shape_stop_rows(net.decoder, factor, shift)
+            return net
+
+        if config == "ls":
+            # the batch-32 request (its masks as run_requests draws them) to the cap:
+            # its stop rows are scaled so that its stop logits span LS_STOP_SPAN and
+            # shifted so that the median of the lanes' largest logit lands on 0 (they
+            # feed nothing back, so the run moves by exactly that map); at the
+            # threshold 0.5 about half the lanes fire, the others run to the cap
+            steps = config_hparams(config).max_iters
+            to_cap = make_predict_fn(network(stop_token_threshold=2.0), max_iters=steps)(
+                reqs[1], generator=torch.Generator(device=DEV).manual_seed(301))
+            logits = stop_logits(to_cap["stop_probs"])
+            span = float(logits.max() - logits.min())
+            factor = LS_STOP_SPAN / span
+            shift = factor * float(np.median(logits.max(axis=1)))
+            threshold = 0.5
+            log(f"main_path {config} {dtype} stop rows " + json.dumps(
+                {"threshold": threshold, "scaled_by": factor, "shifted_by": -shift,
+                 "stop_logits_span_before": span}))
+        net = network()
+        hp = net.hparams
+        predict = make_predict_fn(net, max_iters=hp.max_iters)
+        run_requests(predict, reqs[:1], seed=0)            # warm-up
+        reset_launch_counts()
+        outs, stats = run_requests(predict, reqs, seed=300)
+        launches = launch_counts()
+        variants = dict(fused_decode.variant_launches)
+        log(f"main_path {config} {dtype} kernels " + json.dumps({
+            "launches": launches, "fused_decode_specialisations": variants, "requests": stats}))
+        dual = config == "flagship-ls"
+        expected = {"bigru": len(reqs) if dual else 0, "mha_full": len(reqs) if dual else 0,
+                    "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs)}
+        require(launches == expected, f"{config} {dtype} synthesis launched {launches}")
+        name = fused_decode.variant_name(dual, dual, COMPUTE[dtype], ls=True)
+        require(variants == {name: len(reqs)}, f"{config} {dtype} launched {variants}")
+        for o, req in zip(outs, reqs):
+            check_output(o, req, hp)
+        predict_plain = make_predict_fn(network(use_pallas_kernels=False), max_iters=hp.max_iters)
+        before = launch_counts()
+        outs_plain, stats_plain = run_requests(predict_plain, reqs, seed=300)
+        require(before == launch_counts(), "the plain path launched a kernel")
+        log(f"main_path {config} {dtype} plain " + json.dumps({"requests": stats_plain}))
+        r = hp.outputs_per_step
+        if not bf16:
+            compare_paths(outs, outs_plain, hp, label=f" {config}")
+        else:
+            for o, ref in zip(outs, outs_plain):
+                left_out = compare_lengths(o, ref, hp.stop_token_threshold, r,
+                                           apart_below_margin=True)
+                steps = min(int(o["num_steps"]), int(ref["num_steps"]))
+                log(f"main_path {config} bf16 agreement " + json.dumps({
+                    "batch": int(o["mel"].shape[0]),
+                    "lanes_held": int(o["mel"].shape[0]) - len(left_out),
+                    "num_steps": [int(o["num_steps"]), int(ref["num_steps"])],
+                    "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
+                    "early": output_errors(o, ref, min(EARLY_STEPS, steps), r),
+                    "whole": output_errors(o, ref, steps, r),
+                }))
+        if config == "ls":
+            ls_against_cpu(network, dtype, factor, shift)
+        out[(config, dtype)] = {"launches": launches, "variants": variants, "stats": stats,
+                                "stats_plain": stats_plain, "threshold": threshold}
+    return out
+
+
+COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def ls_against_cpu(network, dtype: str, factor: float, shift: float, steps: int = 30) -> None:
+    """A short ``ls`` request on the card (the kernels) against the same on the CPU
+    (float32: the step-by-step path; bfloat16: the fused decode's plain version),
+    same weights, source and injected masks, no exit."""
+    bf16 = dtype == "bfloat16"
+    rng = np.random.default_rng(79)
+    req = ragged_request(rng, 2, 40)
+    # no encoder prenet dropout: the card's and the CPU's generators differ
+    card_net = network(stop_token_threshold=2.0, encoder_prenet_drop_rate=0.0)
+    hp = card_net.hparams
+    masks = tuple(rng.random((steps, 2, units)) < 1.0 - hp.decoder_prenet_drop_rate
+                  for units in hp.decoder_prenet_out_units)
+    on_card = make_predict_fn(card_net, max_iters=steps)(req, prenet_masks=masks)
+    cpu_net = load_network("ls", seed=61, device="cpu", compute_dtype=dtype,
+                           stop_token_threshold=2.0, encoder_prenet_drop_rate=0.0)
+    shape_stop_rows(cpu_net.decoder, factor, shift)
+    on_cpu = make_predict_fn(cpu_net, max_iters=steps, device="cpu",
+                             use_fused=True if bf16 else None)(req, prenet_masks=masks)
+    card = {k: tuple(x.cpu() for x in v) if isinstance(v, tuple) else v.cpu()
+            for k, v in on_card.items()}
+    errs = output_errors(card, on_cpu, steps, hp.outputs_per_step)
+    tol = TOL_CPU_BF16 if bf16 else TOL_CPU
+    log(f"main_path ls {dtype} card_vs_cpu " + json.dumps({"steps": steps, **errs, "tol": tol}))
+    if int(card["num_steps"]) != steps or not torch.equal(card["lengths"], on_cpu["lengths"]):
+        raise SystemExit(f"ls {dtype}: the card and the CPU disagree on the steps or lengths")
+    if not max(errs.values()) <= tol:
+        raise SystemExit(f"ls {dtype}: the card and the CPU differ: {errs}")
+
+
+def phase_ls_training():
+    """``ls``'s ``train_step`` at full width, 32 lanes x 800 frames, from seeded
+    weights: (a) float32, three timed steps through the kernels (the one-source
+    location-sensitive teacher kernels; ZoneoutEncoderV1 trains through its plain
+    LSTM) and one with ``use_pallas_kernels=False``, every gradient leaf of the
+    first step held (``location_conv``, ``location_layer`` and ``attention_b``
+    among them, which must not be zero), launch counts exact, an evaluation step on
+    both; (b) bfloat16, three timed steps through the kernels and one plain, the
+    first step's leaves beside the yardstick of the plain path in bfloat16 against
+    the plain path in float32 (the median leaf held); (c) ``flagship-ls``: one
+    float32 step, kernels against plain, every leaf held."""
+    hp = config_hparams("ls")
+    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
+                           hp.outputs_per_step)
+    one_step = {"bigru": 0, "bigru_bwd": 0, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
+                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    # an evaluation step: the teacher forward, and ZoneoutEncoderV1's eval kernel
+    eval_step = {**one_step, "fused_teacher_bwd": 0, "bilstm": 1}
+    plain = {"use_pallas_kernels": False}
+    results = {}
+    for dtype in ("float32", "bfloat16"):
+        overrides = {"compute_dtype": dtype}
+        kernels = run_training(f"ls {dtype} kernels, seeded weights", batch, overrides,
+                               seeded_network, TRAIN_STEPS, True, trace=True, config="ls")
+        expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
+        require(kernels["counts"] == expected,
+                f"{TRAIN_STEPS} ls {dtype} steps launched {kernels['counts']}, expected {expected}")
+        require(kernels["variants"] == {"fwd_single_ls": TRAIN_STEPS, "bwd_single_ls": TRAIN_STEPS},
+                f"ls {dtype} launched the teacher specialisations {kernels['variants']}")
+        require(kernels["eval_counts"] == eval_step,
+                f"an ls {dtype} evaluation step launched {kernels['eval_counts']}")
+        torch.cuda.empty_cache()
+        plain_run = run_training(f"ls {dtype} plain, seeded weights", batch,
+                                 dict(overrides, **plain), seeded_network, 1, True, config="ls")
+        require(all(v == 0 for v in plain_run["counts"].values()), "the plain path launched a kernel")
+        require(all(v == 0 for v in plain_run["eval_counts"].values()),
+                "the plain path launched a kernel")
+        location = [k for k in kernels["first_grads"]
+                    if "location_conv" in k or "location_layer" in k or k.endswith("attention_b")]
+        require(len(location) == 4 and all(
+            float(kernels["first_grads"][k].abs().max()) > 0.0 for k in location),
+            "the location parameters must receive gradients")
+        eval_diffs = {k: abs(v - plain_run["eval"][k]) for k, v in kernels["eval"].items()}
+        if dtype == "float32":
+            check_seeded_agreement("ls, seeded weights", kernels, plain_run,
+                                   eval_loss_parts_abs=eval_diffs, tol_eval=TOL_EVAL)
+            if not max(eval_diffs.values()) <= TOL_EVAL:
+                raise SystemExit(f"ls kernel path and plain path differ in evaluation: {eval_diffs}")
+            f32_plain = plain_run
+        else:
+            grads = [r["first_grads"] for r in (kernels, plain_run, f32_plain)]
+            against_plain = norm_relative(grads[0], grads[1])
+            yardstick = norm_relative(grads[1], grads[2])
+            shares = {k: against_plain[k] / max(yardstick[k], 1e-30) for k in yardstick}
+            median_share = float(np.median(list(shares.values())))
+            log("training agreement, ls bf16 seeded weights " + json.dumps({
+                "median_leaf_share_of_yardstick": median_share,
+                "largest_leaf_share_of_yardstick": max(shares.values()),
+                "location_leaves": {k: {"kernels_against_plain": against_plain[k],
+                                        "plain_bf16_against_f32": yardstick[k]}
+                                    for k in location},
+                "eval_loss_parts_abs": eval_diffs,
+            }))
+            require(median_share <= 1.0, f"ls bf16 kernel path further from the plain path than "
+                    f"bf16 from float32: {median_share}")
+        results[dtype] = (kernels, plain_run)
+        torch.cuda.empty_cache()
+
+    # (c) flagship-ls: one float32 step on both paths
+    fl_kernels = run_training("flagship-ls kernels, seeded weights", batch, {}, seeded_network,
+                              1, False, config="flagship-ls")
+    fl_one = {**one_step, "bigru": 1, "bigru_bwd": 1}
+    require(fl_kernels["counts"] == fl_one, f"one flagship-ls step launched {fl_kernels['counts']}")
+    require(fl_kernels["variants"] == {"fwd_dual_ls": 1, "bwd_dual_ls": 1},
+            f"flagship-ls launched the teacher specialisations {fl_kernels['variants']}")
+    fl_plain = run_training("flagship-ls plain, seeded weights", batch, plain, seeded_network, 1,
+                            False, config="flagship-ls")
+    check_seeded_agreement("flagship-ls, seeded weights", fl_kernels, fl_plain)
+    results["flagship-ls"] = (fl_kernels, fl_plain)
+    return results
+
+
+def ls_kernel_entries(decode, teacher, main_path, train):
+    """The ``kernels`` entries of the location-sensitive instantiations: times at
+    full width from the kernel phases, launches from the ``ls`` main paths
+    (synthesis in each io type, training steps) and, for the two-source
+    instantiations, from ``flagship-ls``'s request and training step."""
+    entries = []
+    for name, config, dtype, dual in (
+        ("fused_decode_ls", "ls", "float32", False),
+        ("fused_decode_ls_bf16", "ls", "bfloat16", False),
+        ("fused_decode_dual_ls", "flagship-ls", "float32", True),
+    ):
+        rec, io = decode[(config, dtype, 32)], "float" if dtype == "float32" else "__nv_bfloat16"
+        run = main_path[(config, dtype)]
+        entry = {
+            "name": name, "route": "cuda",
+            "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+            "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+            "instantiation": f"fused_decode_kernel<{str(dual).lower()}, {str(dual).lower()}, true, {io}>",
+            "launches": run["variants"].get(fused_decode.variant_name(
+                dual, dual, COMPUTE[dtype], ls=True), 0),
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+            "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": dtype,
+            "ms_per_step": rec["ms_per_step"], "config": config,
+            "fused_request_ms": 1e3 * run["stats"][1]["wall_s"],
+            "step_by_step_request_ms": 1e3 * run["stats_plain"][1]["wall_s"],
+        }
+        if (config, dtype, 1) in decode:
+            b1 = decode[(config, dtype, 1)]
+            entry.update(batch1_ms=b1["ms"], batch1_ms_per_step=b1["ms_per_step"],
+                         batch1_bound_ms=b1["bound_ms"], batch1_plain_ms=b1["plain_ms"])
+        entries.append(entry)
+    for which, line in (("fwd", 1219), ("bwd", 1310)):
+        for name, config, dtype, dual in (
+            (f"fused_teacher_{which}_ls", "ls", "float32", False),
+            (f"fused_teacher_{which}_ls_bf16", "ls", "bfloat16", False),
+            (f"fused_teacher_{which}_dual_ls", "flagship-ls", "float32", True),
+        ):
+            rec = teacher[(config, dtype)]
+            io = "float" if dtype == "float32" else "__nv_bfloat16"
+            steps = train[dtype if config == "ls" else "flagship-ls"][0]
+            err = (max(rec["features_max_abs_err"], rec["alignments_max_abs_err"])
+                   if which == "fwd" else rec["grad_max_abs_err"])
+            entries.append({
+                "name": name, "route": "cuda",
+                "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
+                "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
+                "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, true, {io}>",
+                "launches": steps["counts"][f"fused_teacher_{which}"],
+                "max_abs_err": err, "ms": rec[which]["ms"], "plain_ms": rec[which]["plain_ms"],
+                "bound_ms": rec[which]["bound_ms"], "bound_by": rec[which]["bound_by"],
+                "library_ms": None, "shape": rec["shape"], "dtype": dtype, "config": config,
+                "ms_per_step": rec[which]["ms_per_step"], "wrapper_ms": rec[which]["wrapper_ms"],
+                "grad_max_rel_err": rec["grad_max_rel_err"],
+                "train_step_ms": min(r["step_ms"] for r in steps["rows"]),
+            })
+    return entries
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -2419,6 +2862,10 @@ def main() -> int:
     train, train_plain = timed_phase(phase_training)
     baseline_train, baseline_train_plain = timed_phase(phase_baseline_training)
     train_bf16, train_plain_bf16 = timed_phase(phase_training_bf16)
+    ls_decode = timed_phase(phase_ls_decode)
+    ls_teacher = timed_phase(phase_ls_teacher)
+    ls_main = timed_phase(phase_ls_main_path)
+    ls_train = timed_phase(phase_ls_training)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -2638,6 +3085,7 @@ def main() -> int:
             },
             **step_ms_bf16,
         })
+    kernels += ls_kernel_entries(ls_decode, ls_teacher, ls_main, ls_train)
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

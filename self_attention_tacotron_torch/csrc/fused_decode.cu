@@ -10,6 +10,9 @@
 //   e  = sum_a tanh(keys_cat + qp) * [v1 | v2], split at A1, + score bias (-1e9 where padded)
 //   source 1: y = softmax(e1);  a = ((1 - u) a + u shift(a) + 1e-6) y, renormalised
 //             u = sigmoid(Wta . [ctx1, h_att] + b) with the transition agent, else 0.5
+//   or, location-sensitive (LS): the first A1 columns of the tanh's argument add
+//             loc[s] = sum_k prev[s + k - K/2] . Wls[k] + bls, prev the cumulative
+//             alignments (or the previous ones); a = y, cum += a; a starts uniform
 //   source 2: a2 = softmax(e2);  contexts ctx_i = a_i . memory_i
 //   two ZoneoutLSTMs, feature = h2 + h1
 //   self-attention block: in-projection + sinusoid row t, LayerNorm, QKV, K and V
@@ -27,8 +30,15 @@
 // Wqp is the mechanism's own query layer, v has one column, A2 = E2 = 0 and there
 // is no second memory or alignment), USE_SA (the self-attention block; without it
 // the output projection reads the feature h2 + h1 itself and there is no K/V
-// cache), and IO, float or bfloat16. IO is the type of the weights, keys,
-// memories, speaker embedding and K/V cache in global memory. With bfloat16 the
+// cache), and IO, float or bfloat16. LS (location-sensitive attention on source 1,
+// K > 0) is compiled for the two pairs of flags a model class reaches, DUAL with
+// USE_SA (the flagship's structure) and neither (the baseline's): the folded
+// matrix Wls (K rows, zero-padded to LS_TAPS, in the io type) lives in shared
+// memory from the first step on, the cumulative alignments in a row per lane beside
+// the alignments, and the location features are formed inside the score pass
+// (location.cuh), never stored; without LS none of that takes room or code. IO is
+// the type of the weights, keys, memories, speaker embedding and K/V cache in
+// global memory. With bfloat16 the
 // kernel rounds the input of every product to bfloat16 where the Pallas kernel
 // casts it to its io_dtype (the fed-back frame, the prenet's second input, the
 // attention LSTM's input, the query, the transition agent's input, both decoder
@@ -36,7 +46,9 @@
 // FFN's hidden layer and the output projection's input) and keeps everything else
 // in float: the products' sums, the LSTM and attention state, the score bias,
 // score vectors, LayerNorm parameters, softmaxes, stop logits and the outputs.
-// The LSTMs' hidden states then live apart from their rounded copies.
+// The LSTMs' hidden states then live apart from their rounded copies. With LS the
+// taps (the alignment values) and Wls are rounded too; the location sum and its
+// bias stay float.
 //
 // The decoder self-attention walks the cache's prefix in tiles of SA_TILE
 // positions with an online softmax (running maximum and sum per lane and head,
@@ -68,6 +80,7 @@
 #include <type_traits>
 
 #include "dense.cuh"
+#include "location.cuh"
 
 namespace {
 
@@ -85,16 +98,17 @@ constexpr int SA_TILE = 512;
 enum Entry {
   P1_W, P1_B, P2_W, P2_B, ATTG_W, ATTG_B, QP_W, V_CAT, TA_W, TA_B,
   L1_W, L1_B, L2_W, L2_B, IN_W, IN_B, LN1_S, LN1_B, LN2_S, LN2_B,
-  QKV_W, O_W, O_B, F1_W, F1_B, F2_W, F2_B, OUT_W, OUT_B, NUM_ENTRIES
+  QKV_W, O_W, O_B, F1_W, F1_B, F2_W, F2_B, OUT_W, OUT_B, LS_W, LS_B, NUM_ENTRIES
 };
 
 // Sizes, flags and offsets (in values of their buffer), in the order the wrapper
 // writes them. The widths name the specialisation: E2 > 0 two sources, SA > 0 the
-// self-attention block; bf16 the io type.
+// self-attention block, K > 0 (the location taps) location-sensitive attention;
+// ls_cum: its taps read the cumulative alignments; bf16 the io type.
 struct Dims {
   int B, S, T;
-  int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2;
-  int use_ta, early_exit, use_masks, bf16;
+  int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2, K;
+  int use_ta, early_exit, use_masks, ls_cum, bf16;
   int off[NUM_ENTRIES];
 };
 
@@ -131,7 +145,7 @@ struct Ptrs {
 // fused_decode_smem_bytes below and keeps no copy of it.
 struct Layout {
   int part, feed, x1, attin, catt, f1, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, feat;
-  int xs, xn, q, attn, y, logit, stat, out, hatt, h1, h2, total;
+  int xs, xn, q, attn, y, logit, stat, out, hatt, h1, h2, cum, lsw, total;
 };
 
 // The kernel passes its compile-time flags; the host passes what the widths and
@@ -139,7 +153,10 @@ struct Layout {
 // as well, the flagship's instantiation ran 9 % slower on an H100, with the same
 // registers and spills. `split`: the LSTMs' hidden states live apart from the
 // rounded copies that the products read (bfloat16 only).
-__host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use_sa, bool split) {
+// `ls`: the cumulative alignments and the folded location matrix (appended, so that
+// the other specialisations keep their layout).
+__host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use_sa, bool ls,
+                                              bool split) {
   const int A = d.A1 + d.A2, OW = d.R * d.M + d.R;
   const int KA = d.P2 + d.SPK + d.E1 + d.E2 + d.AU;
   const int KD1 = d.AU + d.E1 + d.E2 + d.DU;
@@ -180,6 +197,8 @@ __host__ __device__ inline Layout make_layout(const Dims& d, bool dual, bool use
   L.hatt = at;   at += st * LANES * r4(d.AU);
   L.h1 = at;     at += st * LANES * r4(d.DU);
   L.h2 = at;     at += st * LANES * r4(d.DU);
+  L.cum = at;    at += (ls ? 1 : 0) * LANES * r4(d.S);
+  L.lsw = at;    at += (ls ? 1 : 0) * LS_TAPS * r4(d.A1);
   L.total = at;
   return L;
 }
@@ -243,7 +262,7 @@ __device__ __forceinline__ void layer_norm(const float* s_x, float* s_y, int ldx
   }
 }
 
-template <bool DUAL, bool USE_SA, typename IO>
+template <bool DUAL, bool USE_SA, bool LS, typename IO>
 __global__ void __launch_bounds__(NT)
 fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
   using Vec = typename Weights4<IO>::Vec;
@@ -266,7 +285,7 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
   const int KA = P2 + d.SPK + EW + AU, KD1 = AU + EW + DU;
   const int nblocks = gridDim.x;
 
-  const Layout L = make_layout(d, DUAL, USE_SA, SPLIT);
+  const Layout L = make_layout(d, DUAL, USE_SA, LS, SPLIT);
   float* s_part = smem + L.part;
   float* s_feed = smem + L.feed;     const int ld_feed = r4(M);
   float* s_x1 = smem + L.x1;         const int ld_x1 = r4(P1);
@@ -293,6 +312,8 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
   float* s_lsum = s_mrun + ld_stat;
   float* s_scale = s_lsum + ld_stat;
   float* s_out = smem + L.out;       const int ld_out = r4(OW);
+  float* s_cum = smem + L.cum;       // LS only
+  float* s_lsw = smem + L.lsw;       const int ld_lsw = r4(A1);
   // the LSTMs' hidden states: beside their rounded input copies, or (float io) those slots
   float* st_att = SPLIT ? smem + L.hatt : s_attin + (KA - AU);
   const int ld_st_att = SPLIT ? ld_au : ld_attin;
@@ -318,7 +339,19 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
     s_u[tid] = 0.5f;
   }
   __syncthreads();
-  if (tid < LANES) s_alpha1[tid * ld_s] = 1.0f;   // forward attention: all mass at position 0
+  if (LS) {
+    // the additive family starts uniform over the source; the folded matrix, once
+    for (int i = tid; i < LANES * S; i += NT) {
+      const int l = i / S;
+      s_alpha1[l * ld_s + (i - l * S)] = 1.0f / (float)S;
+    }
+    for (int i = tid; i < LS_TAPS * A1; i += NT) {
+      const int k = i / A1, a = i - k * A1;
+      s_lsw[k * ld_lsw + a] = Io<IO>::load(w + d.off[LS_W] + k * ld_lsw + a);
+    }
+  } else if (tid < LANES) {
+    s_alpha1[tid * ld_s] = 1.0f;   // forward attention: all mass at position 0
+  }
   if (P.spk != nullptr)
     for (int i = tid; i < LANES * d.SPK; i += NT) {
       const int l = i / d.SPK, j = i - l * d.SPK;
@@ -372,23 +405,73 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
       s_qp[l * ld_a + j] = gather<LANES>(s_part, parts, r4(A), l, j);
     }
     __syncthreads();
-    for (int pair = warp; pair < LANES * S; pair += NWARPS) {
-      const int l = pair / S, s = pair - l * S;
-      const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
-      float e1 = bias, e2 = bias;
-      if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
-        const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
-        float acc1 = 0.0f, acc2 = 0.0f;
+    if (LS) {
+      // a warp per (lane, LS_RUN neighbouring positions): the taps of those
+      // positions in registers, source 1's columns adding the location features
+      const int nrun = (S + LS_RUN - 1) / LS_RUN;
+      const float* prev_rows = d.ls_cum ? s_cum : s_alpha1;
+      for (int task = warp; task < LANES * nrun; task += NWARPS) {
+        const int l = task / nrun, s0 = (task - l * nrun) * LS_RUN;
+        float win[LS_WIN];
+        ls_window<IO>(prev_rows + l * ld_s, S, s0 - (d.K >> 1), win);
+        float acc1[LS_RUN], acc2[LS_RUN];
+#pragma unroll
+        for (int j = 0; j < LS_RUN; ++j) acc1[j] = acc2[j] = 0.0f;
+        const IO* keys = P.keys + (size_t)s_b[l] * S * A;
         for (int a = lane; a < A; a += 32) {
-          const float v = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]) * __ldg(w32 + d.off[V_CAT] + a);
-          if (!DUAL || a < A1) acc1 += v; else acc2 += v;
+          const float q = s_qp[l * ld_a + a];
+          const float v = __ldg(w32 + d.off[V_CAT] + a);
+          const bool first = !DUAL || a < A1;
+          float loc[LS_RUN];
+          if (first) {
+            ls_dot(win, s_lsw, ld_lsw, a, loc);
+            const float b = __ldg(w32 + d.off[LS_B] + a);
+#pragma unroll
+            for (int j = 0; j < LS_RUN; ++j) loc[j] += b;
+          } else {
+#pragma unroll
+            for (int j = 0; j < LS_RUN; ++j) loc[j] = 0.0f;
+          }
+#pragma unroll
+          for (int j = 0; j < LS_RUN; ++j) {
+            const int s = imin(s0 + j, S - 1);   // past the source: computed, never written
+            const float th = tanhf((Io<IO>::load(keys + (size_t)s * A + a) + q) + loc[j]) * v;
+            if (first) acc1[j] += th; else acc2[j] += th;
+          }
         }
-        e1 = warp_sum(acc1) + bias;
-        if (DUAL) e2 = warp_sum(acc2) + bias;
+#pragma unroll
+        for (int j = 0; j < LS_RUN; ++j) {
+          const float e1 = warp_sum(acc1[j]);
+          const float e2 = DUAL ? warp_sum(acc2[j]) : 0.0f;
+          const int s = s0 + j;
+          if (lane == 0 && s < S) {
+            // a padded position keeps -1e9: its probability is exactly 0
+            const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
+            s_e1[l * ld_s + s] = bias > -1e8f ? e1 + bias : bias;
+            if (DUAL) s_e2[l * ld_s + s] = bias > -1e8f ? e2 + bias : bias;
+          }
+        }
       }
-      if (lane == 0) {
-        s_e1[l * ld_s + s] = e1;
-        if (DUAL) s_e2[l * ld_s + s] = e2;
+    } else {
+      for (int pair = warp; pair < LANES * S; pair += NWARPS) {
+        const int l = pair / S, s = pair - l * S;
+        const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
+        float e1 = bias, e2 = bias;
+        if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
+          const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
+          float acc1 = 0.0f, acc2 = 0.0f;
+          for (int a = lane; a < A; a += 32) {
+            const float v = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]) *
+                            __ldg(w32 + d.off[V_CAT] + a);
+            if (!DUAL || a < A1) acc1 += v; else acc2 += v;
+          }
+          e1 = warp_sum(acc1) + bias;
+          if (DUAL) e2 = warp_sum(acc2) + bias;
+        }
+        if (lane == 0) {
+          s_e1[l * ld_s + s] = e1;
+          if (DUAL) s_e2[l * ld_s + s] = e2;
+        }
       }
     }
     __syncthreads();
@@ -407,7 +490,18 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
         sum += v;
       }
       sum = warp_sum(sum);
-      if (warp < LANES) {
+      if (LS && warp < LANES) {
+        // location-sensitive: the alignments are the softmax, the taps' next input
+        float* alpha = s_alpha1 + l * ld_s;
+        float* cum = s_cum + l * ld_s;
+        float* row = P.align1 + ((size_t)s_b[l] * T + t) * S;
+        for (int s = lane; s < S; s += 32) {
+          const float v = e[s] / sum;
+          alpha[s] = v;
+          if (d.ls_cum) cum[s] += v;
+          if (s_valid[l]) row[s] = v;
+        }
+      } else if (warp < LANES) {
         // a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + 1e-6) y_i(n), renormalised
         const float u = s_u[l];
         float* prev = s_alpha1 + l * ld_s;
@@ -761,18 +855,32 @@ bool sizes_ok(const Dims& d) {
   const bool sources = (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
   const bool block = d.SA == 0 ||
                      (d.SA > 0 && d.H > 0 && d.FFN > 0 && d.SA % d.H == 0 && (d.SA / d.H) % 4 == 0);
-  return sources && block;
+  // location-sensitive: an odd number of taps up to LS_TAPS, no transition agent,
+  // and one of the two pairs of flags it is compiled for
+  const bool ls = d.K == 0 || (d.K > 0 && d.K <= LS_TAPS && d.K % 2 == 1 && d.use_ta == 0 &&
+                               (d.E2 > 0) == (d.SA > 0));
+  return sources && block && ls;
 }
 
 template <typename IO>
 using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars);
 
-// The kernel compiled for the specialisation of `d`'s widths, with io type IO.
+// The kernel compiled for the specialisation of `d`'s widths, with io type IO; null
+// for location-sensitive attention on a pair of flags it is not compiled for.
 template <typename IO>
 Kernel<IO> kernel_for(const Dims& d) {
   const bool dual = d.E2 > 0, use_sa = d.SA > 0;
-  if (dual) return use_sa ? fused_decode_kernel<true, true, IO> : fused_decode_kernel<true, false, IO>;
-  return use_sa ? fused_decode_kernel<false, true, IO> : fused_decode_kernel<false, false, IO>;
+  if (d.K > 0) {
+    if (dual && use_sa) return fused_decode_kernel<true, true, true, IO>;
+    if (!dual && !use_sa) return fused_decode_kernel<false, false, true, IO>;
+    return nullptr;
+  }
+  if (dual) {
+    return use_sa ? fused_decode_kernel<true, true, false, IO>
+                  : fused_decode_kernel<true, false, false, IO>;
+  }
+  return use_sa ? fused_decode_kernel<false, true, false, IO>
+                : fused_decode_kernel<false, false, false, IO>;
 }
 
 const void* kernel_address(const Dims& d) {
@@ -780,12 +888,13 @@ const void* kernel_address(const Dims& d) {
 }
 
 size_t smem_bytes(const Dims& d) {
-  return (size_t)make_layout(d, d.E2 > 0, d.SA > 0, d.bf16 != 0).total * sizeof(float);
+  return (size_t)make_layout(d, d.E2 > 0, d.SA > 0, d.K > 0, d.bf16 != 0).total * sizeof(float);
 }
 
 template <typename IO>
 int launch(const Ptrs<IO>& P, const Dims& d, const Scalars& sc, cudaStream_t stream) {
   const Kernel<IO> kernel = kernel_for<IO>(d);
+  if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute((const void*)kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -854,7 +963,9 @@ long long fused_decode_smem_limit(const int* dims) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
   cudaFuncAttributes attr;
-  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel_address(d));
+  const void* kernel = kernel_address(d);
+  if (err == cudaSuccess && kernel == nullptr) err = cudaErrorInvalidValue;
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return -(long long)err;
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }

@@ -18,8 +18,14 @@
 // Both kernels are compiled for DUAL (the two sources above) and for one source,
 // the baseline's single forward attention: there Wqp is the mechanism's own query
 // layer, vblk has one column, and there is no second key, memory, context or
-// alignment (E2 = A2 = 0, alignment rows of S instead of 2S); and each of those
-// for two io types, float and bfloat16 (IO). IO is the type of the weights, the
+// alignment (E2 = A2 = 0, alignment rows of S instead of 2S); each of those for
+// location-sensitive attention on source 1 (LS, K > 0) as well: the first A1
+// columns of the tanh's argument add loc[s] = sum_k prev[s + k - K/2] . Wls[k] + bls,
+// prev the cumulative alignments before the step (kept in the carry row, so that
+// the backward need not subtract) or the previous alignments, a = y = softmax(e1)
+// starting uniform, Wls (K rows zero-padded to LS_TAPS) in shared memory and the
+// features formed inside the score pass (location.cuh), never stored; and each of
+// those for two io types, float and bfloat16 (IO). IO is the type of the weights, the
 // feeds, keys, memories and speaker embedding, and of the gradient rows. With
 // bfloat16 the kernels round where the Pallas kernels cast to their io_dtype:
 // forward, the input of every product (the attention LSTM's input, the query,
@@ -51,6 +57,14 @@
 // gives the bias gradients. d_keys, d_spk and the running sum are per lane and a
 // block owns its lanes, so nothing is atomic; d_vblk is written as one partial
 // per lane and summed by the wrapper, so the result is the same from run to run.
+// LS: the score pass also recomputes the location features from the carried
+// alignments and stores the step's rounded cotangent of source 1's columns before
+// the tanh, g (S, A1), in a scratch row per lane; then, in a fixed order,
+// d_Wls[k][a] += sum_s taps[s][k] g[s][a] into a float partial per lane (summed by
+// the wrapper), G = g . Wls^T (S, LS_TAPS) into a second scratch, and the taps'
+// adjoint g_prev[p] = sum_k G[p - k + K/2][k] onto the carried alignment's
+// cotangent (cumulative: on top of it, the identity path; previous alignments:
+// instead of it). bls's gradient is g_qp's first A1 columns, summed by the wrapper.
 //
 // What bounds both on an H100 is the serial chain of steps: per step a handful of
 // dependent small products. One block per LANES lanes walks all the steps on its
@@ -68,6 +82,7 @@
 #include <type_traits>
 
 #include "dense.cuh"
+#include "location.cuh"
 
 namespace {
 
@@ -79,19 +94,22 @@ static_assert(NWARPS >= 2 * LANES, "a warp per (lane, source) in the softmax sta
 // Order of the entries in the flat weight buffer (ops/fused_teacher.py::_ENTRIES).
 enum Entry {
   ATTG_W, ATTG_B, QP_W, VBLK, TA_W, TA_B, L1_W, L1_B, L2_W, L2_B,
-  ATTG_WT, QP_WT, L1_WT, L2_WT, NUM_ENTRIES
+  ATTG_WT, QP_WT, L1_WT, L2_WT, LS_W, NUM_ENTRIES
 };
 // Fields of the three per-step rows (ops/fused_teacher.py::_CARRY, _ACTS, _STACK).
-enum Carry { C_CATT, C_HATT, C_C1, C_H1, C_C2, C_H2, C_CTX1, C_CTX2, C_ALPHA, C_U, NUM_CARRY };
+enum Carry {
+  C_CATT, C_HATT, C_C1, C_H1, C_C2, C_H2, C_CTX1, C_CTX2, C_ALPHA, C_CUM, C_U, NUM_CARRY
+};
 enum Acts { A_ZATT, A_Z1, A_Z2, A_QP, A_Y1, A_ALPHA2, NUM_ACTS };
 enum Stack { G_ZATT, G_Z1, G_Z2, G_FEED, G_QP, G_CTX1, G_CTX2, G_UPRE, NUM_STACK };
 
 // Sizes, flags, row widths and offsets (in values), in the order the wrapper writes
-// them; bf16: the io type.
+// them; K > 0: location-sensitive attention with K taps, ls_cum over the cumulative
+// alignments; bf16: the io type.
 struct Dims {
   int B, S, N;
-  int P2, SPK, AU, A1, A2, DU, E1, E2;
-  int use_ta, train_masks, bf16;
+  int P2, SPK, AU, A1, A2, DU, E1, E2, K;
+  int use_ta, train_masks, ls_cum, bf16;
   int CW, AW, SW;
   int carry[NUM_CARRY], acts[NUM_ACTS], stack[NUM_STACK];
   int off[NUM_ENTRIES];
@@ -130,6 +148,11 @@ struct Ptrs {
   float* d_spk;           // (B, SPK), zero on entry
   float* d_brow;          // (B, SW), zero on entry
   const float* v32;       // (2 or 1, A1 + A2 padded to 4) the score vectors, float
+  // location-sensitive only (placeholders otherwise); the last three backward only
+  const float* ls_b;      // (A1,) the location bias, float
+  float* d_lsw;           // (B, LS_TAPS, A1 padded to 4) per-lane partials, zero on entry
+  float* ls_g;            // (B, S, A1 padded to 4) scratch, zero on entry
+  float* ls_gk;           // (B, S, LS_TAPS) scratch
 };
 
 __device__ __forceinline__ unsigned mix32(unsigned x) {
@@ -156,7 +179,8 @@ __device__ __forceinline__ float keep_old(int train, unsigned step_seed, unsigne
 // ------------------------------------------------------------------------------------
 
 struct FwdLayout {
-  int part, attin, catt, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, hatt, h1, h2, total;
+  int part, attin, catt, qp, e1, e2, alpha1, tmp, din, c1, din2, c2, hatt, h1, h2, cum, lsw;
+  int total;
 };
 
 __host__ __device__ inline int widest_product(const Dims& d) {
@@ -169,8 +193,9 @@ __host__ __device__ inline int widest_product(const Dims& d) {
 }
 
 // `split`: the LSTMs' hidden states live apart from the rounded copies that the
-// products read (bfloat16 only; with float io those arrays take no room).
-__host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d, bool split) {
+// products read (bfloat16 only; with float io those arrays take no room). `ls`: the
+// cumulative alignments and the folded location matrix, appended.
+__host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d, bool split, bool ls) {
   const int A = d.A1 + d.A2;
   const int st = split ? 1 : 0;
   const int KA = d.P2 + d.SPK + d.E1 + d.E2 + d.AU;
@@ -192,6 +217,8 @@ __host__ __device__ inline FwdLayout make_fwd_layout(const Dims& d, bool split) 
   L.hatt = at;   at += st * LANES * r4(d.AU);
   L.h1 = at;     at += st * LANES * r4(d.DU);
   L.h2 = at;     at += st * LANES * r4(d.DU);
+  L.cum = at;    at += (ls ? 1 : 0) * LANES * r4(d.S);
+  L.lsw = at;    at += (ls ? 1 : 0) * LS_TAPS * r4(d.A1);
   L.total = at;
   return L;
 }
@@ -250,7 +277,7 @@ __device__ __forceinline__ void lstm_forward(const float* s_part, int parts, int
   }
 }
 
-template <bool DUAL, typename IO>
+template <bool DUAL, bool LS, typename IO>
 __global__ void __launch_bounds__(NT)
 teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits bits) {
   constexpr int NSRC = DUAL ? 2 : 1;
@@ -269,7 +296,7 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
   const int A = d.A1 + d.A2, EW = d.E1 + d.E2;
   const int KA = P2 + d.SPK + EW + AU, KD1 = AU + EW + DU;
 
-  const FwdLayout L = make_fwd_layout(d, SPLIT);
+  const FwdLayout L = make_fwd_layout(d, SPLIT, LS);
   float* s_part = smem + L.part;
   float* s_attin = smem + L.attin;   const int ld_attin = r4(KA);
   float* s_catt = smem + L.catt;     const int ld_au = r4(AU);
@@ -282,6 +309,8 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
   float* s_c1 = smem + L.c1;         const int ld_du = r4(DU);
   float* s_din2 = smem + L.din2;     const int ld_din2 = r4(2 * DU);
   float* s_c2 = smem + L.c2;
+  float* s_cum = smem + L.cum;       // LS only
+  float* s_lsw = smem + L.lsw;       const int ld_lsw = r4(d.A1);
   // the LSTMs' hidden states: beside their rounded input copies, or (float io) those slots
   float* st_att = SPLIT ? smem + L.hatt : s_attin + (KA - AU);
   const int ld_st_att = SPLIT ? ld_au : ld_attin;
@@ -306,7 +335,19 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
     s_u[tid] = 0.5f;
   }
   __syncthreads();
-  if (tid < LANES) s_alpha1[tid * ld_s] = 1.0f;   // forward attention: all mass at position 0
+  if (LS) {
+    // the additive family starts uniform over the source; the folded matrix, once
+    for (int i = tid; i < LANES * S; i += NT) {
+      const int l = i / S;
+      s_alpha1[l * ld_s + (i - l * S)] = 1.0f / (float)S;
+    }
+    for (int i = tid; i < LS_TAPS * d.A1; i += NT) {
+      const int k = i / d.A1, a = i - k * d.A1;
+      s_lsw[k * ld_lsw + a] = Io<IO>::load(w + d.off[LS_W] + k * ld_lsw + a);
+    }
+  } else if (tid < LANES) {
+    s_alpha1[tid * ld_s] = 1.0f;   // forward attention: all mass at position 0
+  }
   if (P.spk != nullptr)
     for (int i = tid; i < LANES * d.SPK; i += NT) {
       const int l = i / d.SPK, j = i - l * d.SPK;
@@ -351,24 +392,73 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
       if (s_valid[l]) P.acts[((size_t)s_b[l] * N + t) * d.AW + d.acts[A_QP] + j] = v;
     }
     __syncthreads();
-    for (int pair = warp; pair < LANES * S; pair += NWARPS) {
-      const int l = pair / S, s = pair - l * S;
-      const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
-      float e1 = bias, e2 = bias;
-      if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
-        const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
-        float acc1 = 0.0f, acc2 = 0.0f;
+    if (LS) {
+      // a warp per (lane, LS_RUN neighbouring positions): the taps of those
+      // positions in registers, source 1's columns adding the location features
+      const int nrun = (S + LS_RUN - 1) / LS_RUN;
+      const float* prev_rows = d.ls_cum ? s_cum : s_alpha1;
+      for (int task = warp; task < LANES * nrun; task += NWARPS) {
+        const int l = task / nrun, s0 = (task - l * nrun) * LS_RUN;
+        float win[LS_WIN];
+        ls_window<IO>(prev_rows + l * ld_s, S, s0 - (d.K >> 1), win);
+        float acc1[LS_RUN], acc2[LS_RUN];
+#pragma unroll
+        for (int j = 0; j < LS_RUN; ++j) acc1[j] = acc2[j] = 0.0f;
+        const IO* keys = P.keys + (size_t)s_b[l] * S * A;
         for (int a = lane; a < A; a += 32) {
-          const float tq = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]);
-          acc1 = fmaf(tq, Io<IO>::load(v1 + a), acc1);
-          if (DUAL) acc2 = fmaf(tq, Io<IO>::load(v2 + a), acc2);
+          const float q = s_qp[l * ld_a + a];
+          float loc[LS_RUN];
+          if (a < d.A1) {
+            ls_dot(win, s_lsw, ld_lsw, a, loc);
+            const float b = __ldg(P.ls_b + a);
+#pragma unroll
+            for (int j = 0; j < LS_RUN; ++j) loc[j] += b;
+          } else {
+#pragma unroll
+            for (int j = 0; j < LS_RUN; ++j) loc[j] = 0.0f;
+          }
+          const float va = Io<IO>::load(v1 + a), vb = DUAL ? Io<IO>::load(v2 + a) : 0.0f;
+#pragma unroll
+          for (int j = 0; j < LS_RUN; ++j) {
+            const int s = imin(s0 + j, S - 1);   // past the source: computed, never written
+            const float tq = tanhf((Io<IO>::load(keys + (size_t)s * A + a) + q) + loc[j]);
+            acc1[j] = fmaf(tq, va, acc1[j]);
+            if (DUAL) acc2[j] = fmaf(tq, vb, acc2[j]);
+          }
         }
-        e1 = warp_sum(acc1) + bias;
-        if (DUAL) e2 = warp_sum(acc2) + bias;
+#pragma unroll
+        for (int j = 0; j < LS_RUN; ++j) {
+          const float e1 = warp_sum(acc1[j]);
+          const float e2 = DUAL ? warp_sum(acc2[j]) : 0.0f;
+          const int s = s0 + j;
+          if (lane == 0 && s < S) {
+            // a padded position keeps -1e9: its probability is exactly 0
+            const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
+            s_e1[l * ld_s + s] = bias > -1e8f ? e1 + bias : bias;
+            if (DUAL) s_e2[l * ld_s + s] = bias > -1e8f ? e2 + bias : bias;
+          }
+        }
       }
-      if (lane == 0) {
-        s_e1[l * ld_s + s] = e1;
-        if (DUAL) s_e2[l * ld_s + s] = e2;
+    } else {
+      for (int pair = warp; pair < LANES * S; pair += NWARPS) {
+        const int l = pair / S, s = pair - l * S;
+        const float bias = __ldg(P.bias + (size_t)s_b[l] * S + s);
+        float e1 = bias, e2 = bias;
+        if (bias > -1e8f) {   // a padded position keeps -1e9: its probability is exactly 0
+          const IO* key = P.keys + ((size_t)s_b[l] * S + s) * A;
+          float acc1 = 0.0f, acc2 = 0.0f;
+          for (int a = lane; a < A; a += 32) {
+            const float tq = tanhf(Io<IO>::load(key + a) + s_qp[l * ld_a + a]);
+            acc1 = fmaf(tq, Io<IO>::load(v1 + a), acc1);
+            if (DUAL) acc2 = fmaf(tq, Io<IO>::load(v2 + a), acc2);
+          }
+          e1 = warp_sum(acc1) + bias;
+          if (DUAL) e2 = warp_sum(acc2) + bias;
+        }
+        if (lane == 0) {
+          s_e1[l * ld_s + s] = e1;
+          if (DUAL) s_e2[l * ld_s + s] = e2;
+        }
       }
     }
     __syncthreads();
@@ -388,7 +478,23 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
         sum += v;
       }
       sum = warp_sum(sum);
-      if (warp < LANES) {
+      if (LS && warp < LANES) {
+        // location-sensitive: the alignments are the softmax; the cumulative ones
+        // after the step go to the carry row
+        float* alpha = s_alpha1 + l * ld_s;
+        float* cum = s_cum + l * ld_s;
+        for (int s = lane; s < S; s += 32) {
+          const float y = e[s] / sum;
+          alpha[s] = y;
+          if (d.ls_cum) cum[s] += y;
+          if (s_valid[l]) {
+            P.acts[row * d.AW + d.acts[A_Y1] + s] = y;
+            P.aligns[row * NSRC * S + s] = y;
+            P.carry[row * d.CW + d.carry[C_ALPHA] + s] = y;
+            if (d.ls_cum) P.carry[row * d.CW + d.carry[C_CUM] + s] = cum[s];
+          }
+        }
+      } else if (warp < LANES) {
         // a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + 1e-6) y_i(n), renormalised
         const float u = s_u[l];
         float* prev = s_alpha1 + l * ld_s;
@@ -515,10 +621,11 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
 
 struct BwdLayout {
   int part, gcatt, ghatt, gc1, gh1, gc2, gh2, gctx, galpha, gz, gq, qp, gqp;
-  int y1, a1, aprev, a2, ga1, ga2, ge1, ge2, dv, total;
+  int y1, a1, aprev, a2, ga1, ga2, ge1, ge2, dv, lsw, total;
 };
 
-__host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d) {
+// `ls`: the folded location matrix, appended.
+__host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d, bool ls) {
   const int A = d.A1 + d.A2;
   BwdLayout L;
   int at = 0;
@@ -544,6 +651,7 @@ __host__ __device__ inline BwdLayout make_bwd_layout(const Dims& d) {
   L.ge1 = at;     at += LANES * r4(d.S);
   L.ge2 = at;     at += LANES * r4(d.S);
   L.dv = at;      at += LANES * 2 * r4(A);
+  L.lsw = at;     at += (ls ? 1 : 0) * LS_TAPS * r4(d.A1);
   L.total = at;
   return L;
 }
@@ -603,7 +711,7 @@ __device__ __forceinline__ void lstm_backward(int U, float* s_gc, float* s_gh, i
   }
 }
 
-template <bool DUAL, typename IO>
+template <bool DUAL, bool LS, typename IO>
 __global__ void __launch_bounds__(NT)
 teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits bits) {
   constexpr int NSRC = DUAL ? 2 : 1;
@@ -622,7 +730,7 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
   const int A = d.A1 + d.A2, EW = d.E1 + d.E2;
   const int KA = P2 + SPK + EW + AU, KD1 = AU + EW + DU;
 
-  const BwdLayout L = make_bwd_layout(d);
+  const BwdLayout L = make_bwd_layout(d, LS);
   float* s_part = smem + L.part;
   float* s_gcatt = smem + L.gcatt;   const int ld_au = r4(AU);
   float* s_ghatt = smem + L.ghatt;
@@ -645,6 +753,7 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
   float* s_ge1 = smem + L.ge1;
   float* s_ge2 = smem + L.ge2;
   float* s_dv = smem + L.dv;
+  float* s_lsw = smem + L.lsw;       const int ld_lsw = r4(d.A1);   // LS only
 
   const IO* w = P.w;
   const float* v1 = P.v32;        // the score vectors, float
@@ -666,6 +775,11 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
     for (int o = 16; o > 0; o >>= 1) hi = imax(hi, __shfl_xor_sync(0xffffffffu, hi, o));
     if (lane == 0) s_hi[warp] = hi > 0 ? hi : S;
   }
+  if (LS)
+    for (int i = tid; i < LS_TAPS * d.A1; i += NT) {
+      const int k = i / d.A1, a = i - k * d.A1;
+      s_lsw[k * ld_lsw + a] = Io<IO>::load(w + d.off[LS_W] + k * ld_lsw + a);
+    }
   __syncthreads();
 
   for (int t = N - 1; t >= 0; --t) {
@@ -679,8 +793,16 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
       s_y1[l * ld_s + s] = acts[d.acts[A_Y1] + s];
       if (DUAL) s_a2[l * ld_s + s] = acts[d.acts[A_ALPHA2] + s];
       s_a1[l * ld_s + s] = P.carry[row * d.CW + d.carry[C_ALPHA] + s];
-      s_aprev[l * ld_s + s] =
-          t > 0 ? P.carry[(row - 1) * d.CW + d.carry[C_ALPHA] + s] : (s == 0 ? 1.0f : 0.0f);
+      if (LS) {
+        // what the taps of step t read: the cumulative alignments before the step
+        // (zero at t = 0) or the previous alignments (uniform at t = 0)
+        const int at = d.ls_cum ? d.carry[C_CUM] : d.carry[C_ALPHA];
+        s_aprev[l * ld_s + s] = t > 0 ? P.carry[(row - 1) * d.CW + at + s]
+                                      : (d.ls_cum ? 0.0f : 1.0f / (float)S);
+      } else {
+        s_aprev[l * ld_s + s] =
+            t > 0 ? P.carry[(row - 1) * d.CW + d.carry[C_ALPHA] + s] : (s == 0 ? 1.0f : 0.0f);
+      }
     }
     for (int i = tid; i < LANES * A; i += NT) {
       const int l = i / A, j = i - l * A;
@@ -795,7 +917,21 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
     // ------------------------------ recursion and softmax adjoints -------------
     if (warp < NSRC * LANES) {
       const int l = warp < LANES ? warp : warp - LANES;
-      if (warp < LANES) {
+      if (LS && warp < LANES) {
+        // location-sensitive: a = y, the softmax adjoint alone; the carried
+        // alignment's cotangent takes the taps' adjoint after the score pass, on
+        // top of the identity path of the cumulative alignments or instead of it
+        const float* y = s_y1 + l * ld_s;
+        const float* ga = s_ga1 + l * ld_s;
+        float dot = 0.0f;
+        for (int s = lane; s < S; s += 32) dot += ga[s] * y[s];
+        dot = warp_sum(dot);
+        for (int s = lane; s < S; s += 32) {
+          s_ge1[l * ld_s + s] = y[s] * (ga[s] - dot);
+          if (!d.ls_cum) s_galpha[l * ld_s + s] = 0.0f;
+        }
+        if (lane == 0) s_gu[l] = s_gupass[l];
+      } else if (warp < LANES) {
         const float u = s_uprev[l];
         const float* y = s_y1 + l * ld_s;
         const float* a1 = s_a1 + l * ld_s;
@@ -845,38 +981,190 @@ teacher_bwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
 
     // ------------------------------ scores -------------------------------------
     // one pass over (s, a): the tanh again, its cotangent into d_keys, summed over
-    // s into g_qp, and g_e . tanh into this lane's d_vblk partial
-    for (int pair = tid; pair < LANES * A; pair += NT) {
-      const int l = pair / A, a = pair - l * A;
-      const size_t b = (size_t)s_b[l];
-      const float q = s_qp[l * ld_a + a];
-      const float va = __ldg(v1 + a), vb = DUAL ? __ldg(v2 + a) : 0.0f;
-      const float* bias = P.bias + b * S;
-      const IO* key = P.keys + b * S * A + a;
-      float* dk = P.d_keys + b * S * A + a;
-      const float* ge1 = s_ge1 + l * ld_s;
-      const float* ge2 = s_ge2 + l * ld_s;
-      const bool valid = s_valid[l] != 0;
-      float g_q = 0.0f, d1 = 0.0f, d2 = 0.0f;
-      const int hi = s_hi[l];
-#pragma unroll 4
-      for (int s = 0; s < hi; ++s) {
-        if (__ldg(bias + s) <= -1e8f) continue;
-        const float tq = tanhf(Io<IO>::load(key + (size_t)s * A) + q);
-        const float g1 = ge1[s], g2 = DUAL ? ge2[s] : 0.0f;
-        const float g_pre = (g1 * va + g2 * vb) * (1.0f - tq * tq);
-        if (valid) dk[(size_t)s * A] += g_pre;
-        g_q += g_pre;
-        d1 = fmaf(g1, tq, d1);
-        d2 = fmaf(g2, tq, d2);
+    // s into g_qp, and g_e . tanh into this lane's d_vblk partial; location-sensitive,
+    // the tanh's argument with the location features of the carried alignments, and
+    // source 1's columns of its rounded cotangent into the lane's scratch row
+    if (LS) {
+      const int half = d.K >> 1, ldg = r4(d.A1);
+      for (int pair = tid; pair < LANES * A; pair += NT) {
+        const int l = pair / A, a = pair - l * A;
+        const size_t b = (size_t)s_b[l];
+        const float q = s_qp[l * ld_a + a];
+        const float va = __ldg(v1 + a), vb = DUAL ? __ldg(v2 + a) : 0.0f;
+        const float* bias = P.bias + b * S;
+        const IO* key = P.keys + b * S * A + a;
+        float* dk = P.d_keys + b * S * A + a;
+        float* gl = P.ls_g + b * S * ldg + a;
+        const float* ge1 = s_ge1 + l * ld_s;
+        const float* ge2 = s_ge2 + l * ld_s;
+        const bool valid = s_valid[l] != 0, first = a < d.A1;
+        const float lb = first ? __ldg(P.ls_b + a) : 0.0f;
+        float g_q = 0.0f, d1 = 0.0f, d2 = 0.0f;
+        const int hi = s_hi[l];
+        for (int s0 = 0; s0 < hi; s0 += LS_RUN) {
+          float loc[LS_RUN];
+          if (first) {
+            float win[LS_WIN];
+            ls_window<IO>(s_aprev + l * ld_s, S, s0 - half, win);
+            ls_dot(win, s_lsw, ld_lsw, a, loc);
+          } else {
+#pragma unroll
+            for (int j = 0; j < LS_RUN; ++j) loc[j] = 0.0f;
+          }
+#pragma unroll
+          for (int j = 0; j < LS_RUN; ++j) {
+            const int s = s0 + j;
+            if (s >= hi) break;
+            float g_pre = 0.0f;
+            if (__ldg(bias + s) > -1e8f) {
+              const float tq = tanhf((Io<IO>::load(key + (size_t)s * A) + q) + (loc[j] + lb));
+              const float g1 = ge1[s], g2 = DUAL ? ge2[s] : 0.0f;
+              g_pre = (g1 * va + g2 * vb) * (1.0f - tq * tq);
+              if (valid) dk[(size_t)s * A] += g_pre;
+              g_q += g_pre;
+              d1 = fmaf(g1, tq, d1);
+              d2 = fmaf(g2, tq, d2);
+            }
+            if (first && valid) gl[(size_t)s * ldg] = Io<IO>::round(g_pre);
+          }
+        }
+        s_gqp[l * ld_a + a] = Io<IO>::round(g_q);   // what enters the product with Wqp^T
+        s_dv[(l * NSRC) * ld_a + a] += d1;
+        if (DUAL) s_dv[(l * NSRC + 1) * ld_a + a] += d2;
+        if (valid) {
+          const size_t at = (b * N + t) * d.SW + d.stack[G_QP] + a;
+          P.stack[at] = Io<IO>::from(g_q);
+          P.d_brow[b * d.SW + d.stack[G_QP] + a] += g_q;
+        }
       }
-      s_gqp[l * ld_a + a] = Io<IO>::round(g_q);   // what enters the product with Wqp^T
-      s_dv[(l * NSRC) * ld_a + a] += d1;
-      if (DUAL) s_dv[(l * NSRC + 1) * ld_a + a] += d2;
-      if (valid) {
-        const size_t at = (b * N + t) * d.SW + d.stack[G_QP] + a;
-        P.stack[at] = Io<IO>::from(g_q);
-        P.d_brow[b * d.SW + d.stack[G_QP] + a] += g_q;
+      __syncthreads();
+      // d_Wls[k][a] += sum_{s < hi} taps[s][k] g[s][a]: a thread per (lane, 8 taps,
+      // 4 columns), 8 positions at a time: their 8 rows in flight at once and the
+      // 15 taps they read (rounded as the forward rounds them) in registers
+      const int n4 = ldg >> 2;
+      for (int task = tid; task < LANES * 4 * n4; task += NT) {
+        const int l = task / (4 * n4), rest = task - l * 4 * n4;
+        const int k0 = (rest / n4) * 8, c4 = rest - (rest / n4) * n4;
+        if (!s_valid[l]) continue;
+        const size_t b = (size_t)s_b[l];
+        const float* prev = s_aprev + l * ld_s;
+        const float4* g4 = reinterpret_cast<const float4*>(P.ls_g + b * S * ldg) + c4;
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 acc[8];
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) acc[kk] = zero;
+        const int hi = s_hi[l];
+        for (int s0 = 0; s0 < hi; s0 += 8) {
+          float4 g[8];
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+            g[u] = s0 + u < hi ? __ldcg(g4 + (size_t)(s0 + u) * n4) : zero;
+          float win[15];
+#pragma unroll
+          for (int i = 0; i < 15; ++i) {
+            const int p = s0 + k0 - half + i;
+            win[i] = (p >= 0 && p < S) ? Io<IO>::round(prev[p]) : 0.0f;
+          }
+#pragma unroll
+          for (int u = 0; u < 8; ++u)
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk) fma4(acc[kk], win[u + kk], g[u]);
+        }
+        float4* dst = reinterpret_cast<float4*>(P.d_lsw + (b * LS_TAPS + k0) * ldg) + c4;
+#pragma unroll
+        for (int kk = 0; kk < 8; ++kk) {
+          float4 v = dst[(size_t)kk * n4];
+          v.x += acc[kk].x;
+          v.y += acc[kk].y;
+          v.z += acc[kk].z;
+          v.w += acc[kk].w;
+          dst[(size_t)kk * n4] = v;
+        }
+      }
+      // G[s][k] = sum_a g[s][a] Wls[k][a]: a thread per (lane, 4 positions, 8 taps)
+      const int ns4 = (S + 3) >> 2;
+      for (int task = tid; task < LANES * ns4 * 4; task += NT) {
+        const int l = task / (ns4 * 4), rest = task - l * ns4 * 4;
+        const int s0 = (rest >> 2) * 4, k0 = (rest & 3) * 8;
+        if (!s_valid[l] || s0 >= s_hi[l]) continue;
+        const size_t b = (size_t)s_b[l];
+        float acc[4][8];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) acc[i][kk] = 0.0f;
+        const float4* g4 = reinterpret_cast<const float4*>(P.ls_g + b * S * ldg);
+        const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 2
+        for (int c4 = 0; c4 < n4; ++c4) {
+          float4 g[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            g[i] = s0 + i < S ? __ldcg(g4 + (size_t)(s0 + i) * n4 + c4) : zero;
+#pragma unroll
+          for (int kk = 0; kk < 8; ++kk) {
+            const float4 wv = *reinterpret_cast<const float4*>(s_lsw + (k0 + kk) * ld_lsw + 4 * c4);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              acc[i][kk] += g[i].x * wv.x + g[i].y * wv.y + g[i].z * wv.z + g[i].w * wv.w;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (s0 + i < S)
+#pragma unroll
+            for (int kk = 0; kk < 8; ++kk)
+              P.ls_gk[(b * S + s0 + i) * LS_TAPS + k0 + kk] = acc[i][kk];
+      }
+      __syncthreads();
+      // the taps' adjoint onto the carried alignment's cotangent:
+      // g_prev[p] = sum_k G[p - k + K/2][k] over the positions s < hi
+      for (int i = tid; i < LANES * S; i += NT) {
+        const int l = i / S, p = i - l * S;
+        if (!s_valid[l]) continue;
+        const float* G = P.ls_gk + (size_t)s_b[l] * S * LS_TAPS;
+        const int hi = s_hi[l];
+        float v = 0.0f;
+#pragma unroll
+        for (int k = 0; k < LS_TAPS; ++k) {   // unrolled: the loads in flight at once
+          const int s = p - k + half;
+          if (k < d.K && s >= 0 && s < hi) v += __ldcg(G + (size_t)s * LS_TAPS + k);
+        }
+        s_galpha[l * ld_s + p] += v;
+      }
+    } else {
+      for (int pair = tid; pair < LANES * A; pair += NT) {
+        const int l = pair / A, a = pair - l * A;
+        const size_t b = (size_t)s_b[l];
+        const float q = s_qp[l * ld_a + a];
+        const float va = __ldg(v1 + a), vb = DUAL ? __ldg(v2 + a) : 0.0f;
+        const float* bias = P.bias + b * S;
+        const IO* key = P.keys + b * S * A + a;
+        float* dk = P.d_keys + b * S * A + a;
+        const float* ge1 = s_ge1 + l * ld_s;
+        const float* ge2 = s_ge2 + l * ld_s;
+        const bool valid = s_valid[l] != 0;
+        float g_q = 0.0f, d1 = 0.0f, d2 = 0.0f;
+        const int hi = s_hi[l];
+#pragma unroll 4
+        for (int s = 0; s < hi; ++s) {
+          if (__ldg(bias + s) <= -1e8f) continue;
+          const float tq = tanhf(Io<IO>::load(key + (size_t)s * A) + q);
+          const float g1 = ge1[s], g2 = DUAL ? ge2[s] : 0.0f;
+          const float g_pre = (g1 * va + g2 * vb) * (1.0f - tq * tq);
+          if (valid) dk[(size_t)s * A] += g_pre;
+          g_q += g_pre;
+          d1 = fmaf(g1, tq, d1);
+          d2 = fmaf(g2, tq, d2);
+        }
+        s_gqp[l * ld_a + a] = Io<IO>::round(g_q);   // what enters the product with Wqp^T
+        s_dv[(l * NSRC) * ld_a + a] += d1;
+        if (DUAL) s_dv[(l * NSRC + 1) * ld_a + a] += d2;
+        if (valid) {
+          const size_t at = (b * N + t) * d.SW + d.stack[G_QP] + a;
+          P.stack[at] = Io<IO>::from(g_q);
+          P.d_brow[b * d.SW + d.stack[G_QP] + a] += g_q;
+        }
       }
     }
     __syncthreads();
@@ -925,8 +1213,10 @@ bool sizes_ok(const Dims& d) {
   if (d.B <= 0 || d.S <= 0 || d.N <= 0 || d.P2 <= 0 || d.AU <= 0 || d.A1 <= 0 || d.DU <= 0 ||
       d.E1 <= 0 || d.SPK < 0 || d.E1 % 4 != 0)
     return false;
-  // two sources (E2 > 0): a second mechanism and memory; one source: neither
-  return (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
+  // two sources (E2 > 0): a second mechanism and memory; one source: neither;
+  // location-sensitive: an odd number of taps up to LS_TAPS and no transition agent
+  const bool ls = d.K == 0 || (d.K > 0 && d.K <= LS_TAPS && d.K % 2 == 1 && d.use_ta == 0);
+  return (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0 && ls;
 }
 
 template <typename IO>
@@ -951,6 +1241,10 @@ Ptrs<IO> make_ptrs(const void* const* p, const Dims& d) {
   P.d_spk = (float*)p[16];
   P.d_brow = (float*)p[17];
   P.v32 = (const float*)p[18];
+  P.ls_b = (const float*)p[19];
+  P.d_lsw = (float*)p[20];
+  P.ls_g = (float*)p[21];
+  P.ls_gk = (float*)p[22];
   return P;
 }
 
@@ -958,12 +1252,18 @@ template <typename IO>
 using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars, const Bits);
 
 // The kernel of one direction compiled for the specialisation of `d`'s widths
-// (a second memory, E2 > 0, means two sources), with io type IO.
+// (a second memory, E2 > 0, means two sources; K > 0 location-sensitive
+// attention), with io type IO.
 template <typename IO>
 Kernel<IO> kernel_for(const Dims& d, bool backward) {
   const bool dual = d.E2 > 0;
-  if (backward) return dual ? teacher_bwd_kernel<true, IO> : teacher_bwd_kernel<false, IO>;
-  return dual ? teacher_fwd_kernel<true, IO> : teacher_fwd_kernel<false, IO>;
+  const bool ls = d.K > 0;
+  if (backward) {
+    if (ls) return dual ? teacher_bwd_kernel<true, true, IO> : teacher_bwd_kernel<false, true, IO>;
+    return dual ? teacher_bwd_kernel<true, false, IO> : teacher_bwd_kernel<false, false, IO>;
+  }
+  if (ls) return dual ? teacher_fwd_kernel<true, true, IO> : teacher_fwd_kernel<false, true, IO>;
+  return dual ? teacher_fwd_kernel<true, false, IO> : teacher_fwd_kernel<false, false, IO>;
 }
 
 const void* kernel_address(const Dims& d, bool backward) {
@@ -972,7 +1272,9 @@ const void* kernel_address(const Dims& d, bool backward) {
 }
 
 size_t smem_bytes(const Dims& d, bool backward) {
-  const int total = backward ? make_bwd_layout(d).total : make_fwd_layout(d, d.bf16 != 0).total;
+  const bool ls = d.K > 0;
+  const int total =
+      backward ? make_bwd_layout(d, ls).total : make_fwd_layout(d, d.bf16 != 0, ls).total;
   return (size_t)total * sizeof(float);
 }
 
@@ -1002,6 +1304,10 @@ int launch(bool backward, const void* const* pointers, const int* dims, const fl
   if (d.SPK > 0 && pointers[6] == nullptr) return (int)cudaErrorInvalidValue;
   if (d.E2 > 0 && pointers[4] == nullptr) return (int)cudaErrorInvalidValue;
   if (backward && pointers[18] == nullptr) return (int)cudaErrorInvalidValue;
+  if (d.K > 0 && (pointers[19] == nullptr ||
+                  (backward && (pointers[20] == nullptr || pointers[21] == nullptr ||
+                                pointers[22] == nullptr))))
+    return (int)cudaErrorInvalidValue;
   if (d.bf16) return launch_io<__nv_bfloat16>(backward, pointers, d, sc, bt, (cudaStream_t)stream);
   return launch_io<float>(backward, pointers, d, sc, bt, (cudaStream_t)stream);
 }
@@ -1034,10 +1340,11 @@ long long fused_teacher_smem_limit(const int* dims, int backward) {
   return (long long)optin - (long long)attr.sharedSizeBytes;
 }
 
-// `pointers`: 19 device pointers in the order of make_ptrs (host array); the
-// forward reads the first 11, the backward all but 7..8. With one source
-// pointers[4] (the second memory) is a placeholder that is never read. The io
-// type is dims' bf16 flag: pointers 0..4, 6 and 13 are of it.
+// `pointers`: 23 device pointers in the order of make_ptrs (host array); the
+// forward reads the first 11 and 18..19, the backward all but 7..8. With one
+// source pointers[4] (the second memory) is a placeholder that is never read, and
+// so are 19..22 without location-sensitive attention. The io type is dims' bf16
+// flag: pointers 0..4, 6 and 13 are of it.
 int fused_teacher_fwd(const void* const* pointers, const int* dims, const float* scalars,
                       const unsigned* bits, void* stream) {
   return launch(false, pointers, dims, scalars, bits, stream);

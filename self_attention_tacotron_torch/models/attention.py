@@ -1,4 +1,4 @@
-"""Attention mechanisms of the flagship: additive and forward attention.
+"""Attention mechanisms: additive, location-sensitive and forward attention.
 
 Counterpart of ``self_attention_tacotron_tpu/models/attention.py``. Every
 mechanism is a step function whose whole recursion state lives in an explicit
@@ -6,6 +6,9 @@ mechanism is a step function whose whole recursion state lives in an explicit
 of keys plus query is taken in bfloat16 and then to float32, and the context is
 the alignments cast to the memory's dtype times the memory, as the JAX package
 does it.
+
+Location-sensitive attention (Tacotron 2) adds to the score's sum a dense layer
+over a SAME convolution of the previous or the cumulative alignments.
 
 Forward attention follows Zhang & Ling (ICASSP 2018):
 a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + eps) * y_i(n), renormalised,
@@ -21,7 +24,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from self_attention_tacotron_torch.models.modules import Dense, sigmoid
+from self_attention_tacotron_torch.models.modules import Dense, _same_padding, sigmoid
 
 _EPS = 1e-6
 _NEG_INF = -1e9
@@ -112,6 +115,63 @@ class AdditiveAttention(_AdditiveScore):
         return _context(probs, memory), probs, new_state
 
 
+class LocationSensitiveAttention(_AdditiveScore):
+    """Additive attention plus convolutional features of the alignments (Tacotron 2):
+    score = v^T tanh(keys + Wq q + location_layer(conv(prev)) + attention_b), where
+    ``prev`` is the cumulative alignments with ``cumulative_weights``, else the
+    previous ones, and the convolution is SAME over the source axis: one channel in,
+    ``attention_filters`` out, ``attention_kernel`` taps, with a bias.
+
+    In bfloat16, as flax computes it: ``prev`` rounded, the convolution and its
+    bias, the dense layer and the sum before the tanh each in bfloat16.
+    """
+
+    compute_dtype = torch.float32
+
+    def __init__(self, query_units: int, memory_units: int, num_units: int,
+                 attention_kernel: int = 31, attention_filters: int = 32,
+                 cumulative_weights: bool = True, own_query_layer: bool = True):
+        super().__init__(query_units, memory_units, num_units, own_query_layer)
+        self.attention_kernel = attention_kernel
+        self.cumulative_weights = cumulative_weights
+        self.location_conv = nn.Conv1d(1, attention_filters, attention_kernel)
+        self.location_layer = Dense(attention_filters, num_units, bias=False)
+        self.attention_b = nn.Parameter(torch.zeros(num_units))
+
+    def location_features(self, prev: torch.Tensor) -> torch.Tensor:
+        """(B, S) alignments -> (B, S, num_units) in the compute dtype."""
+        dtype = self.compute_dtype
+        x = F.pad(prev.to(dtype)[:, None, :], _same_padding(self.attention_kernel))
+        f = F.conv1d(x, self.location_conv.weight.to(dtype))
+        f = f + self.location_conv.bias.to(dtype)[None, :, None]
+        return self.location_layer(f.transpose(1, 2))
+
+    def forward(self, query, keys, memory, mask, state: AttentionState, projected_query=None):
+        if projected_query is None:
+            if self.query_layer is None:
+                raise ValueError("this mechanism has no query layer: pass projected_query")
+            projected_query = self.query_layer(query)
+        prev = state.cumulative if self.cumulative_weights else state.alignments
+        loc = self.location_features(prev)
+        bias = self.attention_b.to(loc.dtype)
+        hidden = torch.tanh(keys + projected_query[:, None, :] + loc + bias).float()
+        probs = _masked_softmax(torch.matmul(hidden, self.attention_v[:, 0].float()), mask)
+        new_state = state.replace(
+            alignments=probs, cumulative=state.cumulative + probs, step=state.step + 1
+        )
+        return _context(probs, memory), probs, new_state
+
+
+def location_fold(mech: LocationSensitiveAttention) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The convolution and the dense layer after it folded into one linear map of
+    the taps, in float32 and under autograd, as the kernels take it:
+    ``(w (K, units), bias (units,))`` with ``w = conv[:, 0, :] @ location_layer`` and
+    ``bias = conv_bias @ location_layer + attention_b``."""
+    conv = mech.location_conv.weight[:, 0, :].t().float()        # (K, filters)
+    dense = mech.location_layer.weight.t().float()               # (filters, units)
+    return conv @ dense, mech.location_conv.bias.float() @ dense + mech.attention_b.float()
+
+
 class ForwardAttention(_AdditiveScore):
     """Forward attention with optional transition agent.
 
@@ -166,12 +226,19 @@ def attention_factory(
     )
     if name == "additive":
         return AdditiveAttention(**kw)
+    if name == "location_sensitive":
+        return LocationSensitiveAttention(
+            attention_kernel=hparams.attention_kernel,
+            attention_filters=hparams.attention_filters,
+            cumulative_weights=hparams.cumulative_weights,
+            **kw,
+        )
     if name == "forward":
         return ForwardAttention(
             use_transition_agent=hparams.use_forward_attention_transition_agent, **kw
         )
     if name == "forward_transition_agent":
         return ForwardAttention(use_transition_agent=True, **kw)
-    if name in ("location_sensitive", "teacher_forcing_forward", "teacher_forcing_additive"):
+    if name in ("teacher_forcing_forward", "teacher_forcing_additive"):
         raise NotImplementedError(f"attention mechanism {name!r} is not ported yet")
     raise ValueError(f"unknown attention mechanism: {name!r}")

@@ -10,7 +10,11 @@ All recurrence state is carried explicitly in :class:`DecoderState`.
 ``forward(cond, targets)`` is the teacher-forced pass of training and
 evaluation. On a CUDA device, with ``use_pallas`` and a decoder of the family
 ``ops/fused_teacher.py`` serves, the scanned region runs as that module's two
-kernels, in float32 or bfloat16 as the decoder computes (or raises);
+kernels, in float32 or bfloat16 as the decoder computes (or raises); a
+location-sensitive mechanism hands them its convolution and dense layer folded
+into one map of the taps (``location_fold``), under autograd, so that the
+kernels' gradients of the fold reach the convolution, the dense layer and the
+bias as the JAX package's autodiff takes them there;
 otherwise, and on the CPU, it is a Python loop over ``step`` under autograd.
 Both paths draw the prenet's dropout masks and the zoneout masks' seed from one
 generator in one order and build the zoneout masks from the same hash, so they
@@ -29,7 +33,9 @@ from self_attention_tacotron_torch.models.attention import (
     AdditiveAttention,
     AttentionState,
     ForwardAttention,
+    LocationSensitiveAttention,
     initial_attention_state,
+    location_fold,
 )
 from self_attention_tacotron_torch.models.modules import (
     Dense,
@@ -324,7 +330,10 @@ class Decoder(nn.Module):
 
     def fused_teacher_supported(self) -> bool:
         """Whether this decoder is of the family the teacher kernels serve: forward
-        attention on source 1, and on source 2, where there is one, additive."""
+        attention on source 1, and on source 2, where there is one, additive; or
+        location-sensitive attention with an odd number of taps up to
+        ``fused_teacher.MAX_TAPS`` on the baseline's one source without
+        self-attention or on the flagship's two sources with it."""
         mechs = self.attentions
         if len(mechs) == 1:
             sources_ok = mechs[0].query_layer is not None
@@ -334,9 +343,17 @@ class Decoder(nn.Module):
                 and isinstance(mechs[1], AdditiveAttention)
                 and self.query_projection is not None
             )
+        mech1 = mechs[0]
+        if isinstance(mech1, LocationSensitiveAttention):
+            mech_ok = (
+                fused_teacher.taps_supported(mech1.attention_kernel)
+                and (len(mechs) == 2) == (self.self_attention is not None)
+            )
+        else:
+            mech_ok = isinstance(mech1, ForwardAttention)
         return (
             sources_ok
-            and isinstance(mechs[0], ForwardAttention)
+            and mech_ok
             and len(self.prenet.out_units) == 2
             and self.num_decoder_layers == 2
             and all(u % 4 == 0 for u in self.memory_units)
@@ -346,8 +363,9 @@ class Decoder(nn.Module):
     def _teacher_hp_like(self) -> Dict:
         mech1 = self.attentions[0]
         dual = self.num_attentions == 2
+        ls = isinstance(mech1, LocationSensitiveAttention)
         return dict(
-            dual=dual, use_ta=mech1.transition_factor is not None,
+            dual=dual, use_ta=getattr(mech1, "transition_factor", None) is not None,
             att_units=self.attention_rnn_out_units, att1_units=mech1.num_units,
             att2_units=self.attentions[1].num_units if dual else 0,
             dec_units=self.decoder_out_units,
@@ -356,7 +374,9 @@ class Decoder(nn.Module):
             forget_bias=self.attention_lstm.forget_bias,
             prenet_drop_rate=self.prenet.drop_rate,
             io_dtype="bfloat16" if self.compute_dtype == torch.bfloat16 else "float32",
-            src1_kind="forward",
+            src1_kind="location_sensitive" if ls else "forward",
+            ls_cumulative=bool(mech1.cumulative_weights) if ls else True,
+            ls_kernel=int(mech1.attention_kernel) if ls else 0,
             eval_zoneout=not self.training,
         )
 
@@ -366,15 +386,17 @@ class Decoder(nn.Module):
         Dual source: ``vblk`` from the two score vectors, ``w_qp`` the fused query
         projection, both mechanisms' keys side by side. One source: ``vblk`` is the
         score vector, ``w_qp`` the mechanism's own query layer, and there is no
-        second key or memory. The key mask becomes a bias. Keys and memories are in
-        the compute dtype, the weights and the speaker embedding float32 (the
-        kernels round them)."""
+        second key or memory. A location-sensitive mechanism adds its folded taps
+        ``w_lsW`` (K, A1) and ``ls_bias`` (A1,) (``location_fold``). The key mask
+        becomes a bias. Keys and memories are in the compute dtype, the weights and
+        the speaker embedding float32 (the kernels round them)."""
         mech1 = self.attentions[0]
         dual = self.num_attentions == 2
         v1 = mech1.attention_v
         e1 = self.memory_units[0]
-        if mech1.transition_factor is not None:
-            w_ta, b_ta = mech1.transition_factor.weight.t(), mech1.transition_factor.bias
+        agent = getattr(mech1, "transition_factor", None)
+        if agent is not None:
+            w_ta, b_ta = agent.weight.t(), agent.bias
         else:
             w_ta = v1.new_zeros(e1 + self.attention_rnn_out_units, 1)
             b_ta = v1.new_zeros(1)
@@ -386,6 +408,8 @@ class Decoder(nn.Module):
             w_l1=self.decoder_lstm_0.gates.weight.t(), b_l1=self.decoder_lstm_0.gates.bias,
             w_l2=self.decoder_lstm_1.gates.weight.t(), b_l2=self.decoder_lstm_1.gates.bias,
         )
+        if isinstance(mech1, LocationSensitiveAttention):
+            weights["w_lsW"], weights["ls_bias"] = location_fold(mech1)
         if dual:
             v2 = self.attentions[1].attention_v
             weights["w_qp"] = self.query_projection.weight.t()

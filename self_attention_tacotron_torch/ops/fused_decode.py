@@ -41,7 +41,13 @@ projection; else the mechanism's own query layer) and ``use_sa`` (one decoder
 self-attention hop; else the output projection reads the feature), and for
 each io type, float32 and bfloat16: forward attention (with or without
 transition agent) on source 1, optional speaker embedding, mel head,
-``n_feed_frame=1``, two prenet layers.
+``n_feed_frame=1``, two prenet layers. Location-sensitive attention on source 1
+is compiled for the two pairs of flags a model class reaches (``dual`` with
+``use_sa``, the flagship's structure, and neither, the baseline's), with an odd
+number of taps up to ``MAX_TAPS``: its convolution and dense layer come folded
+into one map of the taps (``models/attention.py::location_fold``), the
+alignments are the softmax itself, start uniform, and the taps read the
+cumulative alignments or the previous ones.
 """
 
 from __future__ import annotations
@@ -53,11 +59,17 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
-from self_attention_tacotron_torch.models.attention import AdditiveAttention, ForwardAttention
+from self_attention_tacotron_torch.models.attention import (
+    AdditiveAttention,
+    ForwardAttention,
+    LocationSensitiveAttention,
+    location_fold,
+)
 from self_attention_tacotron_torch.models.decoders import DECODERS, Decoder, DecoderConditioning
 from self_attention_tacotron_torch.models.encoders import encoder_out_units
 from self_attention_tacotron_torch.models.models import COMPUTE_DTYPES
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
+from self_attention_tacotron_torch.ops.fused_teacher import MAX_TAPS, location_taps, taps_supported
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
 # Launches of the CUDA kernel made by ``fused_decode`` in this process.
@@ -88,9 +100,9 @@ def _round4(n: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def variant_name(dual: bool, use_sa: bool, io_dtype=torch.float32) -> str:
+def variant_name(dual: bool, use_sa: bool, io_dtype=torch.float32, ls: bool = False) -> str:
     """The name of a specialisation of the kernel, as ``variant_launches`` keys it."""
-    name = f"dual={int(dual)},use_sa={int(use_sa)}"
+    name = f"dual={int(dual)},use_sa={int(use_sa)}" + (",ls" if ls else "")
     return name if io_dtype == torch.float32 else f"{name},bf16"
 
 
@@ -100,11 +112,13 @@ def supports_fused_decode(hp) -> bool:
     The four mel decoders (one or two sources, with or without one decoder
     self-attention hop), forward attention with or without the transition agent
     on source 1, additive attention on source 2 where there is one, mel head,
-    ``n_feed_frame=1``, two prenet layers, float32 or bfloat16. The kernel reads
-    memories and cache rows four values at a time, so those widths are multiples
-    of 4; and the first decoder LSTM has no residual, which holds whenever its
-    input and output widths differ. Not served: location-sensitive attention, the
-    MgcLf0 heads.
+    ``n_feed_frame=1``, two prenet layers, float32 or bfloat16; location-sensitive
+    attention on source 1 of ``ExtendedDecoder`` and of
+    ``DualSourceSelfAttentionDecoder`` (the decoders its model classes reach) with
+    an odd ``attention_kernel`` up to ``MAX_TAPS``. The kernel reads memories and
+    cache rows four values at a time, so those widths are multiples of 4; and the
+    first decoder LSTM has no residual, which holds whenever its input and output
+    widths differ. Not served: the MgcLf0 heads.
     """
     if hp.decoder not in DECODERS:
         return False
@@ -115,8 +129,13 @@ def supports_fused_decode(hp) -> bool:
         and z["SA"] % z["H"] == 0
         and (z["SA"] // z["H"]) % 4 == 0
     )
+    mechanism_ok = hp.attention in ("forward", "forward_transition_agent") or (
+        hp.attention == "location_sensitive"
+        and taps_supported(hp.attention_kernel)
+        and (sources == 2) == use_sa
+    )
     return bool(
-        hp.attention in ("forward", "forward_transition_agent")
+        mechanism_ok
         and (sources == 1 or hp.attention2 == "additive")
         and sa_ok
         and hp.n_feed_frame == 1
@@ -142,6 +161,7 @@ def _hp_sizes(hp) -> Dict[str, int]:
         SA=hp.decoder_self_attention_out_units if use_sa else 0,
         H=hp.decoder_self_attention_num_heads if use_sa else 0, FFN=1024 if use_sa else 0,
         E1=encoder_out_units(hp), E2=hp.self_attention_out_units if dual else 0,
+        K=hp.attention_kernel if hp.attention == "location_sensitive" else 0,
     )
 
 
@@ -173,19 +193,24 @@ def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
 _ENTRIES = (
     "p1_w", "p1_b", "p2_w", "p2_b", "attg_w", "attg_b", "qp_w", "v_cat", "ta_w", "ta_b",
     "l1_w", "l1_b", "l2_w", "l2_b", "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
-    "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b", "out_w", "out_b",
+    "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b", "out_w", "out_b", "ls_w", "ls_b",
 )
 # The entries that stay float32 whatever the io type (the JAX package packs them
-# so): the score vectors and the LayerNorm parameters. They have their own buffer.
-_F32_ENTRIES = ("v_cat", "ln1_s", "ln1_b", "ln2_s", "ln2_b")
+# so): the score vectors, the LayerNorm parameters and the location bias. They
+# have their own buffer.
+_F32_ENTRIES = ("v_cat", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "ls_b")
 # Order of the sizes handed to the kernel, before the offsets of the entries. They
-# name the specialisation: ``E2 > 0`` two sources, ``SA > 0`` decoder self-attention.
-_SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2")
+# name the specialisation: ``E2 > 0`` two sources, ``SA > 0`` decoder self-attention,
+# ``K > 0`` (the location taps) location-sensitive attention.
+_SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2", "K")
 # The entries of the self-attention block: empty without it.
 _SA_ENTRIES = (
     "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
     "qkv_w", "o_w", "o_b", "f1_w", "f1_b", "f2_w", "f2_b",
 )
+# The folded location taps (``MAX_TAPS`` rows, zero beyond K) and their bias: empty
+# without location-sensitive attention.
+_LS_ENTRIES = ("ls_w", "ls_b")
 
 
 @dataclasses.dataclass
@@ -198,8 +223,9 @@ class PackedDecoder:
     4 values, so that the kernel reads four values at a time. ``flat32`` holds the
     entries of ``_F32_ENTRIES`` the same way in float32. ``mat(name)`` is the
     (rows, cols) view of one entry, without the padding; an entry the
-    specialisation does not have is (0, 0). ``dual`` and ``use_sa`` name the
-    specialisation, read from the widths.
+    specialisation does not have is (0, 0). ``dual``, ``use_sa`` and ``ls`` name
+    the specialisation, read from the widths; ``ls_cumulative``: the location taps
+    read the cumulative alignments.
     """
 
     flat: torch.Tensor
@@ -214,6 +240,7 @@ class PackedDecoder:
     ln_eps: float
     pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates; empty without self-attention
     flat32: Optional[torch.Tensor] = None
+    ls_cumulative: bool = False
 
     @property
     def dual(self) -> bool:
@@ -222,6 +249,10 @@ class PackedDecoder:
     @property
     def use_sa(self) -> bool:
         return self.sizes["SA"] > 0
+
+    @property
+    def ls(self) -> bool:
+        return self.sizes["K"] > 0
 
     @property
     def io_dtype(self) -> torch.dtype:
@@ -251,8 +282,10 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
     """
     dual = decoder.num_attentions == 2
     mech1 = decoder.attentions[0]
+    ls = isinstance(mech1, LocationSensitiveAttention)
     _require(decoder.num_attentions in (1, 2), "the kernel takes one or two sources")
-    _require(isinstance(mech1, ForwardAttention), "source 1 must use forward attention")
+    _require(isinstance(mech1, ForwardAttention) or ls,
+             "source 1 must use forward or location-sensitive attention")
     if dual:
         mech2 = decoder.attentions[1]
         _require(isinstance(mech2, AdditiveAttention), "source 2 must use additive attention")
@@ -268,6 +301,11 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
     use_sa = sa is not None
     _require(not use_sa or (sa.num_hop == 1 and sa.use_positional_encoding),
              "one decoder self-attention hop with positional encoding is required")
+    if ls:
+        _require(taps_supported(mech1.attention_kernel),
+                 f"the location convolution needs an odd number of taps up to {MAX_TAPS}")
+        _require(dual == use_sa, "location-sensitive attention is compiled for two sources with "
+                 "self-attention and for one source without")
     cells = (decoder.attention_lstm, *decoder.decoder_lstms)
     for attr in ("zoneout_factor_cell", "zoneout_factor_output", "forget_bias"):
         _require(len({getattr(c, attr) for c in cells}) == 1, f"the cells differ in {attr}")
@@ -285,6 +323,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         SPK=KA - (P2 + E1 + E2 + AU), AU=AU, A1=mech1.num_units,
         A2=decoder.attentions[1].num_units if dual else 0, DU=DU, SA=SA, H=H,
         FFN=block.ffn1.out_features if use_sa else 0, E1=E1, E2=E2,
+        K=mech1.attention_kernel if ls else 0,
     )
     _require(sizes["SPK"] >= 0, "the attention LSTM is narrower than its inputs")
     _require(E1 % 4 == 0 and E2 % 4 == 0, "memory widths must be multiples of 4")
@@ -299,7 +338,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
     def row(vector) -> torch.Tensor:
         return vector.detach().reshape(1, -1)
 
-    use_ta = mech1.transition_factor is not None
+    use_ta = getattr(mech1, "transition_factor", None) is not None
     ref = decoder.output_projection.weight
     zeros = lambda *shape: torch.zeros(*shape, dtype=ref.dtype, device=ref.device)  # noqa: E731
     tensors = {
@@ -328,6 +367,13 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         })
     else:
         tensors.update({name: zeros(0, 0) for name in _SA_ENTRIES})
+    if ls:
+        with torch.no_grad():
+            w_ls, b_ls = location_fold(mech1)
+        tensors["ls_w"] = torch.nn.functional.pad(w_ls, (0, 0, 0, MAX_TAPS - sizes["K"]))
+        tensors["ls_b"] = row(b_ls)
+    else:
+        tensors.update({name: zeros(0, 0) for name in _LS_ENTRIES})
     A, OW = sizes["A1"] + sizes["A2"], sizes["R"] * sizes["M"] + sizes["R"]
     expected = {
         "p1_w": (sizes["M"], P1), "p2_w": (P1, P2), "attg_w": (KA, 4 * AU), "qp_w": (AU, A),
@@ -339,6 +385,8 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
             "in_w": (DU, SA), "qkv_w": (SA, 3 * SA), "o_w": (SA, SA),
             "f1_w": (SA, sizes["FFN"]), "f2_w": (sizes["FFN"], SA),
         })
+    if ls:
+        expected.update({"ls_w": (MAX_TAPS, sizes["A1"]), "ls_b": (1, sizes["A1"])})
     io = decoder.compute_dtype
     _require(io in COMPUTE_DTYPES.values(),
              f"compute dtype {io}: the kernel takes float32 or bfloat16")
@@ -363,6 +411,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         ln_eps=float(block.ln1.eps) if use_sa else 0.0,
         pe_rate=_pe_rate(SA, ref.device),
         flat32=torch.zeros(max(totals[True], 4), dtype=torch.float32, device=ref.device),
+        ls_cumulative=ls and bool(mech1.cumulative_weights),
     )
     for name in _ENTRIES:
         packed.mat(name).copy_(tensors[name])
@@ -525,8 +574,14 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
     feed = zeros(B, M)
     c_att, h_att = zeros(B, z["AU"]), zeros(B, z["AU"])
     c1, h1, c2, h2 = (zeros(B, z["DU"]) for _ in range(4))
-    alpha1 = zeros(B, S)
-    alpha1[:, 0] = 1.0
+    if p.ls:
+        # the additive family starts uniform; the taps read cum (or the alignments)
+        alpha1 = torch.full((B, S), 1.0 / S, **f32)
+        cum = zeros(B, S)
+        w_ls, b_ls = W["ls_w"][: z["K"]], p.vec("ls_b")
+    else:
+        alpha1 = zeros(B, S)
+        alpha1[:, 0] = 1.0
     u = torch.full((B, 1), 0.5, **f32)
     # one source: the second context has width 0 and so drops out of every input
     ctx1, ctx2 = zeros(B, z["E1"]), zeros(B, z["E2"])
@@ -546,12 +601,21 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
 
         # the sources' scores from one tanh pass over the concatenated keys
         qp = rnd(h_att) @ W["qp_w"]
-        hidden = torch.tanh(keys_cat + qp[:, None, :]) * v_cat
+        pre = keys_cat + qp[:, None, :]
+        if p.ls:
+            # source 1's columns add the folded taps of the rounded alignments
+            loc = location_taps(rnd(cum if p.ls_cumulative else alpha1), z["K"]) @ w_ls + b_ls
+            pre = pre + torch.nn.functional.pad(loc, (0, z["A2"]))
+        hidden = torch.tanh(pre) * v_cat
         e1 = hidden[..., :A1].sum(dim=-1) + ops.score_bias
         y1 = torch.softmax(e1, dim=-1)
-        shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
-        alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
-        alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
+        if p.ls:
+            alpha1 = y1
+            cum = cum + alpha1
+        else:
+            shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
+            alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
+            alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
         ctx1 = (alpha1[:, :, None] * mem1).sum(dim=1)
         if p.use_transition_agent:
             ta_in = rnd(torch.cat([ctx1, h_att], dim=-1))
@@ -623,7 +687,9 @@ def fused_decode_reference(
     """Plain PyTorch version of one launch of ``fused_decode``, in the kernel's formulation.
 
     Concatenated keys against ``[v1 | v2]`` (``v1`` alone with one source), the
-    key mask as an added -1e9, the query scaled by ``1 / sqrt(HD)`` before the
+    location features where source 1 is location-sensitive (taps of the rounded
+    alignments times the folded matrix, plus its float32 bias), the key mask as an
+    added -1e9, the query scaled by ``1 / sqrt(HD)`` before the
     dot, attention over the live prefix of the cache in tiles of ``sa_tile``
     positions (the kernel's is ``SA_TILE``; a test may take a smaller one to
     reach the online softmax in a few steps), dropout as ``x * (1 / keep)`` where
@@ -656,10 +722,10 @@ def _kernel_fn():
     return _function
 
 
-def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0),
+def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0, 0),
           io_dtype=torch.float32, offsets=None):
     # the struct ``Dims`` of the source: sizes, (transition agent, early exit, masks,
-    # bfloat16), offsets
+    # cumulative location taps, bfloat16), offsets
     values = [B, S, T] + [sizes[k] for k in _SIZES] + [int(f) for f in flags]
     values += [int(io_dtype == torch.bfloat16)]
     values += [0] * len(_ENTRIES) if offsets is None else [offsets[name] for name in _ENTRIES]
@@ -717,8 +783,8 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     else:
         k_cache = v_cache = pe_rate = placeholder
 
-    dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None),
-                 io, p.offsets)
+    dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None,
+                              p.ls_cumulative), io, p.offsets)
     scalars = (ctypes.c_float * 7)(
         p.zoneout_cell, p.zoneout_output, p.forget_bias, 1.0 / p.keep_prob,
         stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]) if p.use_sa else 1.0,
@@ -740,7 +806,7 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")
     launch_count += 1
-    name = variant_name(p.dual, p.use_sa, io)
+    name = variant_name(p.dual, p.use_sa, io, p.ls)
     variant_launches[name] = variant_launches.get(name, 0) + 1
     return DecodeResult(
         frames={"mel": frames.view(B, T * R, M)},

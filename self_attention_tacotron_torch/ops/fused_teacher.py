@@ -39,6 +39,21 @@ are compiled once for each); optional speaker embedding, two prenet layers, two
 decoder LSTMs. With one source the query projection is the mechanism's own query
 layer and there is no second key, memory, context or alignment.
 
+Location-sensitive attention on source 1 (``src1_kind``, compiled for both
+``dual`` specialisations): the scores add ``loc = taps(prev) @ w_lsW + ls_bias``
+to source 1's columns before the tanh, where ``taps(prev)[s, k] = prev[s + k -
+K // 2]`` (zero outside the source) of the cumulative alignments
+(``ls_cumulative``; their value before the step is kept in the carry row) or the
+previous ones, and ``w_lsW`` (K, A1), ``ls_bias`` (A1,) are the convolution and
+the dense layer after it folded into one map (``models/attention.py::
+location_fold``, outside this function, so that autograd takes the gradients
+from ``w_lsW`` and ``ls_bias`` to the convolution, the layer and the bias);
+alpha_1 is the softmax itself, and the alignment starts uniform. The backward
+kernel recomputes the taps from the carry rows, sums ``w_lsW``'s gradient per
+lane and adds the taps' adjoint to the carried alignment's cotangent; the
+gradient of ``ls_bias`` is that of the query projection's first A1 columns,
+summed. The kernels take up to ``MAX_TAPS`` taps, an odd number.
+
 The io type (``hp_like["io_dtype"]``) is float32 or bfloat16; both kernels are
 compiled for each. In bfloat16 they round where the JAX package's kernels cast to
 their io_dtype, and everything else is float32 (``rounded``). Forward: every
@@ -69,7 +84,8 @@ from self_attention_tacotron_torch.utils.cuda_build import load_library
 # Launches of the forward and of the backward kernel made in this process.
 launch_count = 0
 bwd_launch_count = 0
-# Launches per kernel and specialisation: ("fwd" | "bwd", "dual" | "single") -> count.
+# Launches per kernel and specialisation: ("fwd" | "bwd", "dual" | "single", with
+# ",ls" for location-sensitive attention) -> count.
 variant_launches: Dict[Tuple[str, str], int] = {}
 # CUDA events around the last launch of each kernel ("fwd", "bwd"); see ``last_launch_ms``.
 _launch_events = {}
@@ -81,18 +97,23 @@ _MASK32 = 0xFFFFFFFF
 # lists the same names in the same order. The last four are transposed copies.
 _ENTRIES = (
     "attg_w", "attg_b", "qp_w", "vblk", "ta_w", "ta_b", "l1_w", "l1_b", "l2_w", "l2_b",
-    "attg_wt", "qp_wt", "l1_wt", "l2_wt",
+    "attg_wt", "qp_wt", "l1_wt", "l2_wt", "ls_w",
 )
-# Order of the sizes handed to the kernels, after (B, S, N).
-_SIZES = ("P2", "SPK", "AU", "A1", "A2", "DU", "E1", "E2")
+# Order of the sizes handed to the kernels, after (B, S, N); K, the location
+# taps, is 0 without location-sensitive attention.
+_SIZES = ("P2", "SPK", "AU", "A1", "A2", "DU", "E1", "E2", "K")
 # Fields of the per-step rows, in the order of the source's enums.
-_CARRY = ("c_att", "h_att", "c1", "h1", "c2", "h2", "ctx1", "ctx2", "alpha", "u")
+_CARRY = ("c_att", "h_att", "c1", "h1", "c2", "h2", "ctx1", "ctx2", "alpha", "cum", "u")
 _ACTS = ("z_att", "z1", "z2", "qp", "y1", "alpha2")
 _STACK = ("g_z_att", "g_z1", "g_z2", "g_feed", "g_qp", "g_ctx1", "g_ctx2", "g_u_pre")
 # Names of the weights of the scanned region, as ``teacher_decode`` takes them.
 CORE_WEIGHTS = (
     "w_attg", "b_attg", "w_qp", "vblk", "w_ta", "b_ta", "w_l1", "b_l1", "w_l2", "b_l2",
 )
+# ... and, with location-sensitive attention, the folded taps and their bias.
+LS_WEIGHTS = ("w_lsW", "ls_bias")
+# Most location taps the kernels take (the rows of their folded matrix, zero-padded).
+MAX_TAPS = 32
 
 _functions = {}
 _IO = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -113,6 +134,22 @@ def _round4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def is_location_sensitive(hp_like: Dict) -> bool:
+    return hp_like.get("src1_kind", "forward") == "location_sensitive"
+
+
+def taps_supported(taps: int) -> bool:
+    """Whether the kernels take a location convolution of ``taps`` taps: an odd
+    number (a centred window, the SAME padding of the JAX package's kernels) of
+    at most ``MAX_TAPS``."""
+    return taps % 2 == 1 and 1 <= taps <= MAX_TAPS
+
+
+def core_weights(hp_like: Dict) -> Tuple[str, ...]:
+    """The names of the scanned region's weights for ``hp_like``."""
+    return CORE_WEIGHTS + (LS_WEIGHTS if is_location_sensitive(hp_like) else ())
+
+
 # --------------------------------------------------------------------------- #
 # Row layouts and zoneout masks: one description for wrapper and plain version
 # --------------------------------------------------------------------------- #
@@ -125,11 +162,14 @@ def row_layouts(z: Dict[str, int], src_len: int) -> Dict[str, Tuple[Dict[str, Tu
     step computed on the way and the backward does not recompute; stack: the
     cotangents a step hands to the batched weight-gradient products. With one
     source (``E2 == 0``) the second context, alignment and context cotangent
-    have width 0.
+    have width 0; the cumulative alignment (after the step) has width S where
+    ``z["CUM"]`` says so (location-sensitive attention over cumulative weights).
     """
     A, S = z["A1"] + z["A2"], src_len
+    cum = S if z.get("CUM", 0) else 0
     widths = {
-        "carry": (z["AU"], z["AU"], z["DU"], z["DU"], z["DU"], z["DU"], z["E1"], z["E2"], S, 1),
+        "carry": (z["AU"], z["AU"], z["DU"], z["DU"], z["DU"], z["DU"], z["E1"], z["E2"], S, cum,
+                  1),
         "acts": (4 * z["AU"], 4 * z["DU"], 4 * z["DU"], A, S, S if z["E2"] else 0),
         "stack": (4 * z["AU"], 4 * z["DU"], 4 * z["DU"], z["P2"], A, z["E1"], z["E2"], 1),
     }
@@ -312,6 +352,46 @@ class _Context(torch.autograd.Function):
         return g_alpha, g_mem, None
 
 
+def location_taps(prev: torch.Tensor, taps: int) -> torch.Tensor:
+    """(B, S) -> (B, S, taps): ``out[b, s, k] = prev[b, s + k - taps // 2]``, zero
+    outside [0, S) (an odd number of taps: the SAME convolution's window)."""
+    half = taps // 2
+    return torch.nn.functional.pad(prev, (half, taps - 1 - half)).unfold(1, taps, 1)
+
+
+class _Location(torch.autograd.Function):
+    """``loc = taps(prev) @ w + b`` (B, S, A1), the folded location features, with
+    the kernels' rounding points: the forward rounds the taps and ``w`` and adds
+    ``b`` unrounded; the backward gives ``w`` the rounded taps against the rounded
+    cotangent, ``prev`` the adjoint of the taps of the rounded cotangent times the
+    rounded ``w``, ``b`` the unrounded cotangent's sum, all float32."""
+
+    @staticmethod
+    def forward(ctx, prev, w, b, io):
+        taps = location_taps(rounded(prev, io), w.shape[0])
+        wr = rounded(w, io)
+        ctx.save_for_backward(taps, wr)
+        ctx.io = io
+        return taps @ wr + b
+
+    @staticmethod
+    def backward(ctx, g):
+        taps, wr = ctx.saved_tensors
+        K, A = wr.shape
+        gr = rounded(g, ctx.io)
+        g_w = taps.reshape(-1, K).t() @ gr.reshape(-1, A) if ctx.needs_input_grad[1] else None
+        g_prev = None
+        if ctx.needs_input_grad[0]:
+            g_taps = gr @ wr.t()                              # (B, S, K)
+            B, S = g_taps.shape[:2]
+            padded = g_taps.new_zeros(B, S + K - 1)
+            for k in range(K):
+                padded[:, k : k + S] += g_taps[:, :, k]
+            g_prev = padded[:, K // 2 : K // 2 + S]
+        g_b = g.sum(dim=(0, 1)) if ctx.needs_input_grad[2] else None
+        return g_prev, g_w, g_b, None
+
+
 def _zoneout_lstm(z, c, h, keep_c, keep_h, forget_bias: float):
     i, g, f, o = z.chunk(4, dim=-1)
     new_c = torch.sigmoid(f + forget_bias) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -327,6 +407,9 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
 
     ``taps``: a list that receives, per step, the tensors of the carry and
     activation rows and those whose gradients make the gradient row.
+    Location-sensitive attention: alpha_1 is the softmax, its first value uniform,
+    and the scores add ``_Location`` of the cumulative (or the previous)
+    alignments to source 1's columns.
     """
     B, N, _ = x2.shape
     io = io_dtype(hp_like)
@@ -338,6 +421,8 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
     masks = zoneout_keep_masks(hp_like, seed, N, B, x2.device)
     step_mask = lambda m, t: m[t] if torch.is_tensor(m) else m  # noqa: E731
     dual = mem2 is not None
+    ls = is_location_sensitive(hp_like)
+    cumulative = ls and hp_like.get("ls_cumulative", True)
 
     c_att, h_att = torch.zeros(B, AU, **f32), torch.zeros(B, AU, **f32)
     c1, h1, c2, h2 = (torch.zeros(B, DU, **f32) for _ in range(4))
@@ -345,8 +430,13 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
     # one source: the second context has width 0 and so drops out of every input
     ctx2 = torch.zeros(B, mem2.shape[-1] if dual else 0, **f32)
     alpha2 = torch.zeros(B, 0, **f32)
-    alpha1 = torch.zeros(B, keys.shape[1], **f32)
-    alpha1[:, 0] = 1.0
+    S, A1 = keys.shape[1], hp_like["att1_units"]
+    if ls:
+        alpha1 = torch.full((B, S), 1.0 / S, **f32)
+    else:
+        alpha1 = torch.zeros(B, S, **f32)
+        alpha1[:, 0] = 1.0
+    cum = torch.zeros(B, S if cumulative else 0, **f32)
     u = torch.full((B, 1), 0.5, **f32)
     features, aligns = [], []
     for t in range(N):
@@ -357,11 +447,20 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
             z_att, c_att, h_att, step_mask(masks[0][0], t), step_mask(masks[0][1], t), fb
         )
         qp = _Product.apply(h_att, w["w_qp"], None, io)
-        e = _Scores.apply(torch.tanh(keys + qp[:, None, :]), w["vblk"], io)   # (B, S, sources)
+        pre = keys + qp[:, None, :]
+        if ls:
+            loc = _Location.apply(cum if cumulative else alpha1, w["w_lsW"], w["ls_bias"], io)
+            pre = pre + torch.nn.functional.pad(loc, (0, pre.shape[-1] - A1))
+        e = _Scores.apply(torch.tanh(pre), w["vblk"], io)   # (B, S, sources)
         y1 = torch.softmax(e[..., 0] + score_bias, dim=-1)
-        shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
-        alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
-        alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
+        if ls:
+            alpha1 = y1
+            if cumulative:
+                cum = cum + alpha1
+        else:
+            shifted = torch.nn.functional.pad(alpha1, (1, 0))[:, :-1]
+            alpha_hat = ((1.0 - u) * alpha1 + u * shifted + _EPS) * y1
+            alpha1 = alpha_hat / alpha_hat.sum(dim=-1, keepdim=True)
         ctx1 = _Context.apply(alpha1, mem1, io)
         u_pre = None
         if hp_like["use_ta"]:
@@ -383,7 +482,7 @@ def _core_plain(hp_like, w, x2, keys, mem1, mem2, score_bias, spk, seed: int, ta
         if taps is not None:
             taps.append(dict(
                 c_att=c_att, h_att=h_att, c1=c1, h1=h1, c2=c2, h2=h2, ctx1=ctx1, ctx2=ctx2,
-                alpha=alpha1, u=u, z_att=z_att, z1=z1, z2=z2, qp=qp, y1=y1, alpha2=alpha2,
+                alpha=alpha1, cum=cum, u=u, z_att=z_att, z1=z1, z2=z2, qp=qp, y1=y1, alpha2=alpha2,
                 x2=x_t, u_pre=u_pre,
             ))
     return torch.stack(features, dim=1), torch.stack(aligns, dim=1)
@@ -399,8 +498,9 @@ def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
     Also holds the types: ``x2`` (the prenet's output), keys and memories in the
     io type; the speaker embedding, the score bias and the weights float32."""
     dual = bool(hp_like.get("dual", True))
-    _require(hp_like.get("src1_kind", "forward") == "forward",
-             "source 1 must use forward attention")
+    _require(hp_like.get("src1_kind", "forward") in ("forward", "location_sensitive"),
+             "source 1 must use forward or location-sensitive attention")
+    ls = is_location_sensitive(hp_like)
     io = io_dtype(hp_like)
     _require((mem2 is not None) == dual,
              "a second memory goes with dual=True, and only with it")
@@ -408,13 +508,19 @@ def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
         _require(tensor is None or tensor.dtype == io,
                  f"{name} must be in the io type {io}, got {None if tensor is None else tensor.dtype}")
     _require(spk is None or spk.dtype == torch.float32, "spk must be float32 (the kernels round it)")
-    _require(all(weights[name].dtype == torch.float32 for name in CORE_WEIGHTS),
+    _require(all(name in weights for name in core_weights(hp_like)),
+             f"the weights must hold {core_weights(hp_like)}")
+    _require(all(weights[name].dtype == torch.float32 for name in core_weights(hp_like)),
              "the weights must be float32 (the kernels round them)")
+    taps = int(hp_like.get("ls_kernel", 31)) if ls else 0
+    _require(not ls or taps % 2 == 1, "the location convolution needs an odd number of taps")
+    _require(not (ls and hp_like["use_ta"]), "location-sensitive attention has no transition agent")
     z = dict(
         P2=int(x2.shape[-1]), SPK=0 if spk is None else int(spk.shape[-1]),
         AU=int(hp_like["att_units"]), A1=int(hp_like["att1_units"]),
         A2=int(hp_like["att2_units"]) if dual else 0, DU=int(hp_like["dec_units"]),
-        E1=int(mem1.shape[-1]), E2=int(mem2.shape[-1]) if dual else 0,
+        E1=int(mem1.shape[-1]), E2=int(mem2.shape[-1]) if dual else 0, K=taps,
+        CUM=int(ls and hp_like.get("ls_cumulative", True)),
     )
     _require(not dual or (z["A2"] > 0 and z["E2"] > 0), "dual source needs a second mechanism")
     B, S = mem1.shape[:2]
@@ -426,6 +532,8 @@ def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
         "w_l1": (z["AU"] + EW + z["DU"], 4 * z["DU"]), "b_l1": (4 * z["DU"],),
         "w_l2": (2 * z["DU"], 4 * z["DU"]), "b_l2": (4 * z["DU"],),
     }
+    if ls:
+        expected.update({"w_lsW": (taps, z["A1"]), "ls_bias": (z["A1"],)})
     for name, shape in expected.items():
         _require(tuple(weights[name].shape) == shape,
                  f"{name}: expected shape {shape}, got {tuple(weights[name].shape)}")
@@ -443,14 +551,18 @@ def _sizes(hp_like: Dict, weights, keys, mem1, mem2, spk, x2) -> Dict[str, int]:
 def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor], io=torch.float32):
     """The flat weight buffer of the kernels in the io type and the offsets of
     its entries: every matrix (in, out), rows padded to 4 values, transposed
-    copies last; and the float32 score vectors that the backward reads,
+    copies next, the folded location taps last (``MAX_TAPS`` rows, zero beyond K;
+    empty without them); and the float32 score vectors that the backward reads,
     (sources, A1 + A2 padded to 4)."""
+    ls_w = w["w_attg"].new_zeros(0, 0)
+    if z["K"]:
+        ls_w = torch.nn.functional.pad(w["w_lsW"], (0, 0, 0, MAX_TAPS - z["K"]))
     tensors = {
         "attg_w": w["w_attg"], "attg_b": w["b_attg"][None], "qp_w": w["w_qp"],
         "vblk": w["vblk"].t(), "ta_w": w["w_ta"].t(), "ta_b": w["b_ta"][None],
         "l1_w": w["w_l1"], "l1_b": w["b_l1"][None], "l2_w": w["w_l2"], "l2_b": w["b_l2"][None],
         "attg_wt": w["w_attg"].t(), "qp_wt": w["w_qp"].t(),
-        "l1_wt": w["w_l1"].t(), "l2_wt": w["w_l2"].t(),
+        "l1_wt": w["w_l1"].t(), "l2_wt": w["w_l2"].t(), "ls_w": ls_w,
     }
     offsets, total = {}, 0
     for name in _ENTRIES:
@@ -461,7 +573,8 @@ def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor], io=torch.float32):
     for name in _ENTRIES:
         t = tensors[name].detach()
         rows, cols = t.shape
-        flat[offsets[name] : offsets[name] + rows * _round4(cols)].view(rows, -1)[:, :cols] = t
+        flat[offsets[name] : offsets[name] + rows * _round4(cols)].view(rows, _round4(cols))[
+            :, :cols] = t
     v = tensors["vblk"].detach()
     v32 = torch.zeros(v.shape[0], _round4(v.shape[1]), dtype=torch.float32, device=ref.device)
     v32[:, : v.shape[1]] = v
@@ -473,7 +586,7 @@ def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=No
     # the struct ``Dims`` of the source
     layouts = row_layouts(z, S)
     values = [B, S, N] + [z[k] for k in _SIZES]
-    values += [int(use_ta), int(train_masks), int(io == torch.bfloat16)]
+    values += [int(use_ta), int(train_masks), int(z.get("CUM", 0)), int(io == torch.bfloat16)]
     values += [layouts[kind][1] for kind in ("carry", "acts", "stack")]
     for kind, names in (("carry", _CARRY), ("acts", _ACTS), ("stack", _STACK)):
         values += [layouts[kind][0][name][0] for name in names]
@@ -515,13 +628,15 @@ def block_shared_memory(z: Dict[str, int], src_len: int, device, backward: bool,
 def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_like,
             seed: int, device) -> None:
     global launch_count, bwd_launch_count
-    variant = (which, "dual" if z["E2"] else "single")
+    variant = (which, ("dual" if z["E2"] else "single") + ("_ls" if z["K"] else ""))
     zc, zo = float(hp_like["zoneout_cell"]), float(hp_like["zoneout_output"])
     scalars = (ctypes.c_float * 3)(zc, zo, float(hp_like.get("forget_bias", 1.0)))
     bits = (ctypes.c_uint * 9)(
         keep_threshold(zc), keep_threshold(zo), int(seed) & _MASK32, *_draw_numbers(zc, zo)
     )
-    array = (ctypes.c_void_p * 19)(*(None if x is None else x.data_ptr() for x in pointers))
+    array = (ctypes.c_void_p * len(pointers))(
+        *(None if x is None else x.data_ptr() for x in pointers)
+    )
     fn = _functions[which]
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.cuda.device(device):
@@ -552,7 +667,7 @@ def last_launch_ms(which: str) -> float:
 
 
 def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_keys,
-                    d_vblk_lanes, d_spk) -> Dict[str, torch.Tensor]:
+                    d_vblk_lanes, d_spk, d_lsw_lanes=None) -> Dict[str, torch.Tensor]:
     """Every gradient of the scanned region from what the backward kernel wrote.
 
     Weight gradients are one product each over all (B * N) rows: the gradient
@@ -560,6 +675,9 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
     from the carry rows of steps t-1 and t. Bias gradients come from the
     float32 running sum of the gradient rows, the memories' gradients from the
     alignments and the contexts' cotangents, ``vblk``'s from the per-lane partials.
+    Location-sensitive attention (``z["K"] > 0``): ``w_lsW``'s from the per-lane
+    partials ``d_lsw_lanes`` (B, MAX_TAPS, A1 padded to 4), ``ls_bias``'s the
+    query projection's first A1 columns of the running sum.
 
     The io type is the gradient rows' (``stack``): in bfloat16 the carry rows are
     rounded once, and every product takes rounded inputs with a float32 result.
@@ -601,6 +719,9 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
         "feeds": g("g_feed").to(io),
         "spk": None if spk is None else d_spk,
     }
+    if z["K"]:
+        grads["w_lsW"] = d_lsw_lanes.sum(dim=0)[: z["K"], : z["A1"]]
+        grads["ls_bias"] = bias("g_qp")[: z["A1"]]
     if use_ta:
         grads["w_ta"] = product([cur("ctx1"), cur("h_att")], g("g_u_pre"))
         grads["b_ta"] = bias("g_u_pre")
@@ -615,8 +736,10 @@ class _TeacherCore(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, hp_like, seed, x2, keys, mem1, mem2, score_bias, spk, *core):
-        w = dict(zip(CORE_WEIGHTS, core))
+        w = dict(zip(core_weights(hp_like), core))
         z = _sizes(hp_like, w, keys, mem1, mem2, spk, x2)
+        _require(not z["K"] or taps_supported(z["K"]),
+                 f"the kernels take at most {MAX_TAPS} location taps, not {z['K']}")
         io = io_dtype(hp_like)
         device = x2.device
         B, N, _ = x2.shape
@@ -643,6 +766,8 @@ class _TeacherCore(torch.autograd.Function):
         mem2_c = torch.zeros(4, dtype=io, device=device) if mem2 is None else mem2.detach().contiguous()
         spk_c = None if spk is None else spk.detach().to(io).contiguous()
         flat, v32, offsets = _pack(z, w, io)
+        # the location bias, float32; a placeholder the kernels never read without it
+        ls_b = w["ls_bias"].detach().contiguous() if z["K"] else torch.zeros(4, **f32)
         train_masks = not hp_like.get("eval_zoneout", False)
         dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets, io)
         layouts = row_layouts(z, S)
@@ -651,9 +776,9 @@ class _TeacherCore(torch.autograd.Function):
         carries = torch.empty(B, N, layouts["carry"][1], **f32)
         acts = torch.empty(B, N, layouts["acts"][1], **f32)
         inputs = [flat, x2_c, keys_c, mem1_c, mem2_c, bias_c, spk_c]
-        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7 + [v32], z, dims,
-                hp_like, seed, device)
-        ctx.save_for_backward(*inputs, v32, aligns, carries, acts)
+        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7 + [v32, ls_b]
+                + [None] * 3, z, dims, hp_like, seed, device)
+        ctx.save_for_backward(*inputs, v32, ls_b, aligns, carries, acts)
         ctx.meta = (hp_like, seed, z, dims)
         # an output the loss does not read gets no cotangent (None), not a tensor of zeros
         ctx.set_materialize_grads(False)
@@ -661,7 +786,7 @@ class _TeacherCore(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_features, g_aligns):
-        flat, x2, keys, mem1, mem2, bias, spk, v32, aligns, carries, acts = ctx.saved_tensors
+        flat, x2, keys, mem1, mem2, bias, spk, v32, ls_b, aligns, carries, acts = ctx.saved_tensors
         hp_like, seed, z, dims = ctx.meta
         device = x2.device
         B, N, _ = x2.shape
@@ -679,18 +804,27 @@ class _TeacherCore(torch.autograd.Function):
         d_vblk = torch.empty(B, 2 if z["E2"] else 1, keys.shape[-1], **f32)
         d_spk = torch.zeros(B, max(z["SPK"], 1), **f32)
         d_brow = torch.zeros(B, stack_width, **f32)
+        # location-sensitive: the per-lane sums of w_lsW's gradient, and one step's
+        # scratch of the scores' rounded cotangents (B, S, A1) and their product
+        # with w_lsW (B, S, MAX_TAPS)
+        d_lsw = ls_g = ls_gk = None
+        if z["K"]:
+            d_lsw = torch.zeros(B, MAX_TAPS, _round4(z["A1"]), **f32)
+            ls_g = torch.zeros(B, S, _round4(z["A1"]), **f32)
+            ls_gk = torch.empty(B, S, MAX_TAPS, **f32)
         _launch(
             "bwd",
             [flat, x2, keys, mem1, mem2, bias, spk, None, None, carries, acts,
-             g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow, v32],
+             g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow, v32, ls_b,
+             d_lsw, ls_g, ls_gk],
             z, dims, hp_like, seed, device,
         )
         g = grads_from_rows(
             z, hp_like["use_ta"], x2, spk, aligns, carries, stack, d_brow, d_keys, d_vblk,
-            d_spk[:, : z["SPK"]],
+            d_spk[:, : z["SPK"]], d_lsw,
         )
         return (None, None, g["feeds"], g["keys"], g["mem1"], g["mem2"], None, g["spk"],
-                *(g[name] for name in CORE_WEIGHTS))
+                *(g[name] for name in core_weights(hp_like)))
 
 
 # --------------------------------------------------------------------------- #
@@ -733,8 +867,11 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
     ``score_bias`` (B, S) is 0 where valid and -1e9 where padded, ``feeds``
     (B, N, F) the teacher frames, ``seed`` the zoneout masks' seed. ``hp_like``:
     ``dual, use_ta, att_units, att1_units, att2_units, dec_units, zoneout_cell,
-    zoneout_output, prenet_drop_rate, eval_zoneout, io_dtype``. The weights,
-    ``spk`` and ``score_bias`` are float32; keys and memories in the io type.
+    zoneout_output, prenet_drop_rate, eval_zoneout, io_dtype``, and for
+    location-sensitive attention on source 1 ``src1_kind="location_sensitive",
+    ls_cumulative, ls_kernel`` with the weights ``w_lsW`` (K, A1) and ``ls_bias``
+    (A1,). The weights, ``spk`` and ``score_bias`` are float32; keys and memories
+    in the io type.
 
     Tensors on a CUDA device go to the two kernels or raise; on the CPU they go
     to ``teacher_decode_reference``.
@@ -752,7 +889,7 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
     def core(hp_like, seed, x2, keys, mem1, mem2, score_bias, spk):
         return _TeacherCore.apply(
             hp_like, seed, x2, keys, mem1, mem2, score_bias, spk,
-            *(weights[name] for name in CORE_WEIGHTS),
+            *(weights[name] for name in core_weights(hp_like)),
         )
 
     return _decode(core, weights=weights, keys=keys, mem1=mem1, mem2=mem2,

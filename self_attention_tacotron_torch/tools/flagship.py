@@ -1,12 +1,16 @@
 """The configurations and request shapes that the GPU scripts drive.
 
-Three configurations at full width, float32 unless ``compute_dtype`` is
+Five configurations at full width, float32 unless ``compute_dtype`` is
 overridden (``DTYPES``; the scripts' ``--dtype``): ``flagship`` (the dual-source
 Self-Attention Tacotron, with the committed trained weights), ``baseline``
 (``configs/ljspeech_baseline.json``: ``ExtendedTacotronV1Model`` with
-``EncoderV1``) and ``zoneout`` (the same model with ``ZoneoutEncoderV1``). No
-trained weights of the baseline family are committed: its networks are made
-from a seed.
+``EncoderV1``), ``zoneout`` (the same model with ``ZoneoutEncoderV1``), ``ls``
+(the reference's location-sensitive family: that model with
+``attention="location_sensitive"``, 31 taps, 32 filters, cumulative weights,
+trained by the reference in bfloat16) and ``flagship-ls`` (the flagship's
+structure with location-sensitive attention on its first source). No trained
+weights of the baseline family or of location-sensitive attention are
+committed: those networks are made from a seed.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_params.npz")
 # the baseline Tacotron's configuration, as the training command line reads it
 BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
-CONFIGS = ("flagship", "baseline", "zoneout")
+CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls")
 # the compute dtypes a script may ask for (hparams.compute_dtype)
 DTYPES = ("float32", "bfloat16")
 
@@ -58,20 +62,27 @@ def baseline_hparams(**overrides) -> HParams:
 
 def config_hparams(config: str, **overrides) -> HParams:
     """The hyper-parameters of one of ``CONFIGS``; ``zoneout`` is the baseline with
-    ``ZoneoutEncoderV1``."""
+    ``ZoneoutEncoderV1``, ``ls`` that with location-sensitive attention (the
+    hparams' own ``attention_kernel=31``, ``attention_filters=32``,
+    ``cumulative_weights=True``), ``flagship-ls`` the flagship with it."""
     if config == "flagship":
         return flagship_hparams(**overrides)
     if config == "baseline":
         return baseline_hparams(**overrides)
     if config == "zoneout":
         return baseline_hparams(**{"encoder": "ZoneoutEncoderV1", **overrides})
+    if config == "ls":
+        return baseline_hparams(**{"encoder": "ZoneoutEncoderV1",
+                                   "attention": "location_sensitive", **overrides})
+    if config == "flagship-ls":
+        return flagship_hparams(**{"attention": "location_sensitive", **overrides})
     raise ValueError(f"unknown configuration {config!r}; known: {CONFIGS}")
 
 
 def load_network(config: str, seed: int = 0, device="cuda", **overrides) -> TacotronNetwork:
     """The network of ``config`` on ``device`` in eval mode: the flagship with its
-    trained weights, the baseline family with weights made from ``seed`` (on the
-    CPU's generator, so that every path of one seed holds the same weights)."""
+    trained weights, the others with weights made from ``seed`` (on the CPU's
+    generator, so that every path of one seed holds the same weights)."""
     hp = config_hparams(config, **overrides)
     if config == "flagship":
         return convert.load_npz(TRAINED_NPZ, hp, device=device)

@@ -1,10 +1,10 @@
 """Where a training step's time goes on the card.
 
-    python3 -m self_attention_tacotron_torch.tools.profile_training [--config baseline]
+    python3 -m self_attention_tacotron_torch.tools.profile_training [--config ls]
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
-flagship from the committed trained weights, the default; ``baseline`` or
-``zoneout`` from weights made from a seed), the seeded batch of
+flagship from the committed trained weights, the default; ``baseline``,
+``zoneout``, ``ls`` or ``flagship-ls`` from weights made from a seed), the seeded batch of
 ``tools/flagship.py::training_batch`` (32 lanes x 800 frames, sources 24..128),
 ``Trainer.train_step`` through the kernels and with ``use_pallas_kernels=False``
 (eager encoder, the decoder's Python loop under autograd). It prints JSON lines:

@@ -113,7 +113,11 @@ def test_forward_attention_starts_at_the_first_key_and_moves_one_step_at_most():
 
 def test_factory_names():
     hp = HParams()
+    mech = attention.attention_factory("location_sensitive", 8, hp, query_units=4, memory_units=4)
+    assert isinstance(mech, attention.LocationSensitiveAttention)
+    assert mech.attention_kernel == hp.attention_kernel and mech.cumulative_weights
+    assert tuple(mech.location_conv.weight.shape) == (hp.attention_filters, 1, hp.attention_kernel)
     with pytest.raises(NotImplementedError):
-        attention.attention_factory("location_sensitive", 8, hp, query_units=4, memory_units=4)
+        attention.attention_factory("teacher_forcing_forward", 8, hp, query_units=4, memory_units=4)
     with pytest.raises(ValueError):
         attention.attention_factory("nope", 8, hp, query_units=4, memory_units=4)

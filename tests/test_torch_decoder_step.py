@@ -153,7 +153,7 @@ def test_factories_name_what_is_not_ported():
             HParams(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel")
         )
     with pytest.raises(NotImplementedError):
-        TacotronNetwork(HParams(attention="location_sensitive", decoder="ExtendedDecoder",
+        TacotronNetwork(HParams(attention="teacher_forcing_forward", decoder="ExtendedDecoder",
                                 encoder="EncoderV1"))
     with pytest.raises(NotImplementedError):
         TacotronNetwork(HParams(decoder="DualSourceSelfAttentionDecoder", use_postnet_v2=True))

@@ -331,10 +331,14 @@ def test_batch_blocks_with_early_exit_keep_the_contract():
 
 
 def test_supports_the_flagship_family_only():
-    """The four mel decoders are served, in float32 and bfloat16; the
-    location-sensitive branch and the MgcLf0 heads are still to be ported."""
+    """The four mel decoders are served, in float32 and bfloat16, and
+    location-sensitive attention on the two decoders its model classes reach; the
+    MgcLf0 heads are still to be ported."""
     assert fd.supports_fused_decode(HParams(**_NARROW))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "forward_transition_agent"}))
+    assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "location_sensitive"}))
+    assert fd.supports_fused_decode(HParams(**{**_NARROW, "decoder": "ExtendedDecoder",
+                                               "attention": "location_sensitive"}))
     for variant in VARIANTS:
         assert fd.supports_fused_decode(HParams(**{**_NARROW, **VARIANTS[variant]})), variant
         assert fd.supports_fused_decode(
@@ -343,8 +347,8 @@ def test_supports_the_flagship_family_only():
         {"n_feed_frame": 2},
         {"decoder_prenet_out_units": (32, 16, 16)},
         {"decoder_self_attention_num_hop": 2},
-        {"attention": "location_sensitive"},
-        {"decoder": "ExtendedDecoder", "attention": "location_sensitive"},
+        {"attention": "location_sensitive", "attention_kernel": 30},
+        {"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"},
         {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
         {"decoder": "MgcLf0ExtendedDecoder"},
         {"compute_dtype": "float16"},

@@ -157,7 +157,7 @@ def test_every_gradient_matches_the_jax_kernel(name):
 
     for key, want in grads_jax[0].items():
         if key in ("w_lsW", "ls_bias"):
-            continue        # the location-sensitive branch is not ported
+            continue        # JAX's placeholders of forward attention (test_torch_fused_teacher_ls.py)
         if key in ("w_ta", "b_ta") and not use_ta:
             assert grads_t[0][key] is None or float(grads_t[0][key].abs().max()) == 0.0
             continue
@@ -258,20 +258,25 @@ def test_gradients_from_rows_equal_autograd(name):
 
 
 def test_row_layouts_are_contiguous_and_cover_the_row():
+    """Every field has room but the cumulative alignments, which only
+    location-sensitive attention over cumulative weights carries (``CUM``)."""
     z = dict(P2=8, SPK=0, AU=12, A1=12, A2=6, DU=16, E1=12, E2=8)
-    for fields, total in fused_teacher.row_layouts(z, 11).values():
-        at = 0
-        for offset, width in fields.values():
-            assert offset == at and width > 0
-            at += width
-        assert at == total
+    for cum in (0, 1):
+        for fields, total in fused_teacher.row_layouts(dict(z, CUM=cum), 11).values():
+            at = 0
+            for name, (offset, width) in fields.items():
+                assert offset == at and (width > 0) == (name != "cum" or bool(cum))
+                at += width
+            assert at == total
     assert fused_teacher.row_layouts(z, 11)["carry"][1] == 2 * 12 + 4 * 16 + 12 + 8 + 11 + 1
+    assert fused_teacher.row_layouts(dict(z, CUM=1), 11)["carry"][1] == (
+        2 * 12 + 4 * 16 + 12 + 8 + 2 * 11 + 1)
 
 
 def test_row_layouts_of_one_source_give_the_second_source_no_room():
     z = dict(P2=8, SPK=0, AU=12, A1=12, A2=0, DU=16, E1=12, E2=0)
     layouts = fused_teacher.row_layouts(z, 11)
-    empty = {("carry", "ctx2"), ("acts", "alpha2"), ("stack", "g_ctx2")}
+    empty = {("carry", "ctx2"), ("carry", "cum"), ("acts", "alpha2"), ("stack", "g_ctx2")}
     for kind, (fields, total) in layouts.items():
         at = 0
         for name, (offset, width) in fields.items():
@@ -289,10 +294,8 @@ def _flagship_hp(**overrides):
 
 
 _UNPORTED = (
-    {"attention": "location_sensitive"},
     {"decoder": "MgcLf0ExtendedDecoder"},
     {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
-    {"decoder": "ExtendedDecoder", "attention": "location_sensitive"},
 )
 # bfloat16 decoders are of the kernels' family: through them the teacher-forced
 # pass hands its operands over in bfloat16
@@ -306,7 +309,7 @@ _BF16 = (
     ({}, True),
     ({"attention": "forward_transition_agent"}, True),
     ({"use_speaker_embedding": True}, True),
-    ({"attention": "location_sensitive"}, False),
+    ({"attention": "location_sensitive"}, True),
     ({"attention2": "forward"}, False),
     ({"compute_dtype": "bfloat16"}, True),
     ({"decoder_prenet_out_units": (256, 128, 64)}, False),
@@ -322,13 +325,23 @@ _BF16 = (
     ({"decoder": "DualSourceDecoder"}, True),
     ({"decoder": "MgcLf0ExtendedDecoder"}, False),
     ({"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}, False),
-    ({"decoder": "ExtendedDecoder", "attention": "location_sensitive"}, False),
+    ({"decoder": "ExtendedDecoder", "attention": "location_sensitive"}, True),
     ({"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"}, True),
+    ({"decoder": "ExtendedDecoder", "attention": "location_sensitive",
+      "compute_dtype": "bfloat16", "cumulative_weights": False}, True),
+    ({"decoder": "ExtendedDecoder", "attention": "location_sensitive", "attention_kernel": 30},
+     False),
+    ({"decoder": "ExtendedDecoder", "attention": "location_sensitive", "attention_kernel": 33},
+     False),
+    ({"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"}, False),
+    ({"decoder": "DualSourceDecoder", "attention": "location_sensitive"}, False),
 ])
 def test_supports_fused_teacher(overrides, expected):
     """``Decoder.fused_teacher_supported`` of the built decoder; what is not ported
-    yet (location-sensitive attention, the MgcLf0 heads) builds no network at all,
-    so no decoder reaches the kernels; a bfloat16 decoder is of the kernels'
+    yet (the MgcLf0 heads) builds no network at all, so no decoder reaches the
+    kernels; location-sensitive attention is served with an odd number of taps up
+    to 32 on the two pairs of decoder flags a model class reaches (one source
+    without self-attention, two with it); a bfloat16 decoder is of the kernels'
     family and hands the kernels bfloat16 keys and memories, float32 weights,
     speaker embedding and score bias."""
     hp = _flagship_hp(**overrides)
@@ -363,10 +376,13 @@ def test_what_the_kernels_do_not_serve_raises():
         mem1=t(conds["mem1"]), mem2=t(conds["mem2"]), score_bias=t(conds["score_bias"]),
         spk=None, feeds=t(feeds), seed=0,
     )
-    # still unported: the location-sensitive branch
-    with pytest.raises(ValueError, match="fused_teacher"):
+    # location-sensitive attention needs its folded taps, and no other source-1 kind
+    # is served
+    with pytest.raises(ValueError, match="w_lsW"):
         fused_teacher.teacher_decode(
-            hp_like=dict(_hp_like(case), src1_kind="location_sensitive"), **kwargs)
+            hp_like=dict(_hp_like(case), src1_kind="location_sensitive", ls_kernel=5), **kwargs)
+    with pytest.raises(ValueError, match="source 1 must use"):
+        fused_teacher.teacher_decode(hp_like=dict(_hp_like(case), src1_kind="additive"), **kwargs)
     # bfloat16 runs with keys and memories in bfloat16; in float32 they are refused,
     # as is an io type the kernels are not compiled for
     bf16 = dict(kwargs, **{k: kwargs[k].bfloat16() for k in ("keys", "mem1", "mem2")})
