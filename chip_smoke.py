@@ -80,9 +80,20 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    which the kernel path must not exceed on the median leaf and the loss parts;
    three steps from the trained weights on both paths, launch counts exact, every
    parameter moved, step times; an evaluation step on both;
-6. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16
-   instantiations of ``fused_decode``, ``bigru_bwd`` and both teacher kernels as
-   entries of their own), then the last line
+6. the families served from seeded weights (``FAMILIES``), each through its kernels
+   (narrow and off-tile against the plain versions on their first launches, then
+   at full width, timed), its main path (``seeded_main_path``: synthesis at batch 1
+   and 32 through the kernels and the plain path, launch counts exact) and its
+   training (``seeded_training``: three steps of the one-source configuration in
+   each io type and one of the two-source one, every gradient leaf of the first
+   step against the plain path): the location-sensitive family (``ls``,
+   ``flagship-ls``, the latter in both io types) and the WORLD-feature family
+   (``mgclf0``, ``flagship-mgclf0``: ``fused_decode``'s lf0 feedback on every pair of
+   flags in both io types with early exits, and the teacher kernels in three
+   sequential batch blocks against the unsliced run and the per-block plain runs);
+7. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
+   location-sensitive and lf0 instantiations as entries of their own, the batch
+   blocks inside the lf0 family's teacher entries), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -115,9 +126,11 @@ from self_attention_tacotron_torch.ops import (  # noqa: E402
     fused_rnn,
     fused_teacher,
 )
+from self_attention_tacotron_torch.ops.decode_loop import DecodeResult  # noqa: E402
 from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     TRAINED_NPZ as NPZ,
+    config_batch,
     config_hparams,
     device_busy,
     flagship_hparams,
@@ -128,7 +141,10 @@ from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     training_batch,
 )
 from self_attention_tacotron_torch.tools.profile_training import timed_step  # noqa: E402
-from self_attention_tacotron_torch.training.trainer import Trainer  # noqa: E402
+from self_attention_tacotron_torch.training.trainer import (  # noqa: E402
+    Trainer,
+    targets_from_batch,
+)
 from self_attention_tacotron_torch.utils import cuda_build  # noqa: E402
 from self_attention_tacotron_torch.utils.platform import use_full_float32  # noqa: E402
 
@@ -254,6 +270,22 @@ def time_ms(fn, warmup: int = 3, iters: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+# The output heads a synthesis gives: the mel frames, or the WORLD heads side by side.
+HEADS = ("mel", "mgc", "lf0")
+
+
+def frames_of(x) -> torch.Tensor:
+    """The frame heads side by side in the decoder's order (mel, or mgc then lf0),
+    of a ``DecodeResult`` or of a synthesis output dictionary."""
+    heads = list(x.frames.values()) if isinstance(x, DecodeResult) else [
+        x[h] for h in HEADS if h in x]
+    return heads[0] if len(heads) == 1 else torch.cat(heads, dim=-1)
+
+
+def frame_width(hp: HParams) -> int:
+    return hp.num_mgcs + hp.num_lf0s if hp.decoder.startswith("MgcLf0") else hp.num_mels
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -542,8 +574,10 @@ def fused_flops_and_bytes(packed, lengths, steps: int):
         and (name != "ta_w" or packed.use_transition_agent)
     )
     a_tot, e_tot = z["A1"] + z["A2"], z["E1"] + z["E2"]
-    # location-sensitive: K taps times the folded matrix at every valid position
+    # location-sensitive: K taps times the folded matrix at every valid position; the
+    # WORLD heads: the softmax of the fed-back lf0 lanes (max, exp, sum, divide)
     per_step = batch * 2 * products + valid * (4 * a_tot + 2 * e_tot + 2 * z["K"] * z["A1"])
+    per_step += batch * 4 * (z["M"] - z["LF0"]) * (z["LF0"] > 0)
     attention = batch * 4 * z["SA"] * steps * (steps + 1) // 2
     flops = steps * per_step + attention
     out_row = z["R"] * z["M"] + z["R"] + (2 if packed.dual else 1) * src_len
@@ -576,19 +610,20 @@ def compare_decodes(got, want, r: int):
         and torch.equal(got.finished, want.finished)
         and got.lengths.dtype == torch.int32 and got.finished.dtype == torch.bool
     )
+    frames = frames_of(got)
     tail = sum(
         float(x[:, n:].abs().sum())
         for x, n in (
-            (got.frames["mel"], steps * r), (got.stop_probs, steps * r),
+            (frames, steps * r), (got.stop_probs, steps * r),
             *((a, steps) for a in got.alignments),
         )
     )
     finite = all(
         bool(torch.isfinite(x).all())
-        for x in (got.frames["mel"], got.stop_probs, *got.alignments)
+        for x in (frames, got.stop_probs, *got.alignments)
     )
     errs = {
-        "mel": max_abs_err(got.frames["mel"], want.frames["mel"]),
+        "frames": max_abs_err(frames, frames_of(want)),
         "stop_probs": max_abs_err(got.stop_probs, want.stop_probs),
         "alignments": max(max_abs_err(a, b) for a, b in zip(got.alignments, want.alignments)),
         "stop_logits": float(np.abs(
@@ -615,18 +650,18 @@ def check_fused(name, packed, cond, masks, steps, threshold, early_exit=True, sl
     blocks = -(-batch // (slice_batch or batch))
     ok = (
         finite and exact and zero_tail and launches == blocks
-        and max(errs["mel"], errs["stop_probs"], errs["alignments"]) <= tol
+        and max(errs["frames"], errs["stop_probs"], errs["alignments"]) <= tol
     )
     rec = {
         "kernel": "fused_decode", "case": name,
         "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype,
-                                             packed.ls),
+                                             packed.ls, packed.lf0),
         "shape": {"B": batch, "S": src_len, "T": steps, **packed.sizes},
         "transition_agent": packed.use_transition_agent, "threshold": threshold,
         "early_exit": early_exit, "launches": launches, "num_steps": int(got.num_steps),
         "lengths": got.lengths.tolist() if batch <= 8 else None,
         "finished": int(got.finished.sum()),
-        "max_abs_err": max(errs["mel"], errs["stop_probs"], errs["alignments"]), **errs,
+        "max_abs_err": max(errs["frames"], errs["stop_probs"], errs["alignments"]), **errs,
         "tol": tol, "exact_lengths_flags_steps": exact, "zero_tail": zero_tail, "ok": ok,
     }
     log("check " + json.dumps(rec))
@@ -649,7 +684,7 @@ def timed_once(fn):
 def lane_errors(got, want, r: int, lo: int, hi: int) -> torch.Tensor:
     """Per lane, the largest absolute difference over decoder steps lo..hi."""
     pairs = [
-        (got.frames["mel"][:, lo * r : hi * r], want.frames["mel"][:, lo * r : hi * r]),
+        (frames_of(got)[:, lo * r : hi * r], frames_of(want)[:, lo * r : hi * r]),
         (got.stop_probs[:, lo * r : hi * r], want.stop_probs[:, lo * r : hi * r]),
         *((a[:, lo:hi], b[:, lo:hi]) for a, b in zip(got.alignments, want.alignments)),
     ]
@@ -755,10 +790,12 @@ def check_long_cap(flagship, rng) -> dict:
 
 
 def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None, tol=TOL_FUSED,
-                          margin_factor=FUSED_MARGIN_FACTOR, masks=None):
+                          margin_factor=FUSED_MARGIN_FACTOR, masks=None, gap_required=True):
     """To the cap first; then at a threshold from that run's own stop probabilities,
     with the early exit and without it, where every integer and flag must be equal.
-    The prenet masks are drawn from ``rng`` unless given."""
+    The prenet masks are drawn from ``rng`` unless given. Where the widest gap
+    between the stop logits is under the margin, a failure, or with
+    ``gap_required=False`` None (the run to the cap has been held)."""
     batch = cond.memories[0].shape[0]
     if masks is None:
         masks = seeded_masks(packed, rng, steps, batch)
@@ -770,6 +807,8 @@ def check_fused_with_exit(name, packed, cond, rng, steps, slice_batch=None, tol=
         "kernel": "fused_decode", "case": name + ", threshold", "threshold": threshold,
         "gap_in_logits": gap, "needed": need,
     }))
+    if gap < need and not gap_required:
+        return None
     require(gap >= need, f"{name}: the widest gap between stop logits ({gap}) is under {need}")
     rec_exit, _ = check_fused(name + ", early exit", packed, cond, masks, steps, threshold,
                               tol=tol)
@@ -903,12 +942,12 @@ def time_fused(name, packed, cond, masks, lengths, steps: int):
     )
     got = run()
     errs, exact, zero_tail, finite = compare_decodes(got, want, packed.sizes["R"])
-    err = max(errs["mel"], errs["stop_probs"], errs["alignments"])
+    err = max(errs["frames"], errs["stop_probs"], errs["alignments"])
     flops, nbytes, _ = fused_flops_and_bytes(packed, lengths, steps)
     rec = {
         "kernel": "fused_decode", "case": name,
         "variant": fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype,
-                                             packed.ls),
+                                             packed.ls, packed.lf0),
         "shape": {"B": len(lengths), "S": int(max(lengths)), "T": steps, **packed.sizes},
         "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
         **bound(flops, nbytes, packed.io_dtype), "flops": flops,
@@ -946,11 +985,11 @@ def check_baseline_long_cap(packed, hp, cond, rng, cap: int):
     )
     r = packed.sizes["R"]
     err = max(
-        max_abs_err(got.frames["mel"][:, : FUSED_STEPS * r], want.frames["mel"]),
+        max_abs_err(frames_of(got)[:, : FUSED_STEPS * r], frames_of(want)),
         max_abs_err(got.stop_probs[:, : FUSED_STEPS * r], want.stop_probs),
         max_abs_err(got.alignments[0][:, :FUSED_STEPS], want.alignments[0]),
     )
-    finite = all(bool(torch.isfinite(x).all()) for x in (got.frames["mel"], got.stop_probs))
+    finite = all(bool(torch.isfinite(x).all()) for x in (frames_of(got), got.stop_probs))
     rec = {
         "kernel": "fused_decode", "case": f"baseline at step cap {cap}",
         "variant": fused_decode.variant_name(packed.dual, packed.use_sa),
@@ -1076,7 +1115,7 @@ def check_model_threshold(name, packed, cond, masks, steps: int, threshold: floa
     errs = lane_errors(got, want, r, 0, early)
     held = "median" if len(errs) >= FUSED_MEDIAN_LANES else "max"
     err = float(errs.median() if held == "median" else errs.max())
-    finite = all(bool(torch.isfinite(x).all()) for x in (got.frames["mel"], got.stop_probs))
+    finite = all(bool(torch.isfinite(x).all()) for x in (frames_of(got), got.stop_probs))
     rec = {
         "kernel": "fused_decode", "case": name, "threshold": threshold,
         "num_steps": [int(got.num_steps), int(want.num_steps)],
@@ -1485,6 +1524,31 @@ def bf16_operands(ops):
     return out
 
 
+def teacher_run(fn, ops, feeds, prenet_masks, cotangents, seed: int = 1234, **kw):
+    """(features, alignments, gradients of every weight, of the conditioning and of
+    the feeds, (forward ms, backward ms) on the host clock ending in a synchronise)
+    of one call of ``fn`` (``teacher_decode`` or its plain version) under autograd,
+    the loss the features and alignments against ``cotangents`` (the alignments'
+    None: the loss does not read them, as a training step's does not)."""
+    leaf = lambda v: None if v is None else v.detach().clone().requires_grad_(True)  # noqa: E731
+    w = {k: leaf(v) for k, v in ops["weights"].items()}
+    c = {k: leaf(ops[k]) for k in ("keys", "mem1", "mem2", "spk")}
+    f = leaf(feeds)
+    (feat, align), fwd_ms = timed_once(lambda: fn(
+        weights=w, keys=c["keys"], mem1=c["mem1"], mem2=c["mem2"], spk=c["spk"],
+        score_bias=ops["score_bias"], feeds=f, seed=seed, hp_like=ops["hp_like"],
+        prenet_masks=prenet_masks, **kw))
+    loss = (feat * cotangents[0]).sum()
+    if cotangents[1] is not None:
+        loss = loss + (align * cotangents[1]).sum()
+    _, bwd_ms = timed_once(loss.backward)
+    grads = {**{k: v.grad for k, v in w.items()},
+             **{k: v.grad for k, v in c.items() if v is not None}, "feeds": f.grad}
+    if not ops["hp_like"]["use_ta"]:
+        grads.pop("w_ta"), grads.pop("b_ta")        # unused: no gradient, or zeros
+    return feat.detach(), align.detach(), grads, (fwd_ms, bwd_ms)
+
+
 def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=False,
                   tol=TOL_TEACHER, tol_grad=TOL_TEACHER_GRAD, yardstick=False, valid_steps=None):
     """Forward values and every gradient of ``teacher_decode`` (two kernel launches)
@@ -1505,23 +1569,11 @@ def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=Fals
 
     def run(fn, with_align=True, moved=1.0, ops_in=None):
         o = ops if ops_in is None else ops_in
-        leaf = lambda v: None if v is None else v.detach().clone().requires_grad_(True)  # noqa: E731
-        w = {k: leaf(v) for k, v in o["weights"].items()}
-        c = {k: leaf(None if o[k] is None else o[k] * moved)
-             for k in ("keys", "mem1", "mem2", "spk")}
-        f = leaf(feeds)
-        (feat, align), fwd_ms = timed_once(lambda: fn(
-            weights=w, keys=c["keys"], mem1=c["mem1"], mem2=c["mem2"], spk=c["spk"],
-            score_bias=o["score_bias"], feeds=f, seed=seed, hp_like=o["hp_like"],
-            prenet_masks=prenet_masks,
-        ))
-        loss = (feat * cot_f).sum() + ((align * cot_a).sum() if with_align else 0.0)
-        _, bwd_ms = timed_once(loss.backward)
-        grads = {**{k: v.grad for k, v in w.items()},
-                 **{k: v.grad for k, v in c.items() if v is not None}, "feeds": f.grad}
-        if not ops["hp_like"]["use_ta"]:
-            grads.pop("w_ta"), grads.pop("b_ta")        # unused: no gradient, or zeros
-        return feat.detach(), align.detach(), grads, (fwd_ms, bwd_ms)
+        if moved != 1.0:
+            o = dict(o, **{k: None if o[k] is None else o[k] * moved
+                           for k in ("keys", "mem1", "mem2", "spk")})
+        return teacher_run(fn, o, feeds, prenet_masks, (cot_f, cot_a if with_align else None),
+                           seed)
 
     before = (fused_teacher.launch_count, fused_teacher.bwd_launch_count)
     got = run(fused_teacher.teacher_decode)
@@ -1780,7 +1832,11 @@ def check_output(out, req, hp: HParams, steps: int = 0) -> None:
     batch, src = req["source"].shape
     steps, r = steps or hp.max_iters, hp.outputs_per_step
     dual = "DualSource" in hp.decoder
-    require(out["mel"].shape == (batch, steps * r, hp.num_mels), f"mel {out['mel'].shape}")
+    frames = frames_of(out)
+    require(frames.shape == (batch, steps * r, frame_width(hp)), f"frames {frames.shape}")
+    if hp.decoder.startswith("MgcLf0"):
+        require("mel" not in out and out["mgc"].shape[-1] == hp.num_mgcs
+                and out["lf0"].shape[-1] == hp.num_lf0s, "the heads mgc and lf0")
     require(out["stop_probs"].shape == (batch, steps * r), "shape of stop_probs")
     require(
         [tuple(a.shape) for a in out["alignments"]] == [(batch, steps, src)] * (2 if dual else 1),
@@ -1793,8 +1849,8 @@ def check_output(out, req, hp: HParams, steps: int = 0) -> None:
         )
     else:
         require(out["encoder_sa_alignments"] == (), "a single-stream encoder has no alignments")
-    for key in ("mel", "stop_probs"):
-        require(bool(torch.isfinite(out[key]).all()), f"{key} is not finite")
+    for key, x in (("frames", frames), ("stop_probs", out["stop_probs"])):
+        require(bool(torch.isfinite(x).all()), f"{key} is not finite")
     n = int(out["num_steps"])
     require(1 <= n <= steps, f"num_steps {n}")
     for align in out["alignments"]:
@@ -1810,7 +1866,7 @@ def check_output(out, req, hp: HParams, steps: int = 0) -> None:
 def output_errors(out, ref, steps: int, r: int):
     """Max absolute differences over the first ``steps`` decoder steps."""
     errs = {
-        "mel": max_abs_err(out["mel"][:, : steps * r], ref["mel"][:, : steps * r]),
+        "frames": max_abs_err(frames_of(out)[:, : steps * r], frames_of(ref)[:, : steps * r]),
         "stop_probs": max_abs_err(
             out["stop_probs"][:, : steps * r], ref["stop_probs"][:, : steps * r]
         ),
@@ -1949,7 +2005,7 @@ def compare_paths(outs, outs_plain, hp, label: str = "") -> None:
         whole = output_errors(out, ref, steps, r)
         early = output_errors(out, ref, min(EARLY_STEPS, steps), r)
         log(f"main_path agreement{label} " + json.dumps({
-            "batch": int(out["mel"].shape[0]),
+            "batch": int(out["lengths"].shape[0]),
             "num_steps": [int(out["num_steps"]), int(ref["num_steps"])],
             "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
             "early_steps": EARLY_STEPS, "early": early, "early_tol": TOL_MAIN_EARLY,
@@ -2210,8 +2266,8 @@ def run_training(path: str, batch, overrides, make_net, steps: int, measure: boo
         busy = device_busy(lambda: trainer.train_step(state, batch, gen),
                            sum(r["wall_ms"] for r in rows[1:]) / (steps - 1), top=6)
     log(f"training {path} " + json.dumps({
-        "card": gpu_line(), "batch": int(batch["mel"].shape[0]),
-        "frames_per_lane": int(batch["mel"].shape[1]), "valid_frames": frames,
+        "card": gpu_line(), "batch": int(batch["done"].shape[0]),
+        "frames_per_lane": int(batch["done"].shape[1]), "valid_frames": frames,
         "launches": counts, "fused_teacher_specialisations": variants, "steps": rows,
         "metrics": metrics, "eval": eval_losses,
         "eval_launches": eval_counts, "max_memory_allocated_gb": peak_gb, "device": busy,
@@ -2436,9 +2492,6 @@ LS = {"attention": "location_sensitive"}
 # logits to (they lie within a few hundredths of each other), centred on the
 # threshold 0.5: wide enough that most lanes keep MAIN_MARGIN from it up to their
 # firing frame.
-LS_STOP_SPAN = 20.0
-
-
 def phase_ls_decode():
     """``fused_decode``'s location-sensitive instantiations against their plain
     version: at narrow and off-tile sizes (7 and 31 taps, cumulative and previous
@@ -2449,8 +2502,9 @@ def phase_ls_decode():
     bfloat16 exit is held on the main path, ``phase_ls_main_path``); at full width
     from seeded weights with conditioning from the real encoder: ``ls`` B=32
     (ragged 24..128) with an early exit in float32, and over 500 steps B=32 and
-    B=1 in both io types; ``flagship-ls`` B=32 over 500 steps. Returns
-    ``{(config, dtype, batch): record}``."""
+    B=1 in both io types; ``flagship-ls`` B=32 over 500 steps in both io types
+    (the reference trains that case in bfloat16). Returns ``{(config, dtype, batch):
+    record}``."""
     rng = np.random.default_rng(51)
     single = {"encoder": "EncoderV1", "decoder": "ExtendedDecoder"}
     narrow = dict(LS, attention_filters=4)
@@ -2481,7 +2535,7 @@ def phase_ls_decode():
 
     records = {}
     for config, dtype, seed in (("ls", "float32", 52), ("ls", "bfloat16", 52),
-                                ("flagship-ls", "float32", 53)):
+                                ("flagship-ls", "float32", 53), ("flagship-ls", "bfloat16", 53)):
         bf16 = dtype == "bfloat16"
         net = load_network(config, seed=seed, compute_dtype=dtype)
         packed = fused_decode.pack_decoder(net.decoder)
@@ -2507,22 +2561,23 @@ def phase_ls_decode():
     return records
 
 
-def ls_teacher_batch(config: str, dtype: str, seed: int):
+def teacher_batch(config: str, dtype: str, seed: int):
     """(operands, teacher frames, prenet masks, source lengths, valid steps) of one
-    training batch (32 x 800 frames) through the seeded network of ``config``."""
+    training batch (32 x 800 frames, ``config``'s heads) through the seeded network
+    of ``config``."""
     net = load_network(config, seed=seed, compute_dtype=dtype)
     hp = net.hparams
-    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
-                           hp.outputs_per_step)
+    batch = config_batch(hp, np.random.default_rng(1234))
+    tensors = {k: torch.as_tensor(v, device=DEV) for k, v in batch.items()}
     with torch.no_grad():
         cond, _ = net.encode(
-            torch.as_tensor(batch["source"], device=DEV),
-            torch.as_tensor(batch["source_lengths"], device=DEV),
+            tensors["source"], tensors["source_lengths"],
             generator=torch.Generator(device=DEV).manual_seed(0),
         )
         net.decoder.train()
         ops = net.decoder.teacher_operands(cond)
-        feeds = net.decoder.make_teacher_feeds(torch.as_tensor(batch["mel"], device=DEV))
+        feeds = net.decoder.make_teacher_feeds(
+            targets_from_batch(tacotron_model_factory(hp), tensors))
     rng = np.random.default_rng(seed)
     masks = tuple(torch.tensor(rng.random((32, feeds.shape[1], u)) < 0.5, device=DEV)
                   for u in hp.decoder_prenet_out_units)
@@ -2536,8 +2591,8 @@ def phase_ls_teacher():
     ``ls_bias`` among them): narrow and off-tile sizes (7 and 31 taps, cumulative
     and previous alignments, one source and two, zoneout, a speaker embedding) in
     float32 and bfloat16; at full width over 400 steps with conditioning from the
-    real encoder, prenet dropout and train zoneout: ``ls`` in both io types and
-    ``flagship-ls`` in float32, timed. Returns ``{(config, dtype): record}``."""
+    real encoder, prenet dropout and train zoneout: ``ls`` and ``flagship-ls`` in
+    both io types, timed. Returns ``{(config, dtype): record}``."""
     narrow = dict(F=10, P1=12, P2=8, AU=12, A1=12, A2=6, DU=16, E1=12, E2=8)
     odd = dict(F=7, P1=20, P2=12, AU=28, A1=10, A2=7, DU=36, E1=20, E2=12)
     rng = np.random.default_rng(54)
@@ -2557,8 +2612,9 @@ def phase_ls_teacher():
             check_teacher(f"ls {dtype} {name}", bf16_operands(ops) if dtype == "bfloat16" else ops,
                           feeds, masks, lengths)
     records = {}
-    for config, dtype in (("ls", "float32"), ("ls", "bfloat16"), ("flagship-ls", "float32")):
-        ops, feeds, masks, lengths, valid_steps = ls_teacher_batch(config, dtype, seed=55)
+    for config, dtype in (("ls", "float32"), ("ls", "bfloat16"), ("flagship-ls", "float32"),
+                          ("flagship-ls", "bfloat16")):
+        ops, feeds, masks, lengths, valid_steps = teacher_batch(config, dtype, seed=55)
         require(fused_teacher.is_location_sensitive(ops["hp_like"])
                 and ops["hp_like"]["ls_kernel"] == 31, f"{config}: 31 location taps")
         records[(config, dtype)] = check_teacher(
@@ -2567,22 +2623,245 @@ def phase_ls_teacher():
     return records
 
 
-def phase_ls_main_path():
-    """``ls`` synthesis through ``make_predict_fn`` from seeded weights, batch 1 and
-    32, through the kernels (``bilstm`` and the location-sensitive ``fused_decode``)
-    and with ``use_pallas_kernels=False``, same generator seed, in float32 and in
-    bfloat16. Seeded weights never stop: their stop rows are spread as
+# --------------------------------------------------------------------------- #
+# The WORLD-feature family (MgcLf0): the lf0 softmax feedback of fused_decode,
+# and the teacher kernels' batch blocks
+# --------------------------------------------------------------------------- #
+
+# The narrow WORLD heads: the split (num_mgcs) and the frame's end off a multiple of 4.
+NARROW_WORLD = {"num_mgcs": 7, "num_lf0s": 13}
+# Seeds of weights a narrow early-exit check may take before it fails.
+EXIT_SEEDS = 5
+
+
+def phase_mgclf0_decode():
+    """``fused_decode``'s lf0 branch (the fed-back frame's lf0 lanes softmaxed)
+    against its plain version, on its first launches: the four MgcLf0 decoders (every
+    pair of ``dual`` / ``use_sa``) at narrow and off-tile sizes (the split at 7 or 5
+    lanes, frames of 20 and 19; a transition agent, a speaker embedding, r=3, lanes
+    shorter than the source), float32 and bfloat16, each to the cap and with an
+    early exit (lengths, flags, step counts and the zero tail exact), and as
+    sequential batch blocks; then at full width from seeded weights, conditioning
+    from the real encoder, frames of 316 (mgc 60, lf0 256): ``mgclf0`` B=32 (ragged
+    24..128) with an early exit in float32, and over 500 steps B=32 and B=1 in both
+    io types, ``flagship-mgclf0`` over 500 steps B=32 and B=1, timed (float32 held
+    on every step, bfloat16 by FUSED_BF16_WINDOWS). Returns ``{(config, dtype,
+    batch): record}``."""
+    single = {"encoder": "EncoderV1"}
+    odd = {"decoder_prenet_drop_rate": 0.0, "decoder_prenet_out_units": (20, 12),
+           "attention_out_units": 28, "attention1_out_units": 10, "decoder_out_units": 36,
+           "decoder_self_attention_out_units": 24, "num_mgcs": 5, "num_lf0s": 14,
+           "outputs_per_step": 3, "cbhg_out_units": 20}
+    steps = 24
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        for case, (name, overrides, lengths, src_len, spk) in enumerate((
+            ("MgcLf0DualSourceSelfAttentionDecoder B=3 S=11",
+             {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}, [11, 7, 4], 11, 0),
+            ("MgcLf0DualSourceDecoder B=5 S=13, transition agent",
+             {"decoder": "MgcLf0DualSourceDecoder", "attention": "forward_transition_agent"},
+             [13, 5, 9, 1, 12], 13, 0),
+            ("MgcLf0ExtendedDecoder B=5 S=9, speaker embedding",
+             {**single, "decoder": "MgcLf0ExtendedDecoder", "use_speaker_embedding": True,
+              "num_speakers": 4, "speaker_embedding_dim": 6}, [9, 9, 3, 6, 2], 9, 6),
+            ("MgcLf0SelfAttentionDecoder B=6 S=7 r=3, odd widths, prenet dropout 0",
+             {**single, **odd, "decoder": "MgcLf0SelfAttentionDecoder"},
+             [7, 2, 5, 7, 7, 3], 7, 0),
+        )):
+            rng = np.random.default_rng(81 + case)
+            hp = narrow_hparams(**{**NARROW_WORLD, **overrides, "compute_dtype": dtype})
+            # seeded stop logits crowd together: where the widest gap between them is
+            # under the margin that an exit needs (a bfloat16 run's error times
+            # BF16_MARGIN_FACTOR), the next seed's weights, each held to the cap first
+            for attempt in range(EXIT_SEEDS):
+                decoder = seeded_decoder(hp, seed=80 + len(lengths) + src_len + 100 * attempt)
+                cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
+                masks = seeded_masks(fused_decode.pack_decoder(decoder), rng, steps,
+                                     len(lengths))
+                factor = spread_for_exit(decoder, cond, masks, steps)
+                packed = fused_decode.pack_decoder(decoder)
+                require(packed.sizes["LF0"] == hp.num_mgcs
+                        and packed.sizes["M"] == hp.num_mgcs + hp.num_lf0s,
+                        f"{name}: the lf0 lanes of the frame")
+                held = check_fused_with_exit(
+                    f"lf0 {dtype} narrow {name}, weights {attempt}, stop rows x {factor}",
+                    packed, cond, rng, steps, masks=masks,
+                    tol=TOL_FUSED_BF16 if bf16 else TOL_FUSED,
+                    margin_factor=BF16_MARGIN_FACTOR if bf16 else FUSED_MARGIN_FACTOR,
+                    gap_required=attempt == EXIT_SEEDS - 1)
+                if held is not None:
+                    break
+        check_fused(f"lf0 {dtype} narrow B=6, two batch blocks", packed, cond,
+                    seeded_masks(packed, rng, steps, 6), steps, 2.0, slice_batch=4,
+                    tol=TOL_FUSED_BF16 if bf16 else TOL_FUSED)
+
+    records = {}
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    rng = np.random.default_rng(82)
+    for config, dtype, seed in (("mgclf0", "float32", 83), ("mgclf0", "bfloat16", 83),
+                                ("flagship-mgclf0", "float32", 84)):
+        net = load_network(config, seed=seed, compute_dtype=dtype)
+        hp, packed = net.hparams, fused_decode.pack_decoder(net.decoder)
+        steps = hp.max_iters
+        need, have = fused_decode.block_shared_memory(packed.sizes, 128, steps, DEV,
+                                                      packed.io_dtype)
+        limit = fused_decode.fused_decode_max_batch(hp, steps, 128)
+        log("check " + json.dumps({
+            "kernel": "fused_decode", "case": f"{config} {dtype}: launch limit",
+            "M": packed.sizes["M"], "LF0": packed.sizes["LF0"], "block_needs": need,
+            "sm_offers": have, "lanes_per_launch": limit}))
+        require(packed.sizes["M"] == 316 and packed.sizes["LF0"] == 60,
+                f"{config}: frames of mgc 60 and lf0 256")
+        require(limit == fused_decode.LANES * sms, f"{config}: the launch limit is {limit}")
+        for batch, longest in ((32, 128), (1, 97)):
+            req = ragged_request(rng, batch, longest)
+            cond = flagship_conditioning(net, req, seed=batch)
+            label = f"{config} {dtype} B={batch} S={longest}"
+            if config == "mgclf0" and batch == 32 and dtype == "float32":
+                # seeded weights never stop: the early exit is held with the stop rows spread
+                masks = seeded_masks(packed, rng, FUSED_STEPS, batch)
+                factor = spread_for_exit(net.decoder, cond, masks, FUSED_STEPS)
+                check_fused_with_exit(
+                    f"{label}, stop rows x {factor}", fused_decode.pack_decoder(net.decoder),
+                    cond, rng, FUSED_STEPS, masks=masks)
+                spread_stop_logits(net.decoder, 1.0 / factor)
+            masks = seeded_masks(packed, rng, steps, batch)
+            records[(config, dtype, batch)] = time_fused(
+                f"{label}, {steps} steps, time", packed, cond, masks, req["source_lengths"], steps)
+        del net, packed
+    return records
+
+
+def teacher_agreement(got, want):
+    return {"values_max_abs_err": max(max_abs_err(got[0], want[0]), max_abs_err(got[1], want[1])),
+            "grad_max_rel_err": max(relative_errors(got[2], want[2]).values())}
+
+
+def check_teacher_blocks(name, ops, feeds, prenet_masks, lengths, valid_steps, block: int):
+    """``teacher_decode`` in sequential batch blocks of ``block`` lanes (a batch
+    beyond one launch; block i's zoneout seed is seed + i * BLOCK_SEED_STRIDE) at
+    full width: with zoneout 0 against the unsliced kernels, and with train zoneout
+    against the plain version's per-block runs (``teacher_decode_reference`` with the
+    same ``slice_batch``); values and every gradient at TOL_TEACHER /
+    TOL_TEACHER_GRAD, a launch pair per block. The blocked call and the unsliced
+    one are timed on the host clock, prenet and gradient products included."""
+    B, N = feeds.shape[:2]
+    S = ops["keys"].shape[1]
+    blocks = -(-B // block)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    live = torch.arange(N, device=DEV)[None, :] < torch.as_tensor(valid_steps, device=DEV)[:, None]
+    n_src = 1 if ops["mem2"] is None else 2
+    cot = (torch.randn(B, N, ops["hp_like"]["dec_units"], device=DEV, generator=gen)
+           * live[..., None],
+           torch.randn(B, N, n_src * S, device=DEV, generator=gen) * live[..., None])
+    still = dict(ops, hp_like=dict(ops["hp_like"], zoneout_cell=0.0, zoneout_output=0.0))
+    require(ops["hp_like"]["zoneout_cell"] > 0.0 and not ops["hp_like"]["eval_zoneout"],
+            f"{name}: the per-block runs need train zoneout")
+    launches = []
+    runs = {}
+    for key, o, fn, kw in (
+        ("blocked, zoneout 0", still, fused_teacher.teacher_decode, {"slice_batch": block}),
+        ("unsliced, zoneout 0", still, fused_teacher.teacher_decode, {}),
+        ("blocked, train zoneout", ops, fused_teacher.teacher_decode, {"slice_batch": block}),
+        ("per-block plain runs, train zoneout", ops, fused_teacher.teacher_decode_reference,
+         {"slice_batch": block}),
+        ("unsliced, train zoneout", ops, fused_teacher.teacher_decode, {}),
+    ):
+        before = (fused_teacher.launch_count, fused_teacher.bwd_launch_count)
+        runs[key] = teacher_run(fn, o, feeds, prenet_masks, cot, **kw)
+        launches.append((key, fused_teacher.launch_count - before[0],
+                         fused_teacher.bwd_launch_count - before[1]))
+    still_err = teacher_agreement(runs["blocked, zoneout 0"], runs["unsliced, zoneout 0"])
+    train_err = teacher_agreement(runs["blocked, train zoneout"],
+                                  runs["per-block plain runs, train zoneout"])
+    # the blocks' own seeds: their masks are not those of one launch
+    seeds_differ = max_abs_err(runs["blocked, train zoneout"][0][block:],
+                               runs["unsliced, train zoneout"][0][block:])
+    expected = {"blocked, zoneout 0": blocks, "unsliced, zoneout 0": 1,
+                "blocked, train zoneout": blocks, "per-block plain runs, train zoneout": 0,
+                "unsliced, train zoneout": 1}
+    finite = all(bool(torch.isfinite(x).all()) for r in runs.values() for x in (r[0], r[1]))
+    ok = (finite and all(f == b == expected[k] for k, f, b in launches)
+          and still_err["values_max_abs_err"] <= TOL_TEACHER
+          and still_err["grad_max_rel_err"] <= TOL_TEACHER_GRAD
+          and train_err["values_max_abs_err"] <= TOL_TEACHER
+          and train_err["grad_max_rel_err"] <= TOL_TEACHER_GRAD and seeds_differ > 1e-3)
+    rec = {
+        "kernel": "fused_teacher", "case": name, "B": B, "N": N, "S": S, "block": block,
+        "blocks": blocks, "launches_fwd_bwd": {k: [f, b] for k, f, b in launches},
+        "blocked_against_unsliced_zoneout_0": still_err,
+        "blocked_against_per_block_plain_runs": train_err,
+        "blocked_against_unsliced_train_zoneout_features": seeds_differ,
+        "tol": TOL_TEACHER, "tol_grad_rel": TOL_TEACHER_GRAD,
+        "wall_ms_fwd_bwd": {k: list(r[3]) for k, r in runs.items()}, "ok": ok,
+    }
+    for i, which in enumerate(("fwd", "bwd")):
+        flops, nbytes = teacher_flops_and_bytes(ops, feeds, lengths, backward=bool(i))
+        rec[which] = {
+            "ms": runs["blocked, train zoneout"][3][i],
+            "unsliced_ms": runs["unsliced, train zoneout"][3][i],
+            "plain_ms": runs["per-block plain runs, train zoneout"][3][i],
+            **bound(flops, nbytes, torch.float32), "flops": flops, "bytes": nbytes,
+        }
+    log("check " + json.dumps(rec))
+    if not ok:
+        raise SystemExit(f"fused_teacher in batch blocks disagrees: {rec}")
+    return rec
+
+
+def phase_mgclf0_teacher():
+    """The teacher kernels under the WORLD heads (their feeds 316 wide through the
+    hoisted prenet; the kernels themselves are the mel family's): ``mgclf0`` at full
+    width over 400 steps against the plain version, every gradient, timed; then the
+    teacher kernels in three sequential batch blocks (12, 12 and 8 lanes) at the
+    same width (``check_teacher_blocks``). Returns ``{("mgclf0", "float32"): record,
+    "blocks": record}``."""
+    ops, feeds, masks, lengths, valid_steps = teacher_batch("mgclf0", "float32", seed=85)
+    require(feeds.shape[-1] == 316, f"mgclf0 feeds {tuple(feeds.shape)}")
+    rec = check_teacher(f"mgclf0 float32 B=32 S=128 ragged, {feeds.shape[1]} steps, seeded "
+                        "weights", ops, feeds, masks, lengths, timed=True, valid_steps=valid_steps)
+    blocks = check_teacher_blocks(
+        f"mgclf0 float32 B=32 S=128 ragged, {feeds.shape[1]} steps, three batch blocks", ops,
+        feeds, masks, lengths, valid_steps, block=12)
+    return {("mgclf0", "float32"): rec, "blocks": blocks}
+
+
+# --------------------------------------------------------------------------- #
+# The families served from seeded weights: main path and training
+# --------------------------------------------------------------------------- #
+
+# (one-source configuration, two-source configuration, location-sensitive, the io
+# types the two-source configuration runs in: the reference trains flagship-ls in
+# bfloat16 too, scripts/tpu_parity.py:377-382)
+FAMILIES = {
+    "ls": ("ls", "flagship-ls", True, ("float32", "bfloat16")),
+    "mgclf0": ("mgclf0", "flagship-mgclf0", False, ("float32",)),
+}
+# Seeded stop rows never fire: on the main path they are spread so that a run of the
+# one-source configuration's batch-32 request to the cap spans this much in logits.
+SEEDED_STOP_SPAN = 20.0
+
+
+def seeded_main_path(family: str):
+    """Synthesis of ``family``'s configurations through ``make_predict_fn`` from
+    seeded weights, batch 1 and 32, through the kernels and with
+    ``use_pallas_kernels=False``, same generator seed, in float32 and in bfloat16:
+    the one-source configuration (``bilstm`` and ``fused_decode``), then the
+    two-source one to the cap (``bigru``, ``mha_full``, ``fused_decode``). Seeded
+    weights never stop: the one-source configuration's stop rows are spread as
     ``phase_baseline_decode`` spreads them, here so that a run of the batch-32
-    request to the cap spans LS_STOP_SPAN in logits, centred on the threshold 0.5
-    at the median lane, so that about half its lanes fire, at steps of their own. Launch counts exact, lengths and flags on the lanes
-    with a margin (float32 as ``compare_paths`` holds them, bfloat16 as
-    ``phase_main_path_bf16``); a short request on the card against the same on the
-    CPU in both io types. Then ``flagship-ls`` (float32, to the cap) through the
-    kernels and the plain path, the same way. Returns ``{(config, dtype):
-    {"launches", "variants", "stats", "stats_plain", "threshold"}}``."""
+    request to the cap spans SEEDED_STOP_SPAN in logits, centred on the threshold
+    0.5 at the median lane, so that about half its lanes fire, at steps of their
+    own. Launch counts exact, lengths and flags on the lanes with a margin (float32
+    as ``compare_paths`` holds them, bfloat16 as ``phase_main_path_bf16``); a short
+    request of the one-source configuration on the card against the same on the
+    CPU in both io types. Returns ``{(config, dtype): {"launches", "variants",
+    "stats", "stats_plain", "threshold"}}``."""
+    single, dual_config, ls, dual_dtypes = FAMILIES[family]
     reqs = requests()
     out = {}
-    for config, dtype in (("ls", "float32"), ("ls", "bfloat16"), ("flagship-ls", "float32")):
+    for config, dtype in ((single, "float32"), (single, "bfloat16"),
+                          *((dual_config, d) for d in dual_dtypes)):
         bf16 = dtype == "bfloat16"
         threshold, factor, shift = 2.0, 1.0, 0.0
 
@@ -2592,9 +2871,9 @@ def phase_ls_main_path():
             shape_stop_rows(net.decoder, factor, shift)
             return net
 
-        if config == "ls":
+        if config == single:
             # the batch-32 request (its masks as run_requests draws them) to the cap:
-            # its stop rows are scaled so that its stop logits span LS_STOP_SPAN and
+            # its stop rows are scaled so that its stop logits span SEEDED_STOP_SPAN and
             # shifted so that the median of the lanes' largest logit lands on 0 (they
             # feed nothing back, so the run moves by exactly that map); at the
             # threshold 0.5 about half the lanes fire, the others run to the cap
@@ -2603,7 +2882,7 @@ def phase_ls_main_path():
                 reqs[1], generator=torch.Generator(device=DEV).manual_seed(301))
             logits = stop_logits(to_cap["stop_probs"])
             span = float(logits.max() - logits.min())
-            factor = LS_STOP_SPAN / span
+            factor = SEEDED_STOP_SPAN / span
             shift = factor * float(np.median(logits.max(axis=1)))
             threshold = 0.5
             log(f"main_path {config} {dtype} stop rows " + json.dumps(
@@ -2619,11 +2898,11 @@ def phase_ls_main_path():
         variants = dict(fused_decode.variant_launches)
         log(f"main_path {config} {dtype} kernels " + json.dumps({
             "launches": launches, "fused_decode_specialisations": variants, "requests": stats}))
-        dual = config == "flagship-ls"
+        dual = config == dual_config
         expected = {"bigru": len(reqs) if dual else 0, "mha_full": len(reqs) if dual else 0,
                     "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs)}
         require(launches == expected, f"{config} {dtype} synthesis launched {launches}")
-        name = fused_decode.variant_name(dual, dual, COMPUTE[dtype], ls=True)
+        name = fused_decode.variant_name(dual, dual, COMPUTE[dtype], ls=ls, lf0=not ls)
         require(variants == {name: len(reqs)}, f"{config} {dtype} launched {variants}")
         for o, req in zip(outs, reqs):
             check_output(o, req, hp)
@@ -2641,15 +2920,15 @@ def phase_ls_main_path():
                                            apart_below_margin=True)
                 steps = min(int(o["num_steps"]), int(ref["num_steps"]))
                 log(f"main_path {config} bf16 agreement " + json.dumps({
-                    "batch": int(o["mel"].shape[0]),
-                    "lanes_held": int(o["mel"].shape[0]) - len(left_out),
+                    "batch": int(o["lengths"].shape[0]),
+                    "lanes_held": int(o["lengths"].shape[0]) - len(left_out),
                     "num_steps": [int(o["num_steps"]), int(ref["num_steps"])],
                     "lanes_left_out_of_the_exact_comparison": left_out, "margin": MAIN_MARGIN,
                     "early": output_errors(o, ref, min(EARLY_STEPS, steps), r),
                     "whole": output_errors(o, ref, steps, r),
                 }))
-        if config == "ls":
-            ls_against_cpu(network, dtype, factor, shift)
+        if config == single:
+            seeded_against_cpu(config, network, dtype, factor, shift)
         out[(config, dtype)] = {"launches": launches, "variants": variants, "stats": stats,
                                 "stats_plain": stats_plain, "threshold": threshold}
     return out
@@ -2658,10 +2937,11 @@ def phase_ls_main_path():
 COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
-def ls_against_cpu(network, dtype: str, factor: float, shift: float, steps: int = 30) -> None:
-    """A short ``ls`` request on the card (the kernels) against the same on the CPU
-    (float32: the step-by-step path; bfloat16: the fused decode's plain version),
-    same weights, source and injected masks, no exit."""
+def seeded_against_cpu(config: str, network, dtype: str, factor: float, shift: float,
+                       steps: int = 30) -> None:
+    """A short request of ``config`` on the card (the kernels) against the same on
+    the CPU (float32: the step-by-step path; bfloat16: the fused decode's plain
+    version), same weights, source and injected masks, no exit."""
     bf16 = dtype == "bfloat16"
     rng = np.random.default_rng(79)
     req = ragged_request(rng, 2, 40)
@@ -2671,7 +2951,7 @@ def ls_against_cpu(network, dtype: str, factor: float, shift: float, steps: int 
     masks = tuple(rng.random((steps, 2, units)) < 1.0 - hp.decoder_prenet_drop_rate
                   for units in hp.decoder_prenet_out_units)
     on_card = make_predict_fn(card_net, max_iters=steps)(req, prenet_masks=masks)
-    cpu_net = load_network("ls", seed=61, device="cpu", compute_dtype=dtype,
+    cpu_net = load_network(config, seed=61, device="cpu", compute_dtype=dtype,
                            stop_token_threshold=2.0, encoder_prenet_drop_rate=0.0)
     shape_stop_rows(cpu_net.decoder, factor, shift)
     on_cpu = make_predict_fn(cpu_net, max_iters=steps, device="cpu",
@@ -2680,115 +2960,162 @@ def ls_against_cpu(network, dtype: str, factor: float, shift: float, steps: int 
             for k, v in on_card.items()}
     errs = output_errors(card, on_cpu, steps, hp.outputs_per_step)
     tol = TOL_CPU_BF16 if bf16 else TOL_CPU
-    log(f"main_path ls {dtype} card_vs_cpu " + json.dumps({"steps": steps, **errs, "tol": tol}))
+    log(f"main_path {config} {dtype} card_vs_cpu " + json.dumps(
+        {"steps": steps, **errs, "tol": tol}))
     if int(card["num_steps"]) != steps or not torch.equal(card["lengths"], on_cpu["lengths"]):
-        raise SystemExit(f"ls {dtype}: the card and the CPU disagree on the steps or lengths")
+        raise SystemExit(f"{config} {dtype}: the card and the CPU disagree on the steps or lengths")
     if not max(errs.values()) <= tol:
-        raise SystemExit(f"ls {dtype}: the card and the CPU differ: {errs}")
+        raise SystemExit(f"{config} {dtype}: the card and the CPU differ: {errs}")
 
 
-def phase_ls_training():
-    """``ls``'s ``train_step`` at full width, 32 lanes x 800 frames, from seeded
-    weights: (a) float32, three timed steps through the kernels (the one-source
-    location-sensitive teacher kernels; ZoneoutEncoderV1 trains through its plain
-    LSTM) and one with ``use_pallas_kernels=False``, every gradient leaf of the
-    first step held (``location_conv``, ``location_layer`` and ``attention_b``
-    among them, which must not be zero), launch counts exact, an evaluation step on
-    both; (b) bfloat16, three timed steps through the kernels and one plain, the
-    first step's leaves beside the yardstick of the plain path in bfloat16 against
-    the plain path in float32 (the median leaf held); (c) ``flagship-ls``: one
-    float32 step, kernels against plain, every leaf held."""
-    hp = config_hparams("ls")
-    batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
-                           hp.outputs_per_step)
+def phase_ls_main_path():
+    return seeded_main_path("ls")
+
+
+def phase_mgclf0_main_path():
+    return seeded_main_path("mgclf0")
+
+
+def seeded_training(family: str):
+    """``train_step`` of ``family``'s configurations at full width, 32 lanes x 800
+    frames (the configuration's heads), from seeded weights: (a) the one-source
+    configuration in float32, three timed steps through the kernels (the one-source
+    teacher kernels; ZoneoutEncoderV1 trains through its plain LSTM) and one with
+    ``use_pallas_kernels=False``, every gradient leaf of the first step held (the
+    location-sensitive family: ``location_conv``, ``location_layer`` and
+    ``attention_b`` among them, which must not be zero), launch counts exact, an
+    evaluation step on both; (b) the same in bfloat16 (the plain path one step, no
+    evaluation), the first step's leaves beside the yardstick of the plain path in
+    bfloat16 against the plain path in float32 (the median leaf held); (c) the
+    two-source configuration: one step, kernels against plain, every leaf held in
+    float32, and (where the family trains it so) in bfloat16 beside its yardstick."""
+    single, dual_config, ls, dual_dtypes = FAMILIES[family]
+    suffix = "_ls" if ls else ""
+    batch = config_batch(config_hparams(single), np.random.default_rng(1234))
     one_step = {"bigru": 0, "bigru_bwd": 0, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
                 "mha_full": 0, "fused_decode": 0, "bilstm": 0}
     # an evaluation step: the teacher forward, and ZoneoutEncoderV1's eval kernel
     eval_step = {**one_step, "fused_teacher_bwd": 0, "bilstm": 1}
     plain = {"use_pallas_kernels": False}
+
+    def special_leaves(grads):
+        if not ls:
+            return []
+        keys = [k for k in grads if "location_conv" in k or "location_layer" in k
+                or k.endswith("attention_b")]
+        require(len(keys) == 4 and all(float(grads[k].abs().max()) > 0.0 for k in keys),
+                "the location parameters must receive gradients")
+        return keys
+
+    def against_yardstick(label, kernels, plain_run, f32_plain, extra):
+        grads = [r["first_grads"] for r in (kernels, plain_run, f32_plain)]
+        against_plain = norm_relative(grads[0], grads[1])
+        yardstick = norm_relative(grads[1], grads[2])
+        shares = {k: against_plain[k] / max(yardstick[k], 1e-30) for k in yardstick}
+        median_share = float(np.median(list(shares.values())))
+        log(f"training agreement, {label} " + json.dumps({
+            "median_leaf_share_of_yardstick": median_share,
+            "largest_leaf_share_of_yardstick": max(shares.values()),
+            "leaves": {k: {"kernels_against_plain": against_plain[k],
+                           "plain_bf16_against_f32": yardstick[k]}
+                       for k in special_leaves(grads[0])}, **extra,
+        }))
+        require(median_share <= 1.0, f"{label}: the kernel path is further from the plain path "
+                f"than bf16 from float32: {median_share}")
+
     results = {}
     for dtype in ("float32", "bfloat16"):
         overrides = {"compute_dtype": dtype}
-        kernels = run_training(f"ls {dtype} kernels, seeded weights", batch, overrides,
-                               seeded_network, TRAIN_STEPS, True, trace=True, config="ls")
+        kernels = run_training(f"{single} {dtype} kernels, seeded weights", batch, overrides,
+                               seeded_network, TRAIN_STEPS, True, trace=True, config=single)
         expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
-        require(kernels["counts"] == expected,
-                f"{TRAIN_STEPS} ls {dtype} steps launched {kernels['counts']}, expected {expected}")
-        require(kernels["variants"] == {"fwd_single_ls": TRAIN_STEPS, "bwd_single_ls": TRAIN_STEPS},
-                f"ls {dtype} launched the teacher specialisations {kernels['variants']}")
+        require(kernels["counts"] == expected, f"{TRAIN_STEPS} {single} {dtype} steps launched "
+                f"{kernels['counts']}, expected {expected}")
+        require(kernels["variants"] == {f"fwd_single{suffix}": TRAIN_STEPS,
+                                        f"bwd_single{suffix}": TRAIN_STEPS},
+                f"{single} {dtype} launched the teacher specialisations {kernels['variants']}")
         require(kernels["eval_counts"] == eval_step,
-                f"an ls {dtype} evaluation step launched {kernels['eval_counts']}")
+                f"a {single} {dtype} evaluation step launched {kernels['eval_counts']}")
         torch.cuda.empty_cache()
-        plain_run = run_training(f"ls {dtype} plain, seeded weights", batch,
-                                 dict(overrides, **plain), seeded_network, 1, True, config="ls")
+        # float32: with a warm-up and an evaluation step, which are held; bfloat16 one
+        # step, held beside its yardstick
+        plain_run = run_training(f"{single} {dtype} plain, seeded weights", batch,
+                                 dict(overrides, **plain), seeded_network, 1,
+                                 dtype == "float32", config=single)
         require(all(v == 0 for v in plain_run["counts"].values()), "the plain path launched a kernel")
         require(all(v == 0 for v in plain_run["eval_counts"].values()),
                 "the plain path launched a kernel")
-        location = [k for k in kernels["first_grads"]
-                    if "location_conv" in k or "location_layer" in k or k.endswith("attention_b")]
-        require(len(location) == 4 and all(
-            float(kernels["first_grads"][k].abs().max()) > 0.0 for k in location),
-            "the location parameters must receive gradients")
-        eval_diffs = {k: abs(v - plain_run["eval"][k]) for k, v in kernels["eval"].items()}
+        special_leaves(kernels["first_grads"])
         if dtype == "float32":
-            check_seeded_agreement("ls, seeded weights", kernels, plain_run,
+            eval_diffs = {k: abs(v - plain_run["eval"][k]) for k, v in kernels["eval"].items()}
+            check_seeded_agreement(f"{single}, seeded weights", kernels, plain_run,
                                    eval_loss_parts_abs=eval_diffs, tol_eval=TOL_EVAL)
             if not max(eval_diffs.values()) <= TOL_EVAL:
-                raise SystemExit(f"ls kernel path and plain path differ in evaluation: {eval_diffs}")
+                raise SystemExit(f"{single} kernel path and plain path differ in evaluation: "
+                                 f"{eval_diffs}")
             f32_plain = plain_run
         else:
-            grads = [r["first_grads"] for r in (kernels, plain_run, f32_plain)]
-            against_plain = norm_relative(grads[0], grads[1])
-            yardstick = norm_relative(grads[1], grads[2])
-            shares = {k: against_plain[k] / max(yardstick[k], 1e-30) for k in yardstick}
-            median_share = float(np.median(list(shares.values())))
-            log("training agreement, ls bf16 seeded weights " + json.dumps({
-                "median_leaf_share_of_yardstick": median_share,
-                "largest_leaf_share_of_yardstick": max(shares.values()),
-                "location_leaves": {k: {"kernels_against_plain": against_plain[k],
-                                        "plain_bf16_against_f32": yardstick[k]}
-                                    for k in location},
-                "eval_loss_parts_abs": eval_diffs,
-            }))
-            require(median_share <= 1.0, f"ls bf16 kernel path further from the plain path than "
-                    f"bf16 from float32: {median_share}")
+            against_yardstick(f"{single} bf16 seeded weights", kernels, plain_run, f32_plain, {})
         results[dtype] = (kernels, plain_run)
         torch.cuda.empty_cache()
 
-    # (c) flagship-ls: one float32 step on both paths
-    fl_kernels = run_training("flagship-ls kernels, seeded weights", batch, {}, seeded_network,
-                              1, False, config="flagship-ls")
+    # (c) the two-source configuration: one step on both paths in each io type
     fl_one = {**one_step, "bigru": 1, "bigru_bwd": 1}
-    require(fl_kernels["counts"] == fl_one, f"one flagship-ls step launched {fl_kernels['counts']}")
-    require(fl_kernels["variants"] == {"fwd_dual_ls": 1, "bwd_dual_ls": 1},
-            f"flagship-ls launched the teacher specialisations {fl_kernels['variants']}")
-    fl_plain = run_training("flagship-ls plain, seeded weights", batch, plain, seeded_network, 1,
-                            False, config="flagship-ls")
-    check_seeded_agreement("flagship-ls, seeded weights", fl_kernels, fl_plain)
-    results["flagship-ls"] = (fl_kernels, fl_plain)
+    for dtype in dual_dtypes:
+        overrides = {"compute_dtype": dtype}
+        fl_kernels = run_training(f"{dual_config} {dtype} kernels, seeded weights", batch,
+                                  overrides, seeded_network, 1, False, config=dual_config)
+        require(fl_kernels["counts"] == fl_one,
+                f"one {dual_config} {dtype} step launched {fl_kernels['counts']}")
+        require(fl_kernels["variants"] == {f"fwd_dual{suffix}": 1, f"bwd_dual{suffix}": 1},
+                f"{dual_config} launched the teacher specialisations {fl_kernels['variants']}")
+        fl_plain = run_training(f"{dual_config} {dtype} plain, seeded weights", batch,
+                                dict(overrides, **plain), seeded_network, 1, False,
+                                config=dual_config)
+        if dtype == "float32":
+            check_seeded_agreement(f"{dual_config}, seeded weights", fl_kernels, fl_plain)
+            fl_f32_plain = fl_plain
+        else:
+            against_yardstick(f"{dual_config} bf16 seeded weights", fl_kernels, fl_plain,
+                              fl_f32_plain, {})
+        results[(dual_config, dtype)] = (fl_kernels, fl_plain)
+        torch.cuda.empty_cache()
     return results
 
 
-def ls_kernel_entries(decode, teacher, main_path, train):
-    """The ``kernels`` entries of the location-sensitive instantiations: times at
-    full width from the kernel phases, launches from the ``ls`` main paths
-    (synthesis in each io type, training steps) and, for the two-source
-    instantiations, from ``flagship-ls``'s request and training step."""
+def phase_ls_training():
+    return seeded_training("ls")
+
+
+def phase_mgclf0_training():
+    return seeded_training("mgclf0")
+
+
+def family_kernel_entries(family: str, decode, teacher, main_path, train):
+    """The ``kernels`` entries of ``family``'s instantiations: times at full width
+    from the kernel phases, launches from the family's main paths (synthesis in each
+    io type, training steps)."""
+    single, dual_config, ls, _ = FAMILIES[family]
+    tag = "ls" if ls else "lf0"
     entries = []
-    for name, config, dtype, dual in (
-        ("fused_decode_ls", "ls", "float32", False),
-        ("fused_decode_ls_bf16", "ls", "bfloat16", False),
-        ("fused_decode_dual_ls", "flagship-ls", "float32", True),
-    ):
-        rec, io = decode[(config, dtype, 32)], "float" if dtype == "float32" else "__nv_bfloat16"
+    for config, dtype in ((single, "float32"), (single, "bfloat16"), (dual_config, "float32"),
+                          (dual_config, "bfloat16")):
+        if (config, dtype, 32) not in decode:
+            continue
+        dual = config == dual_config
+        rec = decode[(config, dtype, 32)]
+        io = "float" if dtype == "float32" else "__nv_bfloat16"
         run = main_path[(config, dtype)]
+        flags = (f"{str(dual).lower()}, {str(dual).lower()}, {str(ls).lower()}, "
+                 f"{str(not ls).lower()}, {io}")
         entry = {
-            "name": name, "route": "cuda",
-            "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+            "name": f"fused_decode{'_dual' if dual else ''}_{tag}"
+                    + ("_bf16" if dtype == "bfloat16" else ""),
+            "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
             "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
-            "instantiation": f"fused_decode_kernel<{str(dual).lower()}, {str(dual).lower()}, true, {io}>",
+            "instantiation": f"fused_decode_kernel<{flags}>",
             "launches": run["variants"].get(fused_decode.variant_name(
-                dual, dual, COMPUTE[dtype], ls=True), 0),
+                dual, dual, COMPUTE[dtype], ls=ls, lf0=not ls), 0),
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
             "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": dtype,
@@ -2796,27 +3123,31 @@ def ls_kernel_entries(decode, teacher, main_path, train):
             "fused_request_ms": 1e3 * run["stats"][1]["wall_s"],
             "step_by_step_request_ms": 1e3 * run["stats_plain"][1]["wall_s"],
         }
+        if not ls:
+            entry["lf0_lanes"] = [rec["shape"]["LF0"], rec["shape"]["M"]]
         if (config, dtype, 1) in decode:
             b1 = decode[(config, dtype, 1)]
             entry.update(batch1_ms=b1["ms"], batch1_ms_per_step=b1["ms_per_step"],
                          batch1_bound_ms=b1["bound_ms"], batch1_plain_ms=b1["plain_ms"])
         entries.append(entry)
     for which, line in (("fwd", 1219), ("bwd", 1310)):
-        for name, config, dtype, dual in (
-            (f"fused_teacher_{which}_ls", "ls", "float32", False),
-            (f"fused_teacher_{which}_ls_bf16", "ls", "bfloat16", False),
-            (f"fused_teacher_{which}_dual_ls", "flagship-ls", "float32", True),
-        ):
+        for config, dtype in ((single, "float32"), (single, "bfloat16"),
+                              (dual_config, "float32"), (dual_config, "bfloat16")):
+            if (config, dtype) not in teacher:
+                continue
+            dual = config == dual_config
             rec = teacher[(config, dtype)]
             io = "float" if dtype == "float32" else "__nv_bfloat16"
-            steps = train[dtype if config == "ls" else "flagship-ls"][0]
+            steps = train[dtype if not dual else (config, dtype)][0]
             err = (max(rec["features_max_abs_err"], rec["alignments_max_abs_err"])
                    if which == "fwd" else rec["grad_max_abs_err"])
-            entries.append({
-                "name": name, "route": "cuda",
-                "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
+            entry = {
+                "name": f"fused_teacher_{which}{'_dual' if dual else ''}_{tag}"
+                        + ("_bf16" if dtype == "bfloat16" else ""),
+                "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
                 "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
-                "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, true, {io}>",
+                "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, "
+                                 f"{str(ls).lower()}, {io}>",
                 "launches": steps["counts"][f"fused_teacher_{which}"],
                 "max_abs_err": err, "ms": rec[which]["ms"], "plain_ms": rec[which]["plain_ms"],
                 "bound_ms": rec[which]["bound_ms"], "bound_by": rec[which]["bound_by"],
@@ -2824,7 +3155,28 @@ def ls_kernel_entries(decode, teacher, main_path, train):
                 "ms_per_step": rec[which]["ms_per_step"], "wrapper_ms": rec[which]["wrapper_ms"],
                 "grad_max_rel_err": rec["grad_max_rel_err"],
                 "train_step_ms": min(r["step_ms"] for r in steps["rows"]),
-            })
+            }
+            if not ls:
+                # the teacher kernels' launches on each of the family's training paths
+                # (each io type and source count has its instantiation), and the path
+                # of a batch beyond one launch: sequential batch blocks
+                entry["family_launches"] = {
+                    " ".join(key) if isinstance(key, tuple) else f"{single} {key}":
+                        run_["counts"][f"fused_teacher_{which}"]
+                    for key, (run_, _) in train.items()}
+                blocks = teacher["blocks"]
+                entry["batch_blocks"] = {
+                    "blocks": blocks["blocks"], "block": blocks["block"],
+                    "launches": blocks["launches_fwd_bwd"]["blocked, train zoneout"][
+                        0 if which == "fwd" else 1],
+                    "wall_ms": blocks[which]["ms"],
+                    "unsliced_wall_ms": blocks[which]["unsliced_ms"],
+                    "plain_ms": blocks[which]["plain_ms"], "bound_ms": blocks[which]["bound_ms"],
+                    "bound_by": blocks[which]["bound_by"],
+                    "against_unsliced_zoneout_0": blocks["blocked_against_unsliced_zoneout_0"],
+                    "against_per_block_plain_runs": blocks["blocked_against_per_block_plain_runs"],
+                }
+            entries.append(entry)
     return entries
 
 
@@ -2866,6 +3218,10 @@ def main() -> int:
     ls_teacher = timed_phase(phase_ls_teacher)
     ls_main = timed_phase(phase_ls_main_path)
     ls_train = timed_phase(phase_ls_training)
+    world_decode = timed_phase(phase_mgclf0_decode)
+    world_teacher = timed_phase(phase_mgclf0_teacher)
+    world_main = timed_phase(phase_mgclf0_main_path)
+    world_train = timed_phase(phase_mgclf0_training)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -2917,7 +3273,7 @@ def main() -> int:
         ),
     }
     instantiations = [
-        f"fused_decode_kernel<{dual}, {use_sa}, {io}>"
+        f"fused_decode_kernel<{dual}, {use_sa}, false, false, {io}>"
         for io in ("float", "__nv_bfloat16") for dual in ("true", "false")
         for use_sa in ("true", "false")
     ]
@@ -2968,7 +3324,7 @@ def main() -> int:
         "name": "fused_decode_bf16", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
         "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
-        "instantiation": "fused_decode_kernel<true, true, __nv_bfloat16>",
+        "instantiation": "fused_decode_kernel<true, true, false, false, __nv_bfloat16>",
         "launches": launches_bf16["fused_decode"],
         "max_abs_err": b16["max_abs_err"], "ms": b16["ms"], "plain_ms": b16["plain_ms"],
         "bound_ms": b16["bound_ms"], "bound_by": b16["bound_by"], "library_ms": None,
@@ -3085,7 +3441,9 @@ def main() -> int:
             },
             **step_ms_bf16,
         })
-    kernels += ls_kernel_entries(ls_decode, ls_teacher, ls_main, ls_train)
+    kernels += family_kernel_entries("ls", ls_decode, ls_teacher, ls_main, ls_train)
+    kernels += family_kernel_entries("mgclf0", world_decode, world_teacher, world_main,
+                                     world_train)
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-// The whole autoregressive decode loop of the mel decoders in one launch.
+// The whole autoregressive decode loop of the decoders in one launch.
 //
 // Replaces the Pallas kernel of self_attention_tacotron_tpu/ops/fused_decode.py
 // (_make_kernel / _run_fused). Per decoder step t this body computes, for every
@@ -20,7 +20,9 @@
 //     projection, residual, LayerNorm, FFN, residual
 //   out = y . Wout + b: r frames and r stop logits; rows of frames, stop
 //     probabilities and both alignments written out; per-lane first firing frame,
-//     lengths and finished flags; the last frame fed back
+//     lengths and finished flags; the last frame fed back, its lanes [LF0, M)
+//     (the lf0 class logits of the WORLD heads; none where LF0 = 0, the mel head)
+//     softmaxed first
 //
 // and leaves the loop at T steps or, with early_exit, as soon as every lane of
 // the launch has fired.
@@ -36,7 +38,9 @@
 // matrix Wls (K rows, zero-padded to LS_TAPS, in the io type) lives in shared
 // memory from the first step on, the cumulative alignments in a row per lane beside
 // the alignments, and the location features are formed inside the score pass
-// (location.cuh), never stored; without LS none of that takes room or code. IO is
+// (location.cuh), never stored; without LS none of that takes room or code. LF0
+// (the WORLD heads' lf0 feedback, below) is compiled with forward attention for all
+// four pairs. IO is
 // the type of the weights, keys, memories, speaker embedding and K/V cache in
 // global memory. With bfloat16 the
 // kernel rounds the input of every product to bfloat16 where the Pallas kernel
@@ -49,6 +53,18 @@
 // The LSTMs' hidden states then live apart from their rounded copies. With LS the
 // taps (the alignment values) and Wls are rounded too; the location sum and its
 // bias stay float.
+//
+// The frame is one M-wide row whatever the heads. With the WORLD heads (mgc, then
+// lf0) the fed-back frame's lanes from LF0 = num_mgcs on are class logits that
+// training never feeds (it feeds one-hot rows), so they are softmaxed before the
+// next prenet reads them: from the unrounded float logits (summed again from the
+// output product's partial sums), in float, a warp per lane, rounded to the io type
+// once after the softmax, as the Pallas kernel casts the fed-back frame only at its
+// end. The frames written out stay logits. This is the template flag LF0, compiled
+// with forward attention for all four pairs of DUAL / USE_SA and both io types:
+// read from the width at run time inside every instantiation instead, the
+// softmax's code moved the flagship's register allocation and cost its decode 5 %
+// on an H100 (PERF.md, PR 9).
 //
 // The decoder self-attention walks the cache's prefix in tiles of SA_TILE
 // positions with an online softmax (running maximum and sum per lane and head,
@@ -104,10 +120,11 @@ enum Entry {
 // Sizes, flags and offsets (in values of their buffer), in the order the wrapper
 // writes them. The widths name the specialisation: E2 > 0 two sources, SA > 0 the
 // self-attention block, K > 0 (the location taps) location-sensitive attention;
+// LF0 the first lf0 lane of a frame (0: the mel head, no softmax in the feedback);
 // ls_cum: its taps read the cumulative alignments; bf16 the io type.
 struct Dims {
   int B, S, T;
-  int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2, K;
+  int M, R, P1, P2, SPK, AU, A1, A2, DU, SA, H, FFN, E1, E2, K, LF0;
   int use_ta, early_exit, use_masks, ls_cum, bf16;
   int off[NUM_ENTRIES];
 };
@@ -262,7 +279,7 @@ __device__ __forceinline__ void layer_norm(const float* s_x, float* s_y, int ldx
   }
 }
 
-template <bool DUAL, bool USE_SA, bool LS, typename IO>
+template <bool DUAL, bool USE_SA, bool LS, bool LF0, typename IO>
 __global__ void __launch_bounds__(NT)
 fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
   using Vec = typename Weights4<IO>::Vec;
@@ -804,6 +821,33 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc) {
     }
     __syncthreads();
 
+    // ------------------------------ lf0 feedback -------------------------------
+    // softmax over the fed-back frame's lanes [LF0, M), a warp per lane of the
+    // block (the last LANES warps, so that warp 0 goes on to the exit agreement),
+    // from the unrounded logits, summed again from the output product's partial
+    // sums (the loop above rounded what it fed back, as for the mel head)
+    if (LF0 && warp >= NWARPS - LANES) {
+      const int l = warp - (NWARPS - LANES);
+      const int first = RM - M;   // the last frame's first column of the output row
+      float* f = s_feed + l * ld_feed;
+      float m = -3.0e38f;
+      for (int k = d.LF0 + lane; k < M; k += 32) {
+        const float v = gather<LANES>(s_part, parts, r4(OW), l, first + k) +
+                        Io<IO>::load(w + d.off[OUT_B] + first + k);
+        f[k] = v;
+        m = fmaxf(m, v);
+      }
+      m = warp_max(m);
+      float sum = 0.0f;
+      for (int k = d.LF0 + lane; k < M; k += 32) {
+        const float e = expf(f[k] - m);
+        f[k] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      for (int k = d.LF0 + lane; k < M; k += 32) f[k] = Io<IO>::round(f[k] / sum);
+    }
+
     // ------------------------------ stop tracking and exit ---------------------
     steps = t + 1;
     if (tid == 0) {
@@ -859,28 +903,38 @@ bool sizes_ok(const Dims& d) {
   // and one of the two pairs of flags it is compiled for
   const bool ls = d.K == 0 || (d.K > 0 && d.K <= LS_TAPS && d.K % 2 == 1 && d.use_ta == 0 &&
                                (d.E2 > 0) == (d.SA > 0));
-  return sources && block && ls;
+  // the lf0 lanes of a frame: none (the mel head) or a tail of at least one lane,
+  // with forward attention
+  const bool lf0 = d.LF0 == 0 || (d.LF0 > 0 && d.LF0 < d.M && d.K == 0);
+  return sources && block && ls && lf0;
 }
 
 template <typename IO>
 using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars);
 
+template <bool LF0, typename IO>
+Kernel<IO> forward_kernel(bool dual, bool use_sa) {
+  if (dual) {
+    return use_sa ? fused_decode_kernel<true, true, false, LF0, IO>
+                  : fused_decode_kernel<true, false, false, LF0, IO>;
+  }
+  return use_sa ? fused_decode_kernel<false, true, false, LF0, IO>
+                : fused_decode_kernel<false, false, false, LF0, IO>;
+}
+
 // The kernel compiled for the specialisation of `d`'s widths, with io type IO; null
-// for location-sensitive attention on a pair of flags it is not compiled for.
+// for location-sensitive attention on a pair of flags it is not compiled for, or
+// with the lf0 feedback.
 template <typename IO>
 Kernel<IO> kernel_for(const Dims& d) {
   const bool dual = d.E2 > 0, use_sa = d.SA > 0;
   if (d.K > 0) {
-    if (dual && use_sa) return fused_decode_kernel<true, true, true, IO>;
-    if (!dual && !use_sa) return fused_decode_kernel<false, false, true, IO>;
+    if (d.LF0 > 0) return nullptr;
+    if (dual && use_sa) return fused_decode_kernel<true, true, true, false, IO>;
+    if (!dual && !use_sa) return fused_decode_kernel<false, false, true, false, IO>;
     return nullptr;
   }
-  if (dual) {
-    return use_sa ? fused_decode_kernel<true, true, false, IO>
-                  : fused_decode_kernel<true, false, false, IO>;
-  }
-  return use_sa ? fused_decode_kernel<false, true, false, IO>
-                : fused_decode_kernel<false, false, false, IO>;
+  return d.LF0 > 0 ? forward_kernel<true, IO>(dual, use_sa) : forward_kernel<false, IO>(dual, use_sa);
 }
 
 const void* kernel_address(const Dims& d) {

@@ -1,8 +1,9 @@
 """Autoregressive attention decoder: single or dual source, with or without self-attention.
 
 Counterpart of ``self_attention_tacotron_tpu/models/decoders.py`` for the four
-mel decoders (``ExtendedDecoder``, ``SelfAttentionDecoder``,
-``DualSourceDecoder``, ``DualSourceSelfAttentionDecoder``): prenet -> attention
+decoders (``ExtendedDecoder``, ``SelfAttentionDecoder``,
+``DualSourceDecoder``, ``DualSourceSelfAttentionDecoder``), each with the mel head
+or, under the ``MgcLf0`` prefix, the WORLD heads ``mgc`` and ``lf0``: prenet -> attention
 LSTM -> attention mechanism(s) -> decoder ZoneoutLSTM stack per step, then the
 output head, with a K/V-cached self-attention block where the decoder has one.
 All recurrence state is carried explicitly in :class:`DecoderState`.
@@ -527,6 +528,10 @@ def mel_heads(hparams) -> Tuple[Tuple[str, int], ...]:
     return (("mel", hparams.num_mels),)
 
 
+def mgc_lf0_heads(hparams) -> Tuple[Tuple[str, int], ...]:
+    return (("mgc", hparams.num_mgcs), ("lf0", hparams.num_lf0s))
+
+
 # decoder name -> (attention sources, decoder self-attention)
 DECODERS = {
     "ExtendedDecoder": (1, False),
@@ -534,6 +539,12 @@ DECODERS = {
     "DualSourceDecoder": (2, False),
     "DualSourceSelfAttentionDecoder": (2, True),
 }
+MGC_LF0 = "MgcLf0"
+
+
+def base_decoder(name: str) -> str:
+    """The decoder's name without the ``MgcLf0`` prefix, a key of :data:`DECODERS` if known."""
+    return name[len(MGC_LF0):] if name.startswith(MGC_LF0) else name
 
 
 def decoder_factory(
@@ -542,14 +553,14 @@ def decoder_factory(
     memory_units: Sequence[int],
     speaker_units: int = 0,
 ) -> Decoder:
-    """Map ``hparams.decoder`` to a configured :class:`Decoder`: the four mel decoders."""
+    """Map ``hparams.decoder`` to a configured :class:`Decoder`: the four decoders,
+    with the mel head or, named with the ``MgcLf0`` prefix, the mgc and lf0 heads."""
     name = hparams.decoder
-    if name in DECODERS:
-        expected_sources, use_sa = DECODERS[name]
-    elif name.startswith("MgcLf0") and name[len("MgcLf0"):] in DECODERS:
-        raise NotImplementedError(f"decoder {name!r} is not ported yet")
-    else:
+    mgc_lf0 = name.startswith(MGC_LF0)
+    base = base_decoder(name)
+    if base not in DECODERS:
         raise ValueError(f"unknown decoder: {name!r}")
+    expected_sources, use_sa = DECODERS[base]
     if len(attention_mechs) != expected_sources:
         raise ValueError(
             f"{name} expects {expected_sources} attention mechanism(s), "
@@ -558,7 +569,7 @@ def decoder_factory(
     return Decoder(
         attention_mechs=attention_mechs,
         memory_units=memory_units,
-        output_heads=mel_heads(hparams),
+        output_heads=mgc_lf0_heads(hparams) if mgc_lf0 else mel_heads(hparams),
         outputs_per_step=hparams.outputs_per_step,
         n_feed_frame=hparams.n_feed_frame,
         prenet_out_units=hparams.decoder_prenet_out_units,

@@ -1,12 +1,14 @@
-"""Top-level network, the model classes of the mel family, and the model factory.
+"""Top-level network, the model classes, and the model factory.
 
 Counterpart of ``self_attention_tacotron_tpu/models/models.py``:
 :class:`TacotronNetwork` holds embeddings, encoder and decoder, with the
 teacher-forced ``forward`` of training and evaluation, and ``encode`` plus the
 incremental decode plumbing that ``synthesis.py`` drives. The model classes bind
-a network configuration to its loss: the baseline ``ExtendedTacotronV1Model``
-and the flagship ``DualSourceSelfAttentionTacotronModel``. The MgcLf0 models and
-the postnets are not ported yet.
+a network configuration to its loss: the baseline ``ExtendedTacotronV1Model``,
+the flagship ``DualSourceSelfAttentionTacotronModel`` and their WORLD-feature
+counterparts ``MgcLf0TacotronModel`` and
+``DualSourceSelfAttentionMgcLf0TacotronModel`` (heads ``mgc`` and ``lf0``). The
+postnets are not ported yet.
 
 ``hparams.compute_dtype`` ("float32" or "bfloat16") is every module's compute
 dtype, flax's ``dtype`` of the JAX package (``_dtype_of``): the parameters stay
@@ -306,25 +308,37 @@ class DualSourceSelfAttentionTacotronModel(TacotronModelBase):
             )
 
 
+class MgcLf0TacotronModel(TacotronModelBase):
+    """WORLD-feature single-source model: mgc frames and quantised lf0 classes."""
+
+    HEADS = ("mgc", "lf0")
+    PINNED = {"decoder": "MgcLf0ExtendedDecoder"}
+
+
+class DualSourceSelfAttentionMgcLf0TacotronModel(TacotronModelBase):
+    """WORLD-feature dual-source self-attention model."""
+
+    HEADS = ("mgc", "lf0")
+    PINNED = {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}
+
+    def _validate(self):
+        if "SelfAttention" not in self.hparams.encoder:
+            raise ValueError("requires a self-attention encoder")
+
+
 _MODELS = {
     "ExtendedTacotronV1Model": ExtendedTacotronV1Model,
     "DualSourceSelfAttentionTacotronModel": DualSourceSelfAttentionTacotronModel,
+    "MgcLf0TacotronModel": MgcLf0TacotronModel,
+    "DualSourceSelfAttentionMgcLf0TacotronModel": DualSourceSelfAttentionMgcLf0TacotronModel,
 }
-_NOT_PORTED = (
-    "MgcLf0TacotronModel",
-    "DualSourceSelfAttentionMgcLf0TacotronModel",
-)
 
 
 def tacotron_model_factory(hparams: HParams) -> TacotronModelBase:
     """Factory keyed on ``hparams.tacotron_model``."""
     name = hparams.tacotron_model
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"model {name!r} is not ported yet")
     try:
         cls = _MODELS[name]
     except KeyError:
-        raise ValueError(
-            f"unknown tacotron_model {name!r}; known: {sorted(_MODELS) + list(_NOT_PORTED)}"
-        ) from None
+        raise ValueError(f"unknown tacotron_model {name!r}; known: {sorted(_MODELS)}") from None
     return cls(hparams)

@@ -35,13 +35,19 @@ The prenet's dropout masks come in as arrays, one row per step, drawn by the
 caller: the kernel and the step-by-step path of ``ops/decode_loop.py`` are then
 the same function of the same generator.
 
-Specialised to the four mel decoders, compiled once for each pair of flags
+Specialised to the four decoders, compiled once for each pair of flags
 ``dual`` (a second source with additive attention, queried through the fused
 projection; else the mechanism's own query layer) and ``use_sa`` (one decoder
 self-attention hop; else the output projection reads the feature), and for
 each io type, float32 and bfloat16: forward attention (with or without
-transition agent) on source 1, optional speaker embedding, mel head,
-``n_feed_frame=1``, two prenet layers. Location-sensitive attention on source 1
+transition agent) on source 1, optional speaker embedding, the mel head or the
+WORLD heads of the ``MgcLf0`` decoders, ``n_feed_frame=1``, two prenet layers.
+The kernel sees a frame as one ``M``-wide row; with the WORLD heads its lanes
+from ``LF0`` (``num_mgcs``) on are the lf0 class logits, which it softmaxes, in
+float32 and from the unrounded logits, before they feed the next step's prenet
+(training feeds one-hot rows there); the frames it returns stay logits. That
+feedback is compiled, with forward attention, for all four pairs of flags and both
+io types (``LF0 > 0`` picks those instantiations). Location-sensitive attention on source 1
 is compiled for the two pairs of flags a model class reaches (``dual`` with
 ``use_sa``, the flagship's structure, and neither, the baseline's), with an odd
 number of taps up to ``MAX_TAPS``: its convolution and dense layer come folded
@@ -65,7 +71,13 @@ from self_attention_tacotron_torch.models.attention import (
     LocationSensitiveAttention,
     location_fold,
 )
-from self_attention_tacotron_torch.models.decoders import DECODERS, Decoder, DecoderConditioning
+from self_attention_tacotron_torch.models.decoders import (
+    DECODERS,
+    MGC_LF0,
+    Decoder,
+    DecoderConditioning,
+    base_decoder,
+)
 from self_attention_tacotron_torch.models.encoders import encoder_out_units
 from self_attention_tacotron_torch.models.models import COMPUTE_DTYPES
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
@@ -100,29 +112,34 @@ def _round4(n: int) -> int:
 # --------------------------------------------------------------------------- #
 
 
-def variant_name(dual: bool, use_sa: bool, io_dtype=torch.float32, ls: bool = False) -> str:
+def variant_name(dual: bool, use_sa: bool, io_dtype=torch.float32, ls: bool = False,
+                 lf0: bool = False) -> str:
     """The name of a specialisation of the kernel, as ``variant_launches`` keys it."""
-    name = f"dual={int(dual)},use_sa={int(use_sa)}" + (",ls" if ls else "")
+    name = f"dual={int(dual)},use_sa={int(use_sa)}" + (",ls" if ls else "") + (
+        ",lf0" if lf0 else "")
     return name if io_dtype == torch.float32 else f"{name},bf16"
 
 
 def supports_fused_decode(hp) -> bool:
     """True for the family that the kernel is specialised to.
 
-    The four mel decoders (one or two sources, with or without one decoder
-    self-attention hop), forward attention with or without the transition agent
-    on source 1, additive attention on source 2 where there is one, mel head,
+    The four decoders (one or two sources, with or without one decoder
+    self-attention hop), with the mel head or, under the ``MgcLf0`` prefix, the
+    mgc and lf0 heads, forward attention with or without the transition agent
+    on source 1, additive attention on source 2 where there is one,
     ``n_feed_frame=1``, two prenet layers, float32 or bfloat16; location-sensitive
     attention on source 1 of ``ExtendedDecoder`` and of
     ``DualSourceSelfAttentionDecoder`` (the decoders its model classes reach) with
-    an odd ``attention_kernel`` up to ``MAX_TAPS``. The kernel reads memories and
+    an odd ``attention_kernel`` up to ``MAX_TAPS``, with the mel head (the lf0
+    feedback is compiled with forward attention). The kernel reads memories and
     cache rows four values at a time, so those widths are multiples of 4; and the
     first decoder LSTM has no residual, which holds whenever its input and output
-    widths differ. Not served: the MgcLf0 heads.
+    widths differ.
     """
-    if hp.decoder not in DECODERS:
+    base = base_decoder(hp.decoder)
+    if base not in DECODERS:
         return False
-    sources, use_sa = DECODERS[hp.decoder]
+    sources, use_sa = DECODERS[base]
     z = _hp_sizes(hp)
     sa_ok = not use_sa or (
         hp.decoder_self_attention_num_hop == 1
@@ -133,6 +150,7 @@ def supports_fused_decode(hp) -> bool:
         hp.attention == "location_sensitive"
         and taps_supported(hp.attention_kernel)
         and (sources == 2) == use_sa
+        and not hp.decoder.startswith(MGC_LF0)
     )
     return bool(
         mechanism_ok
@@ -150,10 +168,11 @@ def supports_fused_decode(hp) -> bool:
 
 def _hp_sizes(hp) -> Dict[str, int]:
     # FFN: ``decoder_factory`` leaves the block's feed-forward width at its default
-    sources, use_sa = DECODERS[hp.decoder]
+    sources, use_sa = DECODERS[base_decoder(hp.decoder)]
     dual = sources == 2
+    mgc_lf0 = hp.decoder.startswith(MGC_LF0)
     return dict(
-        M=hp.num_mels, R=hp.outputs_per_step,
+        M=hp.num_mgcs + hp.num_lf0s if mgc_lf0 else hp.num_mels, R=hp.outputs_per_step,
         P1=hp.decoder_prenet_out_units[0], P2=hp.decoder_prenet_out_units[1],
         SPK=hp.speaker_embedding_dim if hp.use_speaker_embedding else 0,
         AU=hp.attention_out_units, A1=hp.attention1_out_units,
@@ -162,6 +181,7 @@ def _hp_sizes(hp) -> Dict[str, int]:
         H=hp.decoder_self_attention_num_heads if use_sa else 0, FFN=1024 if use_sa else 0,
         E1=encoder_out_units(hp), E2=hp.self_attention_out_units if dual else 0,
         K=hp.attention_kernel if hp.attention == "location_sensitive" else 0,
+        LF0=hp.num_mgcs if mgc_lf0 else 0,
     )
 
 
@@ -201,8 +221,13 @@ _ENTRIES = (
 _F32_ENTRIES = ("v_cat", "ln1_s", "ln1_b", "ln2_s", "ln2_b", "ls_b")
 # Order of the sizes handed to the kernel, before the offsets of the entries. They
 # name the specialisation: ``E2 > 0`` two sources, ``SA > 0`` decoder self-attention,
-# ``K > 0`` (the location taps) location-sensitive attention.
-_SIZES = ("M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2", "K")
+# ``K > 0`` (the location taps) location-sensitive attention, ``LF0 > 0`` (the first
+# lf0 lane of a frame; 0 for the mel head) the lf0 feedback.
+_SIZES = (
+    "M", "R", "P1", "P2", "SPK", "AU", "A1", "A2", "DU", "SA", "H", "FFN", "E1", "E2", "K", "LF0",
+)
+# The frame layouts the kernel serves: the mel head, or the WORLD heads mgc and lf0.
+_HEAD_NAMES = (("mel",), ("mgc", "lf0"))
 # The entries of the self-attention block: empty without it.
 _SA_ENTRIES = (
     "in_w", "in_b", "ln1_s", "ln1_b", "ln2_s", "ln2_b",
@@ -225,7 +250,8 @@ class PackedDecoder:
     (rows, cols) view of one entry, without the padding; an entry the
     specialisation does not have is (0, 0). ``dual``, ``use_sa`` and ``ls`` name
     the specialisation, read from the widths; ``ls_cumulative``: the location taps
-    read the cumulative alignments.
+    read the cumulative alignments; ``heads``: the decoder's ((head, width), ...),
+    whose widths add up to ``M``.
     """
 
     flat: torch.Tensor
@@ -241,6 +267,7 @@ class PackedDecoder:
     pe_rate: torch.Tensor   # (SA,) float64 sinusoid rates; empty without self-attention
     flat32: Optional[torch.Tensor] = None
     ls_cumulative: bool = False
+    heads: Tuple[Tuple[str, int], ...] = (("mel", 80),)
 
     @property
     def dual(self) -> bool:
@@ -253,6 +280,10 @@ class PackedDecoder:
     @property
     def ls(self) -> bool:
         return self.sizes["K"] > 0
+
+    @property
+    def lf0(self) -> bool:
+        return self.sizes["LF0"] > 0
 
     @property
     def io_dtype(self) -> torch.dtype:
@@ -295,8 +326,9 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
     _require(decoder.n_feed_frame == 1, "n_feed_frame must be 1")
     _require(len(decoder.prenet.out_units) == 2, "the prenet must have two layers")
     _require(decoder.num_decoder_layers == 2, "the decoder must have two LSTM layers")
-    _require(decoder.output_heads[0][0] == "mel" and len(decoder.output_heads) == 1,
-             "the kernel serves the mel head")
+    heads = decoder.output_heads
+    _require(tuple(h for h, _ in heads) in _HEAD_NAMES,
+             "the kernel serves the mel head or the mgc and lf0 heads")
     sa = decoder.self_attention
     use_sa = sa is not None
     _require(not use_sa or (sa.num_hop == 1 and sa.use_positional_encoding),
@@ -306,6 +338,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
                  f"the location convolution needs an odd number of taps up to {MAX_TAPS}")
         _require(dual == use_sa, "location-sensitive attention is compiled for two sources with "
                  "self-attention and for one source without")
+        _require(heads[0][0] == "mel", "the lf0 feedback is compiled with forward attention")
     cells = (decoder.attention_lstm, *decoder.decoder_lstms)
     for attr in ("zoneout_factor_cell", "zoneout_factor_output", "forget_bias"):
         _require(len({getattr(c, attr) for c in cells}) == 1, f"the cells differ in {attr}")
@@ -324,6 +357,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         A2=decoder.attentions[1].num_units if dual else 0, DU=DU, SA=SA, H=H,
         FFN=block.ffn1.out_features if use_sa else 0, E1=E1, E2=E2,
         K=mech1.attention_kernel if ls else 0,
+        LF0=heads[0][1] if heads[-1][0] == "lf0" else 0,
     )
     _require(sizes["SPK"] >= 0, "the attention LSTM is narrower than its inputs")
     _require(E1 % 4 == 0 and E2 % 4 == 0, "memory widths must be multiples of 4")
@@ -412,6 +446,7 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
         pe_rate=_pe_rate(SA, ref.device),
         flat32=torch.zeros(max(totals[True], 4), dtype=torch.float32, device=ref.device),
         ls_cumulative=ls and bool(mech1.cumulative_weights),
+        heads=tuple(heads),
     )
     for name in _ENTRIES:
         packed.mat(name).copy_(tensors[name])
@@ -658,7 +693,12 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
         newly = fired & ~finished
         lengths = torch.where(newly, (t * R + first_fire + 1).to(torch.int32), lengths)
         finished = finished | fired
-        feed = rnd(out[:, (R - 1) * M : R * M])
+        feed = out[:, (R - 1) * M : R * M]
+        if z["LF0"]:
+            # the lf0 class logits feed back as probabilities, rounded once after the softmax
+            lf0 = z["LF0"]
+            feed = torch.cat([feed[:, :lf0], torch.softmax(feed[:, lf0:], dim=-1)], dim=-1)
+        feed = rnd(feed)
 
         t += 1
         if early_exit and bool(finished.all()):
@@ -666,13 +706,22 @@ def _decode_plain(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresho
 
     lengths = torch.where(finished, lengths, torch.full_like(lengths, t * R))
     return DecodeResult(
-        frames={"mel": frames.reshape(B, T * R, M)},
+        frames=_split_frames(p, frames.reshape(B, T * R, M)),
         stop_probs=stops.reshape(B, T * R),
         lengths=lengths,
         alignments=(align1, align2) if p.dual else (align1,),
         finished=finished,
         num_steps=torch.tensor(t, dtype=torch.int32, device=device),
     )
+
+
+def _split_frames(p: PackedDecoder, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+    # (B, T * R, M) frame rows -> {head: (B, T * R, width)}, in the decoder's head order
+    heads, offset = {}, 0
+    for head, dim in p.heads:
+        heads[head] = frames[..., offset : offset + dim]
+        offset += dim
+    return heads
 
 
 def fused_decode_reference(
@@ -693,7 +742,8 @@ def fused_decode_reference(
     dot, attention over the live prefix of the cache in tiles of ``sa_tile``
     positions (the kernel's is ``SA_TILE``; a test may take a smaller one to
     reach the online softmax in a few steps), dropout as ``x * (1 / keep)`` where
-    the mask keeps; the specialisation's stages only; in bfloat16 the inputs of
+    the mask keeps; the specialisation's stages only; the fed-back frame's lf0
+    lanes softmaxed in float32 (the WORLD heads); in bfloat16 the inputs of
     the products rounded where the kernel rounds them, everything else float32.
     All lanes run until every lane has fired (``early_exit``) or to ``max_iters``.
     """
@@ -806,10 +856,10 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")
     launch_count += 1
-    name = variant_name(p.dual, p.use_sa, io, p.ls)
+    name = variant_name(p.dual, p.use_sa, io, p.ls, p.lf0)
     variant_launches[name] = variant_launches.get(name, 0) + 1
     return DecodeResult(
-        frames={"mel": frames.view(B, T * R, M)},
+        frames=_split_frames(p, frames.view(B, T * R, M)),
         stop_probs=stops.view(B, T * R),
         lengths=lengths,
         alignments=aligns,
@@ -886,7 +936,7 @@ def fused_decode(
             for start in range(0, B, limit)
         ]
         return DecodeResult(
-            frames={"mel": torch.cat([r.frames["mel"] for r in parts])},
+            frames={h: torch.cat([r.frames[h] for r in parts]) for h in parts[0].frames},
             stop_probs=torch.cat([r.stop_probs for r in parts]),
             lengths=torch.cat([r.lengths for r in parts]),
             alignments=tuple(

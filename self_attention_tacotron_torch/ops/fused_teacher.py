@@ -20,6 +20,16 @@ kernel launch per direction (``csrc/fused_teacher.cu``):
   the memories' gradients come from the alignments and the context cotangents,
   and the prenet's gradients by autograd through the hoisted products.
 
+A batch whose per-step rows outgrow ``ROW_MEMORY_SHARE`` of the card's total
+memory (or ``slice_batch`` lanes, where the caller names a block size) runs as
+sequential batch blocks outside the autograd function, as the JAX package's
+``_decode_core`` runs them: the prenet and its dropout for the whole batch first,
+then one launch pair per block, block ``i`` with the zoneout seed ``seed + i *
+BLOCK_SEED_STRIDE``; autograd sums the weight gradients over the blocks and
+concatenates the conditioning gradients. The kernels take any lane count, so a
+ragged last block needs no padding (the JAX package pads it with lanes after the
+real ones, which changes no real lane's masks).
+
 What bounds both kernels on an H100 is the chain of N dependent steps: a step
 needs about 2 * 2.5 M * B operations and re-reads 10 MB of float32 weights
 through L2, far from what the card can do in the time the dependent stages of a
@@ -32,7 +42,8 @@ row, so it does not depend on how lanes are grouped into blocks; the plain
 version draws the same masks (``hash_keep_masks``). In evaluation the mask is
 the constant zoneout factor.
 
-Specialised to the mel decoders' family: forward attention (with or without
+Specialised to the decoders' family, the mel head or the WORLD heads alike (the
+frame's width enters only the hoisted prenet): forward attention (with or without
 transition agent) on source 1 and, in the dual-source specialisation, additive
 attention on source 2 over a second memory (``dual`` in ``hp_like``; the kernels
 are compiled once for each); optional speaker embedding, two prenet layers, two
@@ -114,6 +125,14 @@ CORE_WEIGHTS = (
 LS_WEIGHTS = ("w_lsW", "ls_bias")
 # Most location taps the kernels take (the rows of their folded matrix, zero-padded).
 MAX_TAPS = 32
+
+# Share of the card's total memory that one launch's per-step rows may take; a larger
+# batch runs as sequential batch blocks. The total, never the free memory: the block
+# size, and with it every lane's zoneout masks, must not depend on what else is
+# allocated.
+ROW_MEMORY_SHARE = 0.25
+# Block i of a batch draws its zoneout masks from seed + i * BLOCK_SEED_STRIDE.
+BLOCK_SEED_STRIDE = 1000003
 
 _functions = {}
 _IO = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -832,29 +851,79 @@ class _TeacherCore(torch.autograd.Function):
 # --------------------------------------------------------------------------- #
 
 
+def row_bytes_per_lane(z: Dict[str, int], src_len: int, num_steps: int,
+                       io=torch.float32) -> int:
+    """Bytes of device memory that one lane's per-step rows take in a forward and
+    backward launch pair: features and alignments with their cotangents, the carry
+    and activation rows and the two copies of the carry rows that
+    ``grads_from_rows`` makes (float32), and the gradient rows (the io type)."""
+    layouts = row_layouts(z, src_len)
+    carry, acts, stack = (layouts[kind][1] for kind in ("carry", "acts", "stack"))
+    aligns = (2 if z["E2"] else 1) * src_len
+    floats = 2 * (z["DU"] + aligns) + 3 * carry + acts
+    return num_steps * (4 * floats + torch.finfo(io).bits // 8 * stack)
+
+
+def teacher_max_batch(z: Dict[str, int], src_len: int, num_steps: int, device,
+                      io=torch.float32) -> int:
+    """Most lanes one launch pair takes on ``device``: those whose per-step rows fit
+    ``ROW_MEMORY_SHARE`` of the card's total memory. Raises where not even one does."""
+    total = torch.cuda.get_device_properties(device).total_memory
+    per_lane = row_bytes_per_lane(z, src_len, num_steps, io)
+    lanes = int(ROW_MEMORY_SHARE * total) // per_lane
+    if lanes < 1:
+        raise RuntimeError(
+            f"fused_teacher: one lane's rows over {num_steps} steps take {per_lane} bytes, "
+            f"more than {ROW_MEMORY_SHARE} of the device's {total}"
+        )
+    return lanes
+
+
 def _decode(core, *, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, hp_like,
-            prenet_masks, generator):
+            prenet_masks, generator, slice_batch, max_batch=None):
+    """The prenet over the whole batch, then ``core`` once, or once per batch block
+    of ``slice_batch`` lanes (default: ``max_batch(sizes, S, N)``, or the whole batch
+    where that is None)."""
     _require(feeds.dim() == 3, f"feeds must be (B, N, F), got {tuple(feeds.shape)}")
+    # the dropout is drawn once, for the whole batch, before any block
     x2 = _prenet(weights, feeds, float(hp_like["prenet_drop_rate"]), prenet_masks, generator,
                  io_dtype(hp_like))
-    return core(hp_like, int(seed), x2, keys, mem1, mem2, score_bias, spk)
+    B, N = x2.shape[:2]
+    if slice_batch is not None:
+        limit = int(slice_batch)
+        _require(limit >= 1, "slice_batch must be at least 1")
+    elif max_batch is not None:
+        limit = max_batch(_sizes(hp_like, weights, keys, mem1, mem2, spk, x2), keys.shape[1], N)
+    else:
+        limit = B
+    if B <= limit:
+        return core(hp_like, int(seed), x2, keys, mem1, mem2, score_bias, spk)
+    cut = lambda x, start: None if x is None else x[start : start + limit]  # noqa: E731
+    features, aligns = [], []
+    for i, start in enumerate(range(0, B, limit)):
+        f, a = core(hp_like, int(seed) + i * BLOCK_SEED_STRIDE, x2[start : start + limit],
+                    *(cut(x, start) for x in (keys, mem1, mem2, score_bias, spk)))
+        features.append(f)
+        aligns.append(a)
+    return torch.cat(features), torch.cat(aligns)
 
 
 def teacher_decode_reference(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed,
-                             hp_like, prenet_masks=None, generator=None):
+                             hp_like, prenet_masks=None, generator=None, slice_batch=None):
     """Plain PyTorch version of ``teacher_decode``: the same function step by
-    step, differentiable by autograd, with the same zoneout masks."""
+    step, differentiable by autograd, with the same zoneout masks. It takes any
+    batch in one block unless ``slice_batch`` names a block size."""
     def core(hp_like, seed, x2, keys, mem1, mem2, score_bias, spk):
         _sizes(hp_like, weights, keys, mem1, mem2, spk, x2)
         return _core_plain(hp_like, weights, x2, keys, mem1, mem2, score_bias, spk, seed)
 
     return _decode(core, weights=weights, keys=keys, mem1=mem1, mem2=mem2,
                    score_bias=score_bias, spk=spk, feeds=feeds, seed=seed, hp_like=hp_like,
-                   prenet_masks=prenet_masks, generator=generator)
+                   prenet_masks=prenet_masks, generator=generator, slice_batch=slice_batch)
 
 
 def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, hp_like,
-                   prenet_masks=None, generator=None):
+                   prenet_masks=None, generator=None, slice_batch=None):
     """Differentiable teacher-forced decode: ``(features (B, N, DU), alignments (B, N, n * S))``
     for n sources.
 
@@ -874,14 +943,15 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
     in the io type.
 
     Tensors on a CUDA device go to the two kernels or raise; on the CPU they go
-    to ``teacher_decode_reference``.
+    to ``teacher_decode_reference``. ``slice_batch``: the lanes of a batch block
+    (default on the card: ``teacher_max_batch``; on the CPU the whole batch).
     """
     device = feeds.device
     if device.type == "cpu":
         return teacher_decode_reference(
             weights=weights, keys=keys, mem1=mem1, mem2=mem2, score_bias=score_bias, spk=spk,
             feeds=feeds, seed=seed, hp_like=hp_like, prenet_masks=prenet_masks,
-            generator=generator,
+            generator=generator, slice_batch=slice_batch,
         )
     if device.type != "cuda":
         raise RuntimeError(f"fused_teacher has no kernel for device {device}")
@@ -892,6 +962,10 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
             *(weights[name] for name in core_weights(hp_like)),
         )
 
+    def max_batch(z, src_len, num_steps):
+        return teacher_max_batch(z, src_len, num_steps, device, io_dtype(hp_like))
+
     return _decode(core, weights=weights, keys=keys, mem1=mem1, mem2=mem2,
                    score_bias=score_bias, spk=spk, feeds=feeds, seed=seed, hp_like=hp_like,
-                   prenet_masks=prenet_masks, generator=generator)
+                   prenet_masks=prenet_masks, generator=generator, slice_batch=slice_batch,
+                   max_batch=max_batch)

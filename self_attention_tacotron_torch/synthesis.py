@@ -1,4 +1,4 @@
-"""Batched synthesis: encode, then the autoregressive mel decode.
+"""Batched synthesis: encode, then the autoregressive decode of the output heads.
 
 Counterpart of ``self_attention_tacotron_tpu/synthesis.py`` (``make_predict_fn``):
 encode the whole source in parallel, decode with per-lane stop tokens, and
@@ -62,7 +62,9 @@ def make_predict_fn(
     them before this call. Both decodes take the same masks, drawn before the
     choice, so they consume the generator alike.
 
-    The output dictionary has ``mel`` (B, max_iters*r, num_mels), ``stop_probs``
+    The output dictionary has one entry per output head, ``mel`` (B, max_iters*r,
+    num_mels) or, for the ``MgcLf0`` decoders, ``mgc`` (B, max_iters*r, num_mgcs) and
+    ``lf0`` (B, max_iters*r, num_lf0s) class logits; then ``stop_probs``
     (B, max_iters*r), ``lengths`` (B,), ``alignments`` (per source, (B, max_iters,
     S)), ``encoder_sa_alignments`` (per block, (B, H, S, S); empty for a
     single-stream encoder), ``finished`` (B,) and

@@ -12,8 +12,9 @@ S=128 ragged):
 
 * ``fused_decode`` (whole-loop decode), 500 steps to the cap, prenet dropout
   from injected masks: the flagship's ``dual=1,use_sa=1`` in float32 and
-  bfloat16 and the baseline's ``dual=0,use_sa=0`` in float32; five launches each
-  after a warm-up;
+  bfloat16 and the baseline's ``dual=0,use_sa=0`` in float32, and both with
+  location-sensitive attention on source 1 in float32; five launches each after a
+  warm-up;
 * the teacher-forced decoder kernels (``fused_teacher``, forward and backward,
   N=400, train zoneout and prenet dropout): two sources (the flagship's widths)
   in float32 and bfloat16, one source (the baseline's) in float32; five launches
@@ -22,8 +23,8 @@ S=128 ragged):
   20 launches),
 
 and prints one ``AB {...}`` JSON line with the card's name and power limit and
-the median of each. Run it in turns (parent, change, change, parent) in one chip
-call:
+the median of each; with ``--decode`` after LABEL, the decode kernels only. Run it
+in turns (parent, change, change, parent) in one chip call:
 
     for t in runs/parent:parent .:change .:change runs/parent:parent; do
       python3 self_attention_tacotron_torch/tools/ab_loop_kernels.py "${t%%:*}" "${t##*:}"
@@ -68,10 +69,13 @@ def _decode_times(dev, rng):
 
     out = {}
     flagship = dict(decoder="DualSourceSelfAttentionDecoder", attention2="additive")
+    single = dict(decoder="ExtendedDecoder", encoder="EncoderV1")
     for label, overrides in (
         ("decode_dual_sa_f32", flagship),
         ("decode_dual_sa_bf16", dict(flagship, compute_dtype="bfloat16")),
-        ("decode_single_f32", dict(decoder="ExtendedDecoder", encoder="EncoderV1")),
+        ("decode_single_f32", single),
+        ("decode_dual_sa_ls_f32", dict(flagship, attention="location_sensitive")),
+        ("decode_single_ls_f32", dict(single, attention="location_sensitive")),
     ):
         torch.manual_seed(3)
         hp = HParams(attention="forward", num_symbols=256, max_iters=T)
@@ -192,8 +196,9 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     times = {}
     times.update(_decode_times(dev, np.random.default_rng(4)))
-    times.update(_teacher_times(dev, np.random.default_rng(5)))
-    times.update(_bigru_bwd_times(dev, np.random.default_rng(6)))
+    if "--decode" not in args[2:]:
+        times.update(_teacher_times(dev, np.random.default_rng(5)))
+        times.update(_bigru_bwd_times(dev, np.random.default_rng(6)))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print("AB " + json.dumps({"tree": label, "card": card, "ms": times,

@@ -1,16 +1,21 @@
 """The configurations and request shapes that the GPU scripts drive.
 
-Five configurations at full width, float32 unless ``compute_dtype`` is
+Seven configurations at full width, float32 unless ``compute_dtype`` is
 overridden (``DTYPES``; the scripts' ``--dtype``): ``flagship`` (the dual-source
 Self-Attention Tacotron, with the committed trained weights), ``baseline``
 (``configs/ljspeech_baseline.json``: ``ExtendedTacotronV1Model`` with
 ``EncoderV1``), ``zoneout`` (the same model with ``ZoneoutEncoderV1``), ``ls``
 (the reference's location-sensitive family: that model with
 ``attention="location_sensitive"``, 31 taps, 32 filters, cumulative weights,
-trained by the reference in bfloat16) and ``flagship-ls`` (the flagship's
-structure with location-sensitive attention on its first source). No trained
-weights of the baseline family or of location-sensitive attention are
-committed: those networks are made from a seed.
+trained by the reference in bfloat16), ``flagship-ls`` (the flagship's
+structure with location-sensitive attention on its first source), ``mgclf0``
+(the reference's WORLD-feature family: ``MgcLf0TacotronModel`` with
+``ZoneoutEncoderV1`` and forward attention, heads mgc 60 and lf0 256, trained by
+the reference in bfloat16) and ``flagship-mgclf0``
+(``DualSourceSelfAttentionMgcLf0TacotronModel``: the flagship's structure with
+those heads). No trained weights of the baseline family, of location-sensitive
+attention or of the WORLD heads are committed: those networks are made from a
+seed.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_params.npz")
 # the baseline Tacotron's configuration, as the training command line reads it
 BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
-CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls")
+CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0", "flagship-mgclf0")
 # the compute dtypes a script may ask for (hparams.compute_dtype)
 DTYPES = ("float32", "bfloat16")
 
@@ -64,7 +69,10 @@ def config_hparams(config: str, **overrides) -> HParams:
     """The hyper-parameters of one of ``CONFIGS``; ``zoneout`` is the baseline with
     ``ZoneoutEncoderV1``, ``ls`` that with location-sensitive attention (the
     hparams' own ``attention_kernel=31``, ``attention_filters=32``,
-    ``cumulative_weights=True``), ``flagship-ls`` the flagship with it."""
+    ``cumulative_weights=True``), ``flagship-ls`` the flagship with it; ``mgclf0``
+    the zoneout baseline's structure as ``MgcLf0TacotronModel``, ``flagship-mgclf0``
+    the flagship's as ``DualSourceSelfAttentionMgcLf0TacotronModel`` (the hparams'
+    own ``num_mgcs=60``, ``num_lf0s=256``)."""
     if config == "flagship":
         return flagship_hparams(**overrides)
     if config == "baseline":
@@ -76,6 +84,14 @@ def config_hparams(config: str, **overrides) -> HParams:
                                    "attention": "location_sensitive", **overrides})
     if config == "flagship-ls":
         return flagship_hparams(**{"attention": "location_sensitive", **overrides})
+    if config == "mgclf0":
+        return baseline_hparams(**{"encoder": "ZoneoutEncoderV1",
+                                   "tacotron_model": "MgcLf0TacotronModel",
+                                   "decoder": "MgcLf0ExtendedDecoder", **overrides})
+    if config == "flagship-mgclf0":
+        return flagship_hparams(**{
+            "tacotron_model": "DualSourceSelfAttentionMgcLf0TacotronModel",
+            "decoder": "MgcLf0DualSourceSelfAttentionDecoder", **overrides})
     raise ValueError(f"unknown configuration {config!r}; known: {CONFIGS}")
 
 
@@ -110,6 +126,7 @@ def ragged_request(
 def training_batch(
     rng: np.random.Generator, batch: int = 32, frames: int = 800, longest: int = 128,
     num_mels: int = 80, outputs_per_step: int = 2, shortest: int = 24,
+    num_mgcs: int = 0, num_lf0s: int = 0,
 ) -> Dict[str, np.ndarray]:
     """A training batch in the data layer's field names, all from ``rng``.
 
@@ -117,7 +134,9 @@ def training_batch(
     source length (``frames`` for the longest source, a multiple of
     ``outputs_per_step``), as an utterance's frames are to its symbols; ``mel``
     uniform in [0, 1) and zero beyond a lane's length; ``done`` 1 from a lane's
-    last frame on.
+    last frame on. With ``num_lf0s`` (the WORLD heads) ``mgc`` (B, T, num_mgcs)
+    uniform in [0, 1) and ``lf0`` (B, T) class ids in [0, num_lf0s) instead of
+    ``mel``, both zero beyond a lane's length.
     """
     out = ragged_request(rng, batch, longest, shortest)
     r = outputs_per_step
@@ -125,10 +144,25 @@ def training_batch(
     steps = np.ceil(out["source_lengths"] * (frames // r) / longest).astype(np.int64)
     target_lengths = np.clip(steps, 1, frames // r) * r
     valid = np.arange(frames)[None, :] < target_lengths[:, None]
-    mel = rng.random((batch, frames, num_mels), dtype=np.float32) * valid[..., None]
+    if num_lf0s:
+        out["mgc"] = rng.random((batch, frames, num_mgcs), dtype=np.float32) * valid[..., None]
+        out["lf0"] = rng.integers(0, num_lf0s, size=(batch, frames)) * valid
+    else:
+        out["mel"] = rng.random((batch, frames, num_mels), dtype=np.float32) * valid[..., None]
     done = (np.arange(frames)[None, :] >= target_lengths[:, None] - 1).astype(np.float32)
-    out.update(mel=mel, done=done, target_lengths=target_lengths)
+    out.update(done=done, target_lengths=target_lengths)
     return out
+
+
+def config_batch(hp: HParams, rng: np.random.Generator, batch: int = 32, frames: int = 800,
+                 longest: int = 128) -> Dict[str, np.ndarray]:
+    """``training_batch`` with the targets of ``hp``'s heads: ``mel``, or for the
+    ``MgcLf0`` decoders ``mgc`` and ``lf0``."""
+    world = hp.decoder.startswith("MgcLf0")
+    return training_batch(
+        rng, batch, frames, longest, hp.num_mels, hp.outputs_per_step,
+        num_mgcs=hp.num_mgcs if world else 0, num_lf0s=hp.num_lf0s if world else 0,
+    )
 
 
 def gpu_line() -> str:

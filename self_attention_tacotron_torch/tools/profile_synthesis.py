@@ -4,8 +4,8 @@
         [--dtype bfloat16] [--steps N]
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
-flagship with its trained weights, the default; ``baseline``, ``zoneout``, ``ls``
-or ``flagship-ls`` with weights made from a seed) in ``--dtype`` (``compute_dtype``, float32 by
+flagship with its trained weights, the default; ``baseline``, ``zoneout``, ``ls``,
+``flagship-ls``, ``mgclf0`` or ``flagship-mgclf0`` with weights made from a seed) in ``--dtype`` (``compute_dtype``, float32 by
 default), batch 32 (ragged source lengths up to 128) and batch 1, ``--steps``
 decoder steps with the stop threshold out of reach, so that every run does the
 same work. The first line names the card and its power limit. It prints JSON

@@ -4,8 +4,9 @@
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
 flagship from the committed trained weights, the default; ``baseline``,
-``zoneout``, ``ls`` or ``flagship-ls`` from weights made from a seed), the seeded batch of
-``tools/flagship.py::training_batch`` (32 lanes x 800 frames, sources 24..128),
+``zoneout``, ``ls``, ``flagship-ls``, ``mgclf0`` or ``flagship-mgclf0`` from weights
+made from a seed), the seeded batch of ``tools/flagship.py::config_batch`` (32 lanes
+x 800 frames, sources 24..128, the configuration's heads),
 ``Trainer.train_step`` through the kernels and with ``use_pallas_kernels=False``
 (eager encoder, the decoder's Python loop under autograd). It prints JSON lines:
 
@@ -41,11 +42,11 @@ from self_attention_tacotron_torch.ops import fused_teacher
 from self_attention_tacotron_torch.tools.flagship import (
     CONFIGS,
     StepTimer,
+    config_batch,
     config_hparams,
     device_busy,
     gpu_line,
     load_network,
-    training_batch,
 )
 from self_attention_tacotron_torch.training.trainer import Trainer
 from self_attention_tacotron_torch.utils.platform import resolve_device
@@ -77,7 +78,9 @@ def first_gradients(config, overrides, batch, dev, double: bool = False, moved: 
     batch = dict(batch)
     if double:
         net = net.double()
-        batch["mel"] = batch["mel"].astype(np.float64)
+        for head in ("mel", "mgc"):
+            if head in batch:
+                batch[head] = batch[head].astype(np.float64)
     with torch.no_grad():
         for p in net.embedding.parameters():
             p.mul_(moved)
@@ -93,9 +96,7 @@ def first_gradients(config, overrides, batch, dev, double: bool = False, moved: 
 
 def conditioning(config, dev, frames: int) -> None:
     hp = config_hparams(config)
-    batch = training_batch(
-        np.random.default_rng(1234), 32, frames, 128, hp.num_mels, hp.outputs_per_step
-    )
+    batch = config_batch(hp, np.random.default_rng(1234), 32, frames)
     plain = {"use_pallas_kernels": False}
     ref, loss, norm = first_gradients(config, plain, batch, dev, double=True)
     print(json.dumps({"conditioning": {
@@ -136,9 +137,7 @@ def main() -> None:
         hp = config_hparams(args.config, **overrides)
         trainer = Trainer(tacotron_model_factory(hp))
         state = trainer.init_state(load_network(args.config, **overrides))
-        batch = training_batch(
-            np.random.default_rng(1234), 32, args.frames, 128, hp.num_mels, hp.outputs_per_step
-        )
+        batch = config_batch(hp, np.random.default_rng(1234), 32, args.frames)
         frames = int(batch["target_lengths"].sum())
         gen = torch.Generator(device=dev).manual_seed(0)
         state, _, _ = timed_step(trainer, state, batch, gen)          # warm-up

@@ -140,18 +140,34 @@ def test_second_decoder_lstm_has_the_residual_and_the_first_has_not(pair):
 
 
 def test_factories_name_what_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        decoder_factory(HParams(decoder="MgcLf0ExtendedDecoder"), (), ())
-    with pytest.raises(NotImplementedError):
-        decoder_factory(HParams(decoder="MgcLf0DualSourceSelfAttentionDecoder"), (), ())
+    # the WORLD-feature family is ported: all four MgcLf0 decoders and both model
+    # classes build, with the mgc and lf0 heads fed back side by side
+    world = dict(_NARROW, num_mgcs=7, num_lf0s=13)
+    for name, encoder in (
+        ("MgcLf0ExtendedDecoder", "EncoderV1"),
+        ("MgcLf0SelfAttentionDecoder", "EncoderV1"),
+        ("MgcLf0DualSourceDecoder", "SelfAttentionCBHGEncoder"),
+        ("MgcLf0DualSourceSelfAttentionDecoder", "SelfAttentionCBHGEncoder"),
+    ):
+        decoder = TacotronNetwork(HParams(**{**world, "decoder": name, "encoder": encoder})).decoder
+        assert decoder.output_heads == (("mgc", 7), ("lf0", 13)), name
+        assert decoder.out_dim == 20 and decoder.prenet.Dense_0.in_features == 20, name
+        assert decoder.output_projection.out_features == 2 * 20 + 2, name
+    for name, decoder, encoder in (
+        ("MgcLf0TacotronModel", "MgcLf0ExtendedDecoder", "EncoderV1"),
+        ("DualSourceSelfAttentionMgcLf0TacotronModel", "MgcLf0DualSourceSelfAttentionDecoder",
+         "SelfAttentionCBHGEncoder"),
+    ):
+        model = tacotron_model_factory(HParams(tacotron_model=name, encoder=encoder))
+        assert model.HEADS == ("mgc", "lf0") and model.hparams.decoder == decoder, name
+        assert model.head_dims() == {"mgc": 60, "lf0": 256}, name
+    with pytest.raises(ValueError):
+        tacotron_model_factory(HParams(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel",
+                                       encoder="EncoderV1"))
     with pytest.raises(ValueError):
         decoder_factory(HParams(decoder="nope"), (), ())
-    with pytest.raises(NotImplementedError):
-        tacotron_model_factory(HParams(tacotron_model="MgcLf0TacotronModel"))
-    with pytest.raises(NotImplementedError):
-        tacotron_model_factory(
-            HParams(tacotron_model="DualSourceSelfAttentionMgcLf0TacotronModel")
-        )
+    with pytest.raises(ValueError):
+        decoder_factory(HParams(decoder="MgcLf0nope"), (), ())
     with pytest.raises(NotImplementedError):
         TacotronNetwork(HParams(attention="teacher_forcing_forward", decoder="ExtendedDecoder",
                                 encoder="EncoderV1"))

@@ -332,8 +332,9 @@ def test_batch_blocks_with_early_exit_keep_the_contract():
 
 def test_supports_the_flagship_family_only():
     """The four mel decoders are served, in float32 and bfloat16, and
-    location-sensitive attention on the two decoders its model classes reach; the
-    MgcLf0 heads are still to be ported."""
+    location-sensitive attention on the two decoders its model classes reach; so
+    are the four MgcLf0 decoders (the WORLD heads: the frame M = num_mgcs +
+    num_lf0s wide, its lf0 lanes from LF0 = num_mgcs on)."""
     assert fd.supports_fused_decode(HParams(**_NARROW))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "forward_transition_agent"}))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "location_sensitive"}))
@@ -343,14 +344,22 @@ def test_supports_the_flagship_family_only():
         assert fd.supports_fused_decode(HParams(**{**_NARROW, **VARIANTS[variant]})), variant
         assert fd.supports_fused_decode(
             HParams(**{**_NARROW, **VARIANTS[variant], "compute_dtype": "bfloat16"})), variant
+        mel = {**_NARROW, **VARIANTS[variant]}
+        world = HParams(**{**mel, "num_mgcs": 7, "num_lf0s": 13,
+                           "decoder": "MgcLf0" + mel["decoder"]})
+        assert fd.supports_fused_decode(world), variant
+        sizes = fd._hp_sizes(world)
+        assert (sizes["M"], sizes["LF0"]) == (20, 7), variant
+        assert fd.fused_decode_max_batch(world, MAX_ITERS, S) == fd.LANES * fd.H100_SM_COUNT
+    assert fd._hp_sizes(HParams(**_NARROW))["LF0"] == 0
     for overrides in (
         {"n_feed_frame": 2},
         {"decoder_prenet_out_units": (32, 16, 16)},
         {"decoder_self_attention_num_hop": 2},
         {"attention": "location_sensitive", "attention_kernel": 30},
         {"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"},
-        {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
-        {"decoder": "MgcLf0ExtendedDecoder"},
+        {"decoder": "MgcLf0SelfAttentionDecoder", "attention": "location_sensitive"},
+        {"decoder": "MgcLf0DualSourceSelfAttentionDecoder", "n_feed_frame": 2},
         {"compute_dtype": "float16"},
         {"decoder": "ExtendedDecoder", "attention_out_units": 8, "cbhg_out_units": 24},
     ):

@@ -293,7 +293,8 @@ def _flagship_hp(**overrides):
     return hp.override_from_dict(overrides)
 
 
-_UNPORTED = (
+# the WORLD heads (mgc, lf0): the feeds are wider, the scanned region the same
+_WORLD = (
     {"decoder": "MgcLf0ExtendedDecoder"},
     {"decoder": "MgcLf0DualSourceSelfAttentionDecoder"},
 )
@@ -323,8 +324,8 @@ _BF16 = (
     ({"decoder": "ExtendedDecoder", "decoder_out_units": 512}, False),
     ({"decoder": "SelfAttentionDecoder"}, True),
     ({"decoder": "DualSourceDecoder"}, True),
-    ({"decoder": "MgcLf0ExtendedDecoder"}, False),
-    ({"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}, False),
+    ({"decoder": "MgcLf0ExtendedDecoder"}, True),
+    ({"decoder": "MgcLf0DualSourceSelfAttentionDecoder"}, True),
     ({"decoder": "ExtendedDecoder", "attention": "location_sensitive"}, True),
     ({"decoder": "ExtendedDecoder", "compute_dtype": "bfloat16"}, True),
     ({"decoder": "ExtendedDecoder", "attention": "location_sensitive",
@@ -337,21 +338,19 @@ _BF16 = (
     ({"decoder": "DualSourceDecoder", "attention": "location_sensitive"}, False),
 ])
 def test_supports_fused_teacher(overrides, expected):
-    """``Decoder.fused_teacher_supported`` of the built decoder; what is not ported
-    yet (the MgcLf0 heads) builds no network at all, so no decoder reaches the
-    kernels; location-sensitive attention is served with an odd number of taps up
-    to 32 on the two pairs of decoder flags a model class reaches (one source
-    without self-attention, two with it); a bfloat16 decoder is of the kernels'
-    family and hands the kernels bfloat16 keys and memories, float32 weights,
-    speaker embedding and score bias."""
+    """``Decoder.fused_teacher_supported`` of the built decoder; the MgcLf0
+    decoders (the WORLD heads) are of the kernels' family, their frames only wider
+    feeds of the hoisted prenet; location-sensitive attention is served with an odd
+    number of taps up to 32 on the two pairs of decoder flags a model class reaches
+    (one source without self-attention, two with it); a bfloat16 decoder is of the
+    kernels' family and hands the kernels bfloat16 keys and memories, float32
+    weights, speaker embedding and score bias."""
     hp = _flagship_hp(**overrides)
-    if overrides in _UNPORTED:
-        assert expected is False
-        with pytest.raises(NotImplementedError):
-            TacotronNetwork(hp)
-        return
     decoder = TacotronNetwork(hp).decoder
     assert decoder.fused_teacher_supported() is expected
+    if overrides in _WORLD:
+        assert decoder.output_heads == (("mgc", hp.num_mgcs), ("lf0", hp.num_lf0s))
+        assert decoder.prenet.Dense_0.in_features == hp.num_mgcs + hp.num_lf0s
     if overrides in _BF16:
         assert decoder.compute_dtype == torch.bfloat16
         assert decoder._teacher_hp_like()["io_dtype"] == "bfloat16"
