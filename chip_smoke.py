@@ -189,6 +189,11 @@ TOL_FUSED = 1e-4
 # fault of the long-prefix paths would show on every lane) and only for a batch of
 # at least FUSED_MEDIAN_LANES lanes; the largest is printed beside it.
 FUSED_LONG_STEPS = 320
+# The steps of a 500-step request whose stages are stamped (log_stage_times), and
+# the design every fused_decode row runs: a persistent grid, one block per SM, each
+# block's weight slices resident in shared memory, grid barriers between stages.
+STAMP_STEPS = (10, 250, 490)
+DECODE_DESIGN = "grid: one block per SM, weights resident in shared memory, grid barriers"
 FUSED_WINDOWS = ((FUSED_STEPS, TOL_FUSED, "max"), (256, 5e-3, "max"), (500, 1e-3, "median"))
 FUSED_MEDIAN_LANES = 8
 # An early-exit threshold is placed in the widest gap of the plain run's stop
@@ -732,7 +737,7 @@ def check_fused_long(name, got, want, r: int, spec=FUSED_WINDOWS):
 def check_long_cap(flagship, rng) -> dict:
     """The flagship at LONG_CAP steps, beyond the 1872 that one block's shared memory
     held before the decoder self-attention was tiled: one launch per request
-    (B=32 and B=1, the launch limit LANES per SM), one block's shared memory the same
+    (B=32 and B=1, under the launch limit of MAX_LANES lanes), one block's shared memory the same
     as at the main path's step cap, every launch held against the plain version by
     windows of steps: seeded weights at the flagship's widths on every step, the
     trained weights on the first FUSED_STEPS (see LONG_CAP)."""
@@ -748,7 +753,14 @@ def check_long_cap(flagship, rng) -> dict:
         f"block_needs_at_{hp.max_iters}": need, "sm_offers": have,
     }
     log("check " + json.dumps(rec))
-    require(limit == fused_decode.LANES * sms, "the launch limit is not LANES lanes per SM")
+    plan = fused_decode.grid_plan(trained.sizes, sms, trained.io_dtype, 128)
+    rec_plan = {"kernel": "fused_decode", "case": "grid plan against the built kernel",
+                "sms": sms, "plan_smem_bytes": plan.smem_bytes, "kernel_smem_bytes": need,
+                "largest_weight_slice_bytes": max(plan.weight_bytes),
+                "smallest_weight_slice_bytes": min(plan.weight_bytes)}
+    log("check " + json.dumps(rec_plan))
+    require(plan.smem_bytes == need, "the grid plan's shared memory is not the kernel's")
+    require(limit == fused_decode.MAX_LANES, "the launch limit is not MAX_LANES lanes")
     require(need_long == need <= have, "one block's shared memory must not grow with the cap")
     r = trained.sizes["R"]
     wide = seeded_decoder(flagship_hparams(), seed=3)
@@ -918,6 +930,7 @@ def phase_fused_decode():
             ms=ms, ms_per_step=ms / steps, steps_timed=steps, plain_ms=plain_ms,
             **bound(flops, nbytes, torch.float32),
             flops=flops, bytes=nbytes, cache_prefix_bytes=cache_bytes,
+            stage_us=log_stage_times(f"flagship float32 B={batch}", packed, cond, masks, steps),
         )
         log("check " + json.dumps({
             "kernel": "fused_decode", "case": f"flagship B={batch}, time",
@@ -927,6 +940,17 @@ def phase_fused_decode():
         }))
     records["long_cap"] = long_cap
     return records
+
+
+def log_stage_times(name, packed, cond, masks, steps: int) -> dict:
+    """Where a step's time goes: microseconds of each stage of the steps STAMP_STEPS
+    of one launch to the cap (block 0's %globaltimer at the grid barriers; a stage's
+    ``_wait`` is block 0's wait at its barrier), one launch per stamped step."""
+    times = {str(step): fused_decode.stage_times(packed, cond, masks, steps, step)
+             for step in STAMP_STEPS}
+    log("stages " + json.dumps({"kernel": "fused_decode", "case": name, "design": DECODE_DESIGN,
+                                "us": times}))
+    return times
 
 
 def time_fused(name, packed, cond, masks, lengths, steps: int):
@@ -997,7 +1021,7 @@ def check_baseline_long_cap(packed, hp, cond, rng, cap: int):
         "launches": launched, "num_steps": int(got.num_steps), "ms": ms,
         "first_steps_max_abs_err": err, "first_steps": FUSED_STEPS, "tol": TOL_FUSED,
     }
-    rec["ok"] = (limit == fused_decode.LANES * sms and need <= have and launched == 1
+    rec["ok"] = (limit == fused_decode.MAX_LANES and need <= have and launched == 1
                  and int(got.num_steps) == cap and finite and err <= TOL_FUSED)
     log("check " + json.dumps(rec))
     if not rec["ok"]:
@@ -1219,6 +1243,8 @@ def phase_fused_decode_bf16():
             "ms": ms, "ms_per_step": ms / steps, "steps_timed": steps, "plain_ms": plain_ms,
             **bound(flops, nbytes, torch.bfloat16), "flops": flops, "bytes": nbytes,
             "cache_prefix_bytes": cache_bytes,
+            "stage_us": log_stage_times(f"flagship bfloat16 B={batch}", packed, cond, masks,
+                                        steps),
         }
         log("check " + json.dumps({
             "kernel": "fused_decode", "case": f"bf16 flagship B={batch}, time",
@@ -2712,7 +2738,7 @@ def phase_mgclf0_decode():
             "sm_offers": have, "lanes_per_launch": limit}))
         require(packed.sizes["M"] == 316 and packed.sizes["LF0"] == 60,
                 f"{config}: frames of mgc 60 and lf0 256")
-        require(limit == fused_decode.LANES * sms, f"{config}: the launch limit is {limit}")
+        require(limit == fused_decode.MAX_LANES, f"{config}: the launch limit is {limit}")
         for batch, longest in ((32, 128), (1, 97)):
             req = ragged_request(rng, batch, longest)
             cond = flagship_conditioning(net, req, seed=batch)
@@ -3107,12 +3133,12 @@ def family_kernel_entries(family: str, decode, teacher, main_path, train):
         io = "float" if dtype == "float32" else "__nv_bfloat16"
         run = main_path[(config, dtype)]
         flags = (f"{str(dual).lower()}, {str(dual).lower()}, {str(ls).lower()}, "
-                 f"{str(not ls).lower()}, {io}")
+                 f"{str(not ls).lower()}, false, {io}")
         entry = {
             "name": f"fused_decode{'_dual' if dual else ''}_{tag}"
                     + ("_bf16" if dtype == "bfloat16" else ""),
             "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
-            "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+            "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787", "design": DECODE_DESIGN,
             "instantiation": f"fused_decode_kernel<{flags}>",
             "launches": run["variants"].get(fused_decode.variant_name(
                 dual, dual, COMPUTE[dtype], ls=ls, lf0=not ls), 0),
@@ -3273,7 +3299,7 @@ def main() -> int:
         ),
     }
     instantiations = [
-        f"fused_decode_kernel<{dual}, {use_sa}, false, false, {io}>"
+        f"fused_decode_kernel<{dual}, {use_sa}, false, false, false, {io}>"
         for io in ("float", "__nv_bfloat16") for dual in ("true", "false")
         for use_sa in ("true", "false")
     ]
@@ -3290,7 +3316,7 @@ def main() -> int:
     kernels.append({
         "name": "fused_decode", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
-        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787", "design": DECODE_DESIGN,
         "launches": main_launches["fused_decode"], "specialisations": specialisations,
         "instantiations": instantiations,
         "specialisations_checked": ["dual=1,use_sa=1", "dual=1,use_sa=0", "dual=0,use_sa=0",
@@ -3302,6 +3328,7 @@ def main() -> int:
         "bound_by": rec["bound_by"], "library_ms": None,
         "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": "float32",
         "ms_per_step": rec["ms_per_step"], "compared_over_steps": FUSED_STEPS,
+        "stage_us_step_250": {f"B={b}": fused[b]["stage_us"]["250"] for b in (32, 1)},
         "batch1_ms": fused[1]["ms"], "batch1_ms_per_step": fused[1]["ms_per_step"],
         "batch1_bound_ms": fused[1]["bound_ms"], "batch1_plain_ms": fused[1]["plain_ms"],
         "step_by_step_request_ms": 1e3 * stats_plain[1]["wall_s"],
@@ -3323,8 +3350,8 @@ def main() -> int:
     kernels.append({
         "name": "fused_decode_bf16", "route": "cuda",
         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
-        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
-        "instantiation": "fused_decode_kernel<true, true, false, false, __nv_bfloat16>",
+        "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787", "design": DECODE_DESIGN,
+        "instantiation": "fused_decode_kernel<true, true, false, false, false, __nv_bfloat16>",
         "launches": launches_bf16["fused_decode"],
         "max_abs_err": b16["max_abs_err"], "ms": b16["ms"], "plain_ms": b16["plain_ms"],
         "bound_ms": b16["bound_ms"], "bound_by": b16["bound_by"], "library_ms": None,
@@ -3332,6 +3359,7 @@ def main() -> int:
         "ms_per_step": b16["ms_per_step"], "compared_over_steps": BF16_EARLY_STEPS,
         "median_lane_err": b16["median_lane_err"],
         "tol": TOL_FUSED_BF16_WIDE,
+        "stage_us_step_250": {f"B={b}": fused_bf16[b]["stage_us"]["250"] for b in (32, 1)},
         "batch1_ms": fused_bf16[1]["ms"], "batch1_ms_per_step": fused_bf16[1]["ms_per_step"],
         "batch1_bound_ms": fused_bf16[1]["bound_ms"], "batch1_plain_ms": fused_bf16[1]["plain_ms"],
         "fused_request_ms": 1e3 * stats_bf16[1]["wall_s"],

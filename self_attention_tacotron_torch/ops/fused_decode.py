@@ -10,20 +10,26 @@ growing K/V cache where the decoder has one, the output projection, per-lane
 stop tracking and the early exit) runs inside one kernel
 (``csrc/fused_decode.cu``), with no host work per step.
 
-What bounds it on an H100: the serial chain of steps. A step needs about
-2 * 3.5 M * B operations and re-reads 14 MB of float32 weights (7 MB in
-bfloat16), far below what the card can do in the time one step's dependent
-stages take. The design gives every group of ``LANES`` lanes one block that
-walks all the steps on its own: state in shared memory, weights streamed through
-L2 (the same weights for every block and step), conditioning and the K/V cache
-in global memory. Blocks meet once per step, on a counter in global memory,
-only to agree whether every lane has fired; that is why all blocks of a launch
-must be resident at once (cooperative launch), which bounds a launch at
-``LANES`` lanes per SM. Larger batches run as sequential batch blocks. The
-decoder self-attention walks the cache's prefix in tiles of ``SA_TILE``
-positions with an online softmax, so one block's shared memory grows with the
-source length only, never with ``max_iters``; where it outgrows an SM the
-wrapper raises.
+What bounds it on an H100: the serial chain of a step's dependent stages. A step
+needs about 2 * 3.5 M * B operations and 14 MB of float32 weights (7 MB in
+bfloat16), far below what the card can do in the time one step's 15 dependent
+stages (the flagship's) take. The design spreads every stage over the whole card:
+one block per SM, all resident at once (a cooperative launch), each holding its
+slice of every decoder matrix and its biases in shared memory for the whole
+launch (whole output columns; an LSTM's four gate columns of a unit together),
+dealt out by ``grid_plan``; a stage copies its input rows into shared memory with
+the Tensor Memory Accelerator, and the blocks meet at a grid-wide barrier between
+the dependent stages of a step; every block takes the exit decision from the same
+stop probabilities. The attention's scores go to a warp per (lane, 2 positions;
+8 with location-sensitive attention), its softmaxes, alignments and contexts to a
+block per (lane, 128 context
+columns), the decoder self-attention to a block per (lane, head), walking the
+cache's prefix in tiles of ``SA_TILE`` positions with an online softmax, so one
+block's shared memory grows with the source length only, never with
+``max_iters``; where it outgrows an SM the wrapper raises. One launch takes up to
+``MAX_LANES`` lanes; larger batches run as sequential batch blocks.
+``stage_times`` reads the time of each stage of a step from stamps the kernel
+writes.
 
 ``compute_dtype="bfloat16"`` runs the kernel's bfloat16 branch: the weights,
 keys, memories, speaker embedding and K/V cache are bfloat16 (the score
@@ -89,10 +95,22 @@ launch_count = 0
 # Launches per specialisation, keyed by ``variant_name``.
 variant_launches: Dict[str, int] = {}
 
-# Lanes per block, as csrc/fused_decode.cu has it.
-LANES = 4
-# Multiprocessors of an H100 SXM: the launch limit quoted where no card is present.
+# Most lanes one launch takes, as csrc/fused_decode.cu has it (MAX_LANES).
+MAX_LANES = 1024
+# Multiprocessors of an H100 SXM: the grid planned where no card is present.
 H100_SM_COUNT = 132
+# Shared memory one block of an H100 may opt in to, in bytes, and at most what the
+# kernel declares statically besides (its few shared scalars).
+H100_BLOCK_SMEM = 232448
+STATIC_SMEM = 64
+# Threads of a block, as csrc/fused_decode.cu has it, and room for the stamps of a step
+# (1 + 3 a stage).
+_NT = 512
+_STAMP_SLOTS = 64
+# The location taps' rows as the kernel holds them (location.cuh: LS_TAPS), and the
+# context columns one block of the alignment stage takes (CTX_COLS).
+_LS_TAPS = 32
+_CTX_COLS = 128
 # Positions of the decoder self-attention's prefix per tile, as csrc/fused_decode.cu
 # has it: requests of up to this many steps attend in one tile.
 SA_TILE = 512
@@ -188,20 +206,155 @@ def _hp_sizes(hp) -> Dict[str, int]:
 def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
     """Most lanes one launch takes; 0 when the configuration cannot run fused at all.
 
-    The blocks of a launch (``LANES`` lanes each) must all be resident at once
-    for the per-step exit agreement, one block per SM: ``LANES`` times the
-    multiprocessors of the current CUDA device, or of an H100 where there is no
-    card. On a card the built kernel is also asked whether one block's shared
-    memory, which grows with ``src_len`` (and not with ``max_iters``), fits an SM:
-    if not, nothing can be launched.
+    The kernel's grid is one block per SM, and a launch takes up to ``MAX_LANES``
+    lanes, whenever one block's shared memory (its slice of the weights and the
+    rows of its stages, which grow with ``src_len`` and not with ``max_iters``)
+    fits an SM; else nothing can be launched. On a card the built kernel is asked,
+    on the card's SM count; without one ``grid_plan`` answers for an H100.
     """
     if not supports_fused_decode(hp):
         return 0
-    if not torch.cuda.is_available():
-        return LANES * H100_SM_COUNT
-    device = torch.device("cuda", torch.cuda.current_device())
     io = COMPUTE_DTYPES[hp.compute_dtype]
+    if not torch.cuda.is_available():
+        return grid_plan(_hp_sizes(hp), H100_SM_COUNT, io, src_len).max_lanes
+    device = torch.device("cuda", torch.cuda.current_device())
     return _launch_limit(_hp_sizes(hp), src_len, max_iters, device, io)
+
+
+# --------------------------------------------------------------------------- #
+# The grid plan (csrc/fused_decode.cu: product_shape, plan_block, smem_layout)
+# --------------------------------------------------------------------------- #
+
+# The products of a step in the order they run, as the kernel's ``Product`` enum.
+PRODUCTS = ("p1", "p2", "attg", "qp", "l1", "l2", "in", "qkv", "o", "f1", "f2", "out")
+# The stages of a step, each ending at a grid barrier (the self-attention block's
+# only where the decoder has one).
+STAGES = ("p1", "p2", "attg", "qp", "scores", "attention", "l1", "l2", "in", "qkv",
+          "self_attention", "o", "f1", "f2", "out")
+_SA_STAGES = ("in", "qkv", "self_attention", "o", "f1", "f2")
+
+
+def stages(use_sa: bool) -> Tuple[str, ...]:
+    """The stages of one step of a specialisation, in order."""
+    return STAGES if use_sa else tuple(s for s in STAGES if s not in _SA_STAGES)
+
+
+def product_shapes(sizes: Dict[str, int]) -> Dict[str, Tuple[int, int, bool]]:
+    """{product: (K, items, gates)}: the depth of each product and its items, output
+    columns or, where ``gates``, LSTM units of four gate columns each; a product the
+    specialisation does not have has no items."""
+    z = sizes
+    ew, sa = z["E1"] + z["E2"], z["SA"] > 0
+    return {
+        "p1": (z["M"], z["P1"], False),
+        "p2": (z["P1"], z["P2"], False),
+        "attg": (z["P2"] + z["SPK"] + ew + z["AU"], z["AU"], True),
+        "qp": (z["AU"], z["A1"] + z["A2"], False),
+        "l1": (z["AU"] + ew + z["DU"], z["DU"], True),
+        "l2": (2 * z["DU"], z["DU"], True),
+        "in": (z["DU"], z["SA"] if sa else 0, False),
+        "qkv": (z["SA"], 3 * z["SA"], False),
+        "o": (z["SA"], z["SA"], False),
+        "f1": (z["SA"], z["FFN"] if sa else 0, False),
+        "f2": (z["FFN"], z["SA"], False),
+        "out": (z["SA"] if sa else z["DU"], z["R"] * z["M"] + z["R"], False),
+    }
+
+
+@dataclasses.dataclass
+class GridPlan:
+    """Which block of a grid owns what, and the shared memory that asks for.
+
+    ``blocks[product]``: the blocks its items are dealt to (as few as give each at
+    least 8 columns, or 2 units of a gate product, while a block's slice of it stays
+    within ``SLICE_BYTES``). ``slices[b][product] = (first, count, columns)``: block
+    ``b`` owns items ``first .. first + count - 1`` of the product and holds their
+    columns (of a gate product ``i, g, f, o`` of each unit) and biases in shared
+    memory for the whole launch. ``weight_bytes[b]`` is its weight region;
+    ``smem_bytes`` what one block needs at the least (the largest weight region and
+    bias region, the LayerNorm parameters, the location matrix, every lane's flags
+    and the smallest room of the stages); ``max_lanes`` the most lanes one launch
+    takes (0 where a block does not fit ``H100_BLOCK_SMEM``).
+    """
+
+    n_blocks: int
+    blocks: Dict[str, int]
+    slices: Tuple[Dict[str, Tuple[int, int, int]], ...]
+    weight_bytes: Tuple[int, ...]
+    smem_bytes: int
+    max_lanes: int
+
+    def columns(self, product: str, sizes: Dict[str, int]) -> Tuple[int, ...]:
+        """The product's output columns in the order the blocks hold them."""
+        _, items, gates = product_shapes(sizes)[product]
+        cols = []
+        for per_block in self.slices:
+            first, count, _ = per_block[product]
+            for unit in range(first, first + count):
+                cols += [g * items + unit for g in range(4)] if gates else [unit]
+        return tuple(cols)
+
+
+# A block's slice of a product that goes to fewer blocks than the grid has stays
+# within this many bytes (csrc/fused_decode.cu: SLICE_BYTES).
+SLICE_BYTES = 8192
+
+
+def _round8(n: int) -> int:
+    return (n + 7) // 8 * 8
+
+
+def _share(n: int, blocks: int, r: int) -> Tuple[int, int]:
+    # grid.cuh::share_of: the items of the r-th of `blocks` blocks
+    base, extra = divmod(n, blocks)
+    return r * base + min(r, extra), base + (1 if r < extra else 0)
+
+
+def grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32,
+              src_len: int = 128) -> GridPlan:
+    """The kernel's plan on a grid of ``n_sms`` blocks, as it computes it itself."""
+    shapes = product_shapes(sizes)
+    io = 2 if io_dtype == torch.bfloat16 else 4
+    # a row or weight column in shared memory: the stride of the rows in global memory
+    ldk = _round8
+    blocks = {}
+    for name in PRODUCTS:
+        K, items, gates = shapes[name]
+        item_bytes = max(1, (4 if gates else 1) * ldk(K) * io)
+        per = max(1, min(2 if gates else 8, SLICE_BYTES // item_bytes))
+        blocks[name] = min(n_sms, max(1, -(-items // per)))
+    slices, weights, biases = [], [], []
+    for b in range(n_sms):
+        start, at, held_biases, per_block = 0, 0, 0, {}
+        for name in PRODUCTS:
+            K, items, gates = shapes[name]
+            used = blocks[name]
+            r = (b - start) % n_sms
+            first, count = _share(items, used, r) if r < used else (0, 0)
+            cols = 4 * count if gates else count
+            per_block[name] = (first, count, cols)
+            at = _round8(at + cols * ldk(K))
+            held_biases += _round4(cols)
+            start = (start + (used if used < n_sms else items % n_sms)) % n_sms
+        slices.append(per_block)
+        weights.append(at * io)
+        biases.append(held_biases * 4)
+    z = sizes
+    widest = max(ldk(K) for K, items, _ in shapes.values() if items > 0)
+    staged = _round4(max(z["M"], z["SA"]))   # a LayerNorm's or the fed-back frame's float row
+    hd = z["SA"] // z["H"] if z["SA"] else 0
+    lane_rows = 5 * _round4(src_len) + max(4 * _NT, _CTX_COLS)
+    sa_rows = 2 * _round4(hd) + SA_TILE + max(4 * _NT, _round4(hd)) if z["SA"] else 0
+    work = max(4 * (widest * io + 4 * staged), 4 * max(lane_rows, sa_rows))
+    # the biases and LayerNorm parameters, every lane's finished flag, length and end
+    # of the valid source
+    fixed = (max(weights) + max(biases) + 4 * _round4(z["SA"]) * 4
+             + (_LS_TAPS * _round4(z["A1"]) * 4 if z["K"] else 0) + 3 * _round4(MAX_LANES) * 4)
+    smem = fixed + work
+    return GridPlan(n_blocks=n_sms, blocks=blocks, slices=tuple(slices),
+                    weight_bytes=tuple(weights),
+                    smem_bytes=smem,
+                    max_lanes=MAX_LANES if smem + STATIC_SMEM <= H100_BLOCK_SMEM else 0)
 
 
 # --------------------------------------------------------------------------- #
@@ -773,42 +926,50 @@ def _kernel_fn():
 
 
 def _dims(sizes: Dict[str, int], B: int, S: int, T: int, flags=(0, 0, 0, 0),
-          io_dtype=torch.float32, offsets=None):
+          io_dtype=torch.float32, offsets=None, stamp_step: int = -1):
     # the struct ``Dims`` of the source: sizes, (transition agent, early exit, masks,
-    # cumulative location taps, bfloat16), offsets
+    # cumulative location taps, bfloat16, the stamped step), offsets
     values = [B, S, T] + [sizes[k] for k in _SIZES] + [int(f) for f in flags]
-    values += [int(io_dtype == torch.bfloat16)]
+    values += [int(io_dtype == torch.bfloat16), int(stamp_step)]
     values += [0] * len(_ENTRIES) if offsets is None else [offsets[name] for name in _ENTRIES]
     return (ctypes.c_int * len(values))(*values)
 
 
-def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int, device,
-                        io_dtype=torch.float32) -> Tuple[int, int]:
-    """(bytes of shared memory one block needs, bytes a block may have on ``device``),
-    both as the built kernel reports them. The first does not grow with ``max_iters``."""
+def _library():
     lib = load_library("fused_decode")
-    lib.fused_decode_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_decode_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
     lib.fused_decode_smem_bytes.restype = ctypes.c_longlong
     lib.fused_decode_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.fused_decode_smem_limit.restype = ctypes.c_longlong
+    lib.fused_decode_scratch_bytes.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    lib.fused_decode_scratch_bytes.restype = ctypes.c_longlong
+    return lib
+
+
+def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int, device,
+                        io_dtype=torch.float32) -> Tuple[int, int]:
+    """(bytes of shared memory one block needs at the least on ``device``'s grid, one
+    block per SM; bytes a block may have there), both as the built kernel reports
+    them. The first does not grow with ``max_iters``."""
+    lib = _library()
     dims = _dims(sizes, 1, src_len, max_iters, io_dtype=io_dtype)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         limit = int(lib.fused_decode_smem_limit(dims))
     if limit < 0:
         raise RuntimeError(f"fused_decode: CUDA error {-limit} on reading the device's limits")
-    return int(lib.fused_decode_smem_bytes(dims)), limit
+    return int(lib.fused_decode_smem_bytes(dims, sms)), limit
 
 
 def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device,
                   io_dtype=torch.float32) -> int:
     need, have = block_shared_memory(sizes, src_len, max_iters, device, io_dtype)
-    if need > have:
-        return 0
-    return LANES * torch.cuda.get_device_properties(device).multi_processor_count
+    return MAX_LANES if need <= have else 0
 
 
 def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_threshold: float,
-                   early_exit: bool) -> DecodeResult:
+                   early_exit: bool, stamps: Optional[Tuple[int, torch.Tensor]] = None
+                   ) -> DecodeResult:
     global launch_count
     z = p.sizes
     B, S, _ = ops.mem1.shape
@@ -820,8 +981,8 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     aligns = tuple(torch.zeros(B, T, S, **f32) for _ in range(2 if p.dual else 1))
     lengths = torch.zeros(B, dtype=torch.int32, device=device)
     finished = torch.zeros(B, dtype=torch.bool, device=device)
-    # [0] num_steps, [1 + t] the blocks' arrival counter of step t
-    info = torch.zeros(1 + T, dtype=torch.int32, device=device)
+    # [0] num_steps, [1] the grid barrier's arrival counter
+    info = torch.zeros(2, dtype=torch.int32, device=device)
     # what a specialisation does not have is a placeholder that the kernel never reads
     placeholder = torch.zeros(4, **f32)
     if p.use_sa:
@@ -833,8 +994,11 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     else:
         k_cache = v_cache = pe_rate = placeholder
 
+    stamp_step, stamp_buffer = stamps if stamps is not None else (-1, None)
     dims = _dims(z, B, S, T, (p.use_transition_agent, early_exit, ops.masks is not None,
-                              p.ls_cumulative), io, p.offsets)
+                              p.ls_cumulative), io, p.offsets, stamp_step)
+    # the per-lane rows of the stages, zeroed: the decoder's initial state
+    scratch = torch.zeros(int(_library().fused_decode_scratch_bytes(dims)) // 4 + 4, **f32)
     scalars = (ctypes.c_float * 7)(
         p.zoneout_cell, p.zoneout_output, p.forget_bias, 1.0 / p.keep_prob,
         stop_threshold, p.ln_eps, math.sqrt(SA // z["H"]) if p.use_sa else 1.0,
@@ -844,7 +1008,7 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
         placeholder if ops.mem2 is None else ops.mem2, ops.score_bias, ops.spk,
         *(ops.masks if ops.masks is not None else (None, None)),
         k_cache, v_cache, frames, stops, aligns[0], aligns[-1] if p.dual else placeholder,
-        lengths, finished, info,
+        lengths, finished, info, scratch, stamp_buffer,
     ]
     pointers = (ctypes.c_void_p * len(tensors))(
         *(None if x is None else x.data_ptr() for x in tensors)
@@ -866,6 +1030,45 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
         finished=finished,
         num_steps=info[0],
     )
+
+
+def stage_times(packed: PackedDecoder, cond: DecoderConditioning,
+                prenet_masks: Optional[Sequence[torch.Tensor]], max_iters: int,
+                stamp_step: int) -> Dict[str, float]:
+    """Microseconds of each stage of decoder step ``stamp_step`` in one launch on the
+    card, to the cap (no early exit), from the ``%globaltimer`` stamps block 0 writes
+    at the step's start and, for each stage, when its input rows are in shared memory
+    (product stages), at its arrival at the stage's grid barrier and at its
+    departure: ``{stage: µs from the previous departure to this one}``,
+    ``{stage + "_copy": µs from the previous departure until the rows are in}``,
+    ``{stage + "_wait": µs from block 0's arrival to its departure}``; ``step``: the
+    whole step. The stamps are compiled into the flagship's structure alone (every
+    other instantiation, and the flagship's own when it is not stamped, has no stamp
+    code). One launch, counted as any other."""
+    device = packed.flat.device
+    if device.type != "cuda":
+        raise RuntimeError("stage_times needs the weights on a CUDA device")
+    _require(0 <= stamp_step < max_iters, "the stamped step must be one that runs")
+    _require(packed.dual and packed.use_sa and not packed.ls and not packed.lf0,
+             "the stamps are compiled for the flagship's structure alone (two sources, "
+             "self-attention, forward attention, the mel head)")
+    B, S = cond.memories[0].shape[:2]
+    _require(B <= MAX_LANES, f"one launch takes at most {MAX_LANES} lanes")
+    buffer = torch.zeros(_STAMP_SLOTS, dtype=torch.int64, device=device)
+    ops = _operands(packed, cond, prenet_masks, int(max_iters))
+    with torch.no_grad():
+        _decode_kernel(packed, ops, int(max_iters), 2.0, False, stamps=(int(stamp_step), buffer))
+    stamps = buffer.cpu().tolist()
+    times, last = {}, stamps[0]
+    for i, stage in enumerate(stages(packed.use_sa)):
+        copied, arrive, leave = stamps[1 + 3 * i : 4 + 3 * i]
+        times[stage] = (leave - last) / 1e3
+        if copied:
+            times[stage + "_copy"] = (copied - last) / 1e3
+        times[stage + "_wait"] = (leave - arrive) / 1e3
+        last = leave
+    times["step"] = (last - stamps[0]) / 1e3
+    return times
 
 
 # --------------------------------------------------------------------------- #

@@ -11,10 +11,11 @@ on one card. It times by CUDA events, from seeded weights at full width (B=32,
 S=128 ragged):
 
 * ``fused_decode`` (whole-loop decode), 500 steps to the cap, prenet dropout
-  from injected masks: the flagship's ``dual=1,use_sa=1`` in float32 and
-  bfloat16 and the baseline's ``dual=0,use_sa=0`` in float32, and both with
-  location-sensitive attention on source 1 in float32; five launches each after a
-  warm-up;
+  from injected masks: every instantiation (the four pairs of ``dual`` /
+  ``use_sa``, the two location-sensitive ones, the four with the lf0 feedback,
+  each in float32 and bfloat16) at B=32 and B=1, the flagship also at B=128 and
+  B=528 (labels ``_b1``, ``_b128``, ``_b528``); five launches each after a warm-up
+  (three at B=128 and B=528);
 * the teacher-forced decoder kernels (``fused_teacher``, forward and backward,
   N=400, train zoneout and prenet dropout): two sources (the flagship's widths)
   in float32 and bfloat16, one source (the baseline's) in float32; five launches
@@ -60,6 +61,33 @@ def _events_ms(fn, runs: int = 6, inner: int = 1):
     return times
 
 
+def _decode_cases():
+    """(label, hparams overrides, batches) of every instantiation of the decode kernel:
+    the four pairs of ``dual`` / ``use_sa`` (mel head, forward attention), the two
+    location-sensitive ones and the four with the lf0 feedback (WORLD heads), each in
+    float32 and bfloat16, at B=32 and B=1; the flagship also at B=128 and B=528."""
+    pairs = (
+        ("dual_sa", dict(decoder="DualSourceSelfAttentionDecoder", attention2="additive")),
+        ("dual", dict(decoder="DualSourceDecoder", attention2="additive")),
+        ("single", dict(decoder="ExtendedDecoder", encoder="EncoderV1")),
+        ("sa", dict(decoder="SelfAttentionDecoder", encoder="EncoderV1")),
+    )
+    for pair, base in pairs:
+        for branch in ("", "ls", "lf0"):
+            if branch == "ls" and pair not in ("dual_sa", "single"):
+                continue
+            overrides = dict(base)
+            if branch == "ls":
+                overrides["attention"] = "location_sensitive"
+            if branch == "lf0":
+                overrides["decoder"] = "MgcLf0" + base["decoder"]
+            for io in ("f32", "bf16"):
+                label = f"decode_{pair}{'_' + branch if branch else ''}_{io}"
+                batches = (32, 1, 128, 528) if pair == "dual_sa" and not branch else (32, 1)
+                dtype = dict(compute_dtype="bfloat16") if io == "bf16" else {}
+                yield label, dict(overrides, **dtype), batches
+
+
 def _decode_times(dev, rng):
     import torch
     from self_attention_tacotron_torch.hparams import HParams
@@ -68,32 +96,28 @@ def _decode_times(dev, rng):
     from self_attention_tacotron_torch.ops import fused_decode
 
     out = {}
-    flagship = dict(decoder="DualSourceSelfAttentionDecoder", attention2="additive")
-    single = dict(decoder="ExtendedDecoder", encoder="EncoderV1")
-    for label, overrides in (
-        ("decode_dual_sa_f32", flagship),
-        ("decode_dual_sa_bf16", dict(flagship, compute_dtype="bfloat16")),
-        ("decode_single_f32", single),
-        ("decode_dual_sa_ls_f32", dict(flagship, attention="location_sensitive")),
-        ("decode_single_ls_f32", dict(single, attention="location_sensitive")),
-    ):
+    for label, overrides, batches in _decode_cases():
         torch.manual_seed(3)
         hp = HParams(attention="forward", num_symbols=256, max_iters=T)
         hp = hp.override_from_dict(overrides)
         decoder = TacotronNetwork(hp).decoder.to(dev).eval()
-        lengths = np.clip(rng.integers(24, 129, B), 24, 128)
-        lengths[0] = 128
-        memories = tuple(torch.tensor(rng.standard_normal((B, S, e)).astype(np.float32), device=dev)
-                         for e in decoder.memory_units)
-        mask = torch.arange(S, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
-        with torch.no_grad():
-            cond = DecoderConditioning(memories=memories, keys=decoder.compute_keys(memories),
-                                       masks=tuple(mask for _ in memories))
         packed = fused_decode.pack_decoder(decoder)
-        masks = tuple(torch.tensor(rng.random((T, B, u)) < 0.5, device=dev)
-                      for u in hp.decoder_prenet_out_units)
-        out[label] = _events_ms(lambda: fused_decode.fused_decode(
-            packed, cond, masks, T, 2.0, early_exit=False))
+        for batch in batches:
+            lengths = np.clip(rng.integers(24, 129, batch), 24, 128)
+            lengths[0] = 128
+            memories = tuple(
+                torch.tensor(rng.standard_normal((batch, S, e)).astype(np.float32), device=dev)
+                for e in decoder.memory_units)
+            mask = (torch.arange(S, device=dev)[None, :]
+                    < torch.tensor(lengths, device=dev)[:, None])
+            with torch.no_grad():
+                cond = DecoderConditioning(memories=memories, keys=decoder.compute_keys(memories),
+                                           masks=tuple(mask for _ in memories))
+            masks = tuple(torch.tensor(rng.random((T, batch, u)) < 0.5, device=dev)
+                          for u in hp.decoder_prenet_out_units)
+            name = label if batch == B else f"{label}_b{batch}"
+            out[name] = _events_ms(lambda: fused_decode.fused_decode(
+                packed, cond, masks, T, 2.0, early_exit=False), runs=6 if batch <= B else 4)
     return out
 
 

@@ -350,7 +350,7 @@ def test_supports_the_flagship_family_only():
         assert fd.supports_fused_decode(world), variant
         sizes = fd._hp_sizes(world)
         assert (sizes["M"], sizes["LF0"]) == (20, 7), variant
-        assert fd.fused_decode_max_batch(world, MAX_ITERS, S) == fd.LANES * fd.H100_SM_COUNT
+        assert fd.fused_decode_max_batch(world, MAX_ITERS, S) == fd.MAX_LANES
     assert fd._hp_sizes(HParams(**_NARROW))["LF0"] == 0
     for overrides in (
         {"n_feed_frame": 2},
@@ -369,10 +369,13 @@ def test_supports_the_flagship_family_only():
 
 
 def test_launch_limit_is_lanes_per_sm_and_zero_where_a_block_cannot_fit(monkeypatch):
-    """Without a card the limit quoted is an H100's; what the built kernel says of
-    its shared memory is stood in for here, as no kernel can be built."""
+    """Without a card the limit quoted is the grid plan's on an H100 (one block per
+    SM takes up to MAX_LANES lanes); what the built kernel says of its shared memory
+    is stood in for here, as no kernel can be built. The limit no longer grows with
+    the SM count: every block works on every lane."""
     hp = HParams(**_NARROW)
-    assert fd.fused_decode_max_batch(hp, MAX_ITERS, S) == fd.LANES * fd.H100_SM_COUNT
+    assert fd.fused_decode_max_batch(hp, MAX_ITERS, S) == fd.MAX_LANES
+    assert fd.grid_plan(fd._hp_sizes(hp), fd.H100_SM_COUNT).max_lanes == fd.MAX_LANES
 
     class TenSMs:
         multi_processor_count = 10
@@ -380,9 +383,9 @@ def test_launch_limit_is_lanes_per_sm_and_zero_where_a_block_cannot_fit(monkeypa
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: TenSMs)
     sizes = fd._hp_sizes(hp)
     monkeypatch.setattr(fd, "block_shared_memory", lambda *a: (100_000, 200_000))
-    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == fd.LANES * 10
+    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == fd.MAX_LANES
     monkeypatch.setattr(fd, "block_shared_memory", lambda *a: (200_001, 200_000))
-    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == 0   # a step's logits outgrow an SM
+    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == 0   # a block outgrows an SM
 
 
 @pytest.mark.parametrize(
