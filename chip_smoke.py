@@ -84,13 +84,19 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (narrow and off-tile against the plain versions on their first launches, then
    at full width, timed), its main path (``seeded_main_path``: synthesis at batch 1
    and 32 through the kernels and the plain path, launch counts exact) and its
-   training (``seeded_training``: three steps of the one-source configuration in
-   each io type and one of the two-source one, every gradient leaf of the first
-   step against the plain path): the location-sensitive family (``ls``,
-   ``flagship-ls``, the latter in both io types) and the WORLD-feature family
-   (``mgclf0``, ``flagship-mgclf0``: ``fused_decode``'s lf0 feedback on every pair of
-   flags in both io types with early exits, and the teacher kernels in three
-   sequential batch blocks against the unsliced run and the per-block plain runs);
+   training (``seeded_training``: three steps of each configuration through the
+   kernels, every gradient leaf of the first step against the plain path): the
+   location-sensitive family (``ls``, ``flagship-ls``, the latter in both io types),
+   the WORLD-feature family (``mgclf0``, ``flagship-mgclf0``: ``fused_decode``'s lf0
+   feedback on every pair of flags in both io types with early exits, and the
+   teacher kernels in three sequential batch blocks against the unsliced run and
+   the per-block plain runs) and the last location-sensitive branches
+   (``ls_branches``: ``mgclf0-ls``, ``flagship-mgclf0-ls``,
+   ``flagship-dualsource-ls``): every location-sensitive instantiation of
+   ``fused_decode`` no earlier phase launches, narrow and off-tile with early exits,
+   the alignment stage over sources longer than one tile, at full width with the
+   grid plan against the built kernel, timed, both io types; the teacher kernels as
+   ``DualSourceDecoder`` reaches them;
 7. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
    location-sensitive and lf0 instantiations as entries of their own, the batch
    blocks inside the lf0 family's teacher entries), then the last line
@@ -744,16 +750,14 @@ def check_long_cap(flagship, rng) -> dict:
     hp = flagship.hparams
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     trained = fused_decode.pack_decoder(flagship.decoder)
-    need, have = fused_decode.block_shared_memory(trained.sizes, 128, hp.max_iters, DEV)
-    need_long, _ = fused_decode.block_shared_memory(trained.sizes, 128, LONG_CAP, DEV)
-    limit = fused_decode.fused_decode_max_batch(hp, LONG_CAP, 128)
+    need, have = fused_decode.block_shared_memory(trained.sizes, DEV)
+    limit = fused_decode.fused_decode_max_batch(hp)
     rec = {
         "kernel": "fused_decode", "case": f"step cap {LONG_CAP}: launch limit",
-        "lanes_per_launch": limit, "sms": sms, "block_needs_at_cap": need_long,
-        f"block_needs_at_{hp.max_iters}": need, "sm_offers": have,
+        "lanes_per_launch": limit, "sms": sms, "block_needs": need, "sm_offers": have,
     }
     log("check " + json.dumps(rec))
-    plan = fused_decode.grid_plan(trained.sizes, sms, trained.io_dtype, 128)
+    plan = fused_decode.grid_plan(trained.sizes, sms, trained.io_dtype)
     rec_plan = {"kernel": "fused_decode", "case": "grid plan against the built kernel",
                 "sms": sms, "plan_smem_bytes": plan.smem_bytes, "kernel_smem_bytes": need,
                 "largest_weight_slice_bytes": max(plan.weight_bytes),
@@ -761,7 +765,7 @@ def check_long_cap(flagship, rng) -> dict:
     log("check " + json.dumps(rec_plan))
     require(plan.smem_bytes == need, "the grid plan's shared memory is not the kernel's")
     require(limit == fused_decode.MAX_LANES, "the launch limit is not MAX_LANES lanes")
-    require(need_long == need <= have, "one block's shared memory must not grow with the cap")
+    require(need <= have, "one block does not fit an SM")
     r = trained.sizes["R"]
     wide = seeded_decoder(flagship_hparams(), seed=3)
     seeded = fused_decode.pack_decoder(wide)
@@ -996,8 +1000,8 @@ def check_baseline_long_cap(packed, hp, cond, rng, cap: int):
     """The baseline (no self-attention) at a long step cap, one launch: its first
     FUSED_STEPS steps are held against the plain version's run of that length."""
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
-    limit = fused_decode.fused_decode_max_batch(hp, cap, 128)
-    need, have = fused_decode.block_shared_memory(packed.sizes, 128, cap, DEV)
+    limit = fused_decode.fused_decode_max_batch(hp)
+    need, have = fused_decode.block_shared_memory(packed.sizes, DEV)
     masks = seeded_masks(packed, rng, cap, 1)
     before = fused_decode.launch_count
     got, ms = timed_once(
@@ -2660,6 +2664,29 @@ NARROW_WORLD = {"num_mgcs": 7, "num_lf0s": 13}
 EXIT_SEEDS = 5
 
 
+def check_narrow_exit(label, hp, lengths, src_len, spk, rng, steps, seed):
+    """A narrow decoder of ``hp`` with weights from ``seed`` against its plain version,
+    to the cap and with an early exit (``check_fused_with_exit``). Seeded stop logits
+    crowd together: where the widest gap between them is under the margin that an
+    exit needs (a bfloat16 run's error times BF16_MARGIN_FACTOR), the next seed's
+    weights, each held to the cap first. Returns (packed, cond) of the last weights."""
+    bf16 = hp.compute_dtype == "bfloat16"
+    for attempt in range(EXIT_SEEDS):
+        decoder = seeded_decoder(hp, seed=seed + 100 * attempt)
+        cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
+        masks = seeded_masks(fused_decode.pack_decoder(decoder), rng, steps, len(lengths))
+        factor = spread_for_exit(decoder, cond, masks, steps)
+        packed = fused_decode.pack_decoder(decoder)
+        held = check_fused_with_exit(
+            f"{label}, weights {attempt}, stop rows x {factor}", packed, cond, rng, steps,
+            masks=masks, tol=TOL_FUSED_BF16 if bf16 else TOL_FUSED,
+            margin_factor=BF16_MARGIN_FACTOR if bf16 else FUSED_MARGIN_FACTOR,
+            gap_required=attempt == EXIT_SEEDS - 1)
+        if held is not None:
+            break
+    return packed, cond
+
+
 def phase_mgclf0_decode():
     """``fused_decode``'s lf0 branch (the fed-back frame's lf0 lanes softmaxed)
     against its plain version, on its first launches: the four MgcLf0 decoders (every
@@ -2696,27 +2723,12 @@ def phase_mgclf0_decode():
         )):
             rng = np.random.default_rng(81 + case)
             hp = narrow_hparams(**{**NARROW_WORLD, **overrides, "compute_dtype": dtype})
-            # seeded stop logits crowd together: where the widest gap between them is
-            # under the margin that an exit needs (a bfloat16 run's error times
-            # BF16_MARGIN_FACTOR), the next seed's weights, each held to the cap first
-            for attempt in range(EXIT_SEEDS):
-                decoder = seeded_decoder(hp, seed=80 + len(lengths) + src_len + 100 * attempt)
-                cond = seeded_conditioning(decoder, rng, lengths, src_len, spk)
-                masks = seeded_masks(fused_decode.pack_decoder(decoder), rng, steps,
-                                     len(lengths))
-                factor = spread_for_exit(decoder, cond, masks, steps)
-                packed = fused_decode.pack_decoder(decoder)
-                require(packed.sizes["LF0"] == hp.num_mgcs
-                        and packed.sizes["M"] == hp.num_mgcs + hp.num_lf0s,
-                        f"{name}: the lf0 lanes of the frame")
-                held = check_fused_with_exit(
-                    f"lf0 {dtype} narrow {name}, weights {attempt}, stop rows x {factor}",
-                    packed, cond, rng, steps, masks=masks,
-                    tol=TOL_FUSED_BF16 if bf16 else TOL_FUSED,
-                    margin_factor=BF16_MARGIN_FACTOR if bf16 else FUSED_MARGIN_FACTOR,
-                    gap_required=attempt == EXIT_SEEDS - 1)
-                if held is not None:
-                    break
+            packed, cond = check_narrow_exit(f"lf0 {dtype} narrow {name}", hp, lengths,
+                                             src_len, spk, rng, steps,
+                                             seed=80 + len(lengths) + src_len)
+            require(packed.sizes["LF0"] == hp.num_mgcs
+                    and packed.sizes["M"] == hp.num_mgcs + hp.num_lf0s,
+                    f"{name}: the lf0 lanes of the frame")
         check_fused(f"lf0 {dtype} narrow B=6, two batch blocks", packed, cond,
                     seeded_masks(packed, rng, steps, 6), steps, 2.0, slice_batch=4,
                     tol=TOL_FUSED_BF16 if bf16 else TOL_FUSED)
@@ -2729,9 +2741,8 @@ def phase_mgclf0_decode():
         net = load_network(config, seed=seed, compute_dtype=dtype)
         hp, packed = net.hparams, fused_decode.pack_decoder(net.decoder)
         steps = hp.max_iters
-        need, have = fused_decode.block_shared_memory(packed.sizes, 128, steps, DEV,
-                                                      packed.io_dtype)
-        limit = fused_decode.fused_decode_max_batch(hp, steps, 128)
+        need, have = fused_decode.block_shared_memory(packed.sizes, DEV, packed.io_dtype)
+        limit = fused_decode.fused_decode_max_batch(hp)
         log("check " + json.dumps({
             "kernel": "fused_decode", "case": f"{config} {dtype}: launch limit",
             "M": packed.sizes["M"], "LF0": packed.sizes["LF0"], "block_needs": need,
@@ -2853,15 +2864,218 @@ def phase_mgclf0_teacher():
 
 
 # --------------------------------------------------------------------------- #
+# Location-sensitive attention with the lf0 feedback, and on DualSourceDecoder:
+# the last two branches of the Pallas kernels that a model class reaches
+# --------------------------------------------------------------------------- #
+
+# The configurations that reach them (tools/flagship.py): MgcLf0TacotronModel and
+# DualSourceSelfAttentionMgcLf0TacotronModel with location-sensitive attention, and
+# the flagship's model class with DualSourceDecoder and it (FAMILIES["ls_branches"]).
+LS_BRANCH_CONFIGS = ("mgclf0-ls", "flagship-mgclf0-ls", "flagship-dualsource-ls")
+def check_plan(label: str, packed) -> dict:
+    """The grid plan of ``ops/fused_decode.py`` (``grid_plan``) against the built
+    kernel's shared memory for one block, on this card's SM count."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    need, have = fused_decode.block_shared_memory(packed.sizes, DEV, packed.io_dtype)
+    plan = fused_decode.grid_plan(packed.sizes, sms, packed.io_dtype)
+    rec = {"kernel": "fused_decode", "case": f"{label}: grid plan against the built kernel",
+           "variant": packed_variant(packed), "sms": sms,
+           "plan_smem_bytes": plan.smem_bytes, "kernel_smem_bytes": need, "sm_offers": have}
+    log("check " + json.dumps(rec))
+    require(plan.smem_bytes == need, f"{label}: the grid plan's shared memory is not the kernel's")
+    require(need <= have, f"{label}: one block does not fit an SM")
+    return rec
+
+
+def phase_ls_branches_decode():
+    """``fused_decode``'s location-sensitive instantiations that no earlier phase
+    launches (with the lf0 feedback on every pair of ``dual`` / ``use_sa``, and with
+    the mel head on ``dual`` without ``use_sa`` and on ``use_sa`` without ``dual``;
+    float32 and bfloat16) against their plain version on their first launches:
+    narrow and off-tile sizes (7 and 31 taps, cumulative and previous alignments, the
+    lf0 split at 7 lanes, odd widths, r=3), each to the cap and with an early exit
+    (lengths, flags, step counts and the zero tail exact); sources longer than one
+    tile of the alignment stage (``check_long_sources``); then at full width from
+    seeded weights, conditioning from the real encoder, the grid plan against the
+    built kernel, B=32 (ragged 24..128) with an early exit in float32 and over 500
+    steps B=32 and B=1 in both io types, timed. Returns ``{(config, dtype, batch):
+    record}``."""
+    single = {"encoder": "EncoderV1"}
+    odd = {"decoder_prenet_out_units": (20, 12), "attention_out_units": 28,
+           "attention1_out_units": 10, "decoder_out_units": 36, "outputs_per_step": 3,
+           "cbhg_out_units": 20}
+    narrow = dict(LS, attention_filters=4)
+    steps = 24
+    for dtype in ("float32", "bfloat16"):
+        for case, (name, overrides, lengths, src_len) in enumerate((
+            ("MgcLf0ExtendedDecoder B=5 S=13, 7 taps, cumulative",
+             {**single, **NARROW_WORLD, "decoder": "MgcLf0ExtendedDecoder",
+              "attention_kernel": 7}, [13, 5, 9, 1, 12], 13),
+            ("MgcLf0DualSourceSelfAttentionDecoder B=5 S=37, 31 taps, previous alignments",
+             {**NARROW_WORLD, "decoder": "MgcLf0DualSourceSelfAttentionDecoder",
+              "cumulative_weights": False}, [37, 20, 9, 37, 2], 37),
+            ("DualSourceDecoder B=3 S=11, 7 taps, previous alignments",
+             {"decoder": "DualSourceDecoder", "attention_kernel": 7,
+              "cumulative_weights": False}, [11, 7, 4], 11),
+            ("DualSourceDecoder B=6 S=40 r=3, 31 taps, cumulative, odd widths",
+             {**odd, "decoder": "DualSourceDecoder"}, [40, 12, 33, 5, 40, 27], 40),
+            ("SelfAttentionDecoder B=4 S=19, 7 taps, cumulative",
+             {**single, "decoder": "SelfAttentionDecoder", "attention_kernel": 7},
+             [19, 6, 13, 19], 19),
+            ("MgcLf0SelfAttentionDecoder B=5 S=23 r=3, 31 taps, previous, odd widths",
+             {**single, **odd, **NARROW_WORLD, "decoder": "MgcLf0SelfAttentionDecoder",
+              "decoder_self_attention_out_units": 24, "cumulative_weights": False},
+             [23, 23, 4, 17, 9], 23),
+            ("MgcLf0DualSourceDecoder B=3 S=15, 7 taps, cumulative",
+             {**NARROW_WORLD, "decoder": "MgcLf0DualSourceDecoder", "attention_kernel": 7},
+             [15, 8, 3], 15),
+        )):
+            rng = np.random.default_rng(95 + case)
+            hp = narrow_hparams(**{**narrow, **overrides, "compute_dtype": dtype})
+            packed, _ = check_narrow_exit(f"ls branches {dtype} narrow {name}", hp, lengths,
+                                          src_len, 0, rng, steps,
+                                          seed=90 + len(lengths) + src_len)
+            require(packed.ls and packed.lf0 == hp.decoder.startswith("MgcLf0")
+                    and packed.use_sa == ("SelfAttention" in hp.decoder)
+                    and packed.dual == ("DualSource" in hp.decoder),
+                    f"{name}: packed as {packed_variant(packed)}")
+    check_long_sources()
+
+    records = {}
+    rng = np.random.default_rng(96)
+    for config in LS_BRANCH_CONFIGS:
+        for dtype in ("float32", "bfloat16"):
+            net = load_network(config, seed=97, compute_dtype=dtype)
+            packed = fused_decode.pack_decoder(net.decoder)
+            require(packed.ls and packed.sizes["K"] == 31, f"{config}: 31 location taps")
+            check_plan(f"{config} {dtype}", packed)
+            steps = net.hparams.max_iters
+            for batch, longest in ((32, 128), (1, 97)):
+                req = ragged_request(rng, batch, longest)
+                cond = flagship_conditioning(net, req, seed=batch)
+                label = f"{config} {dtype} B={batch} S={longest}"
+                if batch == 32 and dtype == "float32":
+                    check_wide_exit(config, label, req, rng)
+                masks = seeded_masks(packed, rng, steps, batch)
+                records[(config, dtype, batch)] = time_fused(
+                    f"{label}, {steps} steps, time", packed, cond, masks, req["source_lengths"],
+                    steps)
+            del net, packed
+    return records
+
+
+# A source longer than two tiles of the alignment stage (ATT_TILE = 512 positions in
+# csrc/fused_decode.cu), its lanes ending inside the first, second and third tile.
+LONG_SOURCE = 1100
+LONG_SOURCE_LANES = [1100, 600, 517, 9]
+
+
+def check_long_sources():
+    """The alignment stage over sources longer than one tile (the rows' first tile in
+    shared memory, the rest read from L2 tile by tile), against the plain version:
+    narrow decoders over LONG_SOURCE positions (forward attention with the transition
+    agent on two sources, both location-sensitive tap sources, the lf0 feedback), to
+    the cap and with an early exit; then ``flagship-ls`` at full width over 4096
+    positions (one block of which outgrew an SM before the stage was tiled), B=2,
+    FUSED_STEPS steps to the cap, seeded weights and memories."""
+    single = {"encoder": "EncoderV1"}
+    for dtype, name, overrides in (
+        ("float32", "DualSourceSelfAttentionDecoder, transition agent",
+         {"attention": "forward_transition_agent"}),
+        ("bfloat16", "DualSourceSelfAttentionDecoder, transition agent",
+         {"attention": "forward_transition_agent"}),
+        ("float32", "ExtendedDecoder, 31 taps, cumulative",
+         {**single, **LS, "decoder": "ExtendedDecoder", "attention_filters": 4}),
+        ("float32", "MgcLf0DualSourceDecoder, 7 taps, previous alignments",
+         {**LS, **NARROW_WORLD, "decoder": "MgcLf0DualSourceDecoder", "attention_kernel": 7,
+          "attention_filters": 4, "cumulative_weights": False}),
+        ("bfloat16", "DualSourceSelfAttentionDecoder, 31 taps, cumulative",
+         {**LS, "attention_filters": 4}),
+    ):
+        hp = narrow_hparams(**{**overrides, "compute_dtype": dtype})
+        check_narrow_exit(f"long source {dtype} {name} B={len(LONG_SOURCE_LANES)} "
+                          f"S={LONG_SOURCE}", hp, LONG_SOURCE_LANES, LONG_SOURCE, 0,
+                          np.random.default_rng(71), 24, seed=70)
+    net = load_network("flagship-ls", seed=72)
+    packed = fused_decode.pack_decoder(net.decoder)
+    rng = np.random.default_rng(73)
+    cond = seeded_conditioning(net.decoder, rng, [4096, 3001], 4096)
+    check_fused("flagship-ls float32 B=2 S=4096, seeded weights and memories", packed, cond,
+                seeded_masks(packed, rng, FUSED_STEPS, 2), FUSED_STEPS, 2.0, early_exit=False)
+    del net, packed
+
+
+def check_wide_exit(config: str, label: str, req, rng) -> None:
+    """The early exit at full width over FUSED_STEPS steps. Seeded weights never stop:
+    the stop rows are spread (``spread_for_exit``); their stop logits crowd within a
+    few hundredths over all lanes and steps, so where the widest gap between them is
+    under the margin an exit needs, the next seed's weights (up to EXIT_SEEDS), each
+    held to the cap first."""
+    for attempt in range(EXIT_SEEDS):
+        net = load_network(config, seed=97 + 100 * attempt)
+        cond = flagship_conditioning(net, req, seed=len(req["source"]))
+        masks = seeded_masks(fused_decode.pack_decoder(net.decoder), rng, FUSED_STEPS,
+                             len(req["source"]))
+        factor = spread_for_exit(net.decoder, cond, masks, FUSED_STEPS)
+        held = check_fused_with_exit(
+            f"{label}, weights {attempt}, stop rows x {factor}",
+            fused_decode.pack_decoder(net.decoder), cond, rng, FUSED_STEPS, masks=masks,
+            gap_required=attempt == EXIT_SEEDS - 1)
+        if held is not None:
+            return
+
+
+def phase_dualsource_ls_teacher():
+    """The teacher kernels (``teacher_fwd_kernel`` / ``teacher_bwd_kernel<true, true,
+    IO>``) as ``DualSourceDecoder`` with location-sensitive attention hands them its
+    operands (its decoder self-attention is none, and would sit outside the scan):
+    ``flagship-dualsource-ls`` at full width over 400 steps, conditioning from the real
+    encoder, prenet dropout and train zoneout, against the plain version under
+    autograd, every gradient, both io types, timed. Returns ``{(config, dtype):
+    record}``."""
+    config = "flagship-dualsource-ls"
+    records = {}
+    for dtype in ("float32", "bfloat16"):
+        ops, feeds, masks, lengths, valid_steps = teacher_batch(config, dtype, seed=98)
+        hp_like = ops["hp_like"]
+        require(fused_teacher.is_location_sensitive(hp_like) and hp_like["dual"]
+                and hp_like["ls_kernel"] == 31, f"{config}: two sources, 31 location taps")
+        records[(config, dtype)] = check_teacher(
+            f"{config} {dtype} B=32 S=128 ragged, {feeds.shape[1]} steps, seeded weights", ops,
+            feeds, masks, lengths, timed=True, valid_steps=valid_steps)
+    return records
+
+
+def phase_ls_branches_main_path():
+    return seeded_main_path("ls_branches")
+
+
+def phase_ls_branches_training():
+    return seeded_training("ls_branches")
+
+
+def config_structure(config: str) -> str:
+    """The name part of a configuration's decoder structure in the ``kernels`` line:
+    none for one source, ``_dual`` for two with the decoder self-attention,
+    ``_dualsource`` for DualSourceDecoder's two without it."""
+    decoder = config_hparams(config).decoder
+    if "DualSource" not in decoder:
+        return ""
+    return "_dual" if "SelfAttention" in decoder else "_dualsource"
+
+
+# --------------------------------------------------------------------------- #
 # The families served from seeded weights: main path and training
 # --------------------------------------------------------------------------- #
 
-# (one-source configuration, two-source configuration, location-sensitive, the io
-# types the two-source configuration runs in: the reference trains flagship-ls in
-# bfloat16 too, scripts/tpu_parity.py:377-382)
+# (one-source configuration, two-source configurations, the io types the two-source
+# configurations run in: the reference trains flagship-ls in bfloat16 too,
+# scripts/tpu_parity.py:377-382)
 FAMILIES = {
-    "ls": ("ls", "flagship-ls", True, ("float32", "bfloat16")),
-    "mgclf0": ("mgclf0", "flagship-mgclf0", False, ("float32",)),
+    "ls": ("ls", ("flagship-ls",), ("float32", "bfloat16")),
+    "mgclf0": ("mgclf0", ("flagship-mgclf0",), ("float32",)),
+    "ls_branches": ("mgclf0-ls", ("flagship-mgclf0-ls", "flagship-dualsource-ls"),
+                    ("float32", "bfloat16")),
 }
 # Seeded stop rows never fire: on the main path they are spread so that a run of the
 # one-source configuration's batch-32 request to the cap spans this much in logits.
@@ -2883,11 +3097,11 @@ def seeded_main_path(family: str):
     request of the one-source configuration on the card against the same on the
     CPU in both io types. Returns ``{(config, dtype): {"launches", "variants",
     "stats", "stats_plain", "threshold"}}``."""
-    single, dual_config, ls, dual_dtypes = FAMILIES[family]
+    single, duals, dual_dtypes = FAMILIES[family]
     reqs = requests()
     out = {}
     for config, dtype in ((single, "float32"), (single, "bfloat16"),
-                          *((dual_config, d) for d in dual_dtypes)):
+                          *((c, d) for c in duals for d in dual_dtypes)):
         bf16 = dtype == "bfloat16"
         threshold, factor, shift = 2.0, 1.0, 0.0
 
@@ -2924,11 +3138,11 @@ def seeded_main_path(family: str):
         variants = dict(fused_decode.variant_launches)
         log(f"main_path {config} {dtype} kernels " + json.dumps({
             "launches": launches, "fused_decode_specialisations": variants, "requests": stats}))
-        dual = config == dual_config
+        dual = config != single
         expected = {"bigru": len(reqs) if dual else 0, "mha_full": len(reqs) if dual else 0,
                     "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs)}
         require(launches == expected, f"{config} {dtype} synthesis launched {launches}")
-        name = fused_decode.variant_name(dual, dual, COMPUTE[dtype], ls=ls, lf0=not ls)
+        name = packed_variant(fused_decode.pack_decoder(net.decoder))
         require(variants == {name: len(reqs)}, f"{config} {dtype} launched {variants}")
         for o, req in zip(outs, reqs):
             check_output(o, req, hp)
@@ -2961,6 +3175,16 @@ def seeded_main_path(family: str):
 
 
 COMPUTE = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def packed_variant(packed) -> str:
+    """The name ``fused_decode.variant_launches`` counts a packed decoder's launches under."""
+    return fused_decode.variant_name(packed.dual, packed.use_sa, packed.io_dtype, packed.ls,
+                                     packed.lf0)
+
+
+def is_location_sensitive(config: str) -> bool:
+    return config_hparams(config).attention == "location_sensitive"
 
 
 def seeded_against_cpu(config: str, network, dtype: str, factor: float, shift: float,
@@ -3012,10 +3236,12 @@ def seeded_training(family: str):
     ``attention_b`` among them, which must not be zero), launch counts exact, an
     evaluation step on both; (b) the same in bfloat16 (the plain path one step, no
     evaluation), the first step's leaves beside the yardstick of the plain path in
-    bfloat16 against the plain path in float32 (the median leaf held); (c) the
-    two-source configuration: one step, kernels against plain, every leaf held in
-    float32, and (where the family trains it so) in bfloat16 beside its yardstick."""
-    single, dual_config, ls, dual_dtypes = FAMILIES[family]
+    bfloat16 against the plain path in float32 (the median leaf held); (c) each
+    two-source configuration: TRAIN_STEPS steps through the kernels against one on
+    the plain path, every leaf of the first step held in float32, and (where the
+    family trains it so) in bfloat16 beside its yardstick."""
+    single, duals, dual_dtypes = FAMILIES[family]
+    ls = is_location_sensitive(single)
     suffix = "_ls" if ls else ""
     batch = config_batch(config_hparams(single), np.random.default_rng(1234))
     one_step = {"bigru": 0, "bigru_bwd": 0, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
@@ -3085,27 +3311,35 @@ def seeded_training(family: str):
         results[dtype] = (kernels, plain_run)
         torch.cuda.empty_cache()
 
-    # (c) the two-source configuration: one step on both paths in each io type
-    fl_one = {**one_step, "bigru": 1, "bigru_bwd": 1}
-    for dtype in dual_dtypes:
-        overrides = {"compute_dtype": dtype}
-        fl_kernels = run_training(f"{dual_config} {dtype} kernels, seeded weights", batch,
-                                  overrides, seeded_network, 1, False, config=dual_config)
-        require(fl_kernels["counts"] == fl_one,
-                f"one {dual_config} {dtype} step launched {fl_kernels['counts']}")
-        require(fl_kernels["variants"] == {f"fwd_dual{suffix}": 1, f"bwd_dual{suffix}": 1},
-                f"{dual_config} launched the teacher specialisations {fl_kernels['variants']}")
-        fl_plain = run_training(f"{dual_config} {dtype} plain, seeded weights", batch,
-                                dict(overrides, **plain), seeded_network, 1, False,
-                                config=dual_config)
-        if dtype == "float32":
-            check_seeded_agreement(f"{dual_config}, seeded weights", fl_kernels, fl_plain)
-            fl_f32_plain = fl_plain
-        else:
-            against_yardstick(f"{dual_config} bf16 seeded weights", fl_kernels, fl_plain,
-                              fl_f32_plain, {})
-        results[(dual_config, dtype)] = (fl_kernels, fl_plain)
-        torch.cuda.empty_cache()
+    # (c) the two-source configurations: TRAIN_STEPS steps through the kernels, one on
+    # the plain path, in each io type
+    fl_steps = {k: TRAIN_STEPS * v for k, v in {**one_step, "bigru": 1, "bigru_bwd": 1}.items()}
+    for dual_config in duals:
+        dual_batch = config_batch(config_hparams(dual_config), np.random.default_rng(1234))
+        for dtype in dual_dtypes:
+            overrides = {"compute_dtype": dtype}
+            fl_kernels = run_training(f"{dual_config} {dtype} kernels, seeded weights", dual_batch,
+                                      overrides, seeded_network, TRAIN_STEPS, False,
+                                      config=dual_config)
+            require(fl_kernels["counts"] == fl_steps,
+                    f"{TRAIN_STEPS} {dual_config} {dtype} steps launched {fl_kernels['counts']}")
+            require(fl_kernels["variants"] == {f"fwd_dual{suffix}": TRAIN_STEPS,
+                                               f"bwd_dual{suffix}": TRAIN_STEPS},
+                    f"{dual_config} launched the teacher specialisations "
+                    f"{fl_kernels['variants']}")
+            fl_plain = run_training(f"{dual_config} {dtype} plain, seeded weights", dual_batch,
+                                    dict(overrides, **plain), seeded_network, 1, False,
+                                    config=dual_config)
+            require(all(v == 0 for v in fl_plain["counts"].values()),
+                    "the plain path launched a kernel")
+            if dtype == "float32":
+                check_seeded_agreement(f"{dual_config}, seeded weights", fl_kernels, fl_plain)
+                fl_f32_plain = fl_plain
+            else:
+                against_yardstick(f"{dual_config} bf16 seeded weights", fl_kernels, fl_plain,
+                                  fl_f32_plain, {})
+            results[(dual_config, dtype)] = (fl_kernels, fl_plain)
+            torch.cuda.empty_cache()
     return results
 
 
@@ -3120,89 +3354,95 @@ def phase_mgclf0_training():
 def family_kernel_entries(family: str, decode, teacher, main_path, train):
     """The ``kernels`` entries of ``family``'s instantiations: times at full width
     from the kernel phases, launches from the family's main paths (synthesis in each
-    io type, training steps)."""
-    single, dual_config, ls, _ = FAMILIES[family]
-    tag = "ls" if ls else "lf0"
+    io type, training steps); the instantiation's flags read from the shape it ran."""
+    single, duals, _ = FAMILIES[family]
     entries = []
-    for config, dtype in ((single, "float32"), (single, "bfloat16"), (dual_config, "float32"),
-                          (dual_config, "bfloat16")):
-        if (config, dtype, 32) not in decode:
-            continue
-        dual = config == dual_config
-        rec = decode[(config, dtype, 32)]
-        io = "float" if dtype == "float32" else "__nv_bfloat16"
-        run = main_path[(config, dtype)]
-        flags = (f"{str(dual).lower()}, {str(dual).lower()}, {str(ls).lower()}, "
-                 f"{str(not ls).lower()}, false, {io}")
-        entry = {
-            "name": f"fused_decode{'_dual' if dual else ''}_{tag}"
-                    + ("_bf16" if dtype == "bfloat16" else ""),
-            "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
-            "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787", "design": DECODE_DESIGN,
-            "instantiation": f"fused_decode_kernel<{flags}>",
-            "launches": run["variants"].get(fused_decode.variant_name(
-                dual, dual, COMPUTE[dtype], ls=ls, lf0=not ls), 0),
-            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
-            "shape": rec["shape"] | {"T": rec["steps_timed"]}, "dtype": dtype,
-            "ms_per_step": rec["ms_per_step"], "config": config,
-            "fused_request_ms": 1e3 * run["stats"][1]["wall_s"],
-            "step_by_step_request_ms": 1e3 * run["stats_plain"][1]["wall_s"],
-        }
-        if not ls:
-            entry["lf0_lanes"] = [rec["shape"]["LF0"], rec["shape"]["M"]]
-        if (config, dtype, 1) in decode:
-            b1 = decode[(config, dtype, 1)]
-            entry.update(batch1_ms=b1["ms"], batch1_ms_per_step=b1["ms_per_step"],
-                         batch1_bound_ms=b1["bound_ms"], batch1_plain_ms=b1["plain_ms"])
-        entries.append(entry)
-    for which, line in (("fwd", 1219), ("bwd", 1310)):
-        for config, dtype in ((single, "float32"), (single, "bfloat16"),
-                              (dual_config, "float32"), (dual_config, "bfloat16")):
-            if (config, dtype) not in teacher:
+    for config in (single, *duals):
+        tag = "_lf0" if config_hparams(config).decoder.startswith("MgcLf0") else ""
+        tag += "_ls" if is_location_sensitive(config) else ""
+        for dtype in ("float32", "bfloat16"):
+            if (config, dtype, 32) not in decode:
                 continue
-            dual = config == dual_config
-            rec = teacher[(config, dtype)]
+            rec = decode[(config, dtype, 32)]
+            z = rec["shape"]
             io = "float" if dtype == "float32" else "__nv_bfloat16"
-            steps = train[dtype if not dual else (config, dtype)][0]
-            err = (max(rec["features_max_abs_err"], rec["alignments_max_abs_err"])
-                   if which == "fwd" else rec["grad_max_abs_err"])
+            flags = ", ".join(str(f).lower() for f in (z["E2"] > 0, z["SA"] > 0, z["K"] > 0,
+                                                      z["LF0"] > 0, False))
+            run = main_path[(config, dtype)]
             entry = {
-                "name": f"fused_teacher_{which}{'_dual' if dual else ''}_{tag}"
+                "name": f"fused_decode{config_structure(config)}{tag}"
                         + ("_bf16" if dtype == "bfloat16" else ""),
-                "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
-                "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
-                "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, "
-                                 f"{str(ls).lower()}, {io}>",
-                "launches": steps["counts"][f"fused_teacher_{which}"],
-                "max_abs_err": err, "ms": rec[which]["ms"], "plain_ms": rec[which]["plain_ms"],
-                "bound_ms": rec[which]["bound_ms"], "bound_by": rec[which]["bound_by"],
-                "library_ms": None, "shape": rec["shape"], "dtype": dtype, "config": config,
-                "ms_per_step": rec[which]["ms_per_step"], "wrapper_ms": rec[which]["wrapper_ms"],
-                "grad_max_rel_err": rec["grad_max_rel_err"],
-                "train_step_ms": min(r["step_ms"] for r in steps["rows"]),
+                "route": "cuda", "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+                "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+                "design": DECODE_DESIGN, "instantiation": f"fused_decode_kernel<{flags}, {io}>",
+                "launches": run["variants"].get(rec["variant"], 0),
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+                "shape": z | {"T": rec["steps_timed"]}, "dtype": dtype,
+                "ms_per_step": rec["ms_per_step"], "config": config,
+                "fused_request_ms": 1e3 * run["stats"][1]["wall_s"],
+                "step_by_step_request_ms": 1e3 * run["stats_plain"][1]["wall_s"],
             }
-            if not ls:
-                # the teacher kernels' launches on each of the family's training paths
-                # (each io type and source count has its instantiation), and the path
-                # of a batch beyond one launch: sequential batch blocks
-                entry["family_launches"] = {
-                    " ".join(key) if isinstance(key, tuple) else f"{single} {key}":
-                        run_["counts"][f"fused_teacher_{which}"]
-                    for key, (run_, _) in train.items()}
-                blocks = teacher["blocks"]
-                entry["batch_blocks"] = {
-                    "blocks": blocks["blocks"], "block": blocks["block"],
-                    "launches": blocks["launches_fwd_bwd"]["blocked, train zoneout"][
-                        0 if which == "fwd" else 1],
-                    "wall_ms": blocks[which]["ms"],
-                    "unsliced_wall_ms": blocks[which]["unsliced_ms"],
-                    "plain_ms": blocks[which]["plain_ms"], "bound_ms": blocks[which]["bound_ms"],
-                    "bound_by": blocks[which]["bound_by"],
-                    "against_unsliced_zoneout_0": blocks["blocked_against_unsliced_zoneout_0"],
-                    "against_per_block_plain_runs": blocks["blocked_against_per_block_plain_runs"],
-                }
+            if z["LF0"] > 0:
+                entry["lf0_lanes"] = [z["LF0"], z["M"]]
+            if (config, dtype, 1) in decode:
+                b1 = decode[(config, dtype, 1)]
+                entry.update(batch1_ms=b1["ms"], batch1_ms_per_step=b1["ms_per_step"],
+                             batch1_bound_ms=b1["bound_ms"], batch1_plain_ms=b1["plain_ms"])
             entries.append(entry)
+    for which, line in (("fwd", 1219), ("bwd", 1310)):
+        for config in (single, *duals):
+            dual = config != single
+            tag = "_ls" if is_location_sensitive(config) else "_lf0"
+            for dtype in ("float32", "bfloat16"):
+                if (config, dtype) not in teacher:
+                    continue
+                rec = teacher[(config, dtype)]
+                io = "float" if dtype == "float32" else "__nv_bfloat16"
+                steps = train[(config, dtype) if dual else dtype][0]
+                err = (max(rec["features_max_abs_err"], rec["alignments_max_abs_err"])
+                       if which == "fwd" else rec["grad_max_abs_err"])
+                entry = {
+                    "name": f"fused_teacher_{which}{config_structure(config)}{tag}"
+                            + ("_bf16" if dtype == "bfloat16" else ""),
+                    "route": "cuda",
+                    "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
+                    "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
+                    "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, "
+                                     f"{str(is_location_sensitive(config)).lower()}, {io}>",
+                    "launches": steps["counts"][f"fused_teacher_{which}"],
+                    "max_abs_err": err, "ms": rec[which]["ms"], "plain_ms": rec[which]["plain_ms"],
+                    "bound_ms": rec[which]["bound_ms"], "bound_by": rec[which]["bound_by"],
+                    "library_ms": None, "shape": rec["shape"], "dtype": dtype, "config": config,
+                    "ms_per_step": rec[which]["ms_per_step"],
+                    "wrapper_ms": rec[which]["wrapper_ms"],
+                    "grad_max_rel_err": rec["grad_max_rel_err"],
+                    "train_step_ms": min(r["step_ms"] for r in steps["rows"]),
+                }
+                if "blocks" in teacher:
+                    # the teacher kernels' launches on each of the family's training
+                    # paths (each io type and source count has its instantiation), and
+                    # the path of a batch beyond one launch: sequential batch blocks
+                    entry["family_launches"] = {
+                        " ".join(key) if isinstance(key, tuple) else f"{single} {key}":
+                            run_["counts"][f"fused_teacher_{which}"]
+                        for key, (run_, _) in train.items()}
+                    blocks = teacher["blocks"]
+                    entry["batch_blocks"] = {
+                        "blocks": blocks["blocks"], "block": blocks["block"],
+                        "launches": blocks["launches_fwd_bwd"]["blocked, train zoneout"][
+                            0 if which == "fwd" else 1],
+                        "wall_ms": blocks[which]["ms"],
+                        "unsliced_wall_ms": blocks[which]["unsliced_ms"],
+                        "plain_ms": blocks[which]["plain_ms"],
+                        "bound_ms": blocks[which]["bound_ms"],
+                        "bound_by": blocks[which]["bound_by"],
+                        "against_unsliced_zoneout_0":
+                            blocks["blocked_against_unsliced_zoneout_0"],
+                        "against_per_block_plain_runs":
+                            blocks["blocked_against_per_block_plain_runs"],
+                    }
+                entries.append(entry)
     return entries
 
 
@@ -3248,6 +3488,10 @@ def main() -> int:
     world_teacher = timed_phase(phase_mgclf0_teacher)
     world_main = timed_phase(phase_mgclf0_main_path)
     world_train = timed_phase(phase_mgclf0_training)
+    branch_decode = timed_phase(phase_ls_branches_decode)
+    branch_teacher = timed_phase(phase_dualsource_ls_teacher)
+    branch_main = timed_phase(phase_ls_branches_main_path)
+    branch_train = timed_phase(phase_ls_branches_training)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -3472,6 +3716,8 @@ def main() -> int:
     kernels += family_kernel_entries("ls", ls_decode, ls_teacher, ls_main, ls_train)
     kernels += family_kernel_entries("mgclf0", world_decode, world_teacher, world_main,
                                      world_train)
+    kernels += family_kernel_entries("ls_branches", branch_decode, branch_teacher, branch_main,
+                                     branch_train)
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

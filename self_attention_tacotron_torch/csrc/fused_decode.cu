@@ -33,23 +33,23 @@
 // is no second memory or alignment), USE_SA (the self-attention block; without it
 // the output projection reads the feature h2 + h1 itself and there is no K/V
 // cache), and IO, float or bfloat16. LS (location-sensitive attention on source 1,
-// K > 0) is compiled for the two pairs of flags a model class reaches, DUAL with
-// USE_SA (the flagship's structure) and neither (the baseline's): the folded
-// matrix Wls (K rows, zero-padded to LS_TAPS) lives in shared memory for the whole
-// launch, the cumulative alignments in a row per lane beside the alignments, and
-// the location features are formed inside the score pass (location.cuh), never
-// stored. LF0 (the WORLD heads' lf0 feedback) is compiled with forward attention
-// for all four pairs: read from the width at run time inside every instantiation
-// instead, the softmax's code cost the flagship's decode 5 % on an H100 (PERF.md,
-// PR 9). IO is the type of the weights, keys, memories, speaker embedding, K/V
-// cache and every product's input rows. With bfloat16 the kernel rounds the input
-// of every product to bfloat16 where the Pallas kernel casts it to its io_dtype
-// (the fed-back frame, the prenet's second input, the attention LSTM's input, the
-// query, the transition agent's input, both decoder LSTMs' inputs, the feature,
-// both LayerNorm outputs, the attention output, the FFN's hidden layer and the
-// output projection's input) and keeps everything else in float: the products'
-// sums, the LSTM and attention state, the score bias, score vectors, LayerNorm
-// parameters, softmaxes, stop logits and the outputs. With LS the taps (the
+// K > 0) and LF0 (the WORLD heads' lf0 feedback) are two more flags, compiled for
+// all four pairs, each without and with the other: they act in different stages
+// (LS in the scores and alignments, LF0 in the prenet's row copy). With LS the
+// folded matrix Wls (K rows, zero-padded to LS_TAPS) lives in shared memory for the
+// whole launch, the cumulative alignments in a row per lane beside the alignments,
+// and the location features are formed inside the score pass (location.cuh), never
+// stored. Read from the width at run time inside every instantiation instead, the
+// lf0 softmax's code cost the flagship's decode 5 % on an H100 (PERF.md §6). IO is
+// the type of the weights, keys, memories, speaker embedding, K/V cache and every
+// product's input rows. With bfloat16 the kernel rounds the input of every product
+// to bfloat16 where the Pallas kernel casts it to its io_dtype (the fed-back frame,
+// the prenet's second input, the attention LSTM's input, the query, the transition
+// agent's input, both decoder LSTMs' inputs, the feature, both LayerNorm outputs,
+// the attention output, the FFN's hidden layer and the output projection's input)
+// and keeps everything else in float: the products' sums, the LSTM and attention
+// state, the score bias, score vectors, LayerNorm parameters, softmaxes, stop logits
+// and the outputs. With LS the taps (the
 // alignment values) and Wls are rounded too; the location sum and its bias stay
 // float. The fed-back frame is kept as float logits and rounded (after the lf0
 // lanes' softmax, in float) where the next step's prenet reads it, as the Pallas
@@ -81,12 +81,16 @@
 // a warp per (lane, a run of positions) dealt over the whole grid (the location
 // features formed there from the taps), then a block per (lane, CTX_COLS context
 // columns), which computes the lane's softmaxes and alignments itself (the first
-// of a lane's blocks writes them out) and its columns of the contexts. The decoder
+// of a lane's blocks writes them out) and its columns of the contexts: the
+// softmaxes' maxima and sums over the whole source first, keeping the rows' first
+// ATT_TILE positions in shared memory (every position of a source of up to
+// ATT_TILE), then the alignments and their product with the memories ATT_TILE
+// positions at a time, the rest of a longer source read from L2. The decoder
 // self-attention over the K/V cache goes to a block per (lane, head), walking the
 // cache's prefix in tiles of SA_TILE positions with an online softmax (running
 // maximum and sum, the output rescaled from tile to tile; a prefix of one tile,
 // every step of a request of up to SA_TILE steps, is normalised before its product
-// with V, as a plain softmax is): nothing in shared memory grows with T. Between
+// with V, as a plain softmax is): nothing in shared memory grows with T or S. Between
 // two dependent stages every block meets the others at a grid barrier
 // (grid.cuh::grid_barrier); the flagship has 15 a step. After the last one every
 // block reads the step's stop probabilities of every lane and keeps its own copy of
@@ -125,6 +129,9 @@ constexpr int NWARPS = NT / 32;
 // Positions of the decoder self-attention's prefix per tile (a multiple of 4):
 // requests of up to this many steps attend in one tile.
 constexpr int SA_TILE = 512;
+// Source positions of the alignment stage per tile (a multiple of 4): the rows of a
+// source of up to this many positions stay in shared memory for the whole stage.
+constexpr int ATT_TILE = 512;
 // Most lanes one launch takes (every block keeps every lane's finished flag and length).
 constexpr int MAX_LANES = 1024;
 
@@ -294,19 +301,22 @@ __host__ __device__ inline int stage_floats(const Dims& d) { return r4(imax(d.M,
 
 // Floats of the work region's layout in the alignment and context stage and in the
 // self-attention stage (the region is reused by every stage in turn). A block of the
-// former takes CTX_COLS context columns of a lane.
+// former takes CTX_COLS context columns of a lane and holds the first ATT_TILE
+// positions of the lane's scores, previous and cumulative alignments, and one tile
+// of each source's new alignments.
 constexpr int CTX_COLS = 128;
 struct LaneLayout {
-  int e1, e2, alpha, tmp, cum, part, total;
+  int e1, e2, prev, cum, a1, a2, part, total;
 };
-__host__ __device__ inline LaneLayout lane_layout(const Dims& d) {
+__host__ __device__ inline LaneLayout lane_layout() {
   LaneLayout L;
   int at = 0;
-  L.e1 = at; at += r4(d.S);
-  L.e2 = at; at += r4(d.S);
-  L.alpha = at; at += r4(d.S);
-  L.tmp = at; at += r4(d.S);
-  L.cum = at; at += r4(d.S);
+  L.e1 = at; at += ATT_TILE;
+  L.e2 = at; at += ATT_TILE;
+  L.prev = at; at += ATT_TILE;
+  L.cum = at; at += ATT_TILE;
+  L.a1 = at; at += ATT_TILE;
+  L.a2 = at; at += ATT_TILE;
   L.part = at; at += imax(4 * NT, CTX_COLS);
   L.total = at;
   return L;
@@ -353,7 +363,7 @@ __host__ __device__ inline Smem smem_layout(const Dims& d, Held held, int lanes)
   m.work = at;
   // one group of four lanes of the widest product, and their staged float rows
   const int rows = 4 * (widest_k(d) * io + 4 * stage_floats(d));
-  m.min_work = imax(rows, 4 * imax(lane_layout(d).total, d.SA > 0 ? sa_layout(d).total : 0));
+  m.min_work = imax(rows, 4 * imax(lane_layout().total, d.SA > 0 ? sa_layout(d).total : 0));
   return m;
 }
 
@@ -853,25 +863,43 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Held
     // a block per (lane, CTX_COLS context columns): each computes the lane's
     // softmaxes and alignments itself (the first of a lane's blocks writes them out)
     // and its columns of ctx[col] = sum_s alpha[s] * memory[s][col], both sources
-    // side by side
+    // side by side. The maxima and sums run over the whole source, the rows' first
+    // ATT_TILE positions kept in shared memory and the rest read from L2; then the
+    // alignments and the contexts ATT_TILE positions at a time.
     {
-      const LaneLayout L = lane_layout(d);
+      const LaneLayout L = lane_layout();
       float* s_e1 = work + L.e1;
       float* s_e2 = work + L.e2;
-      float* s_alpha = work + L.alpha;
-      float* s_tmp = work + L.tmp;
+      float* s_prev = work + L.prev;
       float* s_cum = work + L.cum;
+      float* s_a1 = work + L.a1;
+      float* s_a2 = work + L.a2;
       float* s_part = work + L.part;
       const int nchunk = (EW + CTX_COLS - 1) / CTX_COLS;
       for (int unit = blk; unit < B * nchunk; unit += G) {
         const int l = unit / nchunk, c0 = (unit - l * nchunk) * CTX_COLS;
         const bool lead = c0 == 0;
         const size_t row = (size_t)l * ld_s;
+        const float* e1_row = g_e1 + row;
+        const float* e2_row = g_e2 + row;
+        const float* prev_row = g_alpha + par * lane_half + row;
+        const float* cum_row = g_cum + par * lane_half + row;
+        // a row's value at s: the first ATT_TILE positions from shared memory
+        auto at = [&](const float* s_row, const float* g_row, int s) {
+          return s < ATT_TILE ? s_row[s] : __ldcg(g_row + s);
+        };
+        float m1 = -3.0e38f, m2 = -3.0e38f;
         for (int s = tid; s < S; s += NT) {
-          s_e1[s] = __ldcg(g_e1 + row + s);
-          if (DUAL) s_e2[s] = __ldcg(g_e2 + row + s);
-          s_alpha[s] = __ldcg(g_alpha + par * lane_half + row + s);
-          if (LS && d.ls_cum) s_cum[s] = __ldcg(g_cum + par * lane_half + row + s);
+          const float v1 = __ldcg(e1_row + s);
+          const float v2 = DUAL ? __ldcg(e2_row + s) : 0.0f;
+          m1 = fmaxf(m1, v1);
+          m2 = fmaxf(m2, v2);
+          if (s < ATT_TILE) {
+            s_e1[s] = v1;
+            if (DUAL) s_e2[s] = v2;
+            if (!LS) s_prev[s] = __ldcg(prev_row + s);
+            if (LS && d.ls_cum) s_cum[s] = __ldcg(cum_row + s);
+          }
         }
         // forward attention's transition factor, from the previous step's ctx1 and
         // query (0.5 at the first step, or without the agent)
@@ -890,108 +918,95 @@ fused_decode_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Held
           s_u = 0.5f;
         }
         __syncthreads();
+        m1 = block_max(m1, s_red);
+        if (DUAL) m2 = block_max(m2, s_red);
 
-        // source 1: y = softmax(e1)
-        float m = -3.0e38f;
-        for (int s = tid; s < S; s += NT) m = fmaxf(m, s_e1[s]);
-        m = block_max(m, s_red);
-        float sum = 0.0f;
+        // source 1's alignment at s before its normalisation, from x = exp(e1[s] - m1):
+        // location-sensitive x itself (a = softmax(e1)); forward attention
+        // ((1 - u) a[s] + u a[s - 1] + 1e-6) x, as a = ((1 - u) a + u shift(a) + 1e-6) y
+        // renormalised, where y = softmax(e1)'s own sum cancels
+        const float u = s_u;
+        auto unnormed1 = [&](int s, float x) {
+          if (LS) return x;
+          const float shifted = s > 0 ? at(s_prev, prev_row, s - 1) : 0.0f;
+          return ((1.0f - u) * at(s_prev, prev_row, s) + u * shifted + 1e-6f) * x;
+        };
+        float n1 = 0.0f, n2 = 0.0f;
         for (int s = tid; s < S; s += NT) {
-          const float v = expf(s_e1[s] - m);
-          s_e1[s] = v;
-          sum += v;
+          n1 += unnormed1(s, expf(at(s_e1, e1_row, s) - m1));
+          if (DUAL) n2 += expf(at(s_e2, e2_row, s) - m2);
         }
-        sum = block_sum(sum, s_red);
-        float* row1 = P.align1 + ((size_t)l * T + t) * S;
-        if (LS) {
-          // location-sensitive: the alignments are the softmax, the taps' next input
-          for (int s = tid; s < S; s += NT) {
-            const float v = s_e1[s] / sum;
-            s_alpha[s] = v;
-            if (lead) {
-              g_alpha[(par ^ 1) * lane_half + row + s] = v;
-              if (d.ls_cum) g_cum[(par ^ 1) * lane_half + row + s] = s_cum[s] + v;
-              row1[s] = v;
-            }
-          }
-        } else {
-          // a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + 1e-6) y_i(n), renormalised
-          const float u = s_u;
-          float total = 0.0f;
-          for (int s = tid; s < S; s += NT) {
-            const float y = s_e1[s] / sum;
-            const float shifted = s > 0 ? s_alpha[s - 1] : 0.0f;
-            const float v = ((1.0f - u) * s_alpha[s] + u * shifted + 1e-6f) * y;
-            s_tmp[s] = v;
-            total += v;
-          }
-          total = block_sum(total, s_red);
-          for (int s = tid; s < S; s += NT) {
-            const float v = s_tmp[s] / total;
-            s_alpha[s] = v;
-            if (lead) {
-              g_alpha[(par ^ 1) * lane_half + row + s] = v;
-              row1[s] = v;
-            }
-          }
-        }
-        // source 2: a2 = softmax(e2)
-        if (DUAL) {
-          float m2 = -3.0e38f;
-          for (int s = tid; s < S; s += NT) m2 = fmaxf(m2, s_e2[s]);
-          m2 = block_max(m2, s_red);
-          float sum2 = 0.0f;
-          for (int s = tid; s < S; s += NT) {
-            const float v = expf(s_e2[s] - m2);
-            s_e2[s] = v;
-            sum2 += v;
-          }
-          sum2 = block_sum(sum2, s_red);
-          float* row2 = P.align2 + ((size_t)l * T + t) * S;
-          for (int s = tid; s < S; s += NT) {
-            const float v = s_e2[s] / sum2;
-            s_e2[s] = v;
-            if (lead) row2[s] = v;
-          }
-        }
-        __syncthreads();
+        n1 = block_sum(n1, s_red);
+        if (DUAL) n2 = block_sum(n2, s_red);
 
-        // this block's context columns [c0, c0 + cw)
+        // a tile's alignments (source 2's: a2 = softmax(e2)), then this block's
+        // context columns [c0, c0 + cw) over it: a thread takes four neighbouring
+        // columns over a run of the tile's positions, the same in every tile, and
+        // adds its sums to those of the earlier tiles
         const int cw = imin(CTX_COLS, EW - c0), nc4 = cw >> 2;
-        int cparts = imax(1, imin(NT / nc4, (S + 7) / 8));
-        const int span = (S + cparts - 1) / cparts;
-        cparts = (S + span - 1) / span;
-        for (int idx = tid; idx < cparts * nc4; idx += NT) {
-          const int p = idx / nc4, c = idx - p * nc4;
-          const int col = c0 + 4 * c;
-          const bool second = DUAL && col >= E1;
-          const int width = second ? E2 : E1;
-          const IO* mem = second ? P.mem2 + (size_t)l * S * E2 + (col - E1)
-                                 : P.mem1 + (size_t)l * S * E1 + col;
-          const float* alpha = second ? s_e2 : s_alpha;
-          const int s0 = p * span;
-          const int s1 = imin(imin(s0 + span, S), s_hi[l]);
-          float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-          int s = s0;
-          for (; s + 8 <= s1; s += 8) {
-            float4 mv[8];
-#pragma unroll
-            for (int u = 0; u < 8; ++u)
-              mv[u] = Weights4<IO>::values(
-                  __ldg(reinterpret_cast<const Vec*>(mem + (size_t)(s + u) * width)));
-#pragma unroll
-            for (int u = 0; u < 8; ++u) fma4(acc, alpha[s + u], mv[u]);
+        const int n = imin(S, ATT_TILE);
+        int cparts = imax(1, imin(NT / nc4, (n + 7) / 8));
+        const int span = (n + cparts - 1) / cparts;
+        cparts = (n + span - 1) / span;
+        float* row1 = P.align1 + ((size_t)l * T + t) * S;
+        float* row2 = P.align2 + ((size_t)l * T + t) * S;
+        for (int t0 = 0; t0 < S; t0 += ATT_TILE) {
+          const int t1 = imin(t0 + ATT_TILE, S);
+          for (int s = t0 + tid; s < t1; s += NT) {
+            const float v = unnormed1(s, expf(at(s_e1, e1_row, s) - m1)) / n1;
+            s_a1[s - t0] = v;
+            if (lead) {
+              g_alpha[(par ^ 1) * lane_half + row + s] = v;
+              if (LS && d.ls_cum) g_cum[(par ^ 1) * lane_half + row + s] = at(s_cum, cum_row, s) + v;
+              row1[s] = v;
+            }
+            if (DUAL) {
+              const float v2 = expf(at(s_e2, e2_row, s) - m2) / n2;
+              s_a2[s - t0] = v2;
+              if (lead) row2[s] = v2;
+            }
           }
-          for (; s < s1; ++s)
-            fma4(acc, alpha[s],
-                 Weights4<IO>::values(__ldg(reinterpret_cast<const Vec*>(mem + (size_t)s * width))));
-          *reinterpret_cast<float4*>(s_part + (size_t)p * cw + 4 * c) = acc;
+          __syncthreads();
+          for (int idx = tid; idx < cparts * nc4; idx += NT) {
+            const int p = idx / nc4, c = idx - p * nc4;
+            const int col = c0 + 4 * c;
+            const bool second = DUAL && col >= E1;
+            const int width = second ? E2 : E1;
+            const IO* mem = second ? P.mem2 + (size_t)l * S * E2 + (col - E1)
+                                   : P.mem1 + (size_t)l * S * E1 + col;
+            const float* alpha = second ? s_a2 : s_a1;
+            const int s0 = t0 + p * span;
+            const int s1 = imin(imin(s0 + span, t1), s_hi[l]);
+            float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+            int s = s0;
+            for (; s + 8 <= s1; s += 8) {
+              float4 mv[8];
+#pragma unroll
+              for (int u = 0; u < 8; ++u)
+                mv[u] = Weights4<IO>::values(
+                    __ldg(reinterpret_cast<const Vec*>(mem + (size_t)(s + u) * width)));
+#pragma unroll
+              for (int u = 0; u < 8; ++u) fma4(acc, alpha[s - t0 + u], mv[u]);
+            }
+            for (; s < s1; ++s)
+              fma4(acc, alpha[s - t0],
+                   Weights4<IO>::values(__ldg(reinterpret_cast<const Vec*>(mem + (size_t)s * width))));
+            float4* sums = reinterpret_cast<float4*>(s_part + (size_t)p * cw + 4 * c);
+            if (t0 > 0) {
+              const float4 earlier = *sums;
+              acc.x += earlier.x;
+              acc.y += earlier.y;
+              acc.z += earlier.z;
+              acc.w += earlier.w;
+            }
+            *sums = acc;
+          }
+          __syncthreads();   // the tile's alignments have been read, its sums written
         }
-        __syncthreads();
         for (int j = tid; j < cw; j += NT) {
-          float acc = 0.0f;
-          for (int p = 0; p < cparts; ++p) acc += s_part[p * cw + j];
-          const IO v = Io<IO>::from(acc);
+          float sum = 0.0f;
+          for (int p = 0; p < cparts; ++p) sum += s_part[p * cw + j];
+          const IO v = Io<IO>::from(sum);
           attin_n[(size_t)l * ld_attin + P2 + d.SPK + c0 + j] = v;   // next step's attention LSTM
           din_p[(size_t)l * ld_din + AU + c0 + j] = v;               // [query | ctx1 | ctx2 | h1]
         }
@@ -1271,48 +1286,43 @@ bool sizes_ok(const Dims& d) {
   const bool sources = (d.A2 > 0) == (d.E2 > 0) && d.E2 % 4 == 0;
   const bool block = d.SA == 0 ||
                      (d.SA > 0 && d.H > 0 && d.FFN > 0 && d.SA % d.H == 0 && (d.SA / d.H) % 4 == 0);
-  // location-sensitive: an odd number of taps up to LS_TAPS, no transition agent,
-  // and one of the two pairs of flags it is compiled for
-  const bool ls = d.K == 0 || (d.K > 0 && d.K <= LS_TAPS && d.K % 2 == 1 && d.use_ta == 0 &&
-                               (d.E2 > 0) == (d.SA > 0));
-  // the lf0 lanes of a frame: none (the mel head) or a tail of at least one lane,
-  // with forward attention
-  const bool lf0 = d.LF0 == 0 || (d.LF0 > 0 && d.LF0 < d.M && d.K == 0);
+  // location-sensitive: an odd number of taps up to LS_TAPS, no transition agent
+  const bool ls = d.K == 0 || (d.K > 0 && d.K <= LS_TAPS && d.K % 2 == 1 && d.use_ta == 0);
+  // the lf0 lanes of a frame: none (the mel head) or a tail of at least one lane
+  const bool lf0 = d.LF0 == 0 || (d.LF0 > 0 && d.LF0 < d.M);
   return sources && block && ls && lf0;
 }
 
 template <typename IO>
 using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars, const Held);
 
-template <bool LF0, typename IO>
-Kernel<IO> forward_kernel(bool dual, bool use_sa) {
+// The instantiation of the pair of flags (dual, use_sa) with LS and LF0.
+template <bool LS, bool LF0, typename IO>
+Kernel<IO> kernel_of(bool dual, bool use_sa) {
   if (dual) {
-    return use_sa ? fused_decode_kernel<true, true, false, LF0, false, IO>
-                  : fused_decode_kernel<true, false, false, LF0, false, IO>;
+    return use_sa ? fused_decode_kernel<true, true, LS, LF0, false, IO>
+                  : fused_decode_kernel<true, false, LS, LF0, false, IO>;
   }
-  return use_sa ? fused_decode_kernel<false, true, false, LF0, false, IO>
-                : fused_decode_kernel<false, false, false, LF0, false, IO>;
+  return use_sa ? fused_decode_kernel<false, true, LS, LF0, false, IO>
+                : fused_decode_kernel<false, false, LS, LF0, false, IO>;
 }
 
-// The kernel compiled for the specialisation of `d`'s widths, with io type IO; null
-// for location-sensitive attention on a pair of flags it is not compiled for, or
-// with the lf0 feedback. The stamps of a step (stamp_step >= 0) are compiled into
-// the flagship's structure alone (two sources, self-attention, forward attention,
-// the mel head): every instantiation a request runs has no stamp code, which
-// cost 2-5 % even with a null pointer (PERF.md, PR 10).
+// The kernel compiled for the specialisation of `d`'s widths, with io type IO. The
+// stamps of a step (stamp_step >= 0) are compiled into the flagship's structure
+// alone (two sources, self-attention, forward attention, the mel head; null for any
+// other): every instantiation a request runs has no stamp code, which cost 2-5 %
+// even with a null pointer (PERF.md §6).
 template <typename IO>
 Kernel<IO> kernel_for(const Dims& d) {
   const bool dual = d.E2 > 0, use_sa = d.SA > 0;
   if (d.stamp_step >= 0)
     return dual && use_sa && d.K == 0 && d.LF0 == 0
                ? fused_decode_kernel<true, true, false, false, true, IO> : nullptr;
-  if (d.K > 0) {
-    if (d.LF0 > 0) return nullptr;
-    if (dual && use_sa) return fused_decode_kernel<true, true, true, false, false, IO>;
-    if (!dual && !use_sa) return fused_decode_kernel<false, false, true, false, false, IO>;
-    return nullptr;
-  }
-  return d.LF0 > 0 ? forward_kernel<true, IO>(dual, use_sa) : forward_kernel<false, IO>(dual, use_sa);
+  if (d.K > 0)
+    return d.LF0 > 0 ? kernel_of<true, true, IO>(dual, use_sa)
+                     : kernel_of<true, false, IO>(dual, use_sa);
+  return d.LF0 > 0 ? kernel_of<false, true, IO>(dual, use_sa)
+                   : kernel_of<false, false, IO>(dual, use_sa);
 }
 
 const void* kernel_address(const Dims& d) {

@@ -333,8 +333,9 @@ class Decoder(nn.Module):
         """Whether this decoder is of the family the teacher kernels serve: forward
         attention on source 1, and on source 2, where there is one, additive; or
         location-sensitive attention with an odd number of taps up to
-        ``fused_teacher.MAX_TAPS`` on the baseline's one source without
-        self-attention or on the flagship's two sources with it."""
+        ``fused_teacher.MAX_TAPS``, on every decoder: the decoder self-attention
+        sits outside the scan (``post``), so the kernels of one and of two sources
+        serve the decoders with it and without it alike."""
         mechs = self.attentions
         if len(mechs) == 1:
             sources_ok = mechs[0].query_layer is not None
@@ -346,10 +347,7 @@ class Decoder(nn.Module):
             )
         mech1 = mechs[0]
         if isinstance(mech1, LocationSensitiveAttention):
-            mech_ok = (
-                fused_teacher.taps_supported(mech1.attention_kernel)
-                and (len(mechs) == 2) == (self.self_attention is not None)
-            )
+            mech_ok = fused_teacher.taps_supported(mech1.attention_kernel)
         else:
             mech_ok = isinstance(mech1, ForwardAttention)
         return (

@@ -23,10 +23,12 @@ the dependent stages of a step; every block takes the exit decision from the sam
 stop probabilities. The attention's scores go to a warp per (lane, 2 positions;
 8 with location-sensitive attention), its softmaxes, alignments and contexts to a
 block per (lane, 128 context
-columns), the decoder self-attention to a block per (lane, head), walking the
-cache's prefix in tiles of ``SA_TILE`` positions with an online softmax, so one
-block's shared memory grows with the source length only, never with
-``max_iters``; where it outgrows an SM the wrapper raises. One launch takes up to
+columns), which keeps the rows' first ``ATT_TILE`` source positions in shared memory
+and walks a longer source in tiles of as many, the decoder self-attention to a
+block per (lane, head), walking the cache's prefix in tiles of ``SA_TILE`` positions
+with an online softmax, so one block's shared memory grows neither with the source
+length nor with ``max_iters``; where it outgrows an SM (weights too wide for the
+card) the wrapper raises. One launch takes up to
 ``MAX_LANES`` lanes; larger batches run as sequential batch blocks.
 ``stage_times`` reads the time of each stage of a step from stamps the kernel
 writes.
@@ -52,11 +54,10 @@ The kernel sees a frame as one ``M``-wide row; with the WORLD heads its lanes
 from ``LF0`` (``num_mgcs``) on are the lf0 class logits, which it softmaxes, in
 float32 and from the unrounded logits, before they feed the next step's prenet
 (training feeds one-hot rows there); the frames it returns stay logits. That
-feedback is compiled, with forward attention, for all four pairs of flags and both
-io types (``LF0 > 0`` picks those instantiations). Location-sensitive attention on source 1
-is compiled for the two pairs of flags a model class reaches (``dual`` with
-``use_sa``, the flagship's structure, and neither, the baseline's), with an odd
-number of taps up to ``MAX_TAPS``: its convolution and dense layer come folded
+feedback (``LF0 > 0``) and location-sensitive attention on source 1 (``K > 0``) are
+compiled for all four pairs of flags, each without and with the other, in both io
+types. Location-sensitive attention takes an odd number of taps up to
+``MAX_TAPS``: its convolution and dense layer come folded
 into one map of the taps (``models/attention.py::location_fold``), the
 alignments are the softmax itself, start uniform, and the taps read the
 cumulative alignments or the previous ones.
@@ -107,10 +108,12 @@ STATIC_SMEM = 64
 # (1 + 3 a stage).
 _NT = 512
 _STAMP_SLOTS = 64
-# The location taps' rows as the kernel holds them (location.cuh: LS_TAPS), and the
-# context columns one block of the alignment stage takes (CTX_COLS).
+# The location taps' rows as the kernel holds them (location.cuh: LS_TAPS), the
+# context columns one block of the alignment stage takes (CTX_COLS) and the source
+# positions of its tiles (ATT_TILE).
 _LS_TAPS = 32
 _CTX_COLS = 128
+_ATT_TILE = 512
 # Positions of the decoder self-attention's prefix per tile, as csrc/fused_decode.cu
 # has it: requests of up to this many steps attend in one tile.
 SA_TILE = 512
@@ -145,14 +148,13 @@ def supports_fused_decode(hp) -> bool:
     self-attention hop), with the mel head or, under the ``MgcLf0`` prefix, the
     mgc and lf0 heads, forward attention with or without the transition agent
     on source 1, additive attention on source 2 where there is one,
-    ``n_feed_frame=1``, two prenet layers, float32 or bfloat16; location-sensitive
-    attention on source 1 of ``ExtendedDecoder`` and of
-    ``DualSourceSelfAttentionDecoder`` (the decoders its model classes reach) with
-    an odd ``attention_kernel`` up to ``MAX_TAPS``, with the mel head (the lf0
-    feedback is compiled with forward attention). The kernel reads memories and
-    cache rows four values at a time, so those widths are multiples of 4; and the
-    first decoder LSTM has no residual, which holds whenever its input and output
-    widths differ.
+    ``n_feed_frame=1``, two prenet layers, float32 or bfloat16; or location-sensitive
+    attention on source 1 with an odd ``attention_kernel`` up to ``MAX_TAPS``, on
+    every decoder and with either head, as the JAX package's kernel serves it. The
+    kernel reads memories and cache rows four values at a time, so those widths are
+    multiples of 4; and the first decoder LSTM has no residual, which holds whenever
+    its input and output widths differ (the JAX kernel drops that residual:
+    ``ROADMAP.md`` §3).
     """
     base = base_decoder(hp.decoder)
     if base not in DECODERS:
@@ -167,8 +169,6 @@ def supports_fused_decode(hp) -> bool:
     mechanism_ok = hp.attention in ("forward", "forward_transition_agent") or (
         hp.attention == "location_sensitive"
         and taps_supported(hp.attention_kernel)
-        and (sources == 2) == use_sa
-        and not hp.decoder.startswith(MGC_LF0)
     )
     return bool(
         mechanism_ok
@@ -203,12 +203,12 @@ def _hp_sizes(hp) -> Dict[str, int]:
     )
 
 
-def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
+def fused_decode_max_batch(hp) -> int:
     """Most lanes one launch takes; 0 when the configuration cannot run fused at all.
 
     The kernel's grid is one block per SM, and a launch takes up to ``MAX_LANES``
-    lanes, whenever one block's shared memory (its slice of the weights and the
-    rows of its stages, which grow with ``src_len`` and not with ``max_iters``)
+    lanes whenever one block's shared memory (its slice of the weights and the rows
+    of its stages, which grow neither with the source length nor with ``max_iters``)
     fits an SM; else nothing can be launched. On a card the built kernel is asked,
     on the card's SM count; without one ``grid_plan`` answers for an H100.
     """
@@ -216,9 +216,9 @@ def fused_decode_max_batch(hp, max_iters: int, src_len: int) -> int:
         return 0
     io = COMPUTE_DTYPES[hp.compute_dtype]
     if not torch.cuda.is_available():
-        return grid_plan(_hp_sizes(hp), H100_SM_COUNT, io, src_len).max_lanes
+        return grid_plan(_hp_sizes(hp), H100_SM_COUNT, io).max_lanes
     device = torch.device("cuda", torch.cuda.current_device())
-    return _launch_limit(_hp_sizes(hp), src_len, max_iters, device, io)
+    return _launch_limit(_hp_sizes(hp), device, io)
 
 
 # --------------------------------------------------------------------------- #
@@ -310,8 +310,7 @@ def _share(n: int, blocks: int, r: int) -> Tuple[int, int]:
     return r * base + min(r, extra), base + (1 if r < extra else 0)
 
 
-def grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32,
-              src_len: int = 128) -> GridPlan:
+def grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32) -> GridPlan:
     """The kernel's plan on a grid of ``n_sms`` blocks, as it computes it itself."""
     shapes = product_shapes(sizes)
     io = 2 if io_dtype == torch.bfloat16 else 4
@@ -343,7 +342,7 @@ def grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32,
     widest = max(ldk(K) for K, items, _ in shapes.values() if items > 0)
     staged = _round4(max(z["M"], z["SA"]))   # a LayerNorm's or the fed-back frame's float row
     hd = z["SA"] // z["H"] if z["SA"] else 0
-    lane_rows = 5 * _round4(src_len) + max(4 * _NT, _CTX_COLS)
+    lane_rows = 6 * _ATT_TILE + max(4 * _NT, _CTX_COLS)
     sa_rows = 2 * _round4(hd) + SA_TILE + max(4 * _NT, _round4(hd)) if z["SA"] else 0
     work = max(4 * (widest * io + 4 * staged), 4 * max(lane_rows, sa_rows))
     # the biases and LayerNorm parameters, every lane's finished flag, length and end
@@ -489,9 +488,6 @@ def pack_decoder(decoder: Decoder) -> PackedDecoder:
     if ls:
         _require(taps_supported(mech1.attention_kernel),
                  f"the location convolution needs an odd number of taps up to {MAX_TAPS}")
-        _require(dual == use_sa, "location-sensitive attention is compiled for two sources with "
-                 "self-attention and for one source without")
-        _require(heads[0][0] == "mel", "the lf0 feedback is compiled with forward attention")
     cells = (decoder.attention_lstm, *decoder.decoder_lstms)
     for attr in ("zoneout_factor_cell", "zoneout_factor_output", "forget_bias"):
         _require(len({getattr(c, attr) for c in cells}) == 1, f"the cells differ in {attr}")
@@ -946,13 +942,13 @@ def _library():
     return lib
 
 
-def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int, device,
+def block_shared_memory(sizes: Dict[str, int], device,
                         io_dtype=torch.float32) -> Tuple[int, int]:
     """(bytes of shared memory one block needs at the least on ``device``'s grid, one
     block per SM; bytes a block may have there), both as the built kernel reports
-    them. The first does not grow with ``max_iters``."""
+    them. The first grows neither with the source length nor with ``max_iters``."""
     lib = _library()
-    dims = _dims(sizes, 1, src_len, max_iters, io_dtype=io_dtype)
+    dims = _dims(sizes, 1, 1, 1, io_dtype=io_dtype)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         limit = int(lib.fused_decode_smem_limit(dims))
@@ -961,9 +957,8 @@ def block_shared_memory(sizes: Dict[str, int], src_len: int, max_iters: int, dev
     return int(lib.fused_decode_smem_bytes(dims, sms)), limit
 
 
-def _launch_limit(sizes: Dict[str, int], src_len: int, max_iters: int, device,
-                  io_dtype=torch.float32) -> int:
-    need, have = block_shared_memory(sizes, src_len, max_iters, device, io_dtype)
+def _launch_limit(sizes: Dict[str, int], device, io_dtype=torch.float32) -> int:
+    need, have = block_shared_memory(sizes, device, io_dtype)
     return MAX_LANES if need <= have else 0
 
 
@@ -1116,12 +1111,12 @@ def fused_decode(
     B, S = cond.memories[0].shape[:2]
     limit = B   # the plain version takes any batch
     if device.type == "cuda":
-        limit = _launch_limit(packed.sizes, S, max_iters, device, packed.io_dtype)
+        limit = _launch_limit(packed.sizes, device, packed.io_dtype)
         if limit < 1:
-            need, have = block_shared_memory(packed.sizes, S, max_iters, device, packed.io_dtype)
+            need, have = block_shared_memory(packed.sizes, device, packed.io_dtype)
             raise RuntimeError(
-                f"fused_decode cannot launch at src_len={S}: one block needs {need} bytes of "
-                f"shared memory, an SM of this device offers {have}"
+                f"fused_decode cannot launch: one block needs {need} bytes of shared memory, "
+                f"an SM of this device offers {have}"
             )
     if slice_batch is not None:
         limit = int(slice_batch)

@@ -50,14 +50,15 @@ def make_predict_fn(
     step-by-step loop its one host synchronisation per step (see
     ``ops/decode_loop.py``).
 
-    ``use_fused``: decode with the whole-loop kernel of ``ops/fused_decode.py``.
-    Default: on where ``hparams.use_pallas_kernels`` is set, the configuration is
-    one the kernel serves (``supports_fused_decode``, float32 and bfloat16 alike)
-    and the device is the card; else the step-by-step loop. ``True`` raises for a configuration the kernel does
-    not serve, and with ``device="cpu"`` runs the kernel's plain version. On the
-    card the fused decode launches its kernel or raises (``RuntimeError`` where
-    ``max_iters`` or the source is so long that one block outgrows an SM's shared
-    memory): nothing gives way to the loop, which a caller asks for with
+    ``use_fused``: decode with the whole-loop kernel of ``ops/fused_decode.py``
+    (``decode_fused``). Default: on where ``hparams.use_pallas_kernels`` is set, the
+    configuration is one the kernel serves (``supports_fused_decode``, float32 and
+    bfloat16 alike) and the device is the card; else the step-by-step loop.
+    ``True`` raises for a configuration the kernel does not serve, and with
+    ``device="cpu"`` runs the kernel's plain version. On the card the fused decode
+    launches its kernel or raises (``RuntimeError`` where one block's weights
+    outgrow an SM's shared memory; neither the source length nor ``max_iters``
+    grows it): nothing gives way to the loop, which a caller asks for with
     ``use_fused=False``. The weights are packed for the kernel here, once, so load
     them before this call. Both decodes take the same masks, drawn before the
     choice, so they consume the generator alike.
@@ -80,10 +81,7 @@ def make_predict_fn(
     max_steps = int(max_iters or hp.max_iters)
     r = hp.outputs_per_step
     head_dims = dict(net.decoder.output_heads)
-    if use_fused is None:
-        use_fused = hp.use_pallas_kernels and supports_fused_decode(hp) and dev.type == "cuda"
-    elif use_fused and not supports_fused_decode(hp):
-        raise ValueError("configuration not supported by the fused decode kernel")
+    use_fused = decode_fused(hp, use_fused, dev.type)
     packed = pack_decoder(net.decoder) if use_fused else None
 
     def to_device(value, dtype=None):
@@ -154,6 +152,18 @@ def make_predict_fn(
         return _assemble_outputs(result, enc_sa)
 
     return predict
+
+
+def decode_fused(hp, use_fused: Optional[bool], device_type: str) -> bool:
+    """Whether ``make_predict_fn`` decodes through the fused kernel, as its
+    ``use_fused`` asks on a device of ``device_type``: in auto mode (``None``) where
+    the configuration is served and the device is the card; ``True`` raises
+    ``ValueError`` for a configuration the kernel does not serve."""
+    if use_fused is None:
+        return bool(hp.use_pallas_kernels and supports_fused_decode(hp) and device_type == "cuda")
+    if use_fused and not supports_fused_decode(hp):
+        raise ValueError("configuration not supported by the fused decode kernel")
+    return bool(use_fused)
 
 
 def _assemble_outputs(result: DecodeResult, enc_sa) -> Dict[str, object]:

@@ -12,10 +12,13 @@ S=128 ragged):
 
 * ``fused_decode`` (whole-loop decode), 500 steps to the cap, prenet dropout
   from injected masks: every instantiation (the four pairs of ``dual`` /
-  ``use_sa``, the two location-sensitive ones, the four with the lf0 feedback,
-  each in float32 and bfloat16) at B=32 and B=1, the flagship also at B=128 and
-  B=528 (labels ``_b1``, ``_b128``, ``_b528``); five launches each after a warm-up
-  (three at B=128 and B=528);
+  ``use_sa``, each with forward and with location-sensitive attention, with the
+  mel head and with the lf0 feedback, in float32 and bfloat16) at B=32 and B=1, the
+  flagship also at B=128 and B=528 (labels ``_b1``, ``_b128``, ``_b528``), and
+  the flagship with forward and with location-sensitive attention in float32 at
+  B=32 over a source of ``LONG_S`` positions, longer than two tiles of the
+  alignment stage (label ``_s1100``); five launches each after a warm-up (three
+  at B=128 and B=528);
 * the teacher-forced decoder kernels (``fused_teacher``, forward and backward,
   N=400, train zoneout and prenet dropout): two sources (the flagship's widths)
   in float32 and bfloat16, one source (the baseline's) in float32; five launches
@@ -24,7 +27,9 @@ S=128 ragged):
   20 launches),
 
 and prints one ``AB {...}`` JSON line with the card's name and power limit and
-the median of each; with ``--decode`` after LABEL, the decode kernels only. Run it
+the median of each (a decode case draws its inputs from a seed of its own, and a
+case the tree does not serve is left out, so that two trees compare like with
+like); with ``--decode`` after LABEL, the decode kernels only. Run it
 in turns (parent, change, change, parent) in one chip call:
 
     for t in runs/parent:parent .:change .:change runs/parent:parent; do
@@ -37,10 +42,12 @@ import json
 import os
 import subprocess
 import sys
+import zlib
 
 import numpy as np
 
 B, S, N, T = 32, 128, 400, 500
+LONG_S = 1100
 
 
 def _events_ms(fn, runs: int = 6, inner: int = 1):
@@ -62,10 +69,11 @@ def _events_ms(fn, runs: int = 6, inner: int = 1):
 
 
 def _decode_cases():
-    """(label, hparams overrides, batches) of every instantiation of the decode kernel:
-    the four pairs of ``dual`` / ``use_sa`` (mel head, forward attention), the two
-    location-sensitive ones and the four with the lf0 feedback (WORLD heads), each in
-    float32 and bfloat16, at B=32 and B=1; the flagship also at B=128 and B=528."""
+    """(label, hparams overrides, (batch, source length) pairs) of every
+    instantiation of the decode kernel: the four pairs of ``dual`` / ``use_sa``, each
+    with forward and with location-sensitive attention, with the mel head and with
+    the lf0 feedback (WORLD heads), in float32 and bfloat16, at B=32 and B=1; the
+    flagship also at B=128 and B=528, and in float32 over LONG_S positions."""
     pairs = (
         ("dual_sa", dict(decoder="DualSourceSelfAttentionDecoder", attention2="additive")),
         ("dual", dict(decoder="DualSourceDecoder", attention2="additive")),
@@ -73,22 +81,24 @@ def _decode_cases():
         ("sa", dict(decoder="SelfAttentionDecoder", encoder="EncoderV1")),
     )
     for pair, base in pairs:
-        for branch in ("", "ls", "lf0"):
-            if branch == "ls" and pair not in ("dual_sa", "single"):
-                continue
+        for branch in ("", "ls", "lf0", "ls_lf0"):
             overrides = dict(base)
-            if branch == "ls":
+            if "ls" in branch:
                 overrides["attention"] = "location_sensitive"
-            if branch == "lf0":
+            if "lf0" in branch:
                 overrides["decoder"] = "MgcLf0" + base["decoder"]
             for io in ("f32", "bf16"):
                 label = f"decode_{pair}{'_' + branch if branch else ''}_{io}"
-                batches = (32, 1, 128, 528) if pair == "dual_sa" and not branch else (32, 1)
+                batches = [(B, S), (1, S)]
+                if pair == "dual_sa" and not branch:
+                    batches += [(128, S), (528, S)]
+                if pair == "dual_sa" and branch in ("", "ls") and io == "f32":
+                    batches.append((B, LONG_S))
                 dtype = dict(compute_dtype="bfloat16") if io == "bf16" else {}
                 yield label, dict(overrides, **dtype), batches
 
 
-def _decode_times(dev, rng):
+def _decode_times(dev):
     import torch
     from self_attention_tacotron_torch.hparams import HParams
     from self_attention_tacotron_torch.models.decoders import DecoderConditioning
@@ -100,22 +110,27 @@ def _decode_times(dev, rng):
         torch.manual_seed(3)
         hp = HParams(attention="forward", num_symbols=256, max_iters=T)
         hp = hp.override_from_dict(overrides)
+        if not fused_decode.supports_fused_decode(hp):
+            continue   # an instantiation the tree does not have
+        # inputs of the case's own, whichever cases the tree has
+        rng = np.random.default_rng(zlib.crc32(label.encode()))
         decoder = TacotronNetwork(hp).decoder.to(dev).eval()
         packed = fused_decode.pack_decoder(decoder)
-        for batch in batches:
-            lengths = np.clip(rng.integers(24, 129, batch), 24, 128)
-            lengths[0] = 128
+        for batch, src in batches:
+            lengths = np.clip(rng.integers(24, src + 1, batch), 24, src)
+            lengths[0] = src
             memories = tuple(
-                torch.tensor(rng.standard_normal((batch, S, e)).astype(np.float32), device=dev)
+                torch.tensor(rng.standard_normal((batch, src, e)).astype(np.float32), device=dev)
                 for e in decoder.memory_units)
-            mask = (torch.arange(S, device=dev)[None, :]
+            mask = (torch.arange(src, device=dev)[None, :]
                     < torch.tensor(lengths, device=dev)[:, None])
             with torch.no_grad():
                 cond = DecoderConditioning(memories=memories, keys=decoder.compute_keys(memories),
                                            masks=tuple(mask for _ in memories))
             masks = tuple(torch.tensor(rng.random((T, batch, u)) < 0.5, device=dev)
                           for u in hp.decoder_prenet_out_units)
-            name = label if batch == B else f"{label}_b{batch}"
+            name = (label + (f"_b{batch}" if batch != B else "")
+                    + (f"_s{src}" if src != S else ""))
             out[name] = _events_ms(lambda: fused_decode.fused_decode(
                 packed, cond, masks, T, 2.0, early_exit=False), runs=6 if batch <= B else 4)
     return out
@@ -219,7 +234,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     times = {}
-    times.update(_decode_times(dev, np.random.default_rng(4)))
+    times.update(_decode_times(dev))
     if "--decode" not in args[2:]:
         times.update(_teacher_times(dev, np.random.default_rng(5)))
         times.update(_bigru_bwd_times(dev, np.random.default_rng(6)))

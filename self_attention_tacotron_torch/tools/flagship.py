@@ -1,6 +1,6 @@
 """The configurations and request shapes that the GPU scripts drive.
 
-Seven configurations at full width, float32 unless ``compute_dtype`` is
+Ten configurations at full width, float32 unless ``compute_dtype`` is
 overridden (``DTYPES``; the scripts' ``--dtype``): ``flagship`` (the dual-source
 Self-Attention Tacotron, with the committed trained weights), ``baseline``
 (``configs/ljspeech_baseline.json``: ``ExtendedTacotronV1Model`` with
@@ -13,7 +13,12 @@ structure with location-sensitive attention on its first source), ``mgclf0``
 ``ZoneoutEncoderV1`` and forward attention, heads mgc 60 and lf0 256, trained by
 the reference in bfloat16) and ``flagship-mgclf0``
 (``DualSourceSelfAttentionMgcLf0TacotronModel``: the flagship's structure with
-those heads). No trained weights of the baseline family, of location-sensitive
+those heads); and the three configurations that reach location-sensitive
+attention with the lf0 feedback or without the decoder self-attention:
+``mgclf0-ls`` (``mgclf0`` with location-sensitive attention), ``flagship-mgclf0-ls``
+(``flagship-mgclf0`` with it) and ``flagship-dualsource-ls`` (the flagship's model
+class with ``DualSourceDecoder``, the hparams' own default decoder, and
+location-sensitive attention). No trained weights of the baseline family, of location-sensitive
 attention or of the WORLD heads are committed: those networks are made from a
 seed.
 """
@@ -37,7 +42,8 @@ _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__
 TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_params.npz")
 # the baseline Tacotron's configuration, as the training command line reads it
 BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
-CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0", "flagship-mgclf0")
+CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0", "flagship-mgclf0",
+           "mgclf0-ls", "flagship-mgclf0-ls", "flagship-dualsource-ls")
 # the compute dtypes a script may ask for (hparams.compute_dtype)
 DTYPES = ("float32", "bfloat16")
 
@@ -72,7 +78,9 @@ def config_hparams(config: str, **overrides) -> HParams:
     ``cumulative_weights=True``), ``flagship-ls`` the flagship with it; ``mgclf0``
     the zoneout baseline's structure as ``MgcLf0TacotronModel``, ``flagship-mgclf0``
     the flagship's as ``DualSourceSelfAttentionMgcLf0TacotronModel`` (the hparams'
-    own ``num_mgcs=60``, ``num_lf0s=256``)."""
+    own ``num_mgcs=60``, ``num_lf0s=256``); ``mgclf0-ls`` and ``flagship-mgclf0-ls``
+    those with location-sensitive attention (as ``ls``), ``flagship-dualsource-ls``
+    the flagship with ``decoder="DualSourceDecoder"`` and it."""
     if config == "flagship":
         return flagship_hparams(**overrides)
     if config == "baseline":
@@ -84,6 +92,9 @@ def config_hparams(config: str, **overrides) -> HParams:
                                    "attention": "location_sensitive", **overrides})
     if config == "flagship-ls":
         return flagship_hparams(**{"attention": "location_sensitive", **overrides})
+    if config == "flagship-dualsource-ls":
+        return flagship_hparams(**{"attention": "location_sensitive",
+                                   "decoder": "DualSourceDecoder", **overrides})
     if config == "mgclf0":
         return baseline_hparams(**{"encoder": "ZoneoutEncoderV1",
                                    "tacotron_model": "MgcLf0TacotronModel",
@@ -92,6 +103,9 @@ def config_hparams(config: str, **overrides) -> HParams:
         return flagship_hparams(**{
             "tacotron_model": "DualSourceSelfAttentionMgcLf0TacotronModel",
             "decoder": "MgcLf0DualSourceSelfAttentionDecoder", **overrides})
+    if config in ("mgclf0-ls", "flagship-mgclf0-ls"):
+        return config_hparams(config[: -len("-ls")],
+                              **{"attention": "location_sensitive", **overrides})
     raise ValueError(f"unknown configuration {config!r}; known: {CONFIGS}")
 
 

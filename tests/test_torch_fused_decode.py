@@ -331,15 +331,16 @@ def test_batch_blocks_with_early_exit_keep_the_contract():
 
 
 def test_supports_the_flagship_family_only():
-    """The four mel decoders are served, in float32 and bfloat16, and
-    location-sensitive attention on the two decoders its model classes reach; so
-    are the four MgcLf0 decoders (the WORLD heads: the frame M = num_mgcs +
-    num_lf0s wide, its lf0 lanes from LF0 = num_mgcs on)."""
+    """The four mel decoders are served, in float32 and bfloat16, with forward and
+    with location-sensitive attention; so are the four MgcLf0 decoders (the WORLD
+    heads: the frame M = num_mgcs + num_lf0s wide, its lf0 lanes from LF0 =
+    num_mgcs on)."""
     assert fd.supports_fused_decode(HParams(**_NARROW))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "forward_transition_agent"}))
     assert fd.supports_fused_decode(HParams(**{**_NARROW, "attention": "location_sensitive"}))
-    assert fd.supports_fused_decode(HParams(**{**_NARROW, "decoder": "ExtendedDecoder",
-                                               "attention": "location_sensitive"}))
+    for decoder in ("ExtendedDecoder", "SelfAttentionDecoder", "MgcLf0SelfAttentionDecoder"):
+        assert fd.supports_fused_decode(HParams(**{**_NARROW, "decoder": decoder,
+                                                   "attention": "location_sensitive"}))
     for variant in VARIANTS:
         assert fd.supports_fused_decode(HParams(**{**_NARROW, **VARIANTS[variant]})), variant
         assert fd.supports_fused_decode(
@@ -350,22 +351,20 @@ def test_supports_the_flagship_family_only():
         assert fd.supports_fused_decode(world), variant
         sizes = fd._hp_sizes(world)
         assert (sizes["M"], sizes["LF0"]) == (20, 7), variant
-        assert fd.fused_decode_max_batch(world, MAX_ITERS, S) == fd.MAX_LANES
+        assert fd.fused_decode_max_batch(world) == fd.MAX_LANES
     assert fd._hp_sizes(HParams(**_NARROW))["LF0"] == 0
     for overrides in (
         {"n_feed_frame": 2},
         {"decoder_prenet_out_units": (32, 16, 16)},
         {"decoder_self_attention_num_hop": 2},
         {"attention": "location_sensitive", "attention_kernel": 30},
-        {"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"},
-        {"decoder": "MgcLf0SelfAttentionDecoder", "attention": "location_sensitive"},
         {"decoder": "MgcLf0DualSourceSelfAttentionDecoder", "n_feed_frame": 2},
         {"compute_dtype": "float16"},
         {"decoder": "ExtendedDecoder", "attention_out_units": 8, "cbhg_out_units": 24},
     ):
         hp = HParams(**{**_NARROW, **overrides})
         assert not fd.supports_fused_decode(hp), overrides
-        assert fd.fused_decode_max_batch(hp, MAX_ITERS, S) == 0
+        assert fd.fused_decode_max_batch(hp) == 0
 
 
 def test_launch_limit_is_lanes_per_sm_and_zero_where_a_block_cannot_fit(monkeypatch):
@@ -374,7 +373,7 @@ def test_launch_limit_is_lanes_per_sm_and_zero_where_a_block_cannot_fit(monkeypa
     is stood in for here, as no kernel can be built. The limit no longer grows with
     the SM count: every block works on every lane."""
     hp = HParams(**_NARROW)
-    assert fd.fused_decode_max_batch(hp, MAX_ITERS, S) == fd.MAX_LANES
+    assert fd.fused_decode_max_batch(hp) == fd.MAX_LANES
     assert fd.grid_plan(fd._hp_sizes(hp), fd.H100_SM_COUNT).max_lanes == fd.MAX_LANES
 
     class TenSMs:
@@ -383,9 +382,9 @@ def test_launch_limit_is_lanes_per_sm_and_zero_where_a_block_cannot_fit(monkeypa
     monkeypatch.setattr(torch.cuda, "get_device_properties", lambda device: TenSMs)
     sizes = fd._hp_sizes(hp)
     monkeypatch.setattr(fd, "block_shared_memory", lambda *a: (100_000, 200_000))
-    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == fd.MAX_LANES
+    assert fd._launch_limit(sizes, "card") == fd.MAX_LANES
     monkeypatch.setattr(fd, "block_shared_memory", lambda *a: (200_001, 200_000))
-    assert fd._launch_limit(sizes, S, MAX_ITERS, "card") == 0   # a block outgrows an SM
+    assert fd._launch_limit(sizes, "card") == 0   # a block outgrows an SM
 
 
 @pytest.mark.parametrize(

@@ -16,7 +16,7 @@ specialisations,
   to the cap and with an early exit; in bfloat16 at 3e-2 (both round where the
   Pallas kernel casts to its io dtype, float32 sums in another order).
 
-Two configurations, the two the kernel is compiled for, as
+Two configurations, the two the kernel was first compiled for, as
 ``tests/test_fused_decode.py`` sets them up for the JAX package: the baseline's
 ``ExtendedDecoder`` (one source, no self-attention) over the cumulative
 alignments, and the flagship's ``DualSourceSelfAttentionDecoder`` over the
@@ -35,7 +35,7 @@ from self_attention_tacotron_tpu.synthesis import make_predict_fn as jax_make_pr
 
 from self_attention_tacotron_torch.hparams import HParams
 from self_attention_tacotron_torch.models.attention import LocationSensitiveAttention
-from self_attention_tacotron_torch.models.models import tacotron_model_factory
+from self_attention_tacotron_torch.models.models import TacotronModelBase, tacotron_model_factory
 from self_attention_tacotron_torch.ops import fused_decode as fd
 from self_attention_tacotron_torch.synthesis import make_predict_fn
 
@@ -175,11 +175,15 @@ def test_which_location_sensitive_configurations_the_kernel_serves():
         assert fd.supports_fused_decode(
             HParams(**{**_NARROW, **VARIANTS[variant], "compute_dtype": "bfloat16"})), variant
     dual, single = VARIANTS["dual_self_attention_previous"], VARIANTS["extended_cumulative"]
+    # DualSourceDecoder, which the flagship's model class keeps, and SelfAttentionDecoder
+    # are served too (tests/test_torch_dualsource_ls.py and
+    # tests/test_torch_fused_decode_ls_branches.py hold them)
+    assert fd.supports_fused_decode(HParams(**{**_NARROW, **dual, "decoder": "DualSourceDecoder"}))
+    assert fd.supports_fused_decode(HParams(**{**_NARROW, **single,
+                                               "decoder": "SelfAttentionDecoder"}))
     for overrides in (
         dict(single, attention_kernel=8),           # an even window is not centred
         dict(single, attention_kernel=33),          # more taps than the kernel holds
-        dict(single, decoder="SelfAttentionDecoder"),
-        dict(dual, decoder="DualSourceDecoder"),
     ):
         assert not fd.supports_fused_decode(HParams(**{**_NARROW, **overrides})), overrides
     packed = fd.pack_decoder(_torch_net("extended_cumulative").decoder)
@@ -188,5 +192,9 @@ def test_which_location_sensitive_configurations_the_kernel_serves():
     assert fd.variant_name(False, False, torch.bfloat16, ls=True) == "dual=0,use_sa=0,ls,bf16"
     hp = HParams(**{**_NARROW, **dual, "decoder": "DualSourceDecoder"})
     net = tacotron_model_factory(hp).network(device="cpu").eval()
-    with pytest.raises(ValueError, match="compiled for two sources with self-attention"):
-        fd.pack_decoder(net.decoder)
+    packed = fd.pack_decoder(net.decoder)
+    assert packed.ls and packed.dual and not packed.use_sa
+    hp = HParams(**{**_NARROW, **single, "decoder": "SelfAttentionDecoder"})
+    net = TacotronModelBase(hp).network(device="cpu").eval()
+    packed = fd.pack_decoder(net.decoder)
+    assert packed.ls and packed.use_sa and not packed.dual

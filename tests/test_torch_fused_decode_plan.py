@@ -7,6 +7,8 @@ itself (``plan_block``, ``smem_layout``): every configuration of
 kernel's own numbers.
 """
 
+import inspect
+
 import pytest
 import torch
 
@@ -16,7 +18,6 @@ from self_attention_tacotron_torch.tools.flagship import CONFIGS, config_hparams
 
 SMS = (132, 114)
 IO = (torch.float32, torch.bfloat16)
-SRC_LEN = 128
 CASES = [(c, io, n) for c in CONFIGS for io in IO for n in SMS]
 
 
@@ -28,12 +29,13 @@ def _ids(case):
 def _plan(config, io, sms):
     hp = config_hparams(config, compute_dtype="bfloat16" if io == torch.bfloat16 else "float32")
     sizes = fd._hp_sizes(hp)
-    return hp, sizes, fd.grid_plan(sizes, sms, io, SRC_LEN)
+    return hp, sizes, fd.grid_plan(sizes, sms, io)
 
 
 def test_every_configuration_is_planned():
     assert set(CONFIGS) == {"flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0",
-                            "flagship-mgclf0"}
+                            "flagship-mgclf0", "mgclf0-ls", "flagship-mgclf0-ls",
+                            "flagship-dualsource-ls"}
     for config in CONFIGS:
         assert fd.supports_fused_decode(config_hparams(config)), config
 
@@ -111,17 +113,17 @@ def test_the_launch_limit_is_what_fused_decode_max_batch_reports_without_a_card(
     hp, sizes, plan = _plan(*case)
     assert not torch.cuda.is_available()
     assert plan.max_lanes == fd.MAX_LANES
-    assert fd.fused_decode_max_batch(hp, hp.max_iters, SRC_LEN) == fd.grid_plan(
-        sizes, fd.H100_SM_COUNT, io, SRC_LEN).max_lanes
+    assert fd.fused_decode_max_batch(hp) == fd.grid_plan(sizes, fd.H100_SM_COUNT, io).max_lanes
 
 
 def test_a_block_that_cannot_fit_gives_no_launch():
-    """A source so long that the attention stage's rows outgrow an SM."""
+    """The flagship's weights spread over a quarter of an H100's SMs outgrow a block;
+    the source length does not grow it (the alignment stage walks the source in
+    tiles of ATT_TILE positions), so no length can."""
     sizes = fd._hp_sizes(config_hparams("flagship"))
-    assert fd.grid_plan(sizes, 132, torch.float32, 128).max_lanes == fd.MAX_LANES
-    assert fd.grid_plan(sizes, 132, torch.float32, 8192).max_lanes == 0
-    # the same weights on a quarter of the SMs do not fit either
-    assert fd.grid_plan(sizes, 33, torch.float32, 128).max_lanes == 0
+    assert fd.grid_plan(sizes, 132, torch.float32).max_lanes == fd.MAX_LANES
+    assert fd.grid_plan(sizes, 33, torch.float32).max_lanes == 0
+    assert "src_len" not in inspect.signature(fd.grid_plan).parameters
 
 
 @pytest.mark.parametrize("config", CONFIGS)
@@ -139,3 +141,19 @@ def test_the_plan_reads_the_shapes_the_decoder_packs(config):
             assert (rows, cols) == (K, 4 * items if gates else items), name
     assert fd.stages(packed.use_sa)[-1] == "out"
     assert len(fd.stages(packed.use_sa)) == (15 if packed.use_sa else 9)
+
+
+# The location-sensitive configurations, whose folded location matrix (and WORLD
+# frames) grow a block: each fits an H100 SXM's SM in both io types, whatever the
+# source length.
+LS_CONFIGS = [(c, io) for c in ("flagship-ls", "mgclf0-ls", "flagship-mgclf0-ls",
+                                "flagship-dualsource-ls")
+              for io in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("config,io", LS_CONFIGS, ids=lambda v: str(v).split(".")[-1])
+def test_a_location_sensitive_block_fits_at_any_source_length(config, io):
+    hp = config_hparams(config, compute_dtype="bfloat16" if io == torch.bfloat16 else "float32")
+    plan = fd.grid_plan(fd._hp_sizes(hp), fd.H100_SM_COUNT, io)
+    assert plan.max_lanes == fd.MAX_LANES
+    assert fd.fused_decode_max_batch(hp) == fd.MAX_LANES

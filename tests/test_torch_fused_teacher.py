@@ -334,17 +334,16 @@ _BF16 = (
      False),
     ({"decoder": "ExtendedDecoder", "attention": "location_sensitive", "attention_kernel": 33},
      False),
-    ({"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"}, False),
-    ({"decoder": "DualSourceDecoder", "attention": "location_sensitive"}, False),
+    ({"decoder": "SelfAttentionDecoder", "attention": "location_sensitive"}, True),
+    ({"decoder": "DualSourceDecoder", "attention": "location_sensitive"}, True),
 ])
 def test_supports_fused_teacher(overrides, expected):
     """``Decoder.fused_teacher_supported`` of the built decoder; the MgcLf0
     decoders (the WORLD heads) are of the kernels' family, their frames only wider
     feeds of the hoisted prenet; location-sensitive attention is served with an odd
-    number of taps up to 32 on the two pairs of decoder flags a model class reaches
-    (one source without self-attention, two with it); a bfloat16 decoder is of the
-    kernels' family and hands the kernels bfloat16 keys and memories, float32
-    weights, speaker embedding and score bias."""
+    number of taps up to 32 on every decoder (the decoder self-attention sits outside
+    the scan); a bfloat16 decoder is of the kernels' family and hands the kernels
+    bfloat16 keys and memories, float32 weights, speaker embedding and score bias."""
     hp = _flagship_hp(**overrides)
     decoder = TacotronNetwork(hp).decoder
     assert decoder.fused_teacher_supported() is expected

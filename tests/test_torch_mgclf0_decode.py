@@ -216,15 +216,21 @@ def test_prenet_dropout_from_injected_masks_matches_the_jax_loop():
 
 def test_the_lf0_feedback_is_compiled_with_forward_attention():
     """The lf0 feedback has instantiations of its own, with forward attention on
-    every pair of flags; location-sensitive attention is compiled for the mel head."""
+    every pair of flags, and with location-sensitive attention on every pair too
+    (tests/test_torch_fused_decode_ls_branches.py holds them)."""
     for variant in VARIANTS:
         assert fd.supports_fused_decode(HParams(**_hp(variant)))
         assert fd.supports_fused_decode(HParams(**_hp(variant, compute_dtype="bfloat16")))
     ls = _hp("extended", attention="location_sensitive", attention_kernel=7)
-    assert not fd.supports_fused_decode(HParams(**ls))
+    assert fd.supports_fused_decode(HParams(**ls))
     net = tacotron_model_factory(HParams(**ls)).network(device="cpu").eval()
-    with pytest.raises(ValueError, match="compiled with forward attention"):
-        fd.pack_decoder(net.decoder)
+    packed = fd.pack_decoder(net.decoder)
+    assert packed.ls and packed.lf0
+    ls = _hp("dual_source", attention="location_sensitive", attention_kernel=7)
+    assert fd.supports_fused_decode(HParams(**ls))
+    net = _model(HParams(**ls)).network(device="cpu").eval()
+    packed = fd.pack_decoder(net.decoder)
+    assert packed.ls and packed.lf0 and packed.dual and not packed.use_sa
     packed = fd.pack_decoder(_torch_net("dual_source").decoder)
     assert packed.lf0 and not packed.ls
     assert fd.variant_name(True, False, torch.bfloat16, lf0=packed.lf0) == "dual=1,use_sa=0,lf0,bf16"
