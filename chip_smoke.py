@@ -41,7 +41,11 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    from the real encoder, the trained weights, prenet dropout and train zoneout;
    and its bfloat16 instantiations, narrow and at the flagship's widths from
    seeded weights over 400 steps, held as ``bigru_train``'s; every full-width
-   case timed, with its bound at the rate of its io type;
+   case timed, with its bound at the rate of its io type, and its grid plan
+   (``fused_teacher.teacher_grid_plan``, both directions) held to the built
+   kernels' shared memory; where one step of the trained flagship's goes, stage
+   by stage ("stages" lines, ``fused_teacher.teacher_stage_times``), and two
+   launch pairs on the same inputs compared bit for bit;
    ``bilstm`` (ZoneoutEncoderV1's LSTM) in float32 and bfloat16 at narrow
    ragged shapes and at full width; the baseline family's specialisations:
    ``fused_decode`` with one source or without self-attention (the three pairs
@@ -200,6 +204,8 @@ FUSED_LONG_STEPS = 320
 # block's weight slices resident in shared memory, grid barriers between stages.
 STAMP_STEPS = (10, 250, 490)
 DECODE_DESIGN = "grid: one block per SM, weights resident in shared memory, grid barriers"
+# The design of the teacher kernels (both directions, every instantiation): the same.
+TEACHER_DESIGN = DECODE_DESIGN
 FUSED_WINDOWS = ((FUSED_STEPS, TOL_FUSED, "max"), (256, 5e-3, "max"), (500, 1e-3, "median"))
 FUSED_MEDIAN_LANES = 8
 # An early-exit threshold is placed in the widest gap of the plain run's stop
@@ -1504,6 +1510,83 @@ def seeded_teacher_operands(rng, z, B, S, lengths, use_ta, spk, zc, zo, eval_zon
     )
 
 
+def teacher_sizes(ops):
+    """The teacher kernels' sizes (``fused_teacher._sizes``) of ``ops``."""
+    hp_like, w = ops["hp_like"], ops["weights"]
+    dual = ops["mem2"] is not None
+    taps = hp_like.get("ls_kernel", 0) if fused_teacher.is_location_sensitive(hp_like) else 0
+    return dict(P2=w["w_p2"].shape[1], SPK=0 if ops["spk"] is None else ops["spk"].shape[1],
+                AU=hp_like["att_units"], A1=hp_like["att1_units"],
+                A2=hp_like["att2_units"] if dual else 0, DU=hp_like["dec_units"],
+                E1=ops["mem1"].shape[-1], E2=ops["mem2"].shape[-1] if dual else 0, K=taps,
+                CUM=int(bool(taps) and hp_like.get("ls_cumulative", True)))
+
+
+def check_teacher_plan(label: str, ops) -> dict:
+    """The grid plan of ``ops/fused_teacher.py`` (``teacher_grid_plan``) against the
+    built kernels' shared memory for one block, on this card's SM count, both
+    directions."""
+    z = teacher_sizes(ops)
+    io = fused_teacher.io_dtype(ops["hp_like"])
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    rec = {"kernel": "fused_teacher", "case": f"{label}: grid plan against the built kernels",
+           "sms": sms, "dtype": str(io).removeprefix("torch.")}
+    for backward in (False, True):
+        need, have = fused_teacher.block_shared_memory(z, DEV, backward, io)
+        plan = fused_teacher.teacher_grid_plan(z, sms, io, backward)
+        which = "bwd" if backward else "fwd"
+        rec[which] = {"plan_smem_bytes": plan.smem_bytes, "kernel_smem_bytes": need,
+                      "sm_offers": have, "blocks": plan.blocks,
+                      "lanes_per_copy": plan.lanes_per_copy}
+        require(plan.smem_bytes == need,
+                f"{label}: the {which} grid plan's shared memory is not the kernel's")
+        require(need <= have, f"{label}: one block of the {which} kernel does not fit an SM")
+    log("check " + json.dumps(rec))
+    return rec
+
+
+def check_teacher_determinism(label: str, ops, feeds, prenet_masks) -> dict:
+    """Two forward and backward launch pairs on the same inputs: the features,
+    alignments, gradient rows, d_keys, the sums and the per-lane partials the
+    backward kernel wrote must agree bit for bit (no atomics; every sum in a fixed
+    order)."""
+    hp_like = ops["hp_like"]
+    core = [ops["weights"][n] for n in fused_teacher.core_weights(hp_like)]
+    x2 = fused_teacher._prenet(ops["weights"], feeds, float(hp_like["prenet_drop_rate"]),
+                               prenet_masks, None, fused_teacher.io_dtype(hp_like))
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    B, N = feeds.shape[:2]
+    cot = torch.randn(B, N, hp_like["dec_units"], device=DEV, generator=gen)
+    runs = []
+    with torch.no_grad():
+        for _ in range(2):
+            feat, align, saved = fused_teacher._forward(
+                hp_like, 1234, x2, ops["keys"], ops["mem1"], ops["mem2"], ops["score_bias"],
+                ops["spk"], core)
+            rows = fused_teacher._backward_rows(saved, cot, None)
+            runs.append({"features": feat, "alignments": align, "carry": saved[0][10],
+                         **{k: v for k, v in rows.items() if v is not None}})
+    torch.cuda.synchronize()
+    same = {k: bool(torch.equal(runs[0][k], runs[1][k])) for k in runs[0]}
+    rec = {"kernel": "fused_teacher", "case": f"{label}: two launch pairs, bit for bit",
+           "identical": same}
+    log("check " + json.dumps(rec))
+    require(all(same.values()), f"{label}: two launches on the same inputs differ")
+    return rec
+
+
+def log_teacher_stages(label: str, ops, feeds, prenet_masks, step: int) -> dict:
+    """Where a teacher step goes: microseconds of each stage of step ``step`` of one
+    forward and one backward launch (``fused_teacher.teacher_stage_times``)."""
+    times = fused_teacher.teacher_stage_times(
+        weights=ops["weights"], keys=ops["keys"], mem1=ops["mem1"], mem2=ops["mem2"],
+        score_bias=ops["score_bias"], spk=ops["spk"], feeds=feeds, seed=1234,
+        hp_like=ops["hp_like"], prenet_masks=prenet_masks, stamp_step=step)
+    log("stages " + json.dumps({"kernel": "fused_teacher", "case": label, "step": step,
+                                "design": TEACHER_DESIGN, "us": times}))
+    return times
+
+
 def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
     """What one launch needs on these inputs. Operations: every product of the
     step once (the backward's are against the transposed weights; the weight
@@ -1516,10 +1599,7 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
     B, N = feeds.shape[:2]
     S = ops["keys"].shape[1]
     n_src = 1 if ops["mem2"] is None else 2
-    z = dict(P2=w["w_p2"].shape[1], SPK=0 if ops["spk"] is None else ops["spk"].shape[1],
-             AU=hp_like["att_units"], A1=hp_like["att1_units"],
-             A2=hp_like["att2_units"] if n_src == 2 else 0, DU=hp_like["dec_units"],
-             E1=ops["mem1"].shape[-1], E2=0 if n_src == 1 else ops["mem2"].shape[-1])
+    z = teacher_sizes(ops)
     A, E = z["A1"] + z["A2"], z["E1"] + z["E2"]
     core = [n for n in fused_teacher.core_weights(hp_like)
             if hp_like["use_ta"] or n not in ("w_ta", "b_ta")]
@@ -1527,8 +1607,7 @@ def teacher_flops_and_bytes(ops, feeds, lengths, backward: bool):
     products = sum(w[n].numel() for n in core if n.startswith("w_") and n != "w_lsW")
     weight_floats = sum(w[n].numel() for n in core)
     valid = int(np.sum(np.minimum(lengths, S)))
-    taps = hp_like.get("ls_kernel", 0) if fused_teacher.is_location_sensitive(hp_like) else 0
-    z.update(K=taps, CUM=int(bool(taps) and hp_like.get("ls_cumulative", True)))
+    taps = z["K"]
     widths = {k: v[1] for k, v in fused_teacher.row_layouts(z, S).items()}
     io_bytes = 2.0 if ops["hp_like"].get("io_dtype") == "bfloat16" else 4.0
     conditioning = B * S * (A + E) + B * z["SPK"]
@@ -1658,6 +1737,7 @@ def check_teacher(name, ops, feeds, prenet_masks, lengths, seed=1234, timed=Fals
             "grad_max_rel": max(relative_errors(moved[2], want[2]).values()),
         }
     if timed:
+        rec["plan"] = check_teacher_plan(name, ops)
         # a second, warm pass, with the cotangents a training step has (none for the alignments)
         again = run(fused_teacher.teacher_decode, with_align=False)
         kernel_ms = (fused_teacher.last_launch_ms("fwd"), fused_teacher.last_launch_ms("bwd"))
@@ -1730,12 +1810,16 @@ def phase_fused_teacher():
         seeded_teacher_operands(rng, wide, 32, 128, lengths, False, 0, 0.1, 0.1, False),
         feeds, masks, lengths, valid_steps=valid_steps,
     )
-    # the trained flagship over all the steps of a training batch: the timed launch
+    # the trained flagship over all the steps of a training batch: the timed launch,
+    # where its steps go, and two launch pairs bit for bit
     rec = check_teacher(
         f"flagship B=32 S=128 ragged, {total} steps, trained weights", ops, feeds, masks,
         batch["source_lengths"], timed=True, tol=TOL_TEACHER_TRAINED,
         tol_grad=TOL_TEACHER_TRAINED_GRAD, yardstick=True, valid_steps=valid_steps,
     )
+    rec["stage_us"] = log_teacher_stages(f"flagship B=32 S=128 ragged, {total} steps", ops,
+                                         feeds, masks, total // 2)
+    rec["determinism"] = check_teacher_determinism("flagship", ops, feeds, masks)
     # bfloat16: narrow cases, then the flagship's widths from seeded weights over all
     # the steps, timed
     for name, z, lengths_n, steps, kw in (
@@ -2940,6 +3024,7 @@ def phase_ls_branches_decode():
                     and packed.dual == ("DualSource" in hp.decoder),
                     f"{name}: packed as {packed_variant(packed)}")
     check_long_sources()
+    unrun_ls_bounds()
 
     records = {}
     rng = np.random.default_rng(96)
@@ -2962,6 +3047,45 @@ def phase_ls_branches_decode():
                     steps)
             del net, packed
     return records
+
+
+# The location-sensitive instantiations of fused_decode that no configuration runs,
+# as tools/ab_loop_kernels.py --decode times them at the flagship's widths: its label,
+# and the decoder and encoder it sets.
+UNRUN_LS = (
+    ("decode_sa_ls", {"decoder": "SelfAttentionDecoder", "encoder": "EncoderV1"}),
+    ("decode_sa_ls_lf0", {"decoder": "MgcLf0SelfAttentionDecoder", "encoder": "EncoderV1"}),
+    ("decode_dual_ls_lf0", {"decoder": "MgcLf0DualSourceDecoder", "attention2": "additive"}),
+)
+
+
+def unrun_ls_bounds() -> dict:
+    """The bound (``fused_flops_and_bytes``, ``bound``) of each of ``UNRUN_LS`` at the
+    flagship's widths, 500 steps, B=32 and B=1, on the source lengths
+    ``tools/ab_loop_kernels.py --decode`` draws for it (from its label's seed; B=1
+    takes one full source), both io types: no launch."""
+    import zlib
+
+    out = {}
+    for label, overrides in UNRUN_LS:
+        for io in ("f32", "bf16"):
+            hp = HParams(attention="location_sensitive", num_symbols=256, max_iters=500)
+            hp = hp.override_from_dict(
+                dict(overrides, **({"compute_dtype": "bfloat16"} if io == "bf16" else {})))
+            packed = fused_decode.pack_decoder(TacotronNetwork(hp).decoder.to(DEV).eval())
+            name = f"{label}_{io}"
+            rng = np.random.default_rng(zlib.crc32(name.encode()))
+            lengths = np.clip(rng.integers(24, 129, 32), 24, 128)
+            lengths[0] = 128
+            dtype = torch.bfloat16 if io == "bf16" else torch.float32
+            for batch, lens in ((32, lengths), (1, np.array([128]))):
+                flops, nbytes, _ = fused_flops_and_bytes(packed, lens, 500)
+                out[f"{name}_b{batch}"] = {"variant": packed_variant(packed), "flops": flops,
+                                           "bytes": nbytes, **bound(flops, nbytes, dtype)}
+    log("bounds " + json.dumps({"kernel": "fused_decode",
+                                "case": "unrun location-sensitive instantiations, "
+                                        "flagship widths, T=500", "bounds": out}))
+    return out
 
 
 # A source longer than two tiles of the alignment stage (ATT_TILE = 512 positions in
@@ -3409,7 +3533,7 @@ def family_kernel_entries(family: str, decode, teacher, main_path, train):
                     "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
                     "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
                     "instantiation": f"teacher_{which}_kernel<{str(dual).lower()}, "
-                                     f"{str(is_location_sensitive(config)).lower()}, {io}>",
+                                     f"{str(is_location_sensitive(config)).lower()}, false, {io}>",
                     "launches": steps["counts"][f"fused_teacher_{which}"],
                     "max_abs_err": err, "ms": rec[which]["ms"], "plain_ms": rec[which]["plain_ms"],
                     "bound_ms": rec[which]["bound_ms"], "bound_by": rec[which]["bound_by"],
@@ -3656,7 +3780,9 @@ def main() -> int:
             "library_ms": None, "shape": teacher["shape"], "dtype": "float32",
             "ms_per_step": teacher[which]["ms_per_step"],
             "wrapper_ms": teacher[which]["wrapper_ms"],
-            "grad_max_rel_err": teacher["grad_max_rel_err"],
+            "grad_max_rel_err": teacher["grad_max_rel_err"], "design": TEACHER_DESIGN,
+            "stage_us": teacher["stage_us"][which], "plan": teacher["plan"][which],
+            "bit_for_bit": teacher["determinism"]["identical"],
             "single": {
                 "ms": base["ms"], "ms_per_step": base["ms_per_step"], "plain_ms": base["plain_ms"],
                 "bound_ms": base["bound_ms"], "bound_by": base["bound_by"],
@@ -3696,7 +3822,7 @@ def main() -> int:
             "name": f"fused_teacher_{which}_bf16", "route": "cuda",
             "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
             "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
-            "instantiation": f"teacher_{which}_kernel<true, __nv_bfloat16>",
+            "instantiation": f"teacher_{which}_kernel<true, false, false, __nv_bfloat16>",
             "launches": train_bf16["counts"][f"fused_teacher_{which}"],
             "max_abs_err": errs["dual"],
             "ms": t16[which]["ms"], "plain_ms": t16[which]["plain_ms"],
@@ -3705,7 +3831,7 @@ def main() -> int:
             "ms_per_step": t16[which]["ms_per_step"], "wrapper_ms": t16[which]["wrapper_ms"],
             "grad_max_rel_err": t16["grad_max_rel_err"],
             "single": {
-                "instantiation": f"teacher_{which}_kernel<false, __nv_bfloat16>",
+                "instantiation": f"teacher_{which}_kernel<false, false, false, __nv_bfloat16>",
                 "ms": b16[which]["ms"], "ms_per_step": b16[which]["ms_per_step"],
                 "plain_ms": b16[which]["plain_ms"], "bound_ms": b16[which]["bound_ms"],
                 "bound_by": b16[which]["bound_by"], "max_abs_err": errs["single"],

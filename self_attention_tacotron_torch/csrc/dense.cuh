@@ -1,5 +1,5 @@
-// Small products of a block that walks a recurrence's steps on its own, shared by
-// fused_decode.cu, fused_teacher.cu and bilstm.cu.
+// Small products of a block that walks a recurrence's steps on its own (bilstm.cu),
+// and the helpers every kernel here takes (the io types, warp sums, r4).
 //
 // A block owns LANES lanes and has NT threads. Every weight matrix is (in, out)
 // with its rows padded to four values, and is streamed through L2 at every step:

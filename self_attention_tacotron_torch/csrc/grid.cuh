@@ -15,6 +15,9 @@
 //   reduction index k contiguous, each thread taking every 32nd group of four k;
 //   the 16 partial sums are then added over the warp in 16 shuffles, after which
 //   thread q holds the sum of value q >> 1 (lane (q >> 3), column ((q >> 1) & 3)).
+// * copy_rows / product: one product stage of a block (its slice of the product's
+//   columns, for every lane, the lanes' input rows brought in by bulk copies), and
+//   block_max / block_sum. Shared by fused_decode.cu and fused_teacher.cu.
 
 #pragma once
 
@@ -168,4 +171,119 @@ __device__ __forceinline__ float reduce16(float (&v)[16], int lane) {
     v[0] = (hi ? v[1] : v[0]) + __shfl_xor_sync(FULL, send, 2);
   }
   return v[0] + __shfl_xor_sync(FULL, v[0], 1);
+}
+
+// Threads of a block of the grid kernels.
+constexpr int GRID_NT = 512;
+constexpr int GRID_NWARPS = GRID_NT / 32;
+
+__host__ __device__ inline int r8(int n) { return (n + 7) / 8 * 8; }
+
+struct Slice {
+  int first, count, cols, off,   // items [first, first + count), their columns, and where
+      boff;                      // the slice starts in the block's weight region (values)
+};                               // and its biases in the bias region (floats)
+
+// Rows [l0, l0 + lc) of a row-major (lanes, lds) array of T into `dst` (rows of ld
+// values, ld <= lds; both strides and the rows' starts whole 16-byte pieces): one
+// bulk copy a row, all in flight at once, ld values each (what a row holds past its
+// width, zero or a neighbouring row's finite values, meets the zero padding of the
+// weights). The rows from lc to r4(lc) are left as they are: no lane reads them.
+// Every thread returns once the rows are in; `phase` counts the batches.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src, int lds, int l0, int lc,
+                                          unsigned long long* bar, unsigned int& phase) {
+  if (threadIdx.x == 0) {
+    fence_proxy_async();
+    mbar_expect(bar, (unsigned int)(lc * ld * sizeof(T)));
+    if (ld == lds) {   // whole rows: one copy (the bulk copies of a block run one by one)
+      bulk_copy(dst, src + (size_t)l0 * lds, (unsigned int)(lc * ld * sizeof(T)), bar);
+    } else {
+      for (int r = 0; r < lc; ++r)
+        bulk_copy(dst + r * ld, src + (size_t)(l0 + r) * lds, (unsigned int)(ld * sizeof(T)), bar);
+    }
+  }
+  mbar_wait(bar, phase);
+  phase ^= 1u;
+}
+
+// One product stage of a block: its slice `s` of a product of depth K, for every lane
+// of the launch, B lanes in blocks of as many as the work region (`work_bytes`)
+// holds. `load(tile, ld, l0, lc, stage)` fills the tile with lanes l0 .. l0 + lc - 1
+// (see copy_rows), where the rows are made from float rows of `stage_row` values
+// staged at `stage` first (0: copied as they are); `copied`: null, or where block 0
+// stamps the time its first rows are in shared memory. A warp computes 4 lanes x 4
+// columns, then `epi(lane, item, v0, v1, v2, v3)`: a plain product calls it per
+// (lane, column) with the sum in v0, a gate product per (lane, unit) with the sums
+// of gates i, g, f, o.
+template <typename IO, typename Load, typename Epi>
+__device__ __forceinline__ void product(const IO* sw, const Slice& s, int K, bool gates, int B,
+                                        IO* tile, int work_bytes, int stage_row, long long* copied,
+                                        Load&& load, Epi&& epi) {
+  if (s.count == 0) return;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int ld = r8(K), nq = ld >> 2;
+  const int cap = imin(r4(B), (work_bytes / (ld * (int)sizeof(IO) + 4 * stage_row)) & ~3);
+  float* stage = reinterpret_cast<float*>(tile + cap * ld);
+  const int ncg = gates ? s.count : (s.cols + 3) >> 2;
+  for (int l0 = 0; l0 < B; l0 += cap) {
+    const int lc = imin(cap, B - l0);
+    __syncthreads();   // the previous rows have been read
+    load(tile, ld, l0, lc, stage);
+    __syncthreads();
+    if (copied != nullptr && threadIdx.x == 0 && l0 == 0) *copied = global_timer();
+    const int nlg = (lc + 3) >> 2;
+    for (int item = warp; item < nlg * ncg; item += GRID_NWARPS) {
+      const int lg = item % nlg, cg = item / nlg;
+      const IO* x[4];
+      const IO* w[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) x[a] = tile + (4 * lg + a) * ld;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = sw + imin(4 * cg + c, s.cols - 1) * ld;   // past the slice: unused
+      float acc[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+      warp_tile<IO>(x, w, nq, lane, acc);
+      const float v = reduce16(acc, lane);
+      const int a = lane >> 3, c = (lane >> 1) & 3;
+      if (gates) {
+        const int base = lane & ~7;
+        const float zg = __shfl_sync(0xffffffffu, v, base | 2);
+        const float zf = __shfl_sync(0xffffffffu, v, base | 4);
+        const float zo = __shfl_sync(0xffffffffu, v, base | 6);
+        if ((lane & 7) == 0 && 4 * lg + a < lc) epi(l0 + 4 * lg + a, s.first + cg, v, zg, zf, zo);
+      } else if ((lane & 1) == 0 && 4 * lg + a < lc && 4 * cg + c < s.cols) {
+        epi(l0 + 4 * lg + a, s.first + 4 * cg + c, v, 0.0f, 0.0f, 0.0f);
+      }
+    }
+  }
+}
+
+// The maximum and the sum of one value a thread over the block; every thread gets
+// them. `red`: GRID_NWARPS + 1 floats of shared memory.
+__device__ __forceinline__ float block_max(float v, float* red) {
+  v = warp_max(v);
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float w = threadIdx.x < GRID_NWARPS ? red[threadIdx.x] : -3.0e38f;
+    w = warp_max(w);
+    if (threadIdx.x == 0) red[GRID_NWARPS] = w;
+  }
+  __syncthreads();
+  return red[GRID_NWARPS];
+}
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  __syncthreads();   // the previous reduction has been read
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    float w = threadIdx.x < GRID_NWARPS ? red[threadIdx.x] : 0.0f;
+    w = warp_sum(w);
+    if (threadIdx.x == 0) red[GRID_NWARPS] = w;
+  }
+  __syncthreads();
+  return red[GRID_NWARPS];
 }

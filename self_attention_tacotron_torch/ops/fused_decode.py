@@ -89,6 +89,8 @@ from self_attention_tacotron_torch.models.encoders import encoder_out_units
 from self_attention_tacotron_torch.models.models import COMPUTE_DTYPES
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult
 from self_attention_tacotron_torch.ops.fused_teacher import MAX_TAPS, location_taps, taps_supported
+from self_attention_tacotron_torch.ops.grid import SLICE_BYTES, deal  # noqa: F401
+from self_attention_tacotron_torch.ops.grid import round8 as _round8
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
 # Launches of the CUDA kernel made by ``fused_decode`` in this process.
@@ -295,49 +297,14 @@ class GridPlan:
         return tuple(cols)
 
 
-# A block's slice of a product that goes to fewer blocks than the grid has stays
-# within this many bytes (csrc/fused_decode.cu: SLICE_BYTES).
-SLICE_BYTES = 8192
-
-
-def _round8(n: int) -> int:
-    return (n + 7) // 8 * 8
-
-
-def _share(n: int, blocks: int, r: int) -> Tuple[int, int]:
-    # grid.cuh::share_of: the items of the r-th of `blocks` blocks
-    base, extra = divmod(n, blocks)
-    return r * base + min(r, extra), base + (1 if r < extra else 0)
-
-
 def grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32) -> GridPlan:
     """The kernel's plan on a grid of ``n_sms`` blocks, as it computes it itself."""
     shapes = product_shapes(sizes)
     io = 2 if io_dtype == torch.bfloat16 else 4
     # a row or weight column in shared memory: the stride of the rows in global memory
     ldk = _round8
-    blocks = {}
-    for name in PRODUCTS:
-        K, items, gates = shapes[name]
-        item_bytes = max(1, (4 if gates else 1) * ldk(K) * io)
-        per = max(1, min(2 if gates else 8, SLICE_BYTES // item_bytes))
-        blocks[name] = min(n_sms, max(1, -(-items // per)))
-    slices, weights, biases = [], [], []
-    for b in range(n_sms):
-        start, at, held_biases, per_block = 0, 0, 0, {}
-        for name in PRODUCTS:
-            K, items, gates = shapes[name]
-            used = blocks[name]
-            r = (b - start) % n_sms
-            first, count = _share(items, used, r) if r < used else (0, 0)
-            cols = 4 * count if gates else count
-            per_block[name] = (first, count, cols)
-            at = _round8(at + cols * ldk(K))
-            held_biases += _round4(cols)
-            start = (start + (used if used < n_sms else items % n_sms)) % n_sms
-        slices.append(per_block)
-        weights.append(at * io)
-        biases.append(held_biases * 4)
+    blocks, slices, weights, biases = deal({name: shapes[name] for name in PRODUCTS}, n_sms,
+                                           io, biases=True)
     z = sizes
     widest = max(ldk(K) for K, items, _ in shapes.values() if items > 0)
     staged = _round4(max(z["M"], z["SA"]))   # a LayerNorm's or the fed-back frame's float row

@@ -30,10 +30,18 @@ concatenates the conditioning gradients. The kernels take any lane count, so a
 ragged last block needs no padding (the JAX package pads it with lanes after the
 real ones, which changes no real lane's masks).
 
-What bounds both kernels on an H100 is the chain of N dependent steps: a step
-needs about 2 * 2.5 M * B operations and re-reads 10 MB of float32 weights
-through L2, far from what the card can do in the time the dependent stages of a
-step take. One block per 4 lanes walks all steps on its own; see the source.
+What bounds both kernels on an H100 is the chain of N dependent steps, each a
+handful of dependent stages: a step needs about 2 * 2.5 M * B operations on 10 MB
+of float32 weights, far from what the card can do in the time the stages take.
+Both kernels have the grid design of ``fused_decode`` (``csrc/grid.cuh``): one
+block per SM, all resident (a cooperative launch), each holding its slice of
+every matrix of its direction in shared memory for the whole launch
+(``teacher_grid_plan`` mirrors how the columns are dealt out), the lanes' rows
+brought in by bulk copies, grid barriers between the stages of a step (five a step
+each way, six backward with location-sensitive attention), the per-lane rows and
+states in a zeroed scratch buffer. A launch that cannot have every block resident
+raises; nothing falls back. ``teacher_stage_times`` times the stages of one step of
+the flagship's structure in float32.
 
 Zoneout masks are not stored. In training the keep mask of (step, draw, lane,
 unit) is a counter-based hash of ``seed + t`` with a murmur3 finalizer, the one
@@ -85,14 +93,18 @@ output. The plain version rounds at the same points in both directions
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from self_attention_tacotron_torch.ops.fused_rnn import rounded
+from self_attention_tacotron_torch.ops.grid import SLICE_BYTES, deal  # noqa: F401
+from self_attention_tacotron_torch.ops.grid import round8 as _round8
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
-# Launches of the forward and of the backward kernel made in this process.
+# Launches of the forward and of the backward kernel made in this process
+# (``teacher_stage_times``'s stamped launches included).
 launch_count = 0
 bwd_launch_count = 0
 # Launches per kernel and specialisation: ("fwd" | "bwd", "dual" | "single", with
@@ -125,6 +137,19 @@ CORE_WEIGHTS = (
 LS_WEIGHTS = ("w_lsW", "ls_bias")
 # Most location taps the kernels take (the rows of their folded matrix, zero-padded).
 MAX_TAPS = 32
+# Shared memory one block of an H100 may opt in to, in bytes, and at most what the
+# kernels take besides the room they report: a few shared scalars, an mbarrier and the
+# 128 bytes in which the backward aligns its dynamic region.
+H100_BLOCK_SMEM = 232448
+STATIC_SMEM = 352
+# Threads of a block (csrc/grid.cuh: GRID_NT), the source positions of the attention
+# stages' tiles (ATT_TILE) and the context columns one block of the forward's
+# alignment stage takes (CTX_COLS), as csrc/fused_teacher.cu has them.
+_NT = 512
+_ATT_TILE = 512
+_CTX_COLS = 128
+# Room for the stamps of a step: 1 + 3 a stage.
+_STAMP_SLOTS = 32
 
 # Share of the card's total memory that one launch's per-step rows may take; a larger
 # batch runs as sequential batch blocks. The total, never the free memory: the block
@@ -601,11 +626,12 @@ def _pack(z: Dict[str, int], w: Dict[str, torch.Tensor], io=torch.float32):
 
 
 def _dims(z, B: int, S: int, N: int, use_ta: bool, train_masks: bool, offsets=None,
-          io=torch.float32):
+          io=torch.float32, stamp_step: int = -1):
     # the struct ``Dims`` of the source
     layouts = row_layouts(z, S)
     values = [B, S, N] + [z[k] for k in _SIZES]
-    values += [int(use_ta), int(train_masks), int(z.get("CUM", 0)), int(io == torch.bfloat16)]
+    values += [int(use_ta), int(train_masks), int(z.get("CUM", 0)), int(io == torch.bfloat16),
+               int(stamp_step)]
     values += [layouts[kind][1] for kind in ("carry", "acts", "stack")]
     for kind, names in (("carry", _CARRY), ("acts", _ACTS), ("stack", _STACK)):
         values += [layouts[kind][0][name][0] for name in names]
@@ -624,24 +650,124 @@ def _library():
             ]
             fn.restype = ctypes.c_int
             _functions[key] = fn
-        lib.fused_teacher_smem_bytes.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+        lib.fused_teacher_smem_bytes.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int]
         lib.fused_teacher_smem_bytes.restype = ctypes.c_longlong
-        lib.fused_teacher_smem_limit.argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
-        lib.fused_teacher_smem_limit.restype = ctypes.c_longlong
+        for name in ("fused_teacher_smem_limit", "fused_teacher_scratch_bytes"):
+            getattr(lib, name).argtypes = [ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+            getattr(lib, name).restype = ctypes.c_longlong
     return lib
 
 
-def block_shared_memory(z: Dict[str, int], src_len: int, device, backward: bool,
+def block_shared_memory(z: Dict[str, int], device, backward: bool,
                         io=torch.float32) -> Tuple[int, int]:
-    """(bytes of shared memory one block of the kernel needs, bytes a block may
-    have on ``device``), both as the built library reports them."""
+    """(bytes of shared memory one block of the kernel needs at the least on
+    ``device``'s grid, one block per SM; bytes a block may have there), both as the
+    built library reports them. Neither grows with the lanes, the source length or
+    the steps."""
     lib = _library()
-    dims = _dims(z, 1, src_len, 1, False, False, io=io)
+    dims = _dims(z, 1, 1, 1, False, False, io=io)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
     with torch.cuda.device(device):
         limit = int(lib.fused_teacher_smem_limit(dims, int(backward)))
     if limit < 0:
         raise RuntimeError(f"fused_teacher: CUDA error {-limit} on reading the device's limits")
-    return int(lib.fused_teacher_smem_bytes(dims, int(backward))), limit
+    return int(lib.fused_teacher_smem_bytes(dims, int(backward), sms)), limit
+
+
+def _scratch(dims, backward: bool, device) -> torch.Tensor:
+    """The zeroed scratch buffer of one launch: the grid barrier's counter, the
+    per-lane rows and states of the stages (the decoder's initial state, or the
+    adjoint's zero cotangents)."""
+    size = int(_library().fused_teacher_scratch_bytes(dims, int(backward)))
+    return torch.zeros(size // 4 + 4, dtype=torch.float32, device=device)
+
+
+# --------------------------------------------------------------------------- #
+# The grid plan: which block holds which weights
+# --------------------------------------------------------------------------- #
+
+# The products of a step in the order they run, forward and backward (the
+# backward's against the transposed weights).
+PRODUCTS = {False: ("attg", "qp", "l1", "l2"), True: ("l2t", "l1t", "qpt", "attgt")}
+
+
+def teacher_product_shapes(z: Dict[str, int], backward: bool) -> Dict[str, Tuple[int, int, bool]]:
+    """``{product: (depth K, items, gates)}`` of one direction: items are output
+    columns, or with ``gates`` units of four (an LSTM's gate product)."""
+    A, EW = z["A1"] + z["A2"], z["E1"] + z["E2"]
+    KA, KD1 = z["P2"] + z["SPK"] + EW + z["AU"], z["AU"] + EW + z["DU"]
+    if not backward:
+        return {"attg": (KA, z["AU"], True), "qp": (z["AU"], A, False),
+                "l1": (KD1, z["DU"], True), "l2": (2 * z["DU"], z["DU"], True)}
+    return {"l2t": (4 * z["DU"], 2 * z["DU"], False), "l1t": (4 * z["DU"], KD1, False),
+            "qpt": (A, z["AU"], False), "attgt": (4 * z["AU"], KA, False)}
+
+
+@dataclasses.dataclass
+class TeacherGridPlan:
+    """Which block of a grid owns what in one direction, and the shared memory that
+    asks for.
+
+    ``blocks[product]``: the blocks its items are dealt to (as few as give each at
+    least 8 columns, or 2 units of a gate product, while a block's slice stays within
+    ``SLICE_BYTES``). ``slices[b][product] = (first, count, columns)``: block ``b``
+    owns items ``first .. first + count - 1`` and holds their columns (of a gate
+    product ``i, g, f, o`` of each unit) in shared memory for the whole launch.
+    ``weight_bytes[b]`` is its weight region; ``resident_bytes`` what the fullest
+    block holds for the launch (weights, the forward's biases, the location matrix),
+    ``work_bytes`` the least room of the stages (one group of four lanes' input rows
+    of the widest product, or the attention stages' rows), ``smem_bytes`` their sum,
+    what one block needs at the least; ``fits``: it fits ``H100_BLOCK_SMEM``.
+    There is no lane cap: a product stage takes the lanes in groups of as many as
+    the rest of the block holds, ``lanes_per_copy`` of the widest product on an
+    H100 (0 where a block does not fit), so the lanes of one launch are those whose
+    rows fit ``teacher_max_batch``.
+    """
+
+    n_blocks: int
+    backward: bool
+    blocks: Dict[str, int]
+    slices: Tuple[Dict[str, Tuple[int, int, int]], ...]
+    weight_bytes: Tuple[int, ...]
+    resident_bytes: int
+    work_bytes: int
+    smem_bytes: int
+    fits: bool
+    lanes_per_copy: int
+
+    def columns(self, product: str, sizes: Dict[str, int]) -> Tuple[int, ...]:
+        """The product's output columns in the order the blocks hold them."""
+        _, items, gates = teacher_product_shapes(sizes, self.backward)[product]
+        cols = []
+        for per_block in self.slices:
+            first, count, _ = per_block[product]
+            for unit in range(first, first + count):
+                cols += [g * items + unit for g in range(4)] if gates else [unit]
+        return tuple(cols)
+
+
+def teacher_grid_plan(sizes: Dict[str, int], n_sms: int, io_dtype=torch.float32,
+                      backward: bool = False) -> TeacherGridPlan:
+    """The plan of one direction's kernel on a grid of ``n_sms`` blocks, as it
+    computes it itself (``csrc/fused_teacher.cu``: ``plan_block``, ``smem_layout``).
+    ``sizes`` are the kernels' (``_sizes``; ``K`` the location taps, 0 without)."""
+    shapes = teacher_product_shapes(sizes, backward)
+    io = 2 if io_dtype == torch.bfloat16 else 4
+    blocks, slices, weights, biases = deal(shapes, n_sms, io, biases=not backward)
+    widest = max(_round8(K) for K, _, _ in shapes.values())
+    lane_floats = (8 * _ATT_TILE + 3 * _NT if backward
+                   else 6 * _ATT_TILE + max(4 * _NT, _CTX_COLS))
+    resident = (max(weights) + max(biases)
+                + (MAX_TAPS * _round4(sizes["A1"]) * 4 if sizes["K"] else 0))
+    work = max(4 * widest * io, 4 * lane_floats)
+    smem = resident + work
+    fits = smem + STATIC_SMEM <= H100_BLOCK_SMEM
+    lanes = (H100_BLOCK_SMEM - STATIC_SMEM - resident) // (widest * io) // 4 * 4 if fits else 0
+    return TeacherGridPlan(n_blocks=n_sms, backward=backward, blocks=blocks,
+                           slices=tuple(slices), weight_bytes=tuple(weights),
+                           resident_bytes=resident, work_bytes=work, smem_bytes=smem, fits=fits,
+                           lanes_per_copy=lanes)
 
 
 def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_like,
@@ -750,100 +876,184 @@ def grads_from_rows(z, use_ta: bool, x2, spk, aligns, carries, stack, d_brow, d_
     return grads
 
 
+def _forward(hp_like, seed: int, x2, keys, mem1, mem2, score_bias, spk, core,
+             stamps: Optional[Tuple[int, torch.Tensor]] = None):
+    """One launch of the forward kernel: ``(features, alignments, saved)``, where
+    ``saved`` is what ``_backward`` reads. ``stamps``: (step, buffer) for the stamped
+    instantiation."""
+    w = dict(zip(core_weights(hp_like), core))
+    z = _sizes(hp_like, w, keys, mem1, mem2, spk, x2)
+    _require(not z["K"] or taps_supported(z["K"]),
+             f"the kernels take at most {MAX_TAPS} location taps, not {z['K']}")
+    io = io_dtype(hp_like)
+    device = x2.device
+    B, N, _ = x2.shape
+    S = keys.shape[1]
+    _library()
+    for backward in (False, True):
+        need, have = block_shared_memory(z, device, backward, io)
+        if need > have:
+            raise RuntimeError(
+                f"fused_teacher cannot launch: one block of the "
+                f"{'backward' if backward else 'forward'} kernel needs {need} bytes of "
+                f"shared memory, an SM of this device offers {have}"
+            )
+    operands = [x2, keys, mem1, score_bias] + [x for x in (mem2, spk) if x is not None]
+    for x in operands + list(core):
+        if x.device != device:
+            raise TypeError("fused_teacher takes tensors on one CUDA device")
+    _require(score_bias.dtype == torch.float32, "score_bias must be float32")
+    f32 = dict(dtype=torch.float32, device=device)
+    x2_c, keys_c, mem1_c, bias_c = (
+        x.detach().contiguous() for x in (x2, keys, mem1, score_bias)
+    )
+    # one source: a placeholder that the kernels never read stands for the second memory
+    mem2_c = torch.zeros(4, dtype=io, device=device) if mem2 is None else mem2.detach().contiguous()
+    spk_c = None if spk is None else spk.detach().to(io).contiguous()
+    flat, v32, offsets = _pack(z, w, io)
+    # the location bias, float32; a placeholder the kernels never read without it
+    ls_b = w["ls_bias"].detach().contiguous() if z["K"] else torch.zeros(4, **f32)
+    train_masks = not hp_like.get("eval_zoneout", False)
+    stamp_step, stamp_buffer = stamps if stamps is not None else (-1, None)
+    dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets, io, stamp_step)
+    layouts = row_layouts(z, S)
+    features = torch.empty(B, N, z["DU"], **f32)
+    aligns = torch.empty(B, N, (2 if z["E2"] else 1) * S, **f32)
+    carries = torch.empty(B, N, layouts["carry"][1], **f32)
+    acts = torch.empty(B, N, layouts["acts"][1], **f32)
+    inputs = [flat, x2_c, keys_c, mem1_c, mem2_c, bias_c, spk_c]
+    _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7 + [v32, ls_b]
+            + [None] * 3 + [_scratch(dims, False, device), stamp_buffer],
+            z, dims, hp_like, seed, device)
+    saved = (inputs + [v32, ls_b, aligns, carries, acts], (hp_like, seed, z, dims))
+    return features, aligns, saved
+
+
+def _backward_rows(saved, g_features, g_aligns,
+                   stamps: Optional[Tuple[int, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+    """One launch of the backward kernel: what it wrote (``stack``, the gradient rows;
+    ``d_keys``, ``d_vblk``, ``d_spk``, ``d_brow``, ``d_lsw``, the sums and per-lane
+    partials; None where the specialisation has none). ``g_aligns`` None: the loss
+    does not read the alignments."""
+    tensors, (hp_like, seed, z, dims) = saved
+    flat, x2, keys, mem1, mem2, bias, spk, v32, ls_b, aligns, carries, acts = tensors
+    device = x2.device
+    B, N, _ = x2.shape
+    S = keys.shape[1]
+    f32 = dict(dtype=torch.float32, device=device)
+    values = list(dims)
+    values[3 + len(_SIZES) + 4] = -1 if stamps is None else int(stamps[0])   # stamp_step
+    dims = (ctypes.c_int * len(values))(*values)
+    stack_width = row_layouts(z, S)["stack"][1]
+    if g_features is None:
+        g_features = torch.zeros(B, N, z["DU"], **f32)
+    g_features = g_features.to(torch.float32).contiguous()
+    g_aligns = None if g_aligns is None else g_aligns.to(torch.float32).contiguous()
+    # the gradient rows in the io type; everything the kernel sums, float32 and zeroed
+    stack = torch.empty(B, N, stack_width, dtype=x2.dtype, device=device)
+    d_keys = torch.zeros(keys.shape, **f32)
+    d_vblk = torch.zeros(B, 2 if z["E2"] else 1, keys.shape[-1], **f32)
+    d_spk = torch.zeros(B, max(z["SPK"], 1), **f32)
+    d_brow = torch.zeros(B, stack_width, **f32)
+    # location-sensitive: the per-lane sums of w_lsW's gradient, and one step's
+    # scratch of the scores' rounded cotangents (B, S, A1) and their product
+    # with w_lsW (B, S, MAX_TAPS)
+    d_lsw = ls_g = ls_gk = None
+    if z["K"]:
+        d_lsw = torch.zeros(B, MAX_TAPS, _round4(z["A1"]), **f32)
+        ls_g = torch.zeros(B, S, _round4(z["A1"]), **f32)
+        ls_gk = torch.empty(B, S, MAX_TAPS, **f32)
+    _launch(
+        "bwd",
+        [flat, x2, keys, mem1, mem2, bias, spk, None, None, carries, acts,
+         g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow, v32, ls_b,
+         d_lsw, ls_g, ls_gk, _scratch(dims, True, device),
+         None if stamps is None else stamps[1]],
+        z, dims, hp_like, seed, device,
+    )
+    return dict(stack=stack, d_keys=d_keys, d_vblk=d_vblk, d_spk=d_spk[:, : z["SPK"]],
+                d_brow=d_brow, d_lsw=d_lsw)
+
+
+def _backward(saved, g_features, g_aligns, stamps: Optional[Tuple[int, torch.Tensor]] = None):
+    """One launch of the backward kernel and the gradients formed from its rows
+    (``grads_from_rows``)."""
+    tensors, (hp_like, _, z, _) = saved
+    x2, spk, aligns, carries = tensors[1], tensors[6], tensors[9], tensors[10]
+    r = _backward_rows(saved, g_features, g_aligns, stamps)
+    return grads_from_rows(z, hp_like["use_ta"], x2, spk, aligns, carries, r["stack"],
+                           r["d_brow"], r["d_keys"], r["d_vblk"], r["d_spk"], r["d_lsw"])
+
+
 class _TeacherCore(torch.autograd.Function):
     """The scanned region on the card: forward and backward each one kernel launch."""
 
     @staticmethod
     def forward(ctx, hp_like, seed, x2, keys, mem1, mem2, score_bias, spk, *core):
-        w = dict(zip(core_weights(hp_like), core))
-        z = _sizes(hp_like, w, keys, mem1, mem2, spk, x2)
-        _require(not z["K"] or taps_supported(z["K"]),
-                 f"the kernels take at most {MAX_TAPS} location taps, not {z['K']}")
-        io = io_dtype(hp_like)
-        device = x2.device
-        B, N, _ = x2.shape
-        S = keys.shape[1]
-        _library()
-        for backward in (False, True):
-            need, have = block_shared_memory(z, S, device, backward, io)
-            if need > have:
-                raise RuntimeError(
-                    f"fused_teacher cannot launch at src_len={S}: one block of the "
-                    f"{'backward' if backward else 'forward'} kernel needs {need} bytes of "
-                    f"shared memory, an SM of this device offers {have}"
-                )
-        operands = [x2, keys, mem1, score_bias] + [x for x in (mem2, spk) if x is not None]
-        for x in operands + list(core):
-            if x.device != device:
-                raise TypeError("fused_teacher takes tensors on one CUDA device")
-        _require(score_bias.dtype == torch.float32, "score_bias must be float32")
-        f32 = dict(dtype=torch.float32, device=device)
-        x2_c, keys_c, mem1_c, bias_c = (
-            x.detach().contiguous() for x in (x2, keys, mem1, score_bias)
-        )
-        # one source: a placeholder that the kernels never read stands for the second memory
-        mem2_c = torch.zeros(4, dtype=io, device=device) if mem2 is None else mem2.detach().contiguous()
-        spk_c = None if spk is None else spk.detach().to(io).contiguous()
-        flat, v32, offsets = _pack(z, w, io)
-        # the location bias, float32; a placeholder the kernels never read without it
-        ls_b = w["ls_bias"].detach().contiguous() if z["K"] else torch.zeros(4, **f32)
-        train_masks = not hp_like.get("eval_zoneout", False)
-        dims = _dims(z, B, S, N, hp_like["use_ta"], train_masks, offsets, io)
-        layouts = row_layouts(z, S)
-        features = torch.empty(B, N, z["DU"], **f32)
-        aligns = torch.empty(B, N, (2 if z["E2"] else 1) * S, **f32)
-        carries = torch.empty(B, N, layouts["carry"][1], **f32)
-        acts = torch.empty(B, N, layouts["acts"][1], **f32)
-        inputs = [flat, x2_c, keys_c, mem1_c, mem2_c, bias_c, spk_c]
-        _launch("fwd", inputs + [features, aligns, carries, acts] + [None] * 7 + [v32, ls_b]
-                + [None] * 3, z, dims, hp_like, seed, device)
-        ctx.save_for_backward(*inputs, v32, ls_b, aligns, carries, acts)
-        ctx.meta = (hp_like, seed, z, dims)
+        features, aligns, saved = _forward(hp_like, seed, x2, keys, mem1, mem2, score_bias, spk,
+                                           core)
+        ctx.save_for_backward(*saved[0])
+        ctx.meta = saved[1]
         # an output the loss does not read gets no cotangent (None), not a tensor of zeros
         ctx.set_materialize_grads(False)
         return features, aligns
 
     @staticmethod
     def backward(ctx, g_features, g_aligns):
-        flat, x2, keys, mem1, mem2, bias, spk, v32, ls_b, aligns, carries, acts = ctx.saved_tensors
-        hp_like, seed, z, dims = ctx.meta
-        device = x2.device
-        B, N, _ = x2.shape
-        S = keys.shape[1]
-        f32 = dict(dtype=torch.float32, device=device)
-        stack_width = row_layouts(z, S)["stack"][1]
-        if g_features is None:
-            g_features = torch.zeros(B, N, z["DU"], **f32)
-        g_features = g_features.to(torch.float32).contiguous()
-        # the loss does not read the alignments: no cotangent means zeros
-        g_aligns = None if g_aligns is None else g_aligns.to(torch.float32).contiguous()
-        # the gradient rows in the io type; everything the kernel sums, float32
-        stack = torch.empty(B, N, stack_width, dtype=x2.dtype, device=device)
-        d_keys = torch.zeros(keys.shape, **f32)
-        d_vblk = torch.empty(B, 2 if z["E2"] else 1, keys.shape[-1], **f32)
-        d_spk = torch.zeros(B, max(z["SPK"], 1), **f32)
-        d_brow = torch.zeros(B, stack_width, **f32)
-        # location-sensitive: the per-lane sums of w_lsW's gradient, and one step's
-        # scratch of the scores' rounded cotangents (B, S, A1) and their product
-        # with w_lsW (B, S, MAX_TAPS)
-        d_lsw = ls_g = ls_gk = None
-        if z["K"]:
-            d_lsw = torch.zeros(B, MAX_TAPS, _round4(z["A1"]), **f32)
-            ls_g = torch.zeros(B, S, _round4(z["A1"]), **f32)
-            ls_gk = torch.empty(B, S, MAX_TAPS, **f32)
-        _launch(
-            "bwd",
-            [flat, x2, keys, mem1, mem2, bias, spk, None, None, carries, acts,
-             g_features, g_aligns, stack, d_keys, d_vblk, d_spk, d_brow, v32, ls_b,
-             d_lsw, ls_g, ls_gk],
-            z, dims, hp_like, seed, device,
-        )
-        g = grads_from_rows(
-            z, hp_like["use_ta"], x2, spk, aligns, carries, stack, d_brow, d_keys, d_vblk,
-            d_spk[:, : z["SPK"]], d_lsw,
-        )
+        g = _backward((list(ctx.saved_tensors), ctx.meta), g_features, g_aligns)
+        hp_like = ctx.meta[0]
         return (None, None, g["feeds"], g["keys"], g["mem1"], g["mem2"], None, g["spk"],
                 *(g[name] for name in core_weights(hp_like)))
+
+
+def _stage_names(ls: bool, backward: bool) -> Tuple[str, ...]:
+    if not backward:
+        return ("attg", "qp", "scores", "attention", "l1", "l2")
+    return ("l2t", "l1t", "contexts", "scores") + (("taps",) if ls else ()) + ("qpt", "attgt")
+
+
+def teacher_stage_times(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, hp_like,
+                        prenet_masks, stamp_step: int) -> Dict[str, Dict[str, float]]:
+    """Microseconds of each stage of decoder step ``stamp_step`` in one forward and
+    one backward launch on the card (cotangents of ones for the features, none for
+    the alignments), from the ``%globaltimer`` stamps block 0 writes at the step's
+    start and, for each stage, when its input rows are in shared memory (product
+    stages), at its arrival at the stage's grid barrier and at its departure:
+    ``{"fwd" | "bwd": {stage: µs from the previous departure to this one,
+    stage + "_copy": µs until the rows are in, stage + "_wait": µs from block 0's
+    arrival to its departure, "step": the whole step}}`` (the last stage of a step
+    has no barrier). The stamps are compiled into the flagship's structure in float32
+    alone (two sources, forward attention). Two launches, counted as any other."""
+    _require(feeds.device.type == "cuda", "teacher_stage_times needs tensors on a CUDA device")
+    _require(io_dtype(hp_like) == torch.float32 and bool(hp_like.get("dual", True))
+             and not is_location_sensitive(hp_like),
+             "the stamps are compiled for the flagship's structure in float32 alone")
+    N = feeds.shape[1]
+    _require(0 <= stamp_step < N, "the stamped step must be one that runs")
+    device = feeds.device
+    x2 = _prenet(weights, feeds, float(hp_like["prenet_drop_rate"]), prenet_masks, None)
+    core = [weights[name] for name in core_weights(hp_like)]
+    buffers = {k: torch.zeros(_STAMP_SLOTS, dtype=torch.int64, device=device)
+               for k in ("fwd", "bwd")}
+    with torch.no_grad():
+        features, _, saved = _forward(hp_like, int(seed), x2, keys, mem1, mem2, score_bias, spk,
+                                      core, stamps=(int(stamp_step), buffers["fwd"]))
+        _backward(saved, torch.ones_like(features), None,
+                  stamps=(int(stamp_step), buffers["bwd"]))
+    out = {}
+    for which, buffer in buffers.items():
+        stamps = buffer.cpu().tolist()
+        times, last = {}, stamps[0]
+        for i, stage in enumerate(_stage_names(False, which == "bwd")):
+            copied, arrive, leave = stamps[1 + 3 * i : 4 + 3 * i]
+            times[stage] = (leave - last) / 1e3
+            if copied:
+                times[stage + "_copy"] = (copied - last) / 1e3
+            times[stage + "_wait"] = (leave - arrive) / 1e3
+            last = leave
+        times["step"] = (last - stamps[0]) / 1e3
+        out[which] = times
+    return out
 
 
 # --------------------------------------------------------------------------- #
@@ -867,7 +1077,9 @@ def row_bytes_per_lane(z: Dict[str, int], src_len: int, num_steps: int,
 def teacher_max_batch(z: Dict[str, int], src_len: int, num_steps: int, device,
                       io=torch.float32) -> int:
     """Most lanes one launch pair takes on ``device``: those whose per-step rows fit
-    ``ROW_MEMORY_SHARE`` of the card's total memory. Raises where not even one does."""
+    ``ROW_MEMORY_SHARE`` of the card's total memory. Raises where not even one does.
+    The grid design adds no cap of its own: a product stage takes the lanes in groups
+    of as many as a block's room holds (``TeacherGridPlan.lanes_per_copy``)."""
     total = torch.cuda.get_device_properties(device).total_memory
     per_lane = row_bytes_per_lane(z, src_len, num_steps, io)
     lanes = int(ROW_MEMORY_SHARE * total) // per_lane

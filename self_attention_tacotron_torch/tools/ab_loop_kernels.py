@@ -20,17 +20,21 @@ S=128 ragged):
   alignment stage (label ``_s1100``); five launches each after a warm-up (three
   at B=128 and B=528);
 * the teacher-forced decoder kernels (``fused_teacher``, forward and backward,
-  N=400, train zoneout and prenet dropout): two sources (the flagship's widths)
-  in float32 and bfloat16, one source (the baseline's) in float32; five launches
-  each after a warm-up;
+  N=400, train zoneout and prenet dropout): all 16 instantiations (two sources at
+  the flagship's widths or one, forward or location-sensitive attention, float32
+  or bfloat16, each direction) at B=32 and B=1, the flagship's structure also at
+  B=8, B=64 and B=128 (labels ``_b1`` ...); five launches each after a warm-up,
+  and whether the launches on the same inputs gave the same features and
+  gradients bit for bit (``bit_for_bit``);
 * the BiGRU backward's carry kernel (``bigru_bwd``, float32, H=128; five runs of
   20 launches),
 
 and prints one ``AB {...}`` JSON line with the card's name and power limit and
-the median of each (a decode case draws its inputs from a seed of its own, and a
+the median of each (a case draws its inputs from a seed of its own, and a decode
 case the tree does not serve is left out, so that two trees compare like with
-like); with ``--decode`` after LABEL, the decode kernels only. Run it
-in turns (parent, change, change, parent) in one chip call:
+like); with ``--decode`` after LABEL, the decode kernels only, with ``--teacher``
+the teacher kernels only. Run it in turns (parent, change, change, parent) in
+one chip call:
 
     for t in runs/parent:parent .:change .:change runs/parent:parent; do
       python3 self_attention_tacotron_torch/tools/ab_loop_kernels.py "${t%%:*}" "${t##*:}"
@@ -136,19 +140,38 @@ def _decode_times(dev):
     return out
 
 
-def _teacher_times(dev, rng):
+def _teacher_cases():
+    """(label, two sources, location-sensitive, io type, batches) of every
+    instantiation of the teacher kernels: two sources (the flagship's widths) or one
+    (the same widths, no second mechanism), forward or location-sensitive attention
+    (31 taps over the cumulative alignments), float32 or bfloat16, at B=32 and B=1;
+    the flagship's structure also at B=8, B=64 and B=128."""
+    for dual in (True, False):
+        for ls in (False, True):
+            for io in ("float32", "bfloat16"):
+                label = (f"teacher_{'dual' if dual else 'single'}{'_ls' if ls else ''}_"
+                         f"{'f32' if io == 'float32' else 'bf16'}")
+                batches = (B, 1) + ((8, 64, 128) if dual and not ls else ())
+                yield label, dual, ls, io, batches
+
+
+def _teacher_times(dev):
+    """Forward and backward kernel times of every case of ``_teacher_cases`` (N=400,
+    train zoneout, prenet dropout; five launches each after a warm-up), and for each
+    whether the launches on the same inputs gave the same features and gradients bit
+    for bit (``bit_for_bit``: the label, True or the names that differ)."""
     import torch
     from self_attention_tacotron_torch.ops import fused_teacher
 
-    def arr(*shape, scale=0.3):
-        return torch.tensor(rng.standard_normal(shape).astype(np.float32) * np.float32(scale),
-                            device=dev)
-
     fan = lambda k: 1.0 / np.sqrt(k)  # noqa: E731
-    out = {}
-    for label, dual, io in (("teacher_dual_f32", True, "float32"),
-                            ("teacher_dual_bf16", True, "bfloat16"),
-                            ("teacher_single_f32", False, "float32")):
+    out, same = {}, {}
+    for label, dual, ls, io, batches in _teacher_cases():
+        rng = np.random.default_rng(zlib.crc32(label.encode()))
+
+        def arr(*shape, scale=0.3):
+            return torch.tensor(rng.standard_normal(shape).astype(np.float32)
+                                * np.float32(scale), device=dev)
+
         z = dict(F=80, P1=256, P2=128, AU=256, A1=224, A2=32 if dual else 0, DU=256, E1=256,
                  E2=256 if dual else 0)
         A, E = z["A1"] + z["A2"], z["E1"] + z["E2"]
@@ -166,35 +189,46 @@ def _teacher_times(dev, rng):
             w_l1=arr(in1, 4 * z["DU"], scale=fan(in1)), b_l1=arr(4 * z["DU"]),
             w_l2=arr(2 * z["DU"], 4 * z["DU"], scale=fan(2 * z["DU"])), b_l2=arr(4 * z["DU"]),
         )
-        lengths = np.clip(rng.integers(24, 129, B), 24, 128)
-        lengths[0] = 128
-        lens = torch.tensor(lengths, device=dev)
+        if ls:
+            w.update(w_lsW=arr(31, z["A1"]), ls_bias=arr(z["A1"]))
         cast = torch.bfloat16 if io == "bfloat16" else torch.float32
-        ops = dict(
-            keys=arr(B, S, A).to(cast), mem1=arr(B, S, z["E1"]).to(cast),
-            mem2=arr(B, S, z["E2"]).to(cast) if dual else None, spk=None,
-            score_bias=torch.where(torch.arange(S, device=dev)[None] < lens[:, None],
-                                   0.0, -1e9).float(),
-            hp_like=dict(dual=dual, use_ta=False, att_units=z["AU"], att1_units=z["A1"],
-                         att2_units=z["A2"], dec_units=z["DU"], zoneout_cell=0.1,
-                         zoneout_output=0.1, prenet_drop_rate=0.5, io_dtype=io,
-                         src1_kind="forward", eval_zoneout=False),
-        )
-        feeds = arr(B, N, z["F"])
-        masks = tuple(torch.tensor(rng.random((B, N, u)) < 0.5, device=dev)
-                      for u in (z["P1"], z["P2"]))
-        cot = arr(B, N, z["DU"], scale=1.0)
-        fwd, bwd = [], []
-        for i in range(6):
-            wl = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
-            feat, _ = fused_teacher.teacher_decode(weights=wl, feeds=feeds, seed=1234,
-                                                   prenet_masks=masks, **ops)
-            (feat * cot).sum().backward()
-            if i:
-                fwd.append(fused_teacher.last_launch_ms("fwd"))
-                bwd.append(fused_teacher.last_launch_ms("bwd"))
-        out[f"{label}_fwd"], out[f"{label}_bwd"] = fwd, bwd
-    return out
+        hp_like = dict(dual=dual, use_ta=False, att_units=z["AU"], att1_units=z["A1"],
+                       att2_units=z["A2"], dec_units=z["DU"], zoneout_cell=0.1,
+                       zoneout_output=0.1, prenet_drop_rate=0.5, io_dtype=io,
+                       src1_kind="location_sensitive" if ls else "forward", ls_cumulative=True,
+                       ls_kernel=31 if ls else 0, eval_zoneout=False)
+        for batch in batches:
+            lengths = np.clip(rng.integers(24, S + 1, batch), 24, S)
+            lengths[0] = S
+            lens = torch.tensor(lengths, device=dev)
+            ops = dict(
+                keys=arr(batch, S, A).to(cast), mem1=arr(batch, S, z["E1"]).to(cast),
+                mem2=arr(batch, S, z["E2"]).to(cast) if dual else None, spk=None,
+                score_bias=torch.where(torch.arange(S, device=dev)[None] < lens[:, None],
+                                       0.0, -1e9).float(),
+                hp_like=hp_like,
+            )
+            feeds = arr(batch, N, z["F"])
+            masks = tuple(torch.tensor(rng.random((batch, N, u)) < 0.5, device=dev)
+                          for u in (z["P1"], z["P2"]))
+            cot = arr(batch, N, z["DU"], scale=1.0)
+            fwd, bwd, results = [], [], []
+            for i in range(6):
+                wl = {k: v.detach().clone().requires_grad_(True) for k, v in w.items()}
+                feat, _ = fused_teacher.teacher_decode(weights=wl, feeds=feeds, seed=1234,
+                                                       prenet_masks=masks, **ops)
+                (feat * cot).sum().backward()
+                if i:
+                    fwd.append(fused_teacher.last_launch_ms("fwd"))
+                    bwd.append(fused_teacher.last_launch_ms("bwd"))
+                if i < 2:
+                    results.append({"features": feat.detach(),
+                                    **{k: v.grad for k, v in wl.items() if v.grad is not None}})
+            name = label + (f"_b{batch}" if batch != B else "")
+            out[f"{name}_fwd"], out[f"{name}_bwd"] = fwd, bwd
+            differ = [k for k in results[0] if not torch.equal(results[0][k], results[1][k])]
+            same[name] = True if not differ else differ
+    return out, same
 
 
 def _bigru_bwd_times(dev, rng):
@@ -233,15 +267,20 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    times = {}
-    times.update(_decode_times(dev))
-    if "--decode" not in args[2:]:
-        times.update(_teacher_times(dev, np.random.default_rng(5)))
+    times, extra = {}, {}
+    flags = args[2:]
+    if "--teacher" not in flags:
+        times.update(_decode_times(dev))
+    if "--decode" not in flags:
+        teacher, extra["bit_for_bit"] = _teacher_times(dev)
+        times.update(teacher)
+    if not flags:
         times.update(_bigru_bwd_times(dev, np.random.default_rng(6)))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print("AB " + json.dumps({"tree": label, "card": card, "ms": times,
-                              "median": {k: float(np.median(v)) for k, v in times.items()}}),
+                              "median": {k: float(np.median(v)) for k, v in times.items()},
+                              **extra}),
           flush=True)
 
 
