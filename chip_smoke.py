@@ -12,7 +12,12 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    one compiler process per source, all started together;
 3. kernels: each kernel against its plain PyTorch version on the card, at small
    ragged shapes and at the flagship shapes, with times by CUDA events: ``bigru``
-   and ``mha_full`` in float32 and bfloat16; ``fused_decode`` (the whole decode
+   and ``mha_full`` in float32 and bfloat16, ``bigru`` also at the edges of its
+   cluster design (``BIGRU_EDGES``: 37 lanes, and 528 and 1024 lanes with lanes of
+   length 0, 1 and S), timed at B=32 and at the batch-1 request's shape, two
+   launches on the same inputs bit for bit, and its cluster plan
+   (``fused_rnn.bigru_plan``, both kernels) held to the built kernels' own;
+   ``fused_decode`` (the whole decode
    loop) in float32 with prenet dropout 0.5 from injected masks, at narrow and
    off-tile sizes (transition agent, speaker embedding, two batch blocks, a
    prefix of 320 steps), at the flagship sizes to the step cap, and with an
@@ -30,7 +35,9 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    ``bigru_train`` (the
    BiGRU's forward kernel and the kernel of its backward's carry recursion)
    against autograd through the plain version, outputs and the gradients of the
-   input and of all eight weights, and in bfloat16 against the same function
+   input and of all eight weights, at the same edges, the carry kernel timed at
+   B=32 and B=1 and launched twice on the same inputs (bit for bit), and in
+   bfloat16 against the same function
    with its kernels' plain versions, each output and leaf within three quarters
    of the plain version's own bfloat16-against-float32 gap in ||delta|| / ||ref||
    and the median leaf within a quarter; ``fused_teacher`` (the
@@ -206,6 +213,10 @@ STAMP_STEPS = (10, 250, 490)
 DECODE_DESIGN = "grid: one block per SM, weights resident in shared memory, grid barriers"
 # The design of the teacher kernels (both directions, every instantiation): the same.
 TEACHER_DESIGN = DECODE_DESIGN
+# The design of the BiGRU kernels (csrc/cluster_rnn.cuh).
+BIGRU_DESIGN = ("thread-block clusters: one per (direction, group of lanes), the recurrent "
+                "weights resident in shared memory, vectors gathered through distributed "
+                "shared memory on mbarriers; bigru's input projection a tiled product first")
 FUSED_WINDOWS = ((FUSED_STEPS, TOL_FUSED, "max"), (256, 5e-3, "max"), (500, 1e-3, "median"))
 FUSED_MEDIAN_LANES = 8
 # An early-exit threshold is placed in the widest gap of the plain run's stop
@@ -333,14 +344,18 @@ def check_bigru(B, S, C, H, lengths, dtype, timed: bool, seed: int = 0):
     lens = torch.tensor(np.asarray(lengths, np.int32), device=DEV)
     pf, pb = gru_params(rng, C, H, dtype), gru_params(rng, C, H, dtype)
     got = fused_rnn.bigru(xs, lens, pf, pb, H)
+    again = fused_rnn.bigru(xs, lens, pf, pb, H)
     torch.cuda.synchronize()
     want = fused_rnn.bigru_reference(xs, lens, pf, pb, H)
     err = max_abs_err(got, want)
     tol = TOL[("bigru", dtype)]
-    ok = bool(torch.isfinite(got.float()).all()) and err <= tol
+    # every sum has one owner thread and a fixed order: two launches agree bit for bit
+    same = bool(torch.equal(got, again))
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol and same
     rec = {
         "kernel": "bigru", "shape": {"B": B, "S": S, "C": C, "H": H},
-        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol, "ok": ok,
+        "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol,
+        "bit_for_bit": same, "ok": ok,
     }
     if timed:
         elem = xs.element_size()
@@ -460,8 +475,75 @@ def check_bilstm(B, S, C, H, lengths, dtype, zoneout: float, timed: bool, seed: 
     return rec
 
 
+# (B, S, seed) of the BiGRU kernels' edge cases: 37 lanes fill no lane group evenly;
+# 528 and 1024 lanes take the largest groups, in one wave of clusters and in two.
+BIGRU_EDGES = ((37, 50, 5), (528, 64, 8), (1024, 64, 9))
+
+
+def edge_lengths(B: int, S: int, seed: int) -> np.ndarray:
+    """Ragged lengths with lanes of length 0, 1 and S among them."""
+    lengths = ragged_lengths(np.random.default_rng(seed), B, S)
+    lengths[1], lengths[2], lengths[3] = 0, 1, S
+    return lengths
+
+
+def check_bigru_plans() -> dict:
+    """The cluster plan of ``ops/fused_rnn.py`` (``bigru_plan``) against the built
+    kernels' own (their C query), at the flagship's width, both io types, both
+    kernels and the batches of the A/B; the mirror takes the card's SM count and the
+    resident clusters the kernel's occupancy query reports."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    rec = {"kernel": "bigru", "case": "cluster plan against the built kernels", "sms": sms,
+           "plans": {}}
+    for backward in (False, True):
+        for io in (torch.float32, torch.bfloat16):
+            for B in (1, 32, 128, 528, 1024):
+                built = fused_rnn.bigru_device_plan(B, 128, io, DEV, backward=backward)
+                mirror = fused_rnn.bigru_plan(B, 128, 128, 128, io, n_sms=sms, backward=backward,
+                                              active_clusters=built.slots)
+                label = (f"{'bigru_bwd' if backward else 'bigru'} "
+                         f"{str(io).removeprefix('torch.')} B={B}")
+                require(built == mirror, f"{label}: the plan mirror is not the kernel's: "
+                                         f"{dataclasses.asdict(mirror)} against "
+                                         f"{dataclasses.asdict(built)}")
+                rec["plans"][label] = {k: getattr(built, k) for k in (
+                    "cluster", "slots", "groups", "lanes", "clusters", "waves", "smem_bytes")}
+    rec["slots_per_sm_count"] = rec["plans"]["bigru float32 B=1"]["slots"] == sms // 8
+    rec["too_wide"] = check_bigru_too_wide()
+    log("check " + json.dumps(rec))
+    return rec
+
+
+def check_bigru_too_wide() -> dict:
+    """A width whose weight slices fit no cluster (H=1024 in float32): both wrappers
+    raise ValueError naming the limit and launch no recurrence."""
+    B, S, H = 2, 3, 1024
+    rng = np.random.default_rng(5)
+    xs = torch.zeros(B, S, H, device=DEV)
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    pf, pb = gru_params(rng, H, H, torch.float32), gru_params(rng, H, H, torch.float32)
+    f32 = dict(dtype=torch.float32, device=DEV)
+    carry = (torch.zeros(B, S, 2 * H, **f32), torch.zeros(2, B, S, 2 * H, **f32),
+             torch.zeros(2, B, S, H, **f32), torch.zeros(2, B, S, H, **f32), lens,
+             torch.zeros(2, 2 * H, H, **f32), torch.zeros(2, H, H, **f32))
+    before = (fused_rnn.launch_count, fused_rnn.bwd_launch_count)
+    said = {}
+    for name, call in (("bigru", lambda: fused_rnn.bigru(xs, lens, pf, pb, H)),
+                       ("bigru_bwd", lambda: fused_rnn.bigru_bwd_carry(*carry))):
+        try:
+            call()
+        except ValueError as e:
+            said[name] = str(e)
+    torch.cuda.synchronize()
+    ok = (sorted(said) == ["bigru", "bigru_bwd"]
+          and all(str(fused_rnn.RNN_SMEM_LIMIT) in m for m in said.values())
+          and (fused_rnn.launch_count, fused_rnn.bwd_launch_count) == before)
+    require(ok, f"H={H}: the wrappers must raise ValueError naming the limit, said {said}")
+    return {"H": H, "raised": said}
+
+
 def phase_kernels():
-    records = {}
+    records = {"bigru_plan": check_bigru_plans()}
     for dtype in (torch.float32, torch.bfloat16):
         # the small ragged shapes of the CPU tests, and shapes off every tile size
         check_bigru(4, 12, 10, 8, [12, 7, 1, 12], dtype, timed=False)
@@ -474,9 +556,16 @@ def phase_kernels():
         check_bilstm(4, 12, 10, 8, [12, 1, 7, 12], dtype, 0.0, timed=False)
         check_bilstm(5, 9, 7, 20, [9, 1, 4, 9, 2], dtype, 0.1, timed=False, seed=1)
         check_bilstm(1, 33, 128, 128, [33], dtype, 0.1, timed=False, seed=2)
-        # the flagship shapes, ragged
+        # the cluster design's edges (csrc/cluster_rnn.cuh): a batch off the lane groups,
+        # and the largest batches (one and two waves of clusters), ragged, with lanes of
+        # length 0, 1 and S
+        for B, S, seed in BIGRU_EDGES:
+            check_bigru(B, S, 128, 128, edge_lengths(B, S, seed), dtype, timed=False, seed=seed)
+        # the flagship shapes, ragged, and the batch-1 request's
         lengths = ragged_lengths(np.random.default_rng(3), 32, 128)
         records[("bigru", dtype)] = check_bigru(32, 128, 128, 128, lengths, dtype, timed=True)
+        records[("bigru_b1", dtype)] = check_bigru(1, 97, 128, 128, [97], dtype, timed=True,
+                                                   seed=7)
         records[("mha_full", dtype)] = check_mha(
             32, 128, 256, 2, lengths.tolist(), dtype, timed=True
         )
@@ -1414,13 +1503,17 @@ def check_bigru_train(B, S, C, H, lengths, timed: bool, seed: int = 0, dtype=tor
                     "norm_rel_errs": errs, "bf16_against_f32_norm_rel": gaps,
                     "largest_share_of_gap": max(shares.values()),
                     "median_share_of_gap": float(np.median(list(shares.values())))})
-    rec["ok"] = ok
+    # the carry kernel alone, on the operands the backward hands it: two launches agree
+    # bit for bit
+    weights = [p[k] for p in params for k in fused_rnn._PARAM_KEYS]
+    rz, n, hp, _, _, wgh_t, wch_t = fused_rnn.bwd_operands(xs0, got["y"], weights, H)
+    args = (cot, rz, n, hp, lens, wgh_t, wch_t)
+    g_kernel = fused_rnn.bigru_bwd_carry(*args)
+    g_again = fused_rnn.bigru_bwd_carry(*args)
+    torch.cuda.synchronize()
+    rec["bit_for_bit"] = all(bool(torch.equal(a, b)) for a, b in zip(g_kernel, g_again))
+    rec["ok"] = ok = ok and rec["bit_for_bit"]
     if timed:
-        # the carry kernel alone, on the operands the backward hands it
-        weights = [p[k] for p in params for k in fused_rnn._PARAM_KEYS]
-        rz, n, hp, _, _, wgh_t, wch_t = fused_rnn.bwd_operands(xs0, got["y"], weights, H)
-        args = (cot, rz, n, hp, lens, wgh_t, wch_t)
-        g_kernel = fused_rnn.bigru_bwd_carry(*args)
         g_plain = fused_rnn.bigru_bwd_carry_reference(*args)
         steps = int(np.minimum(np.asarray(lengths), S).sum())
         flops = 2.0 * steps * 2 * 3 * H * H
@@ -1458,8 +1551,14 @@ def phase_bigru_bwd():
         check_bigru_train(4, 12, 10, 8, [12, 7, 1, 12], timed=False, dtype=dtype)
         check_bigru_train(5, 9, 7, 20, [9, 1, 4, 9, 2], timed=False, seed=1, dtype=dtype)
         check_bigru_train(1, 33, 128, 128, [33], timed=False, seed=2, dtype=dtype)
-        records[str(dtype).removeprefix("torch.")] = check_bigru_train(
+        for B, S, seed in BIGRU_EDGES:
+            check_bigru_train(B, S, 128, 128, edge_lengths(B, S, seed), timed=False, seed=seed,
+                              dtype=dtype)
+        name = str(dtype).removeprefix("torch.")
+        records[name] = check_bigru_train(
             32, 128, 128, 128, lengths, timed=True, seed=3, dtype=dtype)
+        records[name + "_b1"] = check_bigru_train(1, 97, 128, 128, [97], timed=True, seed=7,
+                                                  dtype=dtype)
     return records
 
 
@@ -1998,11 +2097,13 @@ def launch_counts():
     return {
         "bigru": fused_rnn.launch_count, "mha_full": fused_attention.launch_count,
         "fused_decode": fused_decode.launch_count, "bilstm": fused_rnn.lstm_launch_count,
+        # each bigru call launches its input projection, then the recurrence
+        "bigru_proj": fused_rnn.proj_launch_count,
     }
 
 
 def reset_launch_counts():
-    fused_rnn.launch_count = fused_rnn.lstm_launch_count = 0
+    fused_rnn.launch_count = fused_rnn.lstm_launch_count = fused_rnn.proj_launch_count = 0
     fused_attention.launch_count = fused_decode.launch_count = 0
     fused_decode.variant_launches.clear()
 
@@ -2093,7 +2194,8 @@ def phase_main_path():
         "launches": launches, "fused_decode_specialisations": fused_decode.variant_launches,
         "requests": stats,
     }))
-    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0}
+    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0,
+                "bigru_proj": len(reqs)}
     require(launches == expected, f"the main path launched {launches}, expected {expected}")
     for out, req in zip(outs, reqs):
         check_output(out, req, hp)
@@ -2178,7 +2280,8 @@ def phase_main_path_bf16(outs_f32):
     log("main_path bf16 kernels " + json.dumps({
         "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
     }))
-    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0}
+    expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0,
+                "bigru_proj": len(reqs)}
     require(launches == expected, f"the bf16 main path launched {launches}, expected {expected}")
     require(variants == {fused_decode.variant_name(True, True, torch.bfloat16): len(reqs)},
             f"the bf16 main path launched the specialisations {variants}")
@@ -2245,7 +2348,8 @@ def phase_baseline_main_path():
     log("main_path baseline kernels " + json.dumps({
         "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
     }))
-    expected = {"bigru": len(reqs), "mha_full": 0, "fused_decode": len(reqs), "bilstm": 0}
+    expected = {"bigru": len(reqs), "mha_full": 0, "fused_decode": len(reqs), "bilstm": 0,
+                "bigru_proj": len(reqs)}
     require(launches == expected, f"baseline synthesis launched {launches}, expected {expected}")
     require(variants == {fused_decode.variant_name(False, False): len(reqs)},
             f"baseline synthesis launched the specialisations {variants}")
@@ -2270,7 +2374,7 @@ def phase_baseline_main_path():
     out, zstats = run_requests(predict, [req], seed=200)
     zlaunches = launch_counts()
     log("main_path zoneout kernels " + json.dumps({"launches": zlaunches, "requests": zstats}))
-    expected = {"bigru": 0, "mha_full": 0, "fused_decode": 1, "bilstm": 1}
+    expected = {"bigru": 0, "mha_full": 0, "fused_decode": 1, "bilstm": 1, "bigru_proj": 0}
     require(zlaunches == expected, f"the ZoneoutEncoderV1 request launched {zlaunches}")
     check_output(out[0], req, zoneout.hparams, steps=ZONEOUT_STEPS)
     out_plain, _ = run_requests(
@@ -3264,7 +3368,8 @@ def seeded_main_path(family: str):
             "launches": launches, "fused_decode_specialisations": variants, "requests": stats}))
         dual = config != single
         expected = {"bigru": len(reqs) if dual else 0, "mha_full": len(reqs) if dual else 0,
-                    "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs)}
+                    "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs),
+                    "bigru_proj": len(reqs) if dual else 0}
         require(launches == expected, f"{config} {dtype} synthesis launched {launches}")
         name = packed_variant(fused_decode.pack_decoder(net.decoder))
         require(variants == {name: len(reqs)}, f"{config} {dtype} launched {variants}")
@@ -3570,6 +3675,13 @@ def family_kernel_entries(family: str, decode, teacher, main_path, train):
     return entries
 
 
+def batch1_entries(rec) -> dict:
+    """The batch-1 request's record of a timed check, for a kernel's entry."""
+    return {"batch1_shape": rec["shape"], "batch1_ms": rec["ms"],
+            "batch1_plain_ms": rec["plain_ms"], "batch1_bound_ms": rec["bound_ms"],
+            "batch1_max_abs_err": rec["max_abs_err"]}
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -3652,6 +3764,20 @@ def main() -> int:
         also_replaces="self_attention_tacotron_tpu/ops/fused_rnn.py:216",
         training_launches=train["counts"]["bigru"] + baseline_train["counts"]["bigru"],
         bf16_training_launches=train_bf16["counts"]["bigru"],
+    )
+    # the cluster design (csrc/cluster_rnn.cuh): each bigru call launches an input
+    # projection and the recurrence (every synthesis path's launch counts hold it to
+    # that); the batch-1 request's shape beside B=32, and the plan against the built
+    # kernels
+    b1, b1_bf16 = records[("bigru_b1", torch.float32)], records[("bigru_b1", torch.bfloat16)]
+    kernels[0].update(
+        design=BIGRU_DESIGN, proj_launches=main_launches["bigru_proj"],
+        bit_for_bit=records[("bigru", torch.float32)]["bit_for_bit"],
+        batch1_shape=b1["shape"], batch1_ms=b1["ms"], batch1_plain_ms=b1["plain_ms"],
+        batch1_bound_ms=b1["bound_ms"], batch1_max_abs_err=b1["max_abs_err"],
+        bf16_batch1_ms=b1_bf16["ms"], bf16_batch1_plain_ms=b1_bf16["plain_ms"],
+        bf16_batch1_bound_ms=b1_bf16["bound_ms"],
+        plan=records["bigru_plan"]["plans"],
     )
     # torch.nn.LSTM (cuDNN) has no zoneout interpolation: another function, no library time
     kernels[2]["zoneout"] = records[("bilstm", torch.float32)]["zoneout"]
@@ -3755,7 +3881,9 @@ def main() -> int:
         "library_ms": None, "shape": bigru_bwd["shape"], "dtype": "float32",
         "grad_max_rel_err": bigru_bwd["grad_max_rel_err"],
         "train_fwd_bwd_ms": bigru_bwd["train_fwd_bwd_ms"],
-        "plain_fwd_bwd_ms": bigru_bwd["plain_fwd_bwd_ms"], **step_ms,
+        "plain_fwd_bwd_ms": bigru_bwd["plain_fwd_bwd_ms"], "design": BIGRU_DESIGN,
+        "bit_for_bit": bigru_bwd["bit_for_bit"], **batch1_entries(bigru_bwd_dtypes["float32_b1"]),
+        **step_ms,
     })
     for which, line in (("fwd", 1219), ("bwd", 1310)):
         errs = {
@@ -3809,7 +3937,8 @@ def main() -> int:
         "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
         "shape": rec["shape"], "dtype": "bfloat16", "grad_max_rel_err": rec["grad_max_rel_err"],
         "train_fwd_bwd_ms": rec["train_fwd_bwd_ms"], "plain_fwd_bwd_ms": rec["plain_fwd_bwd_ms"],
-        **step_ms_bf16,
+        "design": BIGRU_DESIGN, "bit_for_bit": rec["bit_for_bit"],
+        **batch1_entries(bigru_bwd_dtypes["bfloat16_b1"]), **step_ms_bf16,
     })
     t16, b16 = teacher_dtypes["bfloat16"], baseline_teacher_dtypes["bfloat16"]
     for which, line in (("fwd", 1219), ("bwd", 1310)):

@@ -1,236 +1,371 @@
-// Bidirectional GRU over a padded batch, both directions in one launch.
+// Bidirectional GRU over a padded batch: the input projection over the whole card,
+// then the recurrence of both directions as thread-block clusters.
 //
 // Replaces the Pallas kernel of self_attention_tacotron_tpu/ops/fused_rnn.py
-// (bigru_pallas, _make_kernel). Per direction and step it computes, in this body,
+// (bigru_pallas, _make_kernel). Per direction and step it computes, in this port's
+// own code,
 //
 //   rz = sigmoid([x_t, io(h)] . Wg + bg)          r = rz[:H], z = rz[H:]
 //   n  = tanh   ([x_t, io(r * h)] . Wc + bc)
 //   h' = (1 - z) * n + z * h
 //
 // where io(.) rounds to the io type (float or bf16) before the product, the
-// carry h stays float32, and y is stored in the io type. A step at or beyond a
-// lane's length keeps the carry and emits zero; the backward direction walks
-// S-1 -> 0, so its carry is still zero when it reaches the lane's last valid step.
+// carry h stays float32, sums are float32, and y is stored in the io type. A step
+// at or beyond a lane's length keeps the carry and emits zero; the backward
+// direction walks S-1 -> 0, so its carry is still zero when it reaches the lane's
+// last valid step.
 //
-// What is serial is time; what is parallel is (lane, direction, output column,
-// slice of the reduction). Grid: (ceil(B / LANES), 2 directions). A block owns
-// LANES lanes of one direction, keeps their carries in shared memory and loops
-// over the steps. The time of a step is the latency of one thread's walk down
-// the K = C + H rows of a weight matrix (read from global memory, coalesced
-// across threads, served by L2 after the first step), so the block splits K
-// over `parts` threads per column and adds the partial sums in shared memory;
-// each weight read serves LANES lanes. The block stops at the longest length
-// among its lanes; rows beyond a lane's length are zero-filled once at the start.
+// What bounds it on an H100: not operations or bytes (2 * sum(lengths) * 2 *
+// (C + H) * 3H operations, a few megabytes) but the chain of S dependent steps, so
+// the time is S times the latency of one step. The design cuts that latency:
+//
+// 1. The x half of both products does not depend on the carry. bigru_proj_kernel
+//    computes it for every (lane, step, direction) before the recurrence, biases
+//    folded in: proj = x . [Wg_x | Wc_x] (both directions side by side, B*S rows of
+//    6H float32 sums), a tiled FFMA product over the whole card (128 x 128 tiles,
+//    8 x 8 per thread).
+// 2. bigru_cluster_kernel runs one thread-block cluster per (direction, group of
+//    lanes) (cluster_rnn.cuh). The cluster's blocks share out the H units; each
+//    loads its slice of the h rows of Wg and Wc once and keeps it in shared memory,
+//    so no weight is read from global memory inside the step loop. A step: the gate
+//    product on the block's r and z columns; io(r*h) of its units written into every
+//    block of the cluster (distributed shared memory, counted on each block's
+//    mbarrier); the candidate product once the block's mbarrier has every unit's
+//    io(r*h), h' and the output; io(h') written into every block the same way. Two
+//    exchanges a step, no grid barrier and no cluster-wide barrier inside the loop;
+//    the next step's projection rows are copied in (cp.async) while the first
+//    exchange is in flight. What is left of a step's time is the two products'
+//    shared-memory traffic and dependent chains (PERF.md).
+//
+// The plan (lanes per cluster from B, cluster size from H, the shared memory) is
+// cluster_rnn.cuh::rnn_plan, mirrored by ops/fused_rnn.py::bigru_plan.
 //
 // Plain C interface at the bottom: the functions launch on the given stream,
-// allocate nothing, do not synchronise, and return cudaGetLastError().
+// allocate nothing, do not synchronise, and return cudaGetLastError() (or a
+// negative code of cluster_rnn.cuh).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cluster_rnn.cuh"
+
+
 namespace {
 
-constexpr int LANES = 4;
-constexpr int MAX_THREADS = 1024;
+constexpr int PROJ_BM = 128;
+constexpr int PROJ_BN = 128;
+constexpr int PROJ_BK = 8;
 
-__device__ __forceinline__ float to_float(float v) { return v; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_float(float v);
-template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
-// Round a float32 value to the io type and bring it back.
-template <typename T> __device__ __forceinline__ float round_io(float v) {
-  return to_float(from_float<T>(v));
-}
-
-__device__ __forceinline__ float sigmoidf_(float v) { return 1.0f / (1.0f + expf(-v)); }
-
-// s_part[(p * LANES + l) * ncols + j] = sum over the p-th slice of k of s_in[l][k] * w[k][j]
+// The x rows (k < C) of the four weight matrices side by side: column n of
+// [Wg_f | Wc_f | Wg_b | Wc_b], and the biases the same way.
 template <typename T>
-__device__ __forceinline__ void partial_products(const T* __restrict__ w, int ncols, int K,
-                                                 const float* s_in, float* s_part, int parts,
-                                                 int tid, int nt) {
-  const int chunk = (K + parts - 1) / parts;
-  for (int idx = tid; idx < parts * ncols; idx += nt) {
-    const int p = idx / ncols;
-    const int j = idx - p * ncols;
-    const int k0 = p * chunk;
-    const int k1 = (k0 + chunk) < K ? (k0 + chunk) : K;
-    float acc[LANES];
+struct ProjWeights {
+  const T *wg_f, *bg_f, *wc_f, *bc_f, *wg_b, *bg_b, *wc_b, *bc_b;
+  int H;
+  __device__ __forceinline__ float weight(int k, int n) const {
+    const int dir = n >= 3 * H;
+    const int c = n - dir * 3 * H;
+    if (c < 2 * H) return Io<T>::load((dir ? wg_b : wg_f) + (size_t)k * 2 * H + c);
+    return Io<T>::load((dir ? wc_b : wc_f) + (size_t)k * H + (c - 2 * H));
+  }
+  __device__ __forceinline__ float bias(int n) const {
+    const int dir = n >= 3 * H;
+    const int c = n - dir * 3 * H;
+    if (c < 2 * H) return Io<T>::load((dir ? bg_b : bg_f) + c);
+    return Io<T>::load((dir ? bc_b : bc_f) + (c - 2 * H));
+  }
+};
+
+// proj[m][n] = sum over k < C of xs[m][k] * W[k][n] + b[n], m < M = B*S, n < 6H.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bigru_proj_kernel(const T* __restrict__ xs, ProjWeights<T> w, float* __restrict__ proj, int M,
+                  int C) {
+  __shared__ __align__(16) float As[2][PROJ_BK][PROJ_BM];
+  __shared__ __align__(16) float Bs[2][PROJ_BK][PROJ_BN];
+  const int N = 6 * w.H;
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.y * PROJ_BM, n0 = blockIdx.x * PROJ_BN;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int am = tid >> 1, ak = (tid & 1) * 4;     // A: one row, four k
+  const int bk = tid >> 5, bn = (tid & 31) * 4;    // B: one k, four columns
+  float a_reg[4], b_reg[4];
+  auto load = [&](int k0) {
+    const int m = m0 + am;
 #pragma unroll
-    for (int l = 0; l < LANES; ++l) acc[l] = 0.0f;
-#pragma unroll 8
-    for (int k = k0; k < k1; ++k) {
-      const float wv = to_float(w[(size_t)k * ncols + j]);
-#pragma unroll
-      for (int l = 0; l < LANES; ++l) acc[l] = fmaf(s_in[l * K + k], wv, acc[l]);
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + ak + i;
+      a_reg[i] = (m < M && k < C) ? Io<T>::load(xs + (size_t)m * C + k) : 0.0f;
     }
+    const int k = k0 + bk;
 #pragma unroll
-    for (int l = 0; l < LANES; ++l) s_part[(p * LANES + l) * ncols + j] = acc[l];
+    for (int i = 0; i < 4; ++i) {
+      const int n = n0 + bn + i;
+      b_reg[i] = (n < N && k < C) ? w.weight(k, n) : 0.0f;
+    }
+  };
+  auto store = [&](int buf) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) As[buf][ak + i][am] = a_reg[i];
+    *reinterpret_cast<float4*>(&Bs[buf][bk][bn]) = make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
+  };
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
+  const int nk = (C + PROJ_BK - 1) / PROJ_BK;
+  load(0);
+  store(0);
+  __syncthreads();
+  for (int kt = 0; kt < nk; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < nk) load((kt + 1) * PROJ_BK);
+#pragma unroll
+    for (int k = 0; k < PROJ_BK; ++k) {
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
+      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    if (kt + 1 < nk) store(cur ^ 1);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (m >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (n < N) proj[(size_t)m * N + n] = acc[i][j] + w.bias(n);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(MAX_THREADS)
-bigru_kernel(const T* __restrict__ xs,        // (B, S, C)
-             const int* __restrict__ lengths, // (B,)
-             const T* __restrict__ wg_f, const T* __restrict__ bg_f,
-             const T* __restrict__ wc_f, const T* __restrict__ bc_f,
-             const T* __restrict__ wg_b, const T* __restrict__ bg_b,
-             const T* __restrict__ wc_b, const T* __restrict__ bc_b,
-             T* __restrict__ y,               // (B, S, 2H)
-             int B, int S, int C, int H) {
-  extern __shared__ float smem[];
-  const int K = C + H;
-  const int H2 = 2 * H;
+template <typename T, int LT>
+__global__ void __launch_bounds__(RNN_THREADS, 1)
+bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from bigru_proj_kernel
+                     const int* __restrict__ lengths,  // (B,)
+                     const T* __restrict__ wg_f, const T* __restrict__ wc_f,
+                     const T* __restrict__ wg_b, const T* __restrict__ wc_b,
+                     T* __restrict__ y,                // (B, S, 2H)
+                     int B, int S, int C, int H, RnnPlan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int cs = plan.cluster;
+  const int rank = (int)cg::this_cluster().block_rank();
+  const int cid = blockIdx.x / cs;
+  const int dir = cid & 1;
+  const Share lane_share = share_of(B, plan.groups, 0, cid >> 1);
+  const Share unit_share = share_of(H, cs, 0, rank);
+  const int lane0 = lane_share.first, nl = lane_share.count;
+  const int first = unit_share.first, u = unit_share.count;
+  const int Lp = plan.lanes_padded;
+  const RnnLayout lay = rnn_layout(H, plan.units_max, Lp, (int)sizeof(T), false);
+  const int ws = lay.ws, u3 = 3 * u, H2 = 2 * H, k4 = r4(H) / 4;
+  T* s_w = reinterpret_cast<T*>(smem);                         // [3u][ws]
+  float* s_hin = reinterpret_cast<float*>(smem + lay.in1);     // [Lp][ws] io(h)
+  float* s_rh = reinterpret_cast<float*>(smem + lay.in2);      // [Lp][ws] io(r * h)
+  float* rows0 = reinterpret_cast<float*>(smem + lay.rows0);   // [Lp][3u] step rows, even
+  float* rows1 = reinterpret_cast<float*>(smem + lay.rows1);   //          and odd steps
+  float* s_h = reinterpret_cast<float*>(smem + lay.own);       // [Lp][u] the carry
+  int* s_len = reinterpret_cast<int*>(smem + lay.len);         // [Lp]
+  // the bytes of io(h) (from the second step on) and of io(r * h), from every block
+  unsigned long long* bar_h = reinterpret_cast<unsigned long long*>(smem + lay.bars);
+  unsigned long long* bar_rh = bar_h + 1;
   const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  float* s_in = smem;                  // LANES * K    [x_t | io(h)], then [x_t | io(r * h)]
-  float* s_h = s_in + LANES * K;       // LANES * H    carry, float32
-  float* s_rz = s_h + LANES * H;       // LANES * 2H   sigmoid gates
-  float* s_part = s_rz + LANES * H2;   // LANES * max(nt, 2H) partial sums
-  __shared__ int s_len[LANES];
+  const T* wg = dir ? wg_b : wg_f;
+  const T* wc = dir ? wc_b : wc_f;
 
-  const int dir = blockIdx.y;
-  const int lane0 = blockIdx.x * LANES;
-  const T* wg = dir == 0 ? wg_f : wg_b;
-  const T* bg = dir == 0 ? bg_f : bg_b;
-  const T* wc = dir == 0 ? wc_f : wc_b;
-  const T* bc = dir == 0 ? bc_f : bc_b;
-  const int parts_g = nt / H2 > 0 ? nt / H2 : 1;   // threads per column, gate product
-  const int parts_c = nt / H > 0 ? nt / H : 1;     // threads per column, candidate product
-
-  if (tid < LANES) {
-    const int b = lane0 + tid;
+  for (int i = tid; i < Lp; i += RNN_THREADS) {
     int len = 0;
-    if (b < B) {
-      len = lengths[b];
+    if (i < nl) {
+      len = lengths[lane0 + i];
       len = len < 0 ? 0 : (len > S ? S : len);
     }
-    s_len[tid] = len;
+    s_len[i] = len;
   }
-  for (int i = tid; i < LANES * H; i += nt) s_h[i] = 0.0f;
+  for (int i = tid; i < Lp * ws; i += RNN_THREADS) s_hin[i] = s_rh[i] = 0.0f;
+  for (int i = tid; i < Lp * u3; i += RNN_THREADS) rows0[i] = rows1[i] = 0.0f;
+  for (int i = tid; i < Lp * u; i += RNN_THREADS) s_h[i] = 0.0f;
+  if (tid == 0) {
+    mbar_init(bar_h);
+    mbar_init(bar_rh);
+  }
+  // the block's columns of the h rows (C .. C+H-1): r, z, candidate; k contiguous,
+  // zero from H to the padded width
+  for (int i = tid; i < r4(H) * u3; i += RNN_THREADS) {
+    const int k = i / u3;
+    const int c = i - k * u3;
+    T v = Io<T>::from(0.0f);
+    if (k < H) {
+      const size_t row = (size_t)(C + k);
+      if (c < u) v = wg[row * H2 + first + c];
+      else if (c < 2 * u) v = wg[row * H2 + H + first + c - u];
+      else v = wc[row * H + first + c - 2 * u];
+    }
+    s_w[(size_t)c * ws + k] = v;
+  }
   __syncthreads();
-
   int max_len = 0;
-#pragma unroll
-  for (int l = 0; l < LANES; ++l) max_len = s_len[l] > max_len ? s_len[l] : max_len;
-
-  // Zero the padded tail of this direction's half of y.
-  for (int l = 0; l < LANES; ++l) {
-    const int b = lane0 + l;
-    if (b >= B) continue;
+  for (int l = 0; l < nl; ++l) max_len = imax(max_len, s_len[l]);
+  // zero the padded tail of the block's units of this direction's half of y
+  for (int l = 0; l < nl; ++l) {
     const int len = s_len[l];
-    const int n = (S - len) * H;
-    for (int i = tid; i < n; i += nt) {
-      const int t = len + i / H;
-      const int j = i % H;
-      y[((size_t)b * S + t) * H2 + dir * H + j] = from_float<T>(0.0f);
+    for (int i = tid; i < (S - len) * u; i += RNN_THREADS) {
+      const int t = len + i / u;
+      const int j = i % u;
+      y[((size_t)(lane0 + l) * S + t) * H2 + dir * H + first + j] = Io<T>::from(0.0f);
     }
   }
+
+  Moves mv;
+  mv.init(H, first, u, 3, Lp);
+  ProductWalk gates, cand;
+  gates.init(2 * u, k4, Lp / LT);
+  cand.init(u, k4, Lp / LT);
+  auto fetch = [&](int t, float* dst) {
+    fetch_rows(mv, dst, nl, u, [&](int l, int s) {
+      return proj + ((size_t)(lane0 + l) * S + t) * 6 * H + dir * 3 * H + s * H + first;
+    });
+  };
+  // every block receives 4 * Lp * H bytes of each gathered vector a step
+  const unsigned bytes = 4u * Lp * H;
+  if (tid == 0 && max_len > 0) mbar_expect(bar_rh, bytes);
+  if (tid == 0 && max_len > 1) mbar_expect(bar_h, bytes);
+  if (max_len > 0) fetch(dir ? max_len - 1 : 0, rows0);
+  copies_wait();
+  // every block started, its mbarriers armed; zeroed inputs and the first rows in place
+  cluster_barrier();
 
   for (int step = 0; step < max_len; ++step) {
-    const int t = dir == 0 ? step : max_len - 1 - step;
-
-    // 1. stage [x_t | io(h)]
-    for (int i = tid; i < LANES * K; i += nt) {
-      const int l = i / K;
-      const int k = i - l * K;
-      float v;
-      if (k < C) {
-        v = (t < s_len[l]) ? to_float(xs[((size_t)(lane0 + l) * S + t) * C + k]) : 0.0f;
-      } else {
-        v = round_io<T>(s_h[l * H + (k - C)]);
-      }
-      s_in[i] = v;
+    const int t = dir ? max_len - 1 - step : step;
+    float* rows = (step & 1) ? rows1 : rows0;
+    if (step > 0) {
+      // io(h) of every unit, from the step before (the first step's is zero)
+      bar_wait(bar_h, (step - 1) & 1);
+      if (tid == 0 && step + 1 < max_len) mbar_expect(bar_h, bytes);
     }
-    __syncthreads();
 
-    // 2. rz = sigmoid([x, io(h)] . Wg + bg)
-    partial_products<T>(wg, H2, K, s_in, s_part, parts_g, tid, nt);
+    // r and z of the block's units; io(r * h) replaces r's projection
+    cluster_product<LT, T>(gates, s_w, ws, s_hin, ws, k4, [&](int tile, int col, int i, float acc) {
+      const int l = tile * LT + i;
+      float* pr = rows + l * u3;
+      const float g = sigmoidf_(acc + pr[col]);
+      pr[col] = col < u ? Io<T>::round(g * s_h[l * u + col]) : g;
+    });
+    // every thread of the block is past its reads of io(h) before any block may
+    // write the next step's
     __syncthreads();
-    for (int i = tid; i < LANES * H2; i += nt) {
-      const int l = i / H2;
-      const int j = i - l * H2;
-      float acc = 0.0f;
-      for (int p = 0; p < parts_g; ++p) acc += s_part[(p * LANES + l) * H2 + j];
-      s_rz[i] = sigmoidf_(acc + to_float(bg[j]));
-    }
-    __syncthreads();
+    push_to_cluster(mv, cs, rows, u3, u, s_rh, ws, first, bar_rh);
+    // the next step's rows, while the other blocks' io(r * h) arrives
+    if (step + 1 < max_len) fetch(dir ? t - 1 : t + 1, (step & 1) ? rows0 : rows1);
+    bar_wait(bar_rh, step & 1);
+    if (tid == 0 && step + 1 < max_len) mbar_expect(bar_rh, bytes);
 
-    // 3. the h part of the staged input becomes io(r * h)
-    for (int i = tid; i < LANES * H; i += nt) {
-      const int l = i / H;
-      const int j = i - l * H;
-      s_in[l * K + C + j] = round_io<T>(s_rz[l * H2 + j] * s_h[i]);
-    }
-    __syncthreads();
-
-    // 4. n = tanh([x, io(r*h)] . Wc + bc);  h' = (1 - z) n + z h;  masked store
-    partial_products<T>(wc, H, K, s_in, s_part, parts_c, tid, nt);
-    __syncthreads();
-    for (int i = tid; i < LANES * H; i += nt) {
-      const int l = i / H;
-      const int j = i - l * H;
+    // n, h' and the output; io(h') replaces n's projection
+    cluster_product<LT, T>(cand, s_w + (size_t)2 * u * ws, ws, s_rh, ws, k4,
+                           [&](int tile, int j, int i, float acc) {
+      const int l = tile * LT + i;
+      float* pr = rows + l * u3;
+      float h = s_h[l * u + j];
       if (t < s_len[l]) {
-        float acc = 0.0f;
-        for (int p = 0; p < parts_c; ++p) acc += s_part[(p * LANES + l) * H + j];
-        const float n = tanhf(acc + to_float(bc[j]));
-        const float z = s_rz[l * H2 + H + j];
-        const float h_new = (1.0f - z) * n + z * s_h[i];
-        s_h[i] = h_new;
-        y[((size_t)(lane0 + l) * S + t) * H2 + dir * H + j] = from_float<T>(h_new);
+        const float n = tanhf(acc + pr[2 * u + j]);
+        const float z = pr[u + j];
+        h = (1.0f - z) * n + z * h;
+        s_h[l * u + j] = h;
+        y[((size_t)(lane0 + l) * S + t) * H2 + dir * H + first + j] = Io<T>::from(h);
       }
-    }
+      pr[2 * u + j] = Io<T>::round(h);
+    });
+    // past the reads of io(r * h), and the carry and the staged io(h') in place
+    __syncthreads();
+    if (step + 1 < max_len) push_to_cluster(mv, cs, rows + 2 * u, u3, u, s_hin, ws, first, bar_h);
+    copies_wait();
     __syncthreads();
   }
+  // no block leaves while its stores into other blocks may be in flight
+  cluster_barrier();
 }
 
 template <typename T>
-int launch_bigru(const void* xs, const void* lengths, const void* wg_f, const void* bg_f,
-                 const void* wc_f, const void* bc_f, const void* wg_b, const void* bg_b,
-                 const void* wc_b, const void* bc_b, void* y, int B, int S, int C, int H,
+int plan_of(int B, int H, RnnPlan* plan, int* n_sms) {
+  return rnn_device_plan(bigru_cluster_kernel<T, 4>, B, H, (int)sizeof(T), false, plan, n_sms);
+}
+
+template <typename T>
+int launch_proj(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
+                const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
+                const void* bc_b, void* proj, int M, int C, int H, void* stream) {
+  if (M <= 0 || C <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+  ProjWeights<T> w{(const T*)wg_f, (const T*)bg_f, (const T*)wc_f, (const T*)bc_f,
+                   (const T*)wg_b, (const T*)bg_b, (const T*)wc_b, (const T*)bc_b, H};
+  dim3 grid((6 * H + PROJ_BN - 1) / PROJ_BN, (M + PROJ_BM - 1) / PROJ_BM);
+  bigru_proj_kernel<T><<<grid, 256, 0, (cudaStream_t)stream>>>((const T*)xs, w, (float*)proj, M, C);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bigru(const void* proj, const void* lengths, const void* wg_f, const void* wc_f,
+                 const void* wg_b, const void* wc_b, void* y, int B, int S, int C, int H,
                  void* stream) {
   if (B <= 0 || S <= 0 || C <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
-  int threads = ((8 * H + 31) / 32) * 32;   // four threads per gate column
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  const int part_cols = threads > 2 * H ? threads : 2 * H;
-  const size_t smem = sizeof(float) * (size_t)LANES * ((C + H) + H + 2 * H + part_cols);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(bigru_kernel<T>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  dim3 grid((B + LANES - 1) / LANES, 2);
-  bigru_kernel<T><<<grid, threads, smem, (cudaStream_t)stream>>>(
-      (const T*)xs, (const int*)lengths, (const T*)wg_f, (const T*)bg_f, (const T*)wc_f,
-      (const T*)bc_f, (const T*)wg_b, (const T*)bg_b, (const T*)wc_b, (const T*)bc_b, (T*)y, B, S,
-      C, H);
-  return (int)cudaGetLastError();
+  RnnPlan p;
+  int n_sms = 0;
+  const int code = plan_of<T>(B, H, &p, &n_sms);
+  if (code != 0) return code;
+  auto* kernel = p.lane_tile == 1 ? bigru_cluster_kernel<T, 1> : bigru_cluster_kernel<T, 4>;
+  return (int)rnn_launch(kernel, p, stream, (const float*)proj, (const int*)lengths,
+                         (const T*)wg_f, (const T*)wc_f, (const T*)wg_b, (const T*)wc_b, (T*)y, B,
+                         S, C, H);
 }
 
 }  // namespace
 
 extern "C" {
 
-int bigru_f32(const void* xs, const void* lengths, const void* wg_f, const void* bg_f,
-              const void* wc_f, const void* bc_f, const void* wg_b, const void* bg_b,
-              const void* wc_b, const void* bc_b, void* y, int B, int S, int C, int H,
-              void* stream) {
-  return launch_bigru<float>(xs, lengths, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, y, B, S,
-                             C, H, stream);
+// The x half of both directions' products, biases folded in: proj (B*S, 6H) float32.
+int bigru_proj_f32(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
+                   const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
+                   const void* bc_b, void* proj, int M, int C, int H, void* stream) {
+  return launch_proj<float>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, proj, M, C, H,
+                            stream);
 }
 
-int bigru_bf16(const void* xs, const void* lengths, const void* wg_f, const void* bg_f,
-               const void* wc_f, const void* bc_f, const void* wg_b, const void* bg_b,
-               const void* wc_b, const void* bc_b, void* y, int B, int S, int C, int H,
+int bigru_proj_bf16(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
+                    const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
+                    const void* bc_b, void* proj, int M, int C, int H, void* stream) {
+  return launch_proj<__nv_bfloat16>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, proj, M,
+                                    C, H, stream);
+}
+
+// The recurrence of both directions over proj: y (B, S, 2H) in the io type.
+int bigru_f32(const void* proj, const void* lengths, const void* wg_f, const void* wc_f,
+              const void* wg_b, const void* wc_b, void* y, int B, int S, int C, int H,
+              void* stream) {
+  return launch_bigru<float>(proj, lengths, wg_f, wc_f, wg_b, wc_b, y, B, S, C, H, stream);
+}
+
+int bigru_bf16(const void* proj, const void* lengths, const void* wg_f, const void* wc_f,
+               const void* wg_b, const void* wc_b, void* y, int B, int S, int C, int H,
                void* stream) {
-  return launch_bigru<__nv_bfloat16>(xs, lengths, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b,
-                                     y, B, S, C, H, stream);
+  return launch_bigru<__nv_bfloat16>(proj, lengths, wg_f, wc_f, wg_b, wc_b, y, B, S, C, H,
+                                     stream);
+}
+
+// The plan the recurrence launches with on the current device (rnn_plan_fields).
+int bigru_plan_query(int B, int H, int bf16, long long* out) {
+  RnnPlan p;
+  int n_sms = 0;
+  const int code = bf16 ? plan_of<__nv_bfloat16>(B, H, &p, &n_sms) : plan_of<float>(B, H, &p, &n_sms);
+  if (code == 0) rnn_plan_fields(p, n_sms, out);
+  return code;
 }
 
 }  // extern "C"

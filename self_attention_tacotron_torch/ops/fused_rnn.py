@@ -1,17 +1,30 @@
-"""Bidirectional GRU over a padded batch: CUDA kernel, plain version, wrapper.
+"""Bidirectional GRU over a padded batch: CUDA kernels, plain versions, wrappers.
 
 ``bigru`` replaces ``bigru_pallas`` of the JAX package
 (``self_attention_tacotron_tpu/ops/fused_rnn.py``, ``_make_kernel``): both
-directions of the CBHG's GRU in one launch, length-masked. A padded step keeps
-the carry and emits zero; the backward direction walks S-1 -> 0.
+directions of the CBHG's GRU, length-masked. A padded step keeps the carry and
+emits zero; the backward direction walks S-1 -> 0.
 
 What bounds it on an H100: nothing the card is short of. The work is
 2 * sum(lengths) * 2 * (C + H) * 3H operations and a few megabytes, but the S
-steps depend on each other, so the time is S times the latency of one step. The
-kernel (``csrc/bigru.cu``) therefore keeps the whole loop in one launch, with
-the carries in shared memory and the weights read through L2, gives every
-(group of 4 lanes, direction) its own block, and stops each block at the longest
-length among its lanes.
+steps depend on each other, so the time is S times the latency of one step.
+The kernels (``csrc/bigru.cu``, ``csrc/cluster_rnn.cuh``) shorten that step:
+
+* the x half of both products does not depend on the carry, so one tiled
+  product over the whole card computes it for every lane, step and direction
+  first (``bigru_proj_kernel``, float32 FFMA sums, biases folded in, into a
+  scratch of B * S * 6H floats the wrapper allocates);
+* the recurrence runs as one thread-block cluster per (direction, group of
+  lanes). The cluster's blocks share out the H units; each holds its slice of
+  the recurrent weights in shared memory for the whole loop (no weight is read
+  from global memory inside the step loop) and writes the values of its units
+  that every unit needs (io(r*h), then io(h')) into every block of the cluster,
+  where an mbarrier counts their bytes: two exchanges a step, no grid barrier and
+  no cluster-wide barrier inside the loop. ``bigru_plan`` mirrors the
+  plan both kernels compute for themselves: the cluster size from H (8, or 16
+  where 8 blocks cannot hold the slices), the lanes per cluster from B (as few
+  waves of clusters as the room per block allows, the lanes spread over the
+  clusters of those waves), the shared memory of a block.
 
 The cell is ``GRUCell`` of ``models/modules.py``: the candidate takes
 ``[x, r * h]``. It is not cuDNN's GRU, whose candidate is ``r * (W_h h)``.
@@ -23,7 +36,9 @@ shifted by one step, runs the one serial part, the recursion of the carry's
 cotangent, as a second kernel (``csrc/bigru_bwd.cu``), and forms the weight
 gradients and ``d_x`` as batched products. That kernel moves 16 * B * S * H
 floats and does 12 * H * H operations per valid step; like the forward it is
-bounded by the chain of S dependent steps, and has the forward's layout.
+bounded by the chain of S dependent steps, and has the forward's cluster design:
+each block keeps its output units' columns of the transposed h rows resident,
+and io(g_ac), then io(g_ag), cross the cluster in the step's two exchanges.
 ``BiRNN`` takes ``bigru`` in eval mode and ``bigru_train`` in train mode.
 In bfloat16 the backward rounds where the JAX package's does: every product's
 inputs (the recomputed gates' inputs, the cotangents entering the carry
@@ -35,24 +50,29 @@ gradients.
 ``bilstm`` replaces ``bilstm_pallas`` (``_make_lstm_kernel``): both directions
 of ZoneoutEncoderV1's LSTM in one launch (``csrc/bilstm.cu``), eval mode only,
 with zoneout as the interpolation ``z * prev + (1 - z) * new``. It has the
-BiGRU's shape and the same bound, the chain of S dependent steps: one block per
-(4 lanes, direction) keeps the carries in shared memory and streams the gate
-matrix through L2 at every step. Training runs the cells step by step under
-autograd, as the JAX package does (it has no training kernel for the LSTM).
-``torch.nn.LSTM`` computes another function: it has no zoneout interpolation.
+same bound, the chain of S dependent steps: one block per (4 lanes, direction)
+keeps the carries in shared memory and streams the gate matrix through L2 at
+every step. Training runs the cells step by step under autograd, as the JAX
+package does (it has no training kernel for the LSTM). ``torch.nn.LSTM``
+computes another function: it has no zoneout interpolation.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence
+from dataclasses import dataclass, fields
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from self_attention_tacotron_torch.ops.grid import round4, share_of
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
-# Launches of the CUDA kernel made by ``bigru`` in this process.
+# Launches of the recurrence kernel made by ``bigru`` in this process.
 launch_count = 0
+# Launches of the input projection made by ``bigru`` in this process (one per call,
+# before the recurrence).
+proj_launch_count = 0
 # Launches of the backward's carry kernel made by ``bigru_train`` in this process.
 bwd_launch_count = 0
 # Launches of the CUDA kernel made by ``bilstm`` in this process.
@@ -109,12 +129,151 @@ def bigru_reference(
     )
 
 
-def _kernel_fn(dtype: torch.dtype):
-    name = "bigru_f32" if dtype == torch.float32 else "bigru_bf16"
+# --------------------------------------------------------------------------- #
+# The cluster plan (csrc/cluster_rnn.cuh::rnn_plan, mirrored)
+# --------------------------------------------------------------------------- #
+
+RNN_THREADS = 256
+# The opt-in shared memory of one block on an H100; a cluster is 8 blocks, or 16
+# where 8 cannot hold the weight slices.
+RNN_SMEM_LIMIT = 232448
+CLUSTER_SIZES = (8, 16)
+# What the kernels' C interface returns where no cluster of the plan's size is
+# resident, and where the width does not fit a cluster of 16.
+_NO_CLUSTER, _TOO_WIDE = -2, -3
+
+
+@dataclass(frozen=True)
+class BiGRUPlan:
+    """How ``csrc/bigru.cu`` (forward) or ``csrc/bigru_bwd.cu`` (backward) runs B
+    lanes of width H: the fields of ``csrc/cluster_rnn.cuh::RnnPlan`` in the order
+    the C interface's query writes them, then the card's SM count."""
+
+    cluster: int        # blocks per cluster
+    units_max: int      # units of the largest share
+    max_lanes: int      # lanes one block's room holds
+    slots: int          # clusters resident at once, one block per SM
+    groups: int         # lane groups per direction; clusters = 2 * groups
+    lanes: int          # lanes of the largest group
+    lane_tile: int      # lanes per thread in the products
+    lanes_padded: int
+    clusters: int
+    waves: int
+    threads: int
+    smem_bytes: int     # shared memory one block uses
+    smem_limit: int
+    n_sms: int
+
+    def units(self, H: int) -> List[Tuple[int, int]]:
+        """(first, count) of the units of each block of a cluster."""
+        return [share_of(H, self.cluster, r) for r in range(self.cluster)]
+
+    def lane_groups(self, B: int) -> List[Tuple[int, int]]:
+        """(first, count) of the lanes of each group (each direction's cluster)."""
+        return [share_of(B, self.groups, g) for g in range(self.groups)]
+
+
+def _r16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def rnn_smem_bytes(H: int, u: int, Lp: int, io_bytes: int, backward: bool) -> int:
+    """A block's shared memory (``rnn_layout``): the weight slice in the io type,
+    then float32 rows: the gathered product inputs (row stride ``round4(H) + 4``,
+    and ``round4(2H) + 4`` for the backward's g_ag), two buffers of each step's
+    rows, the block's own state, the lengths, and two mbarriers."""
+    ws, ws2 = round4(H) + 4, round4(2 * H) + 4
+    if not backward:
+        end = _r16(3 * u * ws * io_bytes) + 4 * Lp * (2 * ws + 7 * u) + 4 * Lp
+    else:
+        end = _r16(u * (ws + ws2) * io_bytes) + 4 * Lp * (ws + ws2 + 15 * u) + 4 * Lp
+    return (end + 7) // 8 * 8 + 16
+
+
+def rnn_max_lanes(H: int, cs: int, io_bytes: int, backward: bool) -> int:
+    """The most lanes one block's room holds at cluster size ``cs`` (a multiple of 4,
+    the products' lane tile, or 1); 0 where not one lane fits."""
+    u = -(-H // cs)
+    a = rnn_smem_bytes(H, u, 0, io_bytes, backward)
+    b = rnn_smem_bytes(H, u, 1, io_bytes, backward) - a
+    if RNN_SMEM_LIMIT < a + b:
+        return 0
+    fit = (RNN_SMEM_LIMIT - a) // b
+    return fit // 4 * 4 if fit >= 4 else 1
+
+
+def bigru_plan(B: int, S: int, C: int, H: int, io: torch.dtype, n_sms: int = 132,
+               backward: bool = False, active_clusters: int = None) -> BiGRUPlan:
+    """The plan ``csrc/bigru.cu`` (or, ``backward``, ``csrc/bigru_bwd.cu``) launches
+    with: a cluster of 8 blocks where one lane fits a block beside the weight slice,
+    else 16 (``ValueError`` where neither does); ``active_clusters`` resident at once
+    (what ``cudaOccupancyMaxActiveClusters`` reports for one block per SM; by default
+    ``n_sms // cluster``); as few waves as ``max_lanes`` allows, and within them as
+    many lane groups as the waves hold clusters (two directions each). S and C do not
+    change the plan."""
+    if B < 1 or H < 1:
+        raise ValueError(f"bigru: B and H must be at least 1, got B={B}, H={H}")
+    io_bytes = torch.empty((), dtype=io).element_size()
+    cs = next((c for c in CLUSTER_SIZES
+               if rnn_max_lanes(H, c, io_bytes, backward) > 0), 0)
+    if cs == 0:
+        raise ValueError(
+            f"bigru: H={H} does not fit: one block of a cluster of {CLUSTER_SIZES[-1]} "
+            f"holding its slice of the recurrent weights and one lane needs more than "
+            f"the {RNN_SMEM_LIMIT} bytes of shared memory a block may have")
+    slots = n_sms // cs if active_clusters is None else int(active_clusters)
+    if slots < 1:
+        raise ValueError(f"bigru: no cluster of {cs} blocks is resident on {n_sms} SMs")
+    max_lanes = rnn_max_lanes(H, cs, io_bytes, backward)
+    need = -(-B // max_lanes)
+    waves = max(1, -(-2 * need // slots))
+    groups = min(B, max(1, waves * slots // 2))
+    lanes = -(-B // groups)
+    tile = 1 if lanes == 1 else 4
+    padded = -(-lanes // tile) * tile
+    u = -(-H // cs)
+    return BiGRUPlan(
+        cluster=cs, units_max=u, max_lanes=max_lanes, slots=slots, groups=groups,
+        lanes=lanes, lane_tile=tile, lanes_padded=padded, clusters=2 * groups, waves=waves,
+        threads=RNN_THREADS, smem_bytes=rnn_smem_bytes(H, u, padded, io_bytes, backward),
+        smem_limit=RNN_SMEM_LIMIT, n_sms=n_sms)
+
+
+def bigru_device_plan(B: int, H: int, io: torch.dtype, device, backward: bool = False
+                      ) -> BiGRUPlan:
+    """The plan the built kernel computes for itself on ``device`` (its C query)."""
+    lib = load_library("bigru_bwd" if backward else "bigru")
+    query = lib.bigru_bwd_plan_query if backward else lib.bigru_plan_query
+    query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    query.restype = ctypes.c_int
+    out = (ctypes.c_longlong * len(fields(BiGRUPlan)))()
+    with torch.cuda.device(device):
+        err = query(int(B), int(H), int(io == torch.bfloat16), ctypes.addressof(out))
+    _raise_on(err, "bigru_bwd" if backward else "bigru")
+    return BiGRUPlan(*(int(v) for v in out))
+
+
+def _raise_on(err: int, name: str) -> None:
+    if err == _TOO_WIDE:
+        raise ValueError(
+            f"{name}: H does not fit: one block of a cluster of {CLUSTER_SIZES[-1]} holding "
+            f"its slice of the recurrent weights and one lane needs more than the "
+            f"{RNN_SMEM_LIMIT} bytes of shared memory a block may have")
+    if err == _NO_CLUSTER:
+        raise RuntimeError(f"{name}: no cluster of the plan's size is resident on this card")
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _kernel_fn(dtype: torch.dtype, proj: bool = False):
+    name = ("bigru_proj_" if proj else "bigru_") + ("f32" if dtype == torch.float32 else "bf16")
     fn = _functions.get(name)
     if fn is None:
         fn = getattr(load_library("bigru"), name)
-        fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        if proj:
+            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
@@ -145,10 +304,10 @@ def bigru(
 ) -> torch.Tensor:
     """Both directions of the GRU, (B, S, 2H) in ``xs``'s type.
 
-    A CUDA tensor goes to the kernel or raises; a CPU tensor goes to
-    ``bigru_reference``.
+    A CUDA tensor goes to the kernels (the input projection, then the recurrence)
+    or raises; a CPU tensor goes to ``bigru_reference``.
     """
-    global launch_count
+    global launch_count, proj_launch_count
     if xs.dim() != 3:
         raise ValueError(f"xs must be (B, S, C), got {tuple(xs.shape)}")
     if xs.dtype not in _IO_DTYPES:
@@ -166,16 +325,21 @@ def bigru(
     wf = _weights(params_fwd, xs.dtype, xs.device, C, H)
     wb = _weights(params_bwd, xs.dtype, xs.device, C, H)
     y = torch.empty(B, S, 2 * H, dtype=xs.dtype, device=xs.device)
-    fn = _kernel_fn(xs.dtype)
+    # the x half of every step's products, both directions: (B*S, 6H) float32
+    proj = torch.empty(B * S * 6 * H, dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            xs_c.data_ptr(), len_c.data_ptr(),
-            *(w.data_ptr() for w in wf), *(w.data_ptr() for w in wb),
-            y.data_ptr(), B, S, C, H, stream,
+        err = _kernel_fn(xs.dtype, proj=True)(
+            xs_c.data_ptr(), *(w.data_ptr() for w in wf), *(w.data_ptr() for w in wb),
+            proj.data_ptr(), B * S, C, H, stream,
         )
-    if err != 0:
-        raise RuntimeError(f"bigru kernel launch failed: CUDA error {err}")
+        _raise_on(err, "bigru_proj")
+        proj_launch_count += 1
+        err = _kernel_fn(xs.dtype)(
+            proj.data_ptr(), len_c.data_ptr(), wf[0].data_ptr(), wf[2].data_ptr(),
+            wb[0].data_ptr(), wb[2].data_ptr(), y.data_ptr(), B, S, C, H, stream,
+        )
+    _raise_on(err, "bigru")
     launch_count += 1
     return y
 
@@ -262,8 +426,7 @@ def bigru_bwd_carry(g_y, rz, n, hp, lengths, wgh_t, wch_t):
         err = _bwd_kernel_fn(io)(
             *(x.data_ptr() for x in operands), g_ag.data_ptr(), g_ac.data_ptr(), B, S, H, stream
         )
-    if err != 0:
-        raise RuntimeError(f"bigru_bwd kernel launch failed: CUDA error {err}")
+    _raise_on(err, "bigru_bwd")
     bwd_launch_count += 1
     return g_ag, g_ac
 

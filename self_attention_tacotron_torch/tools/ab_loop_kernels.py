@@ -27,14 +27,19 @@ S=128 ragged):
   and whether the launches on the same inputs gave the same features and
   gradients bit for bit (``bit_for_bit``);
 * the BiGRU backward's carry kernel (``bigru_bwd``, float32, H=128; five runs of
-  20 launches),
+  20 launches);
+* with ``--rnn``: the BiGRU kernels alone (``RNN_CASES``), C=H=128 from seeded
+  weights: ``bigru`` (the whole forward, input projection included) in float32
+  and bfloat16 at B=1 (S=97), B=32 (S=128 ragged), B=128, B=528 and B=1024
+  (ragged), and ``bigru_bwd`` in both io types at B=1 and B=32; five runs of 20
+  launches (5 from B=528 on),
 
 and prints one ``AB {...}`` JSON line with the card's name and power limit and
 the median of each (a case draws its inputs from a seed of its own, and a decode
 case the tree does not serve is left out, so that two trees compare like with
 like); with ``--decode`` after LABEL, the decode kernels only, with ``--teacher``
-the teacher kernels only. Run it in turns (parent, change, change, parent) in
-one chip call:
+the teacher kernels only, with ``--rnn`` the BiGRU kernels only. Run it in turns
+(parent, change, change, parent) in one chip call:
 
     for t in runs/parent:parent .:change .:change runs/parent:parent; do
       python3 self_attention_tacotron_torch/tools/ab_loop_kernels.py "${t%%:*}" "${t##*:}"
@@ -231,7 +236,20 @@ def _teacher_times(dev):
     return out, same
 
 
-def _bigru_bwd_times(dev, rng):
+# The BiGRU cases of --rnn: (label, kernel, io, batch, source length); B=1 at the
+# request's source length, the rest ragged up to S.
+RNN_CASES = tuple(
+    (f"{kernel}_{io}" + (f"_b{batch}" if batch != B else ""), kernel, io, batch,
+     97 if batch == 1 else S)
+    for kernel, batches in (("bigru", (1, B, 128, 528, 1024)), ("bigru_bwd", (1, B)))
+    for io in ("f32", "bf16") for batch in batches)
+
+
+def _rnn_times(dev, rng, cases=(("bigru_bwd", "bigru_bwd", "f32", B, S),)):
+    """Device times of the BiGRU kernels at C=H=128 from seeded weights: ``bigru``
+    (the whole forward, input projection included) or its backward's carry kernel
+    (``bigru_bwd``, on the operands the backward hands it), per case of ``cases``;
+    runs of 20 launches (5 from B=528 on), medians over five runs."""
     import torch
     from self_attention_tacotron_torch.ops import fused_rnn
 
@@ -241,19 +259,29 @@ def _bigru_bwd_times(dev, rng):
 
     C = H = 128
     fan = 1.0 / np.sqrt(C + H)
-    lengths = np.clip(rng.integers(24, 129, B), 24, 128)
-    lengths[0] = 128
-    lens = torch.tensor(lengths, device=dev)
-    xs = arr(B, S, C, scale=1.0)
-    params = [{"gates_kernel": arr(C + H, 2 * H, scale=fan), "gates_bias": arr(2 * H, scale=0.1),
-               "candidate_kernel": arr(C + H, H, scale=fan), "candidate_bias": arr(H, scale=0.1)}
-              for _ in range(2)]
-    weights = [p[k] for p in params for k in fused_rnn._PARAM_KEYS]
-    y = fused_rnn.bigru(xs, lens, params[0], params[1], H)
-    rz, n, hp, _, _, wgh_t, wch_t = fused_rnn.bwd_operands(xs, y, weights, H)
-    g_y = arr(B, S, 2 * H, scale=1.0)
-    return {"bigru_bwd": _events_ms(
-        lambda: fused_rnn.bigru_bwd_carry(g_y, rz, n, hp, lens, wgh_t, wch_t), inner=20)}
+    out = {}
+    for label, kernel, io, batch, src in cases:
+        dtype = torch.bfloat16 if io == "bf16" else torch.float32
+        lengths = np.clip(rng.integers(24, src + 1, batch), 24, src)
+        lengths[0] = src
+        lens = torch.tensor(lengths, device=dev)
+        xs = arr(batch, src, C, scale=1.0).to(dtype)
+        params = [{"gates_kernel": arr(C + H, 2 * H, scale=fan),
+                   "gates_bias": arr(2 * H, scale=0.1),
+                   "candidate_kernel": arr(C + H, H, scale=fan),
+                   "candidate_bias": arr(H, scale=0.1)} for _ in range(2)]
+        inner = 20 if batch < 528 else 5
+        if kernel == "bigru":
+            pf, pb = ({k: v.to(dtype) for k, v in p.items()} for p in params)
+            out[label] = _events_ms(lambda: fused_rnn.bigru(xs, lens, pf, pb, H), inner=inner)
+            continue
+        weights = [p[k] for p in params for k in fused_rnn._PARAM_KEYS]
+        y = fused_rnn.bigru(xs, lens, params[0], params[1], H)
+        rz, n, hp, _, _, wgh_t, wch_t = fused_rnn.bwd_operands(xs, y, weights, H)
+        g_y = arr(batch, src, 2 * H, scale=1.0)
+        out[label] = _events_ms(
+            lambda: fused_rnn.bigru_bwd_carry(g_y, rz, n, hp, lens, wgh_t, wch_t), inner=inner)
+    return out
 
 
 def main(argv=None) -> None:
@@ -269,13 +297,15 @@ def main(argv=None) -> None:
     dev = torch.device("cuda", 0)
     times, extra = {}, {}
     flags = args[2:]
-    if "--teacher" not in flags:
+    if "--rnn" in flags:
+        times.update(_rnn_times(dev, np.random.default_rng(6), RNN_CASES))
+    if not flags or "--decode" in flags:
         times.update(_decode_times(dev))
-    if "--decode" not in flags:
+    if not flags or "--teacher" in flags:
         teacher, extra["bit_for_bit"] = _teacher_times(dev)
         times.update(teacher)
     if not flags:
-        times.update(_bigru_bwd_times(dev, np.random.default_rng(6)))
+        times.update(_rnn_times(dev, np.random.default_rng(6)))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
     print("AB " + json.dumps({"tree": label, "card": card, "ms": times,
