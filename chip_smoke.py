@@ -54,7 +54,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    by stage ("stages" lines, ``fused_teacher.teacher_stage_times``), and two
    launch pairs on the same inputs compared bit for bit;
    ``bilstm`` (ZoneoutEncoderV1's LSTM) in float32 and bfloat16 at narrow
-   ragged shapes and at full width; the baseline family's specialisations:
+   ragged shapes, at the cluster design's edges (``BIGRU_EDGES``) and at full
+   width, timed at B=32 and at the batch-1 request's shape, two launches bit for
+   bit, its cluster plan (``fused_rnn.bilstm_plan``) held to the built kernel's and
+   a width over the limit raising; ``mha_full`` the same way (B=32 and B=1 timed,
+   bit for bit, its plan held to the built kernel's, the same shared memory at
+   every T, a head over ``MHA_HD_MAX`` raising) and over 600 and 4096 positions,
+   beyond its on-chip logits and beyond what the old design launched; the
+   baseline family's specialisations:
    ``fused_decode`` with one source or without self-attention (the three pairs
    of flags the flagship does not launch) at narrow sizes with early exits, the
    baseline at full width (B=32 and B=1, 500 steps, timed, and with an early
@@ -217,6 +224,15 @@ TEACHER_DESIGN = DECODE_DESIGN
 BIGRU_DESIGN = ("thread-block clusters: one per (direction, group of lanes), the recurrent "
                 "weights resident in shared memory, vectors gathered through distributed "
                 "shared memory on mbarriers; bigru's input projection a tiled product first")
+# The design of the LSTM kernel (csrc/bilstm.cu on csrc/cluster_rnn.cuh) and of the
+# attention kernel (csrc/mha_full.cu).
+BILSTM_DESIGN = ("thread-block clusters: one per (direction, group of lanes), each block's "
+                 "i, g, f, o columns resident in shared memory, io(h) gathered once a step "
+                 "through distributed shared memory into one of two copies; an input "
+                 "projection first")
+MHA_DESIGN = ("one block per (lane, head, 64 query rows): K and V tiles by cp.async, register "
+              "tiles (bfloat16: mma.sync; float32: FFMA), logits on chip or in probs' rows, "
+              "two passes over the keys")
 FUSED_WINDOWS = ((FUSED_STEPS, TOL_FUSED, "max"), (256, 5e-3, "max"), (500, 1e-3, "median"))
 FUSED_MEDIAN_LANES = 8
 # An early-exit threshold is placed in the widest gap of the plain run's stop
@@ -385,17 +401,22 @@ def check_mha(B, T, D, H, lengths, dtype, timed: bool, seed: int = 0):
     if lengths is not None:
         mask = torch.arange(T, device=DEV)[None, :] < torch.tensor(lengths, device=DEV)[:, None]
     ctx, probs = fused_attention.mha_full(qkv, mask, H)
+    again = fused_attention.mha_full(qkv, mask, H)
     torch.cuda.synchronize()
     want_ctx, want_probs = fused_attention.mha_full_reference(qkv, mask, H)
     err_ctx, err_probs = max_abs_err(ctx, want_ctx), max_abs_err(probs, want_probs)
     err = max(err_ctx, err_probs)
     tol = TOL[("mha_full", dtype)]
     finite = bool(torch.isfinite(ctx.float()).all()) and bool(torch.isfinite(probs).all())
-    ok = finite and err <= tol
+    # every sum has one owner thread and a fixed order: two launches agree bit for bit
+    same = bool(torch.equal(ctx, again[0])) and bool(torch.equal(probs, again[1]))
+    ok = finite and err <= tol and same
+    plan = fused_attention.mha_full_plan(B, T, D, H, dtype)
     rec = {
         "kernel": "mha_full", "shape": {"B": B, "T": T, "D": D, "H": H},
         "masked": mask is not None, "dtype": str(dtype).replace("torch.", ""),
-        "max_abs_err": err, "err_ctx": err_ctx, "err_probs": err_probs, "tol": tol, "ok": ok,
+        "max_abs_err": err, "err_ctx": err_ctx, "err_probs": err_probs, "tol": tol,
+        "bit_for_bit": same, "logits_on_chip": bool(plan.on_chip), "ok": ok,
     }
     if timed:
         elem = qkv.element_size()
@@ -443,6 +464,7 @@ def check_bilstm(B, S, C, H, lengths, dtype, zoneout: float, timed: bool, seed: 
     pf, pb = lstm_params(rng, C, H, dtype), lstm_params(rng, C, H, dtype)
     args = (xs, lens, pf, pb, H, zoneout, zoneout)
     got = fused_rnn.bilstm(*args)
+    again = fused_rnn.bilstm(*args)
     torch.cuda.synchronize()
     want = fused_rnn.bilstm_reference(*args)
     err = max_abs_err(got, want)
@@ -450,11 +472,16 @@ def check_bilstm(B, S, C, H, lengths, dtype, zoneout: float, timed: bool, seed: 
     padded_zero = all(
         float(got[b, n:].abs().max()) == 0.0 for b, n in enumerate(lengths) if n < S
     )
-    ok = bool(torch.isfinite(got.float()).all()) and err <= tol and padded_zero
+    # every sum has one owner thread and a fixed order: two launches agree bit for bit
+    same = bool(torch.equal(got, again))
+    ok = bool(torch.isfinite(got.float()).all()) and err <= tol and padded_zero and same
+    plan = fused_rnn.bilstm_device_plan(B, H, dtype, DEV)
     rec = {
         "kernel": "bilstm", "shape": {"B": B, "S": S, "C": C, "H": H}, "zoneout": zoneout,
         "dtype": str(dtype).replace("torch.", ""), "max_abs_err": err, "tol": tol,
-        "padded_rows_zero": padded_zero, "ok": ok,
+        "padded_rows_zero": padded_zero, "bit_for_bit": same,
+        "plan": {k: getattr(plan, k) for k in ("cluster", "groups", "lanes_padded", "waves")},
+        "ok": ok,
     }
     if timed:
         elem = xs.element_size()
@@ -542,8 +569,88 @@ def check_bigru_too_wide() -> dict:
     return {"H": H, "raised": said}
 
 
+def check_bilstm_plans() -> dict:
+    """The LSTM kernel's plan mirror (``fused_rnn.bilstm_plan``) against the built
+    kernel's own (its C query) at ZoneoutEncoderV1's width, both io types and the
+    batches of the A/B; then a width whose slices fit no cluster (H=512) raises
+    ValueError naming the limit and launches no recurrence."""
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    rec = {"kernel": "bilstm", "case": "cluster plan against the built kernel", "plans": {}}
+    for io in (torch.float32, torch.bfloat16):
+        for B in (1, 32, 128, 528, 1024):
+            built = fused_rnn.bilstm_device_plan(B, 128, io, DEV)
+            mirror = fused_rnn.bilstm_plan(B, 128, 128, 128, io, n_sms=sms,
+                                           active_clusters=built.slots)
+            label = f"bilstm {str(io).removeprefix('torch.')} B={B}"
+            require(built == mirror, f"{label}: the plan mirror is not the kernel's: "
+                                     f"{dataclasses.asdict(mirror)} against "
+                                     f"{dataclasses.asdict(built)}")
+            rec["plans"][label] = {k: getattr(built, k) for k in (
+                "cluster", "slots", "groups", "lanes", "clusters", "waves", "smem_bytes")}
+    B, S, H = 2, 3, 512
+    rng = np.random.default_rng(5)
+    xs = torch.zeros(B, S, H, device=DEV)
+    lens = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    pf, pb = lstm_params(rng, H, H, torch.float32), lstm_params(rng, H, H, torch.float32)
+    before = fused_rnn.lstm_launch_count
+    said = None
+    try:
+        fused_rnn.bilstm(xs, lens, pf, pb, H)
+    except ValueError as e:
+        said = str(e)
+    torch.cuda.synchronize()
+    require(said is not None and str(fused_rnn.RNN_SMEM_LIMIT) in said
+            and fused_rnn.lstm_launch_count == before,
+            f"H={H}: bilstm must raise ValueError naming the limit and launch no "
+            f"recurrence, said {said}")
+    rec["too_wide"] = {"H": H, "raised": said}
+    log("check " + json.dumps(rec))
+    return rec
+
+
+# (B, T) of mha_full's plan check: the flagship's shape and the batch-1 request's (the
+# logits on chip), and two beyond what the old design launched (3246 positions at HD=128)
+MHA_PLAN_SHAPES = ((32, 128), (1, 97), (1, 3247), (1, 8192))
+
+
+def check_mha_plans() -> dict:
+    """The attention kernel's plan mirror (``fused_attention.mha_full_plan``) against the
+    built kernel's own (its C query), both io types; a block's shared memory the same
+    at every T; then a head wider than ``MHA_HD_MAX`` raises ValueError naming the
+    limit and launches nothing."""
+    rec = {"kernel": "mha_full", "case": "plan against the built kernel", "plans": {}}
+    for io in (torch.float32, torch.bfloat16):
+        smem = set()
+        for B, T in MHA_PLAN_SHAPES:
+            built = fused_attention.mha_full_device_plan(B, T, 256, 2, io, DEV)
+            mirror = fused_attention.mha_full_plan(B, T, 256, 2, io, smem_limit=built.smem_limit)
+            label = f"mha_full {str(io).removeprefix('torch.')} B={B} T={T}"
+            require(built == mirror, f"{label}: the plan mirror is not the kernel's: "
+                                     f"{dataclasses.asdict(mirror)} against "
+                                     f"{dataclasses.asdict(built)}")
+            smem.add(built.smem_bytes)
+            rec["plans"][label] = {k: getattr(built, k) for k in (
+                "grid_x", "lk", "on_chip", "smem_bytes")}
+        require(len(smem) == 1, f"mha_full {io}: a block's shared memory grows with T: {smem}")
+    qkv = torch.zeros(1, 4, 3 * 512, device=DEV)
+    before = fused_attention.launch_count
+    said = None
+    try:
+        fused_attention.mha_full(qkv, None, 1)
+    except ValueError as e:
+        said = str(e)
+    torch.cuda.synchronize()
+    require(said is not None and str(fused_attention.MHA_HD_MAX) in said
+            and fused_attention.launch_count == before,
+            f"a head of 512: mha_full must raise ValueError naming the limit, said {said}")
+    rec["too_wide"] = {"HD": 512, "raised": said}
+    log("check " + json.dumps(rec))
+    return rec
+
+
 def phase_kernels():
-    records = {"bigru_plan": check_bigru_plans()}
+    records = {"bigru_plan": check_bigru_plans(), "bilstm_plan": check_bilstm_plans(),
+               "mha_plan": check_mha_plans()}
     for dtype in (torch.float32, torch.bfloat16):
         # the small ragged shapes of the CPU tests, and shapes off every tile size
         check_bigru(4, 12, 10, 8, [12, 7, 1, 12], dtype, timed=False)
@@ -561,6 +668,13 @@ def phase_kernels():
         # length 0, 1 and S
         for B, S, seed in BIGRU_EDGES:
             check_bigru(B, S, 128, 128, edge_lengths(B, S, seed), dtype, timed=False, seed=seed)
+            check_bilstm(B, S, 128, 128, edge_lengths(B, S, seed), dtype, 0.1, timed=False,
+                         seed=seed)
+        # the tiled attention's edges: one sequence beyond the 3246 positions the old
+        # design's logits rows held in a block (the logits staged in probs' rows), and
+        # one beyond a block's on-chip logits (MhaPlan.lk)
+        check_mha(1, 4096, 256, 2, [4000], dtype, timed=False, seed=8)
+        check_mha(2, 600, 256, 2, [600, 333], dtype, timed=False, seed=9)
         # the flagship shapes, ragged, and the batch-1 request's
         lengths = ragged_lengths(np.random.default_rng(3), 32, 128)
         records[("bigru", dtype)] = check_bigru(32, 128, 128, 128, lengths, dtype, timed=True)
@@ -569,10 +683,14 @@ def phase_kernels():
         records[("mha_full", dtype)] = check_mha(
             32, 128, 256, 2, lengths.tolist(), dtype, timed=True
         )
+        records[("mha_full_b1", dtype)] = check_mha(1, 97, 256, 2, [97], dtype, timed=True,
+                                                    seed=7)
         # ZoneoutEncoderV1 at full width: prenet 128 in, 128 units a direction
         records[("bilstm", dtype)] = check_bilstm(
             32, 128, 128, 128, lengths, dtype, 0.1, timed=True, seed=4
         )
+        records[("bilstm_b1", dtype)] = check_bilstm(1, 97, 128, 128, [97], dtype, 0.1,
+                                                     timed=True, seed=7)
     return records
 
 
@@ -2097,13 +2215,15 @@ def launch_counts():
     return {
         "bigru": fused_rnn.launch_count, "mha_full": fused_attention.launch_count,
         "fused_decode": fused_decode.launch_count, "bilstm": fused_rnn.lstm_launch_count,
-        # each bigru call launches its input projection, then the recurrence
+        # each bigru and bilstm call launches its input projection, then the recurrence
         "bigru_proj": fused_rnn.proj_launch_count,
+        "bilstm_proj": fused_rnn.lstm_proj_launch_count,
     }
 
 
 def reset_launch_counts():
     fused_rnn.launch_count = fused_rnn.lstm_launch_count = fused_rnn.proj_launch_count = 0
+    fused_rnn.lstm_proj_launch_count = 0
     fused_attention.launch_count = fused_decode.launch_count = 0
     fused_decode.variant_launches.clear()
 
@@ -2126,7 +2246,7 @@ def phase_against_cpu(steps: int = 30) -> None:
     torch.cuda.synchronize()
     require(
         launch_counts() == {**{name: count + 1 for name, count in before.items()},
-                            "bilstm": before["bilstm"]},
+                            "bilstm": before["bilstm"], "bilstm_proj": before["bilstm_proj"]},
         "one request must launch each kernel of the flagship once",
     )
     on_cpu = make_predict_fn(
@@ -2195,7 +2315,7 @@ def phase_main_path():
         "requests": stats,
     }))
     expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0,
-                "bigru_proj": len(reqs)}
+                "bigru_proj": len(reqs), "bilstm_proj": 0}
     require(launches == expected, f"the main path launched {launches}, expected {expected}")
     for out, req in zip(outs, reqs):
         check_output(out, req, hp)
@@ -2281,7 +2401,7 @@ def phase_main_path_bf16(outs_f32):
         "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
     }))
     expected = {"bigru": len(reqs), "mha_full": len(reqs), "fused_decode": len(reqs), "bilstm": 0,
-                "bigru_proj": len(reqs)}
+                "bigru_proj": len(reqs), "bilstm_proj": 0}
     require(launches == expected, f"the bf16 main path launched {launches}, expected {expected}")
     require(variants == {fused_decode.variant_name(True, True, torch.bfloat16): len(reqs)},
             f"the bf16 main path launched the specialisations {variants}")
@@ -2349,7 +2469,7 @@ def phase_baseline_main_path():
         "launches": launches, "fused_decode_specialisations": variants, "requests": stats,
     }))
     expected = {"bigru": len(reqs), "mha_full": 0, "fused_decode": len(reqs), "bilstm": 0,
-                "bigru_proj": len(reqs)}
+                "bigru_proj": len(reqs), "bilstm_proj": 0}
     require(launches == expected, f"baseline synthesis launched {launches}, expected {expected}")
     require(variants == {fused_decode.variant_name(False, False): len(reqs)},
             f"baseline synthesis launched the specialisations {variants}")
@@ -2374,7 +2494,8 @@ def phase_baseline_main_path():
     out, zstats = run_requests(predict, [req], seed=200)
     zlaunches = launch_counts()
     log("main_path zoneout kernels " + json.dumps({"launches": zlaunches, "requests": zstats}))
-    expected = {"bigru": 0, "mha_full": 0, "fused_decode": 1, "bilstm": 1, "bigru_proj": 0}
+    expected = {"bigru": 0, "mha_full": 0, "fused_decode": 1, "bilstm": 1, "bigru_proj": 0,
+                "bilstm_proj": 1}
     require(zlaunches == expected, f"the ZoneoutEncoderV1 request launched {zlaunches}")
     check_output(out[0], req, zoneout.hparams, steps=ZONEOUT_STEPS)
     out_plain, _ = run_requests(
@@ -3369,7 +3490,8 @@ def seeded_main_path(family: str):
         dual = config != single
         expected = {"bigru": len(reqs) if dual else 0, "mha_full": len(reqs) if dual else 0,
                     "fused_decode": len(reqs), "bilstm": 0 if dual else len(reqs),
-                    "bigru_proj": len(reqs) if dual else 0}
+                    "bigru_proj": len(reqs) if dual else 0,
+                    "bilstm_proj": 0 if dual else len(reqs)}
         require(launches == expected, f"{config} {dtype} synthesis launched {launches}")
         name = packed_variant(fused_decode.pack_decoder(net.decoder))
         require(variants == {name: len(reqs)}, f"{config} {dtype} launched {variants}")
@@ -3779,8 +3901,27 @@ def main() -> int:
         bf16_batch1_bound_ms=b1_bf16["bound_ms"],
         plan=records["bigru_plan"]["plans"],
     )
-    # torch.nn.LSTM (cuDNN) has no zoneout interpolation: another function, no library time
-    kernels[2]["zoneout"] = records[("bilstm", torch.float32)]["zoneout"]
+    # torch.nn.LSTM (cuDNN) has no zoneout interpolation: another function, no library
+    # time. The cluster design (csrc/bilstm.cu): each bilstm call launches the input
+    # projection, then the recurrence; the batch-1 request's shape beside B=32
+    lb1, lb1_bf16 = records[("bilstm_b1", torch.float32)], records[("bilstm_b1", torch.bfloat16)]
+    kernels[2].update(
+        zoneout=records[("bilstm", torch.float32)]["zoneout"], design=BILSTM_DESIGN,
+        proj_launches=main_launches["bilstm_proj"],
+        bit_for_bit=records[("bilstm", torch.float32)]["bit_for_bit"],
+        **batch1_entries(lb1), bf16_batch1_ms=lb1_bf16["ms"],
+        bf16_batch1_plain_ms=lb1_bf16["plain_ms"], bf16_batch1_bound_ms=lb1_bf16["bound_ms"],
+        plan=records["bilstm_plan"]["plans"],
+    )
+    # the tiled design (csrc/mha_full.cu); scaled_dot_product_attention gives no
+    # probabilities (another function, no library time; timed for scale in the check)
+    mb1, mb1_bf16 = records[("mha_full_b1", torch.float32)], records[("mha_full_b1", torch.bfloat16)]
+    kernels[1].update(
+        design=MHA_DESIGN, bit_for_bit=records[("mha_full", torch.float32)]["bit_for_bit"],
+        **batch1_entries(mb1), bf16_batch1_ms=mb1_bf16["ms"],
+        bf16_batch1_plain_ms=mb1_bf16["plain_ms"], bf16_batch1_bound_ms=mb1_bf16["bound_ms"],
+        plan=records["mha_plan"]["plans"],
+    )
     # the whole loop in one launch at the main path's shapes: flagship, B=32, T=500;
     # the baseline's specialisation (one source, no self-attention) beside it.
     # No single PyTorch call computes a decode loop, so there is no library time;

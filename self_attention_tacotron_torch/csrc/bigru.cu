@@ -19,11 +19,11 @@
 // (C + H) * 3H operations, a few megabytes) but the chain of S dependent steps, so
 // the time is S times the latency of one step. The design cuts that latency:
 //
-// 1. The x half of both products does not depend on the carry. bigru_proj_kernel
-//    computes it for every (lane, step, direction) before the recurrence, biases
-//    folded in: proj = x . [Wg_x | Wc_x] (both directions side by side, B*S rows of
-//    6H float32 sums), a tiled FFMA product over the whole card (128 x 128 tiles,
-//    8 x 8 per thread).
+// 1. The x half of both products does not depend on the carry. rnn_proj_kernel
+//    (cluster_rnn.cuh, shared with bilstm.cu) computes it for every (lane, step,
+//    direction) before the recurrence, biases folded in: proj = x . [Wg_x | Wc_x]
+//    (both directions side by side, B*S rows of 6H float32 sums), a tiled FFMA
+//    product over the whole card (128 x 128 tiles, 8 x 8 per thread).
 // 2. bigru_cluster_kernel runs one thread-block cluster per (direction, group of
 //    lanes) (cluster_rnn.cuh). The cluster's blocks share out the H units; each
 //    loads its slice of the h rows of Wg and Wc once and keeps it in shared memory,
@@ -52,21 +52,25 @@
 
 namespace {
 
-constexpr int PROJ_BM = 128;
-constexpr int PROJ_BN = 128;
-constexpr int PROJ_BK = 8;
-
 // The x rows (k < C) of the four weight matrices side by side: column n of
-// [Wg_f | Wc_f | Wg_b | Wc_b], and the biases the same way.
+// [Wg_f | Wc_f | Wg_b | Wc_b], and the biases the same way (rnn_proj_kernel's weights:
+// at(k, n), bias(n), columns(), aligned(bytes)).
 template <typename T>
 struct ProjWeights {
   const T *wg_f, *bg_f, *wc_f, *bc_f, *wg_b, *bg_b, *wc_b, *bc_b;
   int H;
-  __device__ __forceinline__ float weight(int k, int n) const {
+  __host__ __device__ __forceinline__ int columns() const { return 6 * H; }
+  // groups of bytes / sizeof(T) columns lie in one matrix, each matrix so aligned
+  __host__ __device__ __forceinline__ bool aligned(int bytes) const {
+    const uintptr_t any = reinterpret_cast<uintptr_t>(wg_f) | reinterpret_cast<uintptr_t>(wc_f) |
+                          reinterpret_cast<uintptr_t>(wg_b) | reinterpret_cast<uintptr_t>(wc_b);
+    return H % (bytes / (int)sizeof(T)) == 0 && (any & (bytes - 1)) == 0;
+  }
+  __device__ __forceinline__ const T* at(int k, int n) const {
     const int dir = n >= 3 * H;
     const int c = n - dir * 3 * H;
-    if (c < 2 * H) return Io<T>::load((dir ? wg_b : wg_f) + (size_t)k * 2 * H + c);
-    return Io<T>::load((dir ? wc_b : wc_f) + (size_t)k * H + (c - 2 * H));
+    return c < 2 * H ? (dir ? wg_b : wg_f) + (size_t)k * 2 * H + c
+                     : (dir ? wc_b : wc_f) + (size_t)k * H + (c - 2 * H);
   }
   __device__ __forceinline__ float bias(int n) const {
     const int dir = n >= 3 * H;
@@ -76,82 +80,9 @@ struct ProjWeights {
   }
 };
 
-// proj[m][n] = sum over k < C of xs[m][k] * W[k][n] + b[n], m < M = B*S, n < 6H.
-template <typename T>
-__global__ void __launch_bounds__(256)
-bigru_proj_kernel(const T* __restrict__ xs, ProjWeights<T> w, float* __restrict__ proj, int M,
-                  int C) {
-  __shared__ __align__(16) float As[2][PROJ_BK][PROJ_BM];
-  __shared__ __align__(16) float Bs[2][PROJ_BK][PROJ_BN];
-  const int N = 6 * w.H;
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.y * PROJ_BM, n0 = blockIdx.x * PROJ_BN;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int am = tid >> 1, ak = (tid & 1) * 4;     // A: one row, four k
-  const int bk = tid >> 5, bn = (tid & 31) * 4;    // B: one k, four columns
-  float a_reg[4], b_reg[4];
-  auto load = [&](int k0) {
-    const int m = m0 + am;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + ak + i;
-      a_reg[i] = (m < M && k < C) ? Io<T>::load(xs + (size_t)m * C + k) : 0.0f;
-    }
-    const int k = k0 + bk;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = n0 + bn + i;
-      b_reg[i] = (n < N && k < C) ? w.weight(k, n) : 0.0f;
-    }
-  };
-  auto store = [&](int buf) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) As[buf][ak + i][am] = a_reg[i];
-    *reinterpret_cast<float4*>(&Bs[buf][bk][bn]) = make_float4(b_reg[0], b_reg[1], b_reg[2], b_reg[3]);
-  };
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.0f;
-  const int nk = (C + PROJ_BK - 1) / PROJ_BK;
-  load(0);
-  store(0);
-  __syncthreads();
-  for (int kt = 0; kt < nk; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < nk) load((kt + 1) * PROJ_BK);
-#pragma unroll
-    for (int k = 0; k < PROJ_BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[cur][k][64 + ty * 4]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float4 b1 = *reinterpret_cast<const float4*>(&Bs[cur][k][64 + tx * 4]);
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    if (kt + 1 < nk) store(cur ^ 1);
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int m = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
-      if (n < N) proj[(size_t)m * N + n] = acc[i][j] + w.bias(n);
-    }
-  }
-}
-
 template <typename T, int LT>
 __global__ void __launch_bounds__(RNN_THREADS, 1)
-bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from bigru_proj_kernel
+bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from rnn_proj_kernel
                      const int* __restrict__ lengths,  // (B,)
                      const T* __restrict__ wg_f, const T* __restrict__ wc_f,
                      const T* __restrict__ wg_b, const T* __restrict__ wc_b,
@@ -167,7 +98,7 @@ bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from bigru_
   const int lane0 = lane_share.first, nl = lane_share.count;
   const int first = unit_share.first, u = unit_share.count;
   const int Lp = plan.lanes_padded;
-  const RnnLayout lay = rnn_layout(H, plan.units_max, Lp, (int)sizeof(T), false);
+  const RnnLayout lay = rnn_layout(H, plan.units_max, Lp, (int)sizeof(T), RNN_GRU);
   const int ws = lay.ws, u3 = 3 * u, H2 = 2 * H, k4 = r4(H) / 4;
   T* s_w = reinterpret_cast<T*>(smem);                         // [3u][ws]
   float* s_hin = reinterpret_cast<float*>(smem + lay.in1);     // [Lp][ws] io(h)
@@ -233,7 +164,7 @@ bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from bigru_
   auto fetch = [&](int t, float* dst) {
     fetch_rows(mv, dst, nl, u, [&](int l, int s) {
       return proj + ((size_t)(lane0 + l) * S + t) * 6 * H + dir * 3 * H + s * H + first;
-    });
+    }, [&](int l) { return t < s_len[l]; });
   };
   // every block receives 4 * Lp * H bytes of each gathered vector a step
   const unsigned bytes = 4u * Lp * H;
@@ -296,19 +227,18 @@ bigru_cluster_kernel(const float* __restrict__ proj,   // (B, S, 6H) from bigru_
 
 template <typename T>
 int plan_of(int B, int H, RnnPlan* plan, int* n_sms) {
-  return rnn_device_plan(bigru_cluster_kernel<T, 4>, B, H, (int)sizeof(T), false, plan, n_sms);
+  return rnn_device_plan(bigru_cluster_kernel<T, 4>, B, H, (int)sizeof(T), RNN_GRU, plan, n_sms);
 }
 
 template <typename T>
 int launch_proj(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
                 const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
-                const void* bc_b, void* proj, int M, int C, int H, void* stream) {
-  if (M <= 0 || C <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
+                const void* bc_b, const void* lengths, void* proj, int B, int S, int C, int H,
+                void* stream) {
+  if (B <= 0 || S <= 0 || C <= 0 || H <= 0) return (int)cudaErrorInvalidValue;
   ProjWeights<T> w{(const T*)wg_f, (const T*)bg_f, (const T*)wc_f, (const T*)bc_f,
                    (const T*)wg_b, (const T*)bg_b, (const T*)wc_b, (const T*)bc_b, H};
-  dim3 grid((6 * H + PROJ_BN - 1) / PROJ_BN, (M + PROJ_BM - 1) / PROJ_BM);
-  bigru_proj_kernel<T><<<grid, 256, 0, (cudaStream_t)stream>>>((const T*)xs, w, (float*)proj, M, C);
-  return (int)cudaGetLastError();
+  return rnn_proj_launch((const T*)xs, w, (float*)proj, B, S, C, (const int*)lengths, stream);
 }
 
 template <typename T>
@@ -330,19 +260,22 @@ int launch_bigru(const void* proj, const void* lengths, const void* wg_f, const 
 
 extern "C" {
 
-// The x half of both directions' products, biases folded in: proj (B*S, 6H) float32.
+// The x half of both directions' products, biases folded in: proj (B*S, 6H) float32
+// (rows of padded steps are left unwritten: the recurrence reads valid steps alone).
 int bigru_proj_f32(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
                    const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
-                   const void* bc_b, void* proj, int M, int C, int H, void* stream) {
-  return launch_proj<float>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, proj, M, C, H,
-                            stream);
+                   const void* bc_b, const void* lengths, void* proj, int B, int S, int C, int H,
+                   void* stream) {
+  return launch_proj<float>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, lengths, proj, B,
+                            S, C, H, stream);
 }
 
 int bigru_proj_bf16(const void* xs, const void* wg_f, const void* bg_f, const void* wc_f,
                     const void* bc_f, const void* wg_b, const void* bg_b, const void* wc_b,
-                    const void* bc_b, void* proj, int M, int C, int H, void* stream) {
-  return launch_proj<__nv_bfloat16>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, proj, M,
-                                    C, H, stream);
+                    const void* bc_b, const void* lengths, void* proj, int B, int S, int C, int H,
+                    void* stream) {
+  return launch_proj<__nv_bfloat16>(xs, wg_f, bg_f, wc_f, bc_f, wg_b, bg_b, wc_b, bc_b, lengths,
+                                    proj, B, S, C, H, stream);
 }
 
 // The recurrence of both directions over proj: y (B, S, 2H) in the io type.

@@ -70,7 +70,7 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
   const int lane0 = lane_share.first, nl = lane_share.count;
   const int first = unit_share.first, u = unit_share.count;
   const int Lp = plan.lanes_padded, um = plan.units_max;
-  const RnnLayout lay = rnn_layout(H, um, Lp, (int)sizeof(WT), true);
+  const RnnLayout lay = rnn_layout(H, um, Lp, (int)sizeof(WT), RNN_GRU_BWD);
   const int ws = lay.ws, ws2 = lay.ws2, H2 = 2 * H, u5 = 5 * u;
   WT* s_w1 = reinterpret_cast<WT*>(smem);                       // [u][ws]  Wc_h^T columns
   WT* s_w2 = s_w1 + (size_t)um * ws;                             // [u][ws2] Wg_h^T columns
@@ -222,7 +222,7 @@ bigru_bwd_kernel(const float* __restrict__ g_y,     // (B, S, 2H) forward half, 
 
 template <typename WT>
 int plan_of(int B, int H, RnnPlan* plan, int* n_sms) {
-  return rnn_device_plan(bigru_bwd_kernel<WT, 4>, B, H, (int)sizeof(WT), true, plan, n_sms);
+  return rnn_device_plan(bigru_bwd_kernel<WT, 4>, B, H, (int)sizeof(WT), RNN_GRU_BWD, plan, n_sms);
 }
 
 template <typename WT>

@@ -12,16 +12,18 @@ The kernels (``csrc/bigru.cu``, ``csrc/cluster_rnn.cuh``) shorten that step:
 
 * the x half of both products does not depend on the carry, so one tiled
   product over the whole card computes it for every lane, step and direction
-  first (``bigru_proj_kernel``, float32 FFMA sums, biases folded in, into a
-  scratch of B * S * 6H floats the wrapper allocates);
+  first (``rnn_proj_kernel`` of ``csrc/cluster_rnn.cuh``, shared with ``bilstm``:
+  float32 sums, FFMA in float32 and the tensor cores in bfloat16, biases folded in,
+  padded steps neither computed nor written, into a scratch of B * S * 6H floats
+  the wrapper allocates);
 * the recurrence runs as one thread-block cluster per (direction, group of
   lanes). The cluster's blocks share out the H units; each holds its slice of
   the recurrent weights in shared memory for the whole loop (no weight is read
   from global memory inside the step loop) and writes the values of its units
   that every unit needs (io(r*h), then io(h')) into every block of the cluster,
   where an mbarrier counts their bytes: two exchanges a step, no grid barrier and
-  no cluster-wide barrier inside the loop. ``bigru_plan`` mirrors the
-  plan both kernels compute for themselves: the cluster size from H (8, or 16
+  no cluster-wide barrier inside the loop. ``bigru_plan`` (``rnn_plan``) mirrors
+  the plan both kernels compute for themselves: the cluster size from H (8, or 16
   where 8 blocks cannot hold the slices), the lanes per cluster from B (as few
   waves of clusters as the room per block allows, the lanes spread over the
   clusters of those waves), the shared memory of a block.
@@ -48,12 +50,16 @@ rounds them: the reference's own skew of about one ulp), and float32 weight
 gradients.
 
 ``bilstm`` replaces ``bilstm_pallas`` (``_make_lstm_kernel``): both directions
-of ZoneoutEncoderV1's LSTM in one launch (``csrc/bilstm.cu``), eval mode only,
-with zoneout as the interpolation ``z * prev + (1 - z) * new``. It has the
-same bound, the chain of S dependent steps: one block per (4 lanes, direction)
-keeps the carries in shared memory and streams the gate matrix through L2 at
-every step. Training runs the cells step by step under autograd, as the JAX
-package does (it has no training kernel for the LSTM). ``torch.nn.LSTM``
+of ZoneoutEncoderV1's LSTM (``csrc/bilstm.cu``), eval mode only, with zoneout as
+the interpolation ``z * prev + (1 - z) * new``. It has the same bound, the chain
+of S dependent steps, and the same design: the input projection
+(``rnn_proj_kernel``, shared with ``bigru``; a scratch of B * S * 8H floats;
+``lstm_proj_launch_count``), then the recurrence as thread-block clusters, each
+block's i, g, f, o columns of its units resident in shared memory, the cell and
+the zoneout interpolation in the gate product's epilogue, and io(h') crossing the
+cluster once a step into one of two copies chosen by the step's parity
+(``bilstm_plan``). Training runs the cells step by step under autograd, as the
+JAX package does (it has no training kernel for the LSTM). ``torch.nn.LSTM``
 computes another function: it has no zoneout interpolation.
 """
 
@@ -75,8 +81,11 @@ launch_count = 0
 proj_launch_count = 0
 # Launches of the backward's carry kernel made by ``bigru_train`` in this process.
 bwd_launch_count = 0
-# Launches of the CUDA kernel made by ``bilstm`` in this process.
+# Launches of the recurrence kernel made by ``bilstm`` in this process.
 lstm_launch_count = 0
+# Launches of the input projection made by ``bilstm`` in this process (one per call,
+# before the recurrence).
+lstm_proj_launch_count = 0
 
 GRUParams = Dict[str, torch.Tensor]  # gates_kernel (C+H, 2H), gates_bias, candidate_kernel (C+H, H), candidate_bias
 LSTMParams = Dict[str, torch.Tensor]  # kernel (C+H, 4H) with gates i, g, f, o; bias (4H,)
@@ -138,16 +147,21 @@ RNN_THREADS = 256
 # where 8 cannot hold the weight slices.
 RNN_SMEM_LIMIT = 232448
 CLUSTER_SIZES = (8, 16)
+# The kinds of cluster kernel (csrc/cluster_rnn.cuh::RnnKind): the BiGRU's forward
+# (bigru.cu) and backward (bigru_bwd.cu), and the LSTM (bilstm.cu). A bool ``backward``
+# stands for the first two.
+RNN_GRU, RNN_GRU_BWD, RNN_LSTM = 0, 1, 2
 # What the kernels' C interface returns where no cluster of the plan's size is
 # resident, and where the width does not fit a cluster of 16.
 _NO_CLUSTER, _TOO_WIDE = -2, -3
 
 
 @dataclass(frozen=True)
-class BiGRUPlan:
-    """How ``csrc/bigru.cu`` (forward) or ``csrc/bigru_bwd.cu`` (backward) runs B
-    lanes of width H: the fields of ``csrc/cluster_rnn.cuh::RnnPlan`` in the order
-    the C interface's query writes them, then the card's SM count."""
+class RnnPlan:
+    """How a cluster kernel (``csrc/bigru.cu``, ``csrc/bigru_bwd.cu``,
+    ``csrc/bilstm.cu``) runs B lanes of width H: the fields of
+    ``csrc/cluster_rnn.cuh::RnnPlan`` in the order the C interface's query writes
+    them, then the card's SM count."""
 
     cluster: int        # blocks per cluster
     units_max: int      # units of the largest share
@@ -177,54 +191,58 @@ def _r16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
-def rnn_smem_bytes(H: int, u: int, Lp: int, io_bytes: int, backward: bool) -> int:
-    """A block's shared memory (``rnn_layout``): the weight slice in the io type,
-    then float32 rows: the gathered product inputs (row stride ``round4(H) + 4``,
-    and ``round4(2H) + 4`` for the backward's g_ag), two buffers of each step's
-    rows, the block's own state, the lengths, and two mbarriers."""
+def rnn_smem_bytes(H: int, u: int, Lp: int, io_bytes: int, kind: int) -> int:
+    """A block's shared memory (``rnn_layout``) for ``kind`` (``RNN_GRU`` or False,
+    ``RNN_GRU_BWD`` or True, ``RNN_LSTM``): the weight slice in the io type, then
+    float32 rows: the gathered product inputs (row stride ``round4(H) + 4``, and
+    ``round4(2H) + 4`` for the GRU backward's g_ag; the LSTM's two copies of io(h)),
+    two buffers of each step's rows, the block's own state, the lengths, and two
+    mbarriers."""
     ws, ws2 = round4(H) + 4, round4(2 * H) + 4
-    if not backward:
+    kind = int(kind)
+    if kind == RNN_GRU:
         end = _r16(3 * u * ws * io_bytes) + 4 * Lp * (2 * ws + 7 * u) + 4 * Lp
-    else:
+    elif kind == RNN_GRU_BWD:
         end = _r16(u * (ws + ws2) * io_bytes) + 4 * Lp * (ws + ws2 + 15 * u) + 4 * Lp
+    else:   # the LSTM's weight rows: H rounded up to 32 values (bfloat16: 64)
+        wsl = -(-H // 64) * 64 if io_bytes == 2 else -(-H // 32) * 32
+        end = _r16(4 * u * wsl * io_bytes) + 4 * Lp * (2 * ws + 11 * u) + 4 * Lp
     return (end + 7) // 8 * 8 + 16
 
 
-def rnn_max_lanes(H: int, cs: int, io_bytes: int, backward: bool) -> int:
+def rnn_max_lanes(H: int, cs: int, io_bytes: int, kind: int) -> int:
     """The most lanes one block's room holds at cluster size ``cs`` (a multiple of 4,
     the products' lane tile, or 1); 0 where not one lane fits."""
     u = -(-H // cs)
-    a = rnn_smem_bytes(H, u, 0, io_bytes, backward)
-    b = rnn_smem_bytes(H, u, 1, io_bytes, backward) - a
+    a = rnn_smem_bytes(H, u, 0, io_bytes, kind)
+    b = rnn_smem_bytes(H, u, 1, io_bytes, kind) - a
     if RNN_SMEM_LIMIT < a + b:
         return 0
     fit = (RNN_SMEM_LIMIT - a) // b
     return fit // 4 * 4 if fit >= 4 else 1
 
 
-def bigru_plan(B: int, S: int, C: int, H: int, io: torch.dtype, n_sms: int = 132,
-               backward: bool = False, active_clusters: int = None) -> BiGRUPlan:
-    """The plan ``csrc/bigru.cu`` (or, ``backward``, ``csrc/bigru_bwd.cu``) launches
-    with: a cluster of 8 blocks where one lane fits a block beside the weight slice,
-    else 16 (``ValueError`` where neither does); ``active_clusters`` resident at once
-    (what ``cudaOccupancyMaxActiveClusters`` reports for one block per SM; by default
+def rnn_plan(B: int, H: int, io: torch.dtype, kind: int, n_sms: int = 132,
+             active_clusters: int = None, name: str = "bigru") -> RnnPlan:
+    """The plan a cluster kernel of ``kind`` launches with: a cluster of 8 blocks where
+    one lane fits a block beside the weight slice, else 16 (``ValueError`` naming the
+    limit where neither does); ``active_clusters`` resident at once (what
+    ``cudaOccupancyMaxActiveClusters`` reports for one block per SM; by default
     ``n_sms // cluster``); as few waves as ``max_lanes`` allows, and within them as
-    many lane groups as the waves hold clusters (two directions each). S and C do not
-    change the plan."""
+    many lane groups as the waves hold clusters (two directions each)."""
     if B < 1 or H < 1:
-        raise ValueError(f"bigru: B and H must be at least 1, got B={B}, H={H}")
+        raise ValueError(f"{name}: B and H must be at least 1, got B={B}, H={H}")
     io_bytes = torch.empty((), dtype=io).element_size()
-    cs = next((c for c in CLUSTER_SIZES
-               if rnn_max_lanes(H, c, io_bytes, backward) > 0), 0)
+    cs = next((c for c in CLUSTER_SIZES if rnn_max_lanes(H, c, io_bytes, kind) > 0), 0)
     if cs == 0:
         raise ValueError(
-            f"bigru: H={H} does not fit: one block of a cluster of {CLUSTER_SIZES[-1]} "
+            f"{name}: H={H} does not fit: one block of a cluster of {CLUSTER_SIZES[-1]} "
             f"holding its slice of the recurrent weights and one lane needs more than "
             f"the {RNN_SMEM_LIMIT} bytes of shared memory a block may have")
     slots = n_sms // cs if active_clusters is None else int(active_clusters)
     if slots < 1:
-        raise ValueError(f"bigru: no cluster of {cs} blocks is resident on {n_sms} SMs")
-    max_lanes = rnn_max_lanes(H, cs, io_bytes, backward)
+        raise ValueError(f"{name}: no cluster of {cs} blocks is resident on {n_sms} SMs")
+    max_lanes = rnn_max_lanes(H, cs, io_bytes, kind)
     need = -(-B // max_lanes)
     waves = max(1, -(-2 * need // slots))
     groups = min(B, max(1, waves * slots // 2))
@@ -232,25 +250,52 @@ def bigru_plan(B: int, S: int, C: int, H: int, io: torch.dtype, n_sms: int = 132
     tile = 1 if lanes == 1 else 4
     padded = -(-lanes // tile) * tile
     u = -(-H // cs)
-    return BiGRUPlan(
+    return RnnPlan(
         cluster=cs, units_max=u, max_lanes=max_lanes, slots=slots, groups=groups,
         lanes=lanes, lane_tile=tile, lanes_padded=padded, clusters=2 * groups, waves=waves,
-        threads=RNN_THREADS, smem_bytes=rnn_smem_bytes(H, u, padded, io_bytes, backward),
+        threads=RNN_THREADS, smem_bytes=rnn_smem_bytes(H, u, padded, io_bytes, kind),
         smem_limit=RNN_SMEM_LIMIT, n_sms=n_sms)
 
 
-def bigru_device_plan(B: int, H: int, io: torch.dtype, device, backward: bool = False
-                      ) -> BiGRUPlan:
-    """The plan the built kernel computes for itself on ``device`` (its C query)."""
-    lib = load_library("bigru_bwd" if backward else "bigru")
-    query = lib.bigru_bwd_plan_query if backward else lib.bigru_plan_query
+def bigru_plan(B: int, S: int, C: int, H: int, io: torch.dtype, n_sms: int = 132,
+               backward: bool = False, active_clusters: int = None) -> RnnPlan:
+    """The plan ``csrc/bigru.cu`` (or, ``backward``, ``csrc/bigru_bwd.cu``) launches
+    with (``rnn_plan``). S and C do not change the plan."""
+    return rnn_plan(B, H, io, RNN_GRU_BWD if backward else RNN_GRU, n_sms, active_clusters,
+                    "bigru")
+
+
+def bilstm_plan(B: int, S: int, C: int, H: int, io: torch.dtype, n_sms: int = 132,
+                active_clusters: int = None) -> RnnPlan:
+    """The plan ``csrc/bilstm.cu`` launches its recurrence with (``rnn_plan`` of the
+    LSTM: a block holds the i, g, f, o columns of its units and two copies of io(h)).
+    S and C do not change the plan."""
+    return rnn_plan(B, H, io, RNN_LSTM, n_sms, active_clusters, "bilstm")
+
+
+def _device_plan(source: str, query_name: str, B: int, H: int, io: torch.dtype, device
+                 ) -> RnnPlan:
+    query = getattr(load_library(source), query_name)
     query.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     query.restype = ctypes.c_int
-    out = (ctypes.c_longlong * len(fields(BiGRUPlan)))()
+    out = (ctypes.c_longlong * len(fields(RnnPlan)))()
     with torch.cuda.device(device):
         err = query(int(B), int(H), int(io == torch.bfloat16), ctypes.addressof(out))
-    _raise_on(err, "bigru_bwd" if backward else "bigru")
-    return BiGRUPlan(*(int(v) for v in out))
+    _raise_on(err, source)
+    return RnnPlan(*(int(v) for v in out))
+
+
+def bigru_device_plan(B: int, H: int, io: torch.dtype, device, backward: bool = False
+                      ) -> RnnPlan:
+    """The plan the built kernel computes for itself on ``device`` (its C query)."""
+    if backward:
+        return _device_plan("bigru_bwd", "bigru_bwd_plan_query", B, H, io, device)
+    return _device_plan("bigru", "bigru_plan_query", B, H, io, device)
+
+
+def bilstm_device_plan(B: int, H: int, io: torch.dtype, device) -> RnnPlan:
+    """The plan the built LSTM kernel computes for itself on ``device`` (its C query)."""
+    return _device_plan("bilstm", "bilstm_plan_query", B, H, io, device)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -271,7 +316,7 @@ def _kernel_fn(dtype: torch.dtype, proj: bool = False):
     if fn is None:
         fn = getattr(load_library("bigru"), name)
         if proj:
-            fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         else:
             fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -325,13 +370,14 @@ def bigru(
     wf = _weights(params_fwd, xs.dtype, xs.device, C, H)
     wb = _weights(params_bwd, xs.dtype, xs.device, C, H)
     y = torch.empty(B, S, 2 * H, dtype=xs.dtype, device=xs.device)
-    # the x half of every step's products, both directions: (B*S, 6H) float32
+    # the x half of every step's products, both directions: (B*S, 6H) float32 (rows of
+    # padded steps are left unwritten: the recurrence reads valid steps alone)
     proj = torch.empty(B * S * 6 * H, dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _kernel_fn(xs.dtype, proj=True)(
             xs_c.data_ptr(), *(w.data_ptr() for w in wf), *(w.data_ptr() for w in wb),
-            proj.data_ptr(), B * S, C, H, stream,
+            len_c.data_ptr(), proj.data_ptr(), B, S, C, H, stream,
         )
         _raise_on(err, "bigru_proj")
         proj_launch_count += 1
@@ -567,14 +613,18 @@ def bilstm_reference(
     )
 
 
-def _lstm_kernel_fn(dtype: torch.dtype):
-    name = "bilstm_f32" if dtype == torch.float32 else "bilstm_bf16"
+def _lstm_kernel_fn(dtype: torch.dtype, proj: bool = False):
+    name = ("bilstm_proj_" if proj else "bilstm_") + ("f32" if dtype == torch.float32 else "bf16")
     fn = _functions.get(name)
     if fn is None:
         fn = getattr(load_library("bilstm"), name)
-        fn.argtypes = (
-            [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3 + [ctypes.c_void_p]
-        )
+        if proj:
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        else:
+            fn.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float] * 3
+                + [ctypes.c_void_p]
+            )
         fn.restype = ctypes.c_int
         _functions[name] = fn
     return fn
@@ -592,10 +642,11 @@ def bilstm(
 ) -> torch.Tensor:
     """Both directions of the eval-mode ZoneoutLSTM, (B, S, 2H) in ``xs``'s type.
 
-    A CUDA tensor goes to the kernel or raises; a CPU tensor goes to
-    ``bilstm_reference``. Not differentiable: the kernel serves evaluation.
+    A CUDA tensor goes to the kernels (the input projection, then the recurrence)
+    or raises; a CPU tensor goes to ``bilstm_reference``. Not differentiable: the
+    kernels serve evaluation.
     """
-    global lstm_launch_count
+    global lstm_launch_count, lstm_proj_launch_count
     if xs.dim() != 3:
         raise ValueError(f"xs must be (B, S, C), got {tuple(xs.shape)}")
     if xs.dtype not in _IO_DTYPES:
@@ -621,14 +672,21 @@ def bilstm(
     xs_c = xs.detach().contiguous()
     len_c = lengths.to(device=xs.device, dtype=torch.int32).contiguous()
     y = torch.empty(B, S, 2 * H, dtype=xs.dtype, device=xs.device)
-    fn = _lstm_kernel_fn(xs.dtype)
+    # the x half of every step's product, both directions: (B*S, 8H) float32
+    proj = torch.empty(B * S * 8 * H, dtype=torch.float32, device=xs.device)
+    w_f, b_f, w_b, b_b = weights
     with torch.cuda.device(xs.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            xs_c.data_ptr(), len_c.data_ptr(), *(w.data_ptr() for w in weights), y.data_ptr(),
+        err = _lstm_kernel_fn(xs.dtype, proj=True)(
+            xs_c.data_ptr(), w_f.data_ptr(), b_f.data_ptr(), w_b.data_ptr(), b_b.data_ptr(),
+            len_c.data_ptr(), proj.data_ptr(), B, S, C, H, stream,
+        )
+        _raise_on(err, "bilstm_proj")
+        lstm_proj_launch_count += 1
+        err = _lstm_kernel_fn(xs.dtype)(
+            proj.data_ptr(), len_c.data_ptr(), w_f.data_ptr(), w_b.data_ptr(), y.data_ptr(),
             B, S, C, H, float(zoneout_cell), float(zoneout_output), float(forget_bias), stream,
         )
-    if err != 0:
-        raise RuntimeError(f"bilstm kernel launch failed: CUDA error {err}")
+    _raise_on(err, "bilstm")
     lstm_launch_count += 1
     return y

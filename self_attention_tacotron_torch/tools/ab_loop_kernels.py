@@ -28,18 +28,26 @@ S=128 ragged):
   gradients bit for bit (``bit_for_bit``);
 * the BiGRU backward's carry kernel (``bigru_bwd``, float32, H=128; five runs of
   20 launches);
-* with ``--rnn``: the BiGRU kernels alone (``RNN_CASES``), C=H=128 from seeded
-  weights: ``bigru`` (the whole forward, input projection included) in float32
-  and bfloat16 at B=1 (S=97), B=32 (S=128 ragged), B=128, B=528 and B=1024
-  (ragged), and ``bigru_bwd`` in both io types at B=1 and B=32; five runs of 20
-  launches (5 from B=528 on),
+* with ``--rnn``: the recurrent kernels alone (``RNN_CASES``, ``LSTM_CASES``),
+  C=H=128 from seeded weights: ``bigru`` (the whole forward, input projection
+  included) in float32 and bfloat16 at B=1 (S=97), B=32 (S=128 ragged), B=128,
+  B=528 and B=1024 (ragged), and ``bigru_bwd`` in both io types at B=1 and B=32;
+  ``bilstm`` (the whole ZoneoutLSTM, input projection included, zoneout 0.1) in
+  both io types at the batches of ``bigru``; five runs of 20 launches (5 from
+  B=528 on);
+* with ``--mha``: ``mha_full`` alone (``MHA_CASES``), the flagship's D=256 and 2
+  heads from seeded qkv, in float32 and bfloat16 at B=1 (T=97), B=32 (T=128
+  ragged), B=128 and B=528 (ragged), and B=1 at T=3000 (ragged, under the 3246
+  positions beyond which the old design could not launch); five runs of 20
+  launches (5 from B=528 and at T=3000),
 
 and prints one ``AB {...}`` JSON line with the card's name and power limit and
 the median of each (a case draws its inputs from a seed of its own, and a decode
 case the tree does not serve is left out, so that two trees compare like with
 like); with ``--decode`` after LABEL, the decode kernels only, with ``--teacher``
-the teacher kernels only, with ``--rnn`` the BiGRU kernels only. Run it in turns
-(parent, change, change, parent) in one chip call:
+the teacher kernels only, with ``--rnn`` the recurrent kernels only, with
+``--mha`` the attention kernel only (flags combine). Run it in turns (parent,
+change, change, parent) in one chip call:
 
     for t in runs/parent:parent .:change .:change runs/parent:parent; do
       python3 self_attention_tacotron_torch/tools/ab_loop_kernels.py "${t%%:*}" "${t##*:}"
@@ -284,6 +292,70 @@ def _rnn_times(dev, rng, cases=(("bigru_bwd", "bigru_bwd", "f32", B, S),)):
     return out
 
 
+# The LSTM cases of --rnn: (label, io, batch, source length), as RNN_CASES'.
+LSTM_CASES = tuple(
+    (f"bilstm_{io}" + (f"_b{batch}" if batch != B else ""), io, batch, 97 if batch == 1 else S)
+    for io in ("f32", "bf16") for batch in (1, B, 128, 528, 1024))
+
+
+def _lstm_times(dev, cases=LSTM_CASES):
+    """Device times of ``bilstm`` (input projection and recurrence) at C=H=128,
+    zoneout 0.1, from seeded weights, per case; runs of 20 launches (5 from B=528
+    on), medians over five runs. A case draws its inputs from a seed of its own."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_rnn
+
+    C = H = 128
+    fan = 1.0 / np.sqrt(C + H)
+    out = {}
+    for label, io, batch, src in cases:
+        rng = np.random.default_rng(zlib.crc32(label.encode()))
+
+        def arr(*shape, scale):
+            return torch.tensor(rng.standard_normal(shape).astype(np.float32)
+                                * np.float32(scale), device=dev)
+
+        dtype = torch.bfloat16 if io == "bf16" else torch.float32
+        lengths = np.clip(rng.integers(24, src + 1, batch), 24, src)
+        lengths[0] = src
+        lens = torch.tensor(lengths, device=dev)
+        xs = arr(batch, src, C, scale=1.0).to(dtype)
+        pf, pb = ({"kernel": arr(C + H, 4 * H, scale=fan).to(dtype),
+                   "bias": arr(4 * H, scale=0.1).to(dtype)} for _ in range(2))
+        out[label] = _events_ms(lambda: fused_rnn.bilstm(xs, lens, pf, pb, H, 0.1, 0.1),
+                                inner=20 if batch < 528 else 5)
+    return out
+
+
+# The cases of --mha: (label, io, batch, positions).
+MHA_CASES = tuple(
+    (f"mha_full_{io}" + (f"_b{batch}" if batch != B else "") + (f"_t{t}" if t != S else ""),
+     io, batch, t)
+    for io in ("f32", "bf16") for batch, t in ((1, 97), (B, S), (128, S), (528, S), (1, 3000)))
+
+
+def _mha_times(dev, cases=MHA_CASES):
+    """Device times of ``mha_full`` at D=256, 2 heads (the flagship's encoder) from
+    seeded qkv, masked by ragged lengths (the longest lane full), per case; runs of 20
+    launches (5 from B=528 and at T=3000), medians over five runs."""
+    import torch
+    from self_attention_tacotron_torch.ops import fused_attention
+
+    D, heads = 256, 2
+    out = {}
+    for label, io, batch, t in cases:
+        rng = np.random.default_rng(zlib.crc32(label.encode()))
+        dtype = torch.bfloat16 if io == "bf16" else torch.float32
+        lengths = np.clip(rng.integers(24, t + 1, batch), 1, t)
+        lengths[0] = t
+        qkv = torch.tensor(rng.standard_normal((batch, t, 3 * D)).astype(np.float32),
+                           device=dev).to(dtype)
+        mask = torch.arange(t, device=dev)[None, :] < torch.tensor(lengths, device=dev)[:, None]
+        out[label] = _events_ms(lambda: fused_attention.mha_full(qkv, mask, heads),
+                                inner=20 if batch < 528 and t <= S else 5)
+    return out
+
+
 def main(argv=None) -> None:
     args = sys.argv[1:] if argv is None else argv
     tree, label = os.path.abspath(args[0]), args[1]
@@ -299,6 +371,9 @@ def main(argv=None) -> None:
     flags = args[2:]
     if "--rnn" in flags:
         times.update(_rnn_times(dev, np.random.default_rng(6), RNN_CASES))
+        times.update(_lstm_times(dev))
+    if "--mha" in flags:
+        times.update(_mha_times(dev))
     if not flags or "--decode" in flags:
         times.update(_decode_times(dev))
     if not flags or "--teacher" in flags:
