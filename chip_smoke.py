@@ -115,9 +115,25 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    the alignment stage over sources longer than one tile, at full width with the
    grid plan against the built kernel, timed, both io types; the teacher kernels as
    ``DualSourceDecoder`` reaches them;
-7. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
+7. the configurations of ``configs/`` not driven before and forced alignment
+   (``phase_configs_kernels``, ``phase_configs_main_path``, ``phase_configs_training``,
+   ``phase_forced``): ``bigru`` and ``bigru_train`` at PostCBHG's shape over a whole
+   ``streaming`` request (64 lanes of up to 2400 frames) and over a training batch
+   (64 x 800), ``fused_decode`` at r=3 (B=64, 800 steps) and the teacher kernels at
+   r=3 (B=64), each against its plain version and timed; ``streaming``
+   (``configs/ljspeech_griffinlim_streaming.json``: r=3, both postnets) at its own size,
+   one request of 64 lanes x 800 steps through the kernels (``bigru`` twice: the
+   encoder's and PostCBHG's) and through the plain path, the postnets held on the same
+   decoded mel, the request's time split into encoder, decode, postnets and PostCBHG's
+   ``bigru``; ``vctk`` and ``japanese``, one request of 32 lanes each; one ``streaming``
+   training step (64 x 800 frames, ``spec`` included) through the kernels against the
+   plain path, every gradient leaf; one ``forced`` request (the flagship's weights in
+   forced-alignment mode, the step-by-step loop) whose alignment rows peak on the
+   forced diagonal;
+8. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
    location-sensitive and lf0 instantiations as entries of their own, the batch
-   blocks inside the lf0 family's teacher entries), then the last line
+   blocks inside the lf0 family's teacher entries, the shapes of phase 7 as entries
+   ``*_configs`` and ``*_streaming``), then the last line
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -156,6 +172,7 @@ from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     TRAINED_NPZ as NPZ,
     config_batch,
     config_hparams,
+    config_request,
     device_busy,
     flagship_hparams,
     gpu_line,
@@ -3804,6 +3821,437 @@ def batch1_entries(rec) -> dict:
             "batch1_max_abs_err": rec["max_abs_err"]}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: the configurations of configs/ and forced alignment
+# --------------------------------------------------------------------------- #
+
+# configs/ljspeech_griffinlim_streaming.json at its own size: batch 64, max_iters 800,
+# r = 3, both postnets; PostCBHG's BiGRU runs over max_iters * r = 2400 frames.
+STREAMING_BATCH = 64
+# the other two configurations of configs/ not driven before, one request each
+CONFIG_REQUESTS = (("streaming", STREAMING_BATCH), ("vctk", 32), ("japanese", 32))
+# The postnets of the kernel path against the plain path's on the same decoded mel and
+# lengths (PostNetV2 is plain PyTorch on both; PostCBHG's BiGRU is ``bigru`` against
+# its step-by-step cells over 2400 frames, then a dense layer of 1025 columns).
+TOL_POSTNETS = 1e-4
+
+
+def config_network(config: str, factor: float = 1.0, shift: float = 0.0, **overrides):
+    """``config``'s network from seeded weights (the trained ones for ``forced``), its
+    stop rows mapped to ``factor * logit - shift``."""
+    net = load_network(config, seed=61, **overrides)
+    if config not in ("flagship", "forced"):
+        shape_stop_rows(net.decoder, factor, shift)
+    return net
+
+
+def spread_config_stop_rows(config: str, req, steps: int):
+    """(factor, shift): seeded stop rows never fire, so they are spread as
+    ``seeded_main_path`` spreads them: the request's run to the cap through the
+    kernels, its stop logits scaled to span SEEDED_STOP_SPAN and shifted so that the
+    median lane's largest lands on 0 (the threshold 0.5)."""
+    predict = make_predict_fn(config_network(config, stop_token_threshold=2.0), max_iters=steps)
+    to_cap = predict(req, generator=torch.Generator(device=DEV).manual_seed(301))
+    logits = stop_logits(to_cap["stop_probs"])
+    span = float(logits.max() - logits.min())
+    factor = SEEDED_STOP_SPAN / span
+    shift = factor * float(np.median(logits.max(axis=1)))
+    log(f"main_path {config} stop rows " + json.dumps(
+        {"threshold": 0.5, "scaled_by": factor, "shifted_by": -shift,
+         "stop_logits_span_before": span}))
+    return factor, shift
+
+
+def postnet_input_of_bigru(net, mel, lengths):
+    """(the postnets' outputs, PostCBHG's BiGRU input and lengths, the postnets' ms)."""
+    captured = {}
+    hook = net.post_cbhg.cbhg.birnn.register_forward_pre_hook(
+        lambda module, args: captured.update(args=args))
+    try:
+        with torch.inference_mode():
+            outs, ms = timed_once(lambda: net.postnet_apply(mel, lengths))
+    finally:
+        hook.remove()
+    return outs, captured["args"][:2], ms
+
+
+def streaming_split(net, req, steps: int) -> dict:
+    """Where a ``streaming`` request's time goes (CUDA events, the same generator
+    seed as the main path's request): the encoder, the fused decode, the postnets,
+    and of these PostCBHG's ``bigru`` over the request's frames."""
+    hp = net.hparams
+    gen = torch.Generator(device=DEV).manual_seed(400)
+    src = torch.as_tensor(req["source"], device=DEV)
+    lengths = torch.as_tensor(req["source_lengths"], device=DEV)
+    packed = fused_decode.pack_decoder(net.decoder)
+    with torch.inference_mode():
+        (cond, _), encode_ms = timed_once(lambda: net.encode(src, lengths, generator=gen))
+        keep = 1.0 - hp.decoder_prenet_drop_rate
+        masks = tuple(torch.rand(steps, src.shape[0], u, device=DEV, generator=gen) < keep
+                      for u in hp.decoder_prenet_out_units)
+        result, decode_ms = timed_once(lambda: fused_decode.fused_decode(
+            packed, cond, masks, steps, hp.stop_token_threshold))
+    _, (xs, frames), post_ms = postnet_input_of_bigru(net, result.frames["mel"], result.lengths)
+    birnn = net.post_cbhg.cbhg.birnn
+    with torch.inference_mode():
+        bigru_ms = time_ms(lambda: birnn(xs, frames), warmup=1, iters=3)
+    split = {"encode_ms": encode_ms, "fused_decode_ms": decode_ms, "postnets_ms": post_ms,
+             "post_cbhg_bigru_ms": bigru_ms, "num_steps": int(result.num_steps),
+             "frames": int(result.lengths.sum()), "bigru_shape": list(xs.shape)}
+    log("main_path streaming split " + json.dumps(split))
+    return split
+
+
+def seeded_lengths_agree(out, ref, hp, label: str) -> dict:
+    """Lengths and flags, exactly, on every lane whose two runs' stop probabilities,
+    up to the frame that fires in the plain run, stay FUSED_MARGIN_FACTOR times closer
+    to each other than the plain run's to the threshold (there "fired" cannot differ).
+    Seeded decoders do not spread, so that holds most lanes; ``compare_lengths``'s
+    fixed MAIN_MARGIN, set for the trained flagship's long runs, holds none of a
+    spread seeded request whose lanes all pass near the threshold."""
+    thr, r = hp.stop_token_threshold, hp.outputs_per_step
+    probs, other = ref["stop_probs"].cpu().numpy(), out["stop_probs"].cpu().numpy()
+    lengths, fired = ref["lengths"].cpu().numpy(), ref["finished"].cpu().numpy()
+    steps = int(ref["num_steps"])
+    held = 0
+    for lane in range(probs.shape[0]):
+        upto = int(lengths[lane]) if fired[lane] else steps * r
+        margin = float(np.abs(probs[lane, :upto] - thr).min())
+        apart = float(np.abs(other[lane, :upto] - probs[lane, :upto]).max())
+        if margin <= FUSED_MARGIN_FACTOR * apart:
+            continue
+        held += 1
+        require(bool(out["finished"][lane]) == bool(fired[lane])
+                and int(out["lengths"][lane]) == int(lengths[lane]),
+                f"{label}: lane {lane} differs between the kernel path and the plain path")
+    rec = {"lanes_held": held, "lanes": int(probs.shape[0]), "factor": FUSED_MARGIN_FACTOR,
+           "fired": int(fired.sum())}
+    log(f"main_path {label} lengths " + json.dumps(rec))
+    require(held >= probs.shape[0] // 2, f"{label}: fewer than half the lanes are held")
+    if held == probs.shape[0]:
+        require(int(out["num_steps"]) == steps, f"{label}: the step counts differ")
+    return rec
+
+
+def config_main_path(config: str, batch: int) -> dict:
+    """One request of ``config`` from seeded weights (stop rows spread), sources 24..128,
+    with the accent types or speaker ids the configuration reads, through the kernels
+    and with ``use_pallas_kernels=False``, the same generator seed: launch counts exact
+    (``bigru`` twice where PostCBHG runs), lengths and flags on the lanes with a margin,
+    frames, stop probabilities and alignments as ``compare_paths`` holds them. With the
+    postnets: the kernel path's ``postnet_mel`` and ``linear`` against the plain network's
+    postnets on the same decoded mel and lengths over every frame (TOL_POSTNETS), and the
+    two paths' postnet outputs printed."""
+    hp0 = config_hparams(config)
+    steps = hp0.max_iters
+    req = config_request(hp0, np.random.default_rng(1234), batch, 128)
+    factor, shift = spread_config_stop_rows(config, req, steps)
+    net = config_network(config, factor, shift, stop_token_threshold=0.5)
+    hp = net.hparams
+    predict = make_predict_fn(net, max_iters=steps)
+    warm = config_request(hp, np.random.default_rng(5), 2, 40)
+    run_requests(predict, [warm], seed=0)              # warm-up
+    reset_launch_counts()
+    outs, stats = run_requests(predict, [req], seed=500)
+    launches = launch_counts()
+    variants = dict(fused_decode.variant_launches)
+    postnet = hp.use_linear_spectrogram_postnet
+    log(f"main_path {config} kernels " + json.dumps({
+        "launches": launches, "fused_decode_specialisations": variants, "requests": stats}))
+    expected = {"bigru": 2 if postnet else 1, "mha_full": 1, "fused_decode": 1, "bilstm": 0,
+                "bigru_proj": 2 if postnet else 1, "bilstm_proj": 0}
+    require(launches == expected, f"{config} synthesis launched {launches}, expected {expected}")
+    out = outs[0]
+    check_output(out, req, hp)
+    plain_net = config_network(config, factor, shift, stop_token_threshold=0.5,
+                               use_pallas_kernels=False)
+    predict_plain = make_predict_fn(plain_net, max_iters=steps)
+    before = launch_counts()
+    outs_plain, stats_plain = run_requests(predict_plain, [req], seed=500)
+    require(before == launch_counts(), "the plain path launched a kernel")
+    log(f"main_path {config} plain " + json.dumps({"requests": stats_plain}))
+    compare_paths(outs, outs_plain, hp, label=f" {config}")
+    rec_lengths = seeded_lengths_agree(out, outs_plain[0], hp, config)
+    rec = {"lengths_held": rec_lengths, "launches": launches, "variants": variants,
+           "stats": stats, "stats_plain": stats_plain, "factor": factor, "shift": shift}
+    if postnet:
+        r = hp.outputs_per_step
+        frames = steps * r
+        for key, width in (("postnet_mel", hp.num_mels), ("linear", hp.num_freq)):
+            require(out[key].shape == (batch, frames, width), f"{config}: {key} {out[key].shape}")
+            require(bool(torch.isfinite(out[key]).all()), f"{config}: {key} is not finite")
+        (pm, lin), (xs, lens), plain_post_ms = postnet_input_of_bigru(
+            plain_net, out["mel"], out["lengths"])
+        same_input = {"postnet_mel": max_abs_err(out["postnet_mel"], pm),
+                      "linear": max_abs_err(out["linear"], lin)}
+        early = min(EARLY_STEPS, int(out["num_steps"]), int(outs_plain[0]["num_steps"])) * r
+        paths = {key: {"every_frame": max_abs_err(out[key], outs_plain[0][key]),
+                       "early_frames": max_abs_err(out[key][:, :early],
+                                                   outs_plain[0][key][:, :early])}
+                 for key in ("postnet_mel", "linear")}
+        rec.update(postnets_same_input=same_input, postnets_paths=paths,
+                   post_cbhg_bigru_shape=list(xs.shape), plain_postnets_ms=plain_post_ms,
+                   post_cbhg_lengths=[int(lens.min()), int(lens.max())])
+        log(f"main_path {config} postnets " + json.dumps({
+            "kernel_path_against_plain_postnets_on_the_same_mel": same_input,
+            "tol": TOL_POSTNETS, "kernel_path_against_plain_path": paths,
+            "bigru_input": list(xs.shape), "plain_postnets_ms": plain_post_ms}))
+        require(max(same_input.values()) <= TOL_POSTNETS,
+                f"{config}: the postnets through the kernels differ from the plain ones: "
+                f"{same_input}")
+        rec["split"] = streaming_split(net, req, steps)
+    del outs, outs_plain
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_configs_kernels():
+    """The kernels at the shapes the configurations of configs/ give them: ``bigru``
+    and ``bigru_train`` at PostCBHG's shape over a whole ``streaming`` request (B=64,
+    S=2400 frames, ragged, lanes of 72 to 2400 frames) and over a training batch
+    (B=64, S=800), timed; the cluster plan at B=64 against the built kernels;
+    ``fused_decode`` at r=3 with ``streaming``'s widths from seeded weights, B=64, to the
+    cap of 800 steps against its plain version, timed, with its grid plan against the
+    built kernel; the teacher kernels at r=3, B=64, 266 steps, against their plain
+    version under autograd, timed."""
+    hp = config_hparams("streaming")
+    r = hp.outputs_per_step
+    rng = np.random.default_rng(2400)
+    frames = hp.max_iters * r
+    lengths = ragged_lengths(rng, STREAMING_BATCH, frames, 24 * r)
+    records = {"bigru": check_bigru(STREAMING_BATCH, frames, 128, 128, lengths, torch.float32,
+                                    timed=True, seed=24)}
+    records["bigru_train"] = check_bigru_train(STREAMING_BATCH, frames, 128, 128, lengths,
+                                               timed=True, seed=25)
+    batch = config_batch(hp, np.random.default_rng(1234), STREAMING_BATCH, 800)
+    train_frames = batch["target_lengths"]
+    records["bigru_800"] = check_bigru(STREAMING_BATCH, 800, 128, 128, train_frames,
+                                       torch.float32, timed=True, seed=26)
+    records["bigru_train_800"] = check_bigru_train(STREAMING_BATCH, 800, 128, 128, train_frames,
+                                                   timed=True, seed=27)
+    sms = torch.cuda.get_device_properties(DEV).multi_processor_count
+    for backward in (False, True):
+        built = fused_rnn.bigru_device_plan(STREAMING_BATCH, 128, torch.float32, DEV,
+                                            backward=backward)
+        mirror = fused_rnn.bigru_plan(STREAMING_BATCH, frames, 128, 128, torch.float32,
+                                      n_sms=sms, backward=backward, active_clusters=built.slots)
+        require(built == mirror, f"bigru B={STREAMING_BATCH}: the plan mirror is not the kernel's")
+    # fused_decode at r = 3: the streaming decoder from seeded weights, B=64, 800 steps
+    decoder = seeded_decoder(hp, seed=31)
+    packed = fused_decode.pack_decoder(decoder)
+    require(packed.sizes["R"] == 3, "streaming decodes three frames a step")
+    records["plan"] = check_plan("streaming", packed)
+    src = ragged_lengths(rng, STREAMING_BATCH, 128)
+    cond = seeded_conditioning(decoder, rng, src.tolist(), 128)
+    masks = seeded_masks(packed, rng, hp.max_iters, STREAMING_BATCH)
+    records["fused_decode"] = time_fused(
+        f"streaming widths (r=3), seeded weights, B={STREAMING_BATCH} S=128 ragged, "
+        f"{hp.max_iters} steps", packed, cond, masks, src, hp.max_iters)
+    # the teacher kernels at r = 3 over a training batch of 64 lanes
+    wide = dict(F=80, P1=256, P2=128, AU=256, A1=224, A2=32, DU=256, E1=256, E2=256)
+    steps = 800 // r
+    feeds = torch.tensor(rng.standard_normal((STREAMING_BATCH, steps, 80)).astype(np.float32),
+                         device=DEV)
+    tmasks = tuple(torch.tensor(rng.random((STREAMING_BATCH, steps, u)) < 0.5, device=DEV)
+                   for u in (256, 128))
+    src_t = batch["source_lengths"].tolist()
+    records["teacher"] = check_teacher(
+        f"streaming widths (r=3), seeded weights, B={STREAMING_BATCH} S=128 ragged, {steps} steps",
+        seeded_teacher_operands(rng, wide, STREAMING_BATCH, 128, src_t, False, 0, 0.1, 0.1, False),
+        feeds, tmasks, src_t, timed=True, valid_steps=train_frames // r)
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_configs_main_path():
+    """``config_main_path`` of ``streaming`` (B=64, 800 steps), ``vctk`` and ``japanese``
+    (B=32, 500 steps)."""
+    return {config: config_main_path(config, batch) for config, batch in CONFIG_REQUESTS}
+
+
+def phase_configs_training():
+    """``train_step`` of ``streaming`` at its own size, 64 lanes x 800 frames with
+    ``spec`` (the linear postnet's target), from seeded weights: two steps through the
+    kernels (the teacher kernels at r=3, ``bigru_train`` for the encoder's CBHG and
+    PostCBHG) and one with ``use_pallas_kernels=False``, every gradient leaf of the
+    first step held (``postnet_v2`` and ``post_cbhg`` among them), launch counts exact;
+    then where the postnets' part of a step goes (their forward and backward under
+    autograd, CUDA events)."""
+    hp = config_hparams("streaming")
+    batch = config_batch(hp, np.random.default_rng(1234), STREAMING_BATCH, 800)
+    require("spec" in batch and batch["spec"].shape == (STREAMING_BATCH, 798, hp.num_freq),
+            "the streaming batch carries the linear spectrogram")
+    steps = 2
+    kernels = run_training("streaming kernels, seeded weights", batch, {}, seeded_network,
+                           steps, False, config="streaming")
+    one = {"bigru": 2, "bigru_bwd": 2, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
+           "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    expected = {k: steps * v for k, v in one.items()}
+    require(kernels["counts"] == expected,
+            f"{steps} streaming steps launched {kernels['counts']}, expected {expected}")
+    require(kernels["variants"] == {"fwd_dual": steps, "bwd_dual": steps},
+            f"streaming launched the teacher specialisations {kernels['variants']}")
+    require({"postnet_loss", "linear_loss"} <= set(kernels["metrics"][0]),
+            "a streaming step reports postnet_loss and linear_loss")
+    post_leaves = [k for k in kernels["first_grads"] if k.startswith(("postnet_v2.", "post_cbhg."))]
+    require(post_leaves and all(float(kernels["first_grads"][k].abs().max()) > 0.0
+                                for k in post_leaves if "cbhg.birnn" in k),
+            "the postnets' BiGRU must receive gradients")
+    torch.cuda.empty_cache()
+    plain = run_training("streaming plain, seeded weights", batch,
+                         {"use_pallas_kernels": False}, seeded_network, 1, False,
+                         config="streaming")
+    require(all(v == 0 for v in plain["counts"].values()), "the plain path launched a kernel")
+    check_seeded_agreement("streaming, seeded weights", kernels, plain)
+
+    # the postnets' part of a step: their forward and backward on the decoded mel
+    torch.manual_seed(7)
+    net = tacotron_model_factory(hp).network(is_training=True)
+    mel = torch.as_tensor(batch["mel"], device=DEV).requires_grad_(True)
+    lengths = torch.as_tensor(batch["target_lengths"], device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+
+    def postnets_fwd_bwd():
+        pm, lin = net.postnet_apply(mel, lengths, generator=gen)
+        (pm.sum() + lin.sum()).backward()
+
+    post_ms = time_ms(postnets_fwd_bwd, warmup=1, iters=3)
+    split = {"postnets_fwd_bwd_ms": post_ms,
+             "step_ms": min(r["step_ms"] for r in kernels["rows"]),
+             "rows": kernels["rows"], "plain_step_ms": plain["rows"][0]["step_ms"]}
+    log("training streaming split " + json.dumps(split))
+    torch.cuda.empty_cache()
+    return {"kernels": kernels, "plain": plain, "split": split}
+
+
+def phase_forced():
+    """Forced-alignment mode: the flagship's trained weights with
+    ``attention="teacher_forcing_forward"`` and ``use_forced_alignment_mode``, one
+    request of 32 lanes with ``target_lengths`` (frames in proportion to the source,
+    800 for the longest). The kernel does not serve the mode: auto mode decodes with
+    the step-by-step loop (``bigru`` and ``mha_full`` in the encoder, no
+    ``fused_decode``), and ``use_fused=True`` raises. Each alignment row of the forced
+    source, up to the lane's last step, peaks at the position nearest
+    min(t * ratio, S - 1) within the lane's mask; the plain path
+    (``use_pallas_kernels=False``) the same request as ``compare_paths`` holds it."""
+    net = load_network("forced")
+    hp = net.hparams
+    try:
+        make_predict_fn(net, max_iters=hp.max_iters, use_fused=True)
+    except ValueError:
+        pass
+    else:
+        raise SystemExit("forced alignment must not be served by the fused decode")
+    r = hp.outputs_per_step
+    req = ragged_request(np.random.default_rng(1234), 32, 128)
+    src = req["source_lengths"]
+    req["target_lengths"] = np.ceil(src * (800 // r) / 128).astype(np.int64) * r
+    predict = make_predict_fn(net, max_iters=hp.max_iters)
+    run_requests(predict, [dict(req)], seed=0)          # warm-up
+    reset_launch_counts()
+    outs, stats = run_requests(predict, [req], seed=600)
+    launches = launch_counts()
+    log("main_path forced kernels " + json.dumps({"launches": launches, "requests": stats}))
+    expected = {"bigru": 1, "mha_full": 1, "fused_decode": 0, "bilstm": 0, "bigru_proj": 1,
+                "bilstm_proj": 0}
+    require(launches == expected, f"the forced request launched {launches}, expected {expected}")
+    out = outs[0]
+    check_output(out, req, hp)
+    align = out["alignments"][0].cpu().numpy()
+    # the centre as the mechanism computes it, in float32 (a tie at .5 goes either way)
+    ratio = (src.astype(np.float32)
+             / np.maximum(req["target_lengths"] // r, 1).astype(np.float32))
+    worst, rows = 0.0, 0
+    for b in range(len(src)):
+        n = -(-int(out["lengths"][b]) // r)
+        centre = np.minimum(np.arange(n, dtype=np.float32) * ratio[b], np.float32(128 - 1))
+        peak = np.minimum(centre, src[b] - 1)
+        off = np.abs(align[b, :n].argmax(axis=-1) - peak)
+        worst, rows = max(worst, float(off.max())), rows + n
+    log("main_path forced diagonal " + json.dumps(
+        {"rows": rows, "largest_distance_of_the_peak_from_the_centre": worst, "tol": 0.5}))
+    require(worst <= 0.5, "a forced alignment row does not peak at its centre")
+    outs_plain, stats_plain = run_requests(
+        make_predict_fn(load_network("forced", use_pallas_kernels=False), max_iters=hp.max_iters),
+        [req], seed=600)
+    log("main_path forced plain " + json.dumps({"requests": stats_plain}))
+    compare_paths(outs, outs_plain, hp, label=" forced")
+    return {"launches": launches, "stats": stats, "stats_plain": stats_plain, "rows": rows}
+
+
+def configs_kernel_entries(kernels, main, train, forced):
+    """The ``kernels`` entries of the configurations of configs/: each kernel at the
+    shape they give it, launches from their main paths (the requests of
+    ``phase_configs_main_path``, ``phase_forced`` and the steps of
+    ``phase_configs_training``)."""
+    requests = [main[c]["launches"] for c, _ in CONFIG_REQUESTS] + [forced["launches"]]
+    synth = {k: sum(l[k] for l in requests) for k in requests[0]}
+    counts = train["kernels"]["counts"]
+    step_ms = min(r["step_ms"] for r in train["kernels"]["rows"])
+    split = main["streaming"]["split"]
+
+    def timed(rec, **extra):
+        return {"max_abs_err": rec["max_abs_err"], "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+                "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"], "library_ms": None,
+                "shape": rec["shape"], "dtype": "float32", **extra}
+
+    bigru, bigru800 = kernels["bigru"], kernels["bigru_800"]
+    train_rec, train800 = kernels["bigru_train"], kernels["bigru_train_800"]
+    fd, teacher = kernels["fused_decode"], kernels["teacher"]
+    post = main["streaming"]
+    return [
+        {"name": "bigru_configs", "route": "cuda",
+         "source": "self_attention_tacotron_torch/csrc/bigru.cu",
+         "replaces": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
+         "also_replaces": "self_attention_tacotron_tpu/ops/fused_rnn.py:216",
+         "design": BIGRU_DESIGN, "launches": synth["bigru"],
+         "launches_per_streaming_predict": post["launches"]["bigru"],
+         "training_launches": counts["bigru"],
+         **timed(bigru, case="PostCBHG over a streaming request, 2400 frames"),
+         "post_cbhg_bigru_in_the_request_ms": split["post_cbhg_bigru_ms"],
+         "postnets_same_input_max_abs_err": post["postnets_same_input"],
+         "training_shape_S800": timed(bigru800)},
+        {"name": "bigru_bwd_configs", "route": "cuda",
+         "source": "self_attention_tacotron_torch/csrc/bigru_bwd.cu",
+         "replaces": "self_attention_tacotron_tpu/ops/fused_rnn.py:293", "design": BIGRU_DESIGN,
+         "launches": counts["bigru_bwd"],
+         **timed(train800, case="a streaming step's BiGRUs, 64 lanes x 800 frames"),
+         "grad_max_rel_err": train800["grad_max_rel_err"],
+         "train_fwd_bwd_ms": train800["train_fwd_bwd_ms"],
+         "plain_fwd_bwd_ms": train800["plain_fwd_bwd_ms"],
+         "S2400": timed(train_rec, grad_max_rel_err=train_rec["grad_max_rel_err"])},
+        {"name": "fused_decode_streaming", "route": "cuda",
+         "source": "self_attention_tacotron_torch/csrc/fused_decode.cu",
+         "replaces": "self_attention_tacotron_tpu/ops/fused_decode.py:787",
+         "design": DECODE_DESIGN,
+         "instantiation": "fused_decode_kernel<true, true, false, false, false, float>",
+         "launches": synth["fused_decode"],
+         **timed(fd), "ms_per_step": fd["ms_per_step"], "steps_timed": fd["steps_timed"],
+         "plan": kernels["plan"], "request_split_ms": split,
+         "configs_requests": {c: {"fused_request_ms": 1e3 * main[c]["stats"][0]["wall_s"],
+                                  "step_by_step_request_ms":
+                                      1e3 * main[c]["stats_plain"][0]["wall_s"]}
+                              for c, _ in CONFIG_REQUESTS},
+         "forced_step_loop_request_ms": 1e3 * forced["stats"][0]["wall_s"]},
+        *({"name": f"fused_teacher_{which}_streaming", "route": "cuda",
+           "source": "self_attention_tacotron_torch/csrc/fused_teacher.cu",
+           "replaces": f"self_attention_tacotron_tpu/ops/fused_teacher.py:{line}",
+           "design": TEACHER_DESIGN,
+           "instantiation": f"teacher_{which}_kernel<true, false, false, float>",
+           "launches": counts[f"fused_teacher_{which}"],
+           "max_abs_err": (max(teacher["features_max_abs_err"], teacher["alignments_max_abs_err"])
+                           if which == "fwd" else teacher["grad_max_abs_err"]),
+           "ms": teacher[which]["ms"], "plain_ms": teacher[which]["plain_ms"],
+           "bound_ms": teacher[which]["bound_ms"], "bound_by": teacher[which]["bound_by"],
+           "library_ms": None, "shape": teacher["shape"], "dtype": "float32",
+           "ms_per_step": teacher[which]["ms_per_step"],
+           "grad_max_rel_err": teacher["grad_max_rel_err"], "train_step_ms": step_ms,
+           "plain_train_step_ms": train["plain"]["rows"][0]["step_ms"],
+           "train_split": train["split"]}
+          for which, line in (("fwd", 1219), ("bwd", 1310))),
+    ]
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -3850,6 +4298,10 @@ def main() -> int:
     branch_teacher = timed_phase(phase_dualsource_ls_teacher)
     branch_main = timed_phase(phase_ls_branches_main_path)
     branch_train = timed_phase(phase_ls_branches_training)
+    config_kernels = timed_phase(phase_configs_kernels)
+    config_main = timed_phase(phase_configs_main_path)
+    config_train = timed_phase(phase_configs_training)
+    forced = timed_phase(phase_forced)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -4114,6 +4566,7 @@ def main() -> int:
                                      world_train)
     kernels += family_kernel_entries("ls_branches", branch_decode, branch_teacher, branch_main,
                                      branch_train)
+    kernels += configs_kernel_entries(config_kernels, config_main, config_train, forced)
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""Attention mechanisms: additive, location-sensitive and forward attention.
+"""Attention mechanisms: additive, location-sensitive, forward and teacher-forcing attention.
 
 Counterpart of ``self_attention_tacotron_tpu/models/attention.py``. Every
 mechanism is a step function whose whole recursion state lives in an explicit
@@ -13,6 +13,14 @@ over a SAME convolution of the previous or the cumulative alignments.
 Forward attention follows Zhang & Ling (ICASSP 2018):
 a_i(n) = ((1 - u) a_i(n-1) + u a_{i-1}(n-1) + eps) * y_i(n), renormalised,
 with an optional transition agent that produces u.
+
+Teacher-forcing attention (``teacher_forcing_forward``, ``teacher_forcing_additive``,
+forced-alignment mode) is the JAX package's pair of networks in one module: its
+training network builds the forward or additive mechanism under the name without
+the prefix, and its prediction network builds ``TeacherForcingAttention``, a
+Gaussian window along the diagonal that reads the shared ``memory_layer``'s tree
+and nothing else. So here the mechanism computes the wrapped one in train mode and
+the window in eval mode, on the wrapped one's parameters.
 """
 
 from __future__ import annotations
@@ -211,6 +219,46 @@ class ForwardAttention(_AdditiveScore):
         return context, probs, new_state
 
 
+class TeacherForcingAttention(nn.Module):
+    """Forced diagonal alignment, mixed in before the mechanism it stands for.
+
+    In eval mode the alignment is a softmax, masked as every mechanism's, of a
+    Gaussian window of width ``window`` centred at ``min(step * ratio, S - 1)``,
+    with ``ratio`` (B,) the source positions per decoder step (``S / T_dec`` of
+    the true lengths; 1 where not given), all in float32; the query and keys are
+    not read, and the forward-attention transition is carried unchanged. In train
+    mode it is the mechanism it is mixed into.
+    """
+
+    window = 3.0
+
+    def forward(self, query, keys, memory, mask, state: AttentionState, projected_query=None,
+                ratio=None):
+        if self.training:
+            return super().forward(query, keys, memory, mask, state,
+                                   projected_query=projected_query)
+        b, s = memory.shape[:2]
+        if ratio is None:
+            ratio = torch.ones(b, dtype=torch.float32, device=memory.device)
+        step = torch.tensor(float(state.step), dtype=torch.float32, device=memory.device)
+        center = torch.clamp(step * ratio.float(), max=s - 1.0)
+        pos = torch.arange(s, dtype=torch.float32, device=memory.device)[None, :]
+        logit = -((pos - center[:, None]) ** 2) / (2.0 * self.window ** 2)
+        probs = _masked_softmax(logit, mask)
+        new_state = state.replace(
+            alignments=probs, cumulative=state.cumulative + probs, step=state.step + 1
+        )
+        return _context(probs, memory), probs, new_state
+
+
+class TeacherForcingForwardAttention(TeacherForcingAttention, ForwardAttention):
+    """``teacher_forcing_forward``: forward attention in training, the window in eval."""
+
+
+class TeacherForcingAdditiveAttention(TeacherForcingAttention, AdditiveAttention):
+    """``teacher_forcing_additive``: additive attention in training, the window in eval."""
+
+
 def attention_factory(
     name: str,
     num_units: int,
@@ -239,6 +287,10 @@ def attention_factory(
         )
     if name == "forward_transition_agent":
         return ForwardAttention(use_transition_agent=True, **kw)
-    if name in ("teacher_forcing_forward", "teacher_forcing_additive"):
-        raise NotImplementedError(f"attention mechanism {name!r} is not ported yet")
+    if name == "teacher_forcing_forward":
+        return TeacherForcingForwardAttention(
+            use_transition_agent=hparams.use_forward_attention_transition_agent, **kw
+        )
+    if name == "teacher_forcing_additive":
+        return TeacherForcingAdditiveAttention(**kw)
     raise ValueError(f"unknown attention mechanism: {name!r}")

@@ -35,6 +35,7 @@ from self_attention_tacotron_torch.models.attention import (
     AttentionState,
     ForwardAttention,
     LocationSensitiveAttention,
+    TeacherForcingAttention,
     initial_attention_state,
     location_fold,
 )
@@ -67,6 +68,7 @@ class DecoderConditioning:
     keys: Tuple[torch.Tensor, ...]                # precomputed attention keys
     masks: Tuple[Optional[torch.Tensor], ...]
     speaker_embed: Optional[torch.Tensor] = None  # (B, D_spk) or None
+    teacher_ratio: Optional[torch.Tensor] = None  # (B,) for forced alignment
 
 
 class Decoder(nn.Module):
@@ -238,13 +240,16 @@ class Decoder(nn.Module):
 
         contexts, aligns, new_att_states = [], [], []
         for i, mech in enumerate(self.attentions):
+            kwargs = {"projected_query": projected_queries[i]}
+            if isinstance(mech, TeacherForcingAttention):
+                kwargs["ratio"] = cond.teacher_ratio
             ctx, probs, new_as = mech(
                 query,
                 cond.keys[i],
                 cond.memories[i],
                 cond.masks[i],
                 state.attention_states[i],
-                projected_query=projected_queries[i],
+                **kwargs,
             )
             contexts.append(ctx)
             aligns.append(probs)
@@ -335,7 +340,10 @@ class Decoder(nn.Module):
         location-sensitive attention with an odd number of taps up to
         ``fused_teacher.MAX_TAPS``, on every decoder: the decoder self-attention
         sits outside the scan (``post``), so the kernels of one and of two sources
-        serve the decoders with it and without it alike."""
+        serve the decoders with it and without it alike. A teacher-forcing
+        mechanism is served in train mode, where it is the mechanism it stands for
+        (the JAX package's training network builds that one), and not in eval
+        mode, where it is the forced window (its prediction network's)."""
         mechs = self.attentions
         if len(mechs) == 1:
             sources_ok = mechs[0].query_layer is not None
@@ -350,6 +358,8 @@ class Decoder(nn.Module):
             mech_ok = fused_teacher.taps_supported(mech1.attention_kernel)
         else:
             mech_ok = isinstance(mech1, ForwardAttention)
+        if any(isinstance(m, TeacherForcingAttention) and not m.training for m in mechs):
+            mech_ok = False
         return (
             sources_ok
             and mech_ok

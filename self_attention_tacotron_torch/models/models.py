@@ -1,14 +1,13 @@
 """Top-level network, the model classes, and the model factory.
 
 Counterpart of ``self_attention_tacotron_tpu/models/models.py``:
-:class:`TacotronNetwork` holds embeddings, encoder and decoder, with the
+:class:`TacotronNetwork` holds embeddings, encoder, decoder and postnets, with the
 teacher-forced ``forward`` of training and evaluation, and ``encode`` plus the
-incremental decode plumbing that ``synthesis.py`` drives. The model classes bind
-a network configuration to its loss: the baseline ``ExtendedTacotronV1Model``,
-the flagship ``DualSourceSelfAttentionTacotronModel`` and their WORLD-feature
-counterparts ``MgcLf0TacotronModel`` and
-``DualSourceSelfAttentionMgcLf0TacotronModel`` (heads ``mgc`` and ``lf0``). The
-postnets are not ported yet.
+incremental decode plumbing and ``postnet_apply`` that ``synthesis.py`` drives.
+The model classes bind a network configuration to its loss: the baseline
+``ExtendedTacotronV1Model``, the flagship ``DualSourceSelfAttentionTacotronModel``
+and their WORLD-feature counterparts ``MgcLf0TacotronModel`` and
+``DualSourceSelfAttentionMgcLf0TacotronModel`` (heads ``mgc`` and ``lf0``).
 
 ``hparams.compute_dtype`` ("float32" or "bfloat16") is every module's compute
 dtype, flax's ``dtype`` of the JAX package (``_dtype_of``): the parameters stay
@@ -37,6 +36,7 @@ from self_attention_tacotron_torch.models.modules import (
     sequence_mask,
     set_compute_dtype,
 )
+from self_attention_tacotron_torch.models.postnet import PostCBHG, PostNetV2
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
 
 
@@ -67,7 +67,13 @@ def compute_dtype_of(hparams: HParams) -> torch.dtype:
 
 
 class TacotronNetwork(nn.Module):
-    """Embeddings + encoder + AR decoder, one module."""
+    """Embeddings + encoder + AR decoder + postnets, one module.
+
+    ``postnet_v2`` (``hparams.use_postnet_v2``) refines the decoded mel;
+    ``post_cbhg`` (``hparams.use_linear_spectrogram_postnet``) maps the refined mel,
+    or the decoded one without ``postnet_v2``, to a linear spectrogram, its BiGRU
+    through the ``bigru`` kernels where ``hparams.use_pallas_kernels``.
+    """
 
     # the JAX package's parameter tree keeps the mechanisms at the top level
     flax_aliases = {"attention_0": "decoder.attention_0", "attention_1": "decoder.attention_1"}
@@ -77,8 +83,6 @@ class TacotronNetwork(nn.Module):
         hp = hparams
         self.hparams = hp
         dtype = compute_dtype_of(hp)
-        if hp.use_postnet_v2 or hp.use_linear_spectrogram_postnet:
-            raise NotImplementedError("the postnets are not ported yet")
         self.dual_source = "DualSource" in hp.decoder
         self.embedding = Embedding(hp.num_symbols, hp.embedding_dim)
         if hp.use_accent_type:
@@ -113,6 +117,20 @@ class TacotronNetwork(nn.Module):
             hp, mechs, memory_units,
             speaker_units=hp.speaker_embedding_dim if hp.use_speaker_embedding else 0,
         )
+        self.postnet_cond = hp.channel_id_to_postnet and hp.use_speaker_embedding
+        if hp.use_postnet_v2:
+            self.postnet_v2 = PostNetV2(
+                out_dim=hp.num_mels,
+                num_layers=hp.postnet_v2_num_layers,
+                kernel_size=hp.postnet_v2_kernel_size,
+                out_channels=hp.postnet_v2_out_channels,
+                drop_rate=hp.postnet_v2_drop_rate,
+                cond_units=hp.speaker_embedding_dim if self.postnet_cond else 0,
+            )
+        if hp.use_linear_spectrogram_postnet:
+            self.post_cbhg = PostCBHG(
+                in_units=hp.num_mels, out_dim=hp.num_freq, use_pallas=hp.use_pallas_kernels
+            )
         set_compute_dtype(self, dtype)   # self.compute_dtype and every module's
 
     def encode(
@@ -169,13 +187,19 @@ class TacotronNetwork(nn.Module):
         speaker_id: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> NetworkOutput:
-        """Teacher-forced forward pass; every random draw comes from ``generator``."""
+        """Teacher-forced forward pass; every random draw comes from ``generator``.
+        The postnets take the decoded mel of every frame and ``target_lengths``."""
         cond, enc_sa = self.encode(source, source_lengths, accent_type, speaker_id, generator)
         frames, stop_logits, aligns, dec_sa = self.decoder(cond, targets, generator=generator)
+        postnet_frames, linear_frames = None, None
+        if "mel" in frames:
+            postnet_frames, linear_frames = self.postnet_apply(
+                frames["mel"], target_lengths, cond.speaker_embed, generator=generator
+            )
         return NetworkOutput(
             frames=frames,
-            postnet_frames=None,
-            linear_frames=None,
+            postnet_frames=postnet_frames,
+            linear_frames=linear_frames,
             stop_logits=stop_logits,
             alignments=tuple(aligns),
             encoder_sa_alignments=tuple(enc_sa),
@@ -200,6 +224,19 @@ class TacotronNetwork(nn.Module):
 
     def decoder_post_step(self, feature, caches, index: int):
         return self.decoder.post_step(feature, caches, index)
+
+    def postnet_apply(self, mel: torch.Tensor, lengths: torch.Tensor, speaker_embed=None,
+                      generator: Optional[torch.Generator] = None):
+        """``(postnet_frames, linear_frames)`` of a decoded mel, each None where its
+        postnet is not configured; ``lengths`` mask the CBHG's input."""
+        postnet_frames = linear = None
+        if self.hparams.use_postnet_v2:
+            postnet_frames = self.postnet_v2(
+                mel, cond=speaker_embed if self.postnet_cond else None, generator=generator
+            )
+        if self.hparams.use_linear_spectrogram_postnet:
+            linear = self.post_cbhg(postnet_frames if postnet_frames is not None else mel, lengths)
+        return postnet_frames, linear
 
 
 class TacotronModelBase:

@@ -166,7 +166,8 @@ def _same_padding(kernel_size: int) -> Tuple[int, int]:
 
 
 class Conv1dBN(nn.Module):
-    """1-D convolution (SAME) + batch norm + optional activation, on (B, T, C).
+    """1-D convolution (SAME) + batch norm + optional activation + optional
+    dropout, on (B, T, C).
 
     In train mode the batch statistics are taken over every position, padded
     ones too, and the running averages are updated here, as the JAX package's
@@ -174,6 +175,8 @@ class Conv1dBN(nn.Module):
     the normalisation and in the running average (``nn.BatchNorm1d`` would store
     the unbiased one). In bfloat16 the convolution runs in bfloat16 and the batch
     norm in float32 (statistics and normalisation), its result cast back.
+    ``drop_rate`` drops after the activation in train mode only, its keep-mask
+    drawn from ``generator``.
     """
 
     compute_dtype = torch.float32
@@ -184,15 +187,17 @@ class Conv1dBN(nn.Module):
         kernel_size: int,
         out_channels: int,
         activation: Optional[Callable] = F.relu,
+        drop_rate: float = 0.0,
     ):
         super().__init__()
         self.kernel_size = kernel_size
         self.activation = activation
+        self.drop_rate = drop_rate
         self.Conv_0 = nn.Conv1d(in_channels, out_channels, kernel_size, padding=0, bias=False)
         # flax momentum 0.99 is torch momentum 0.01
         self.BatchNorm_0 = nn.BatchNorm1d(out_channels, eps=1e-3, momentum=0.01)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
         dtype = self.compute_dtype
         x = F.pad(x.to(dtype).transpose(1, 2), _same_padding(self.kernel_size))
         x = F.conv1d(x, self.Conv_0.weight.to(dtype))
@@ -215,6 +220,10 @@ class Conv1dBN(nn.Module):
         x = x.to(dtype).transpose(1, 2)
         if self.activation is not None:
             x = self.activation(x)
+        if self.training and self.drop_rate > 0.0:
+            keep = 1.0 - self.drop_rate
+            mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+            x = torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
         return x
 
 

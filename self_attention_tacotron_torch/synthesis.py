@@ -1,14 +1,21 @@
 """Batched synthesis: encode, then the autoregressive decode of the output heads.
 
 Counterpart of ``self_attention_tacotron_tpu/synthesis.py`` (``make_predict_fn``):
-encode the whole source in parallel, decode with per-lane stop tokens, and
-return the same output dictionary. The decode is the whole-loop kernel of
-``ops/fused_decode.py`` where the configuration has one, else the step-by-step
-loop of ``ops/decode_loop.py``.
+encode the whole source in parallel, decode with per-lane stop tokens, run the
+postnets on the decoded mel, and return the same output dictionary. The decode
+is the whole-loop kernel of ``ops/fused_decode.py`` where the configuration has
+one, else the step-by-step loop of ``ops/decode_loop.py``.
+
+Forced-alignment mode (``hparams.use_forced_alignment_mode`` with a
+``teacher_forcing_*`` attention): the batch brings ``target_lengths`` and the
+window's ratio is derived from them. The kernel does not serve it, as the
+Pallas kernel does not: it decodes with the step-by-step loop, on the card too,
+as the JAX package decodes it with its XLA loop.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -39,7 +46,9 @@ def make_predict_fn(
     ``device="cpu"`` runs on the CPU.
 
     ``batch`` fields (tensors or numpy arrays): ``source`` (B, S) integer ids,
-    ``source_lengths`` (B,), optional ``accent_type`` (B, S), ``speaker_id`` (B,).
+    ``source_lengths`` (B,), optional ``accent_type`` (B, S), ``speaker_id`` (B,),
+    optional ``target_lengths`` (B,) in frames for forced-alignment mode, which
+    set the teacher-forcing window's ratio to S / max(target_lengths // r, 1).
 
     ``generator``: the ``torch.Generator`` (on ``device``) that the encoder's and
     the decoder's prenet dropout draw from; prenet dropout stays on at inference.
@@ -70,14 +79,15 @@ def make_predict_fn(
     S)), ``encoder_sa_alignments`` (per block, (B, H, S, S); empty for a
     single-stream encoder), ``finished`` (B,) and
     ``num_steps`` (), all tensors on ``device``; the floats are float32 whatever
-    ``hparams.compute_dtype``, as the JAX package returns them.
+    ``hparams.compute_dtype``, as the JAX package returns them. With the postnets,
+    ``postnet_mel`` (B, max_iters*r, num_mels) and ``linear`` (B, max_iters*r,
+    num_freq) of every frame, the linear postnet masked by ``lengths``, in the
+    compute dtype.
     """
     dev = resolve_device(device)
     use_full_float32()
     net = model.to(dev).eval()
     hp = net.hparams
-    if hp.use_postnet_v2 or hp.use_linear_spectrogram_postnet:
-        raise NotImplementedError("the postnets are not ported yet")
     max_steps = int(max_iters or hp.max_iters)
     r = hp.outputs_per_step
     head_dims = dict(net.decoder.output_heads)
@@ -97,8 +107,6 @@ def make_predict_fn(
         generator: Optional[torch.Generator] = None,
         prenet_masks: Optional[Sequence[object]] = None,
     ) -> Dict[str, object]:
-        if "target_lengths" in batch:
-            raise NotImplementedError("forced-alignment mode is not ported yet")
         source = to_device(batch["source"], torch.long)
         src_len = to_device(batch["source_lengths"], torch.long)
         batch_size = source.shape[0]
@@ -110,6 +118,12 @@ def make_predict_fn(
             to_device(batch.get("speaker_id"), torch.long),
             generator=generator,
         )
+        if "target_lengths" in batch:
+            # S / T_dec source positions per decoder step for teacher-forcing attention
+            dec_steps = torch.clamp(to_device(batch["target_lengths"], torch.long) // r, min=1)
+            cond = dataclasses.replace(
+                cond, teacher_ratio=src_len.to(torch.float32) / dec_steps.to(torch.float32)
+            )
 
         # every step's prenet dropout masks in one draw
         if prenet_masks is not None:
@@ -127,7 +141,7 @@ def make_predict_fn(
             result = fused_decode(
                 packed, cond, masks, max_steps, hp.stop_token_threshold, early_exit=early_exit
             )
-            return _assemble_outputs(result, enc_sa)
+            return _assemble_outputs(result, enc_sa, net, cond)
 
         def step_fn(state, feed, t):
             step_masks = None if masks is None else tuple(m[t] for m in masks)
@@ -149,7 +163,7 @@ def make_predict_fn(
             stop_threshold=hp.stop_token_threshold,
             early_exit=early_exit,
         )
-        return _assemble_outputs(result, enc_sa)
+        return _assemble_outputs(result, enc_sa, net, cond)
 
     return predict
 
@@ -166,7 +180,8 @@ def decode_fused(hp, use_fused: Optional[bool], device_type: str) -> bool:
     return bool(use_fused)
 
 
-def _assemble_outputs(result: DecodeResult, enc_sa) -> Dict[str, object]:
+def _assemble_outputs(result: DecodeResult, enc_sa, net: TacotronNetwork,
+                      cond) -> Dict[str, object]:
     out = {
         "lengths": result.lengths,
         "stop_probs": result.stop_probs,
@@ -176,4 +191,13 @@ def _assemble_outputs(result: DecodeResult, enc_sa) -> Dict[str, object]:
         "num_steps": result.num_steps,
     }
     out.update(result.frames)
+    hp = net.hparams
+    if "mel" in result.frames and (hp.use_postnet_v2 or hp.use_linear_spectrogram_postnet):
+        postnet_mel, linear = net.postnet_apply(
+            result.frames["mel"], result.lengths, cond.speaker_embed
+        )
+        if postnet_mel is not None:
+            out["postnet_mel"] = postnet_mel
+        if linear is not None:
+            out["linear"] = linear
     return out

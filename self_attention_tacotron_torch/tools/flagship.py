@@ -18,9 +18,16 @@ attention with the lf0 feedback or without the decoder self-attention:
 ``mgclf0-ls`` (``mgclf0`` with location-sensitive attention), ``flagship-mgclf0-ls``
 (``flagship-mgclf0`` with it) and ``flagship-dualsource-ls`` (the flagship's model
 class with ``DualSourceDecoder``, the hparams' own default decoder, and
-location-sensitive attention). No trained weights of the baseline family, of location-sensitive
-attention or of the WORLD heads are committed: those networks are made from a
-seed.
+location-sensitive attention). Then the other configurations of ``configs/``, each
+its JSON over the defaults: ``streaming`` (``configs/ljspeech_griffinlim_streaming.json``:
+the flagship's structure at r=3, ``max_iters=800``, batch 64, with both postnets),
+``vctk`` (``configs/vctk_multispeaker.json``: 110 speakers, a speaker embedding of 16)
+and ``japanese`` (``configs/japanese_pitch_accent.json``: accent types, 60 symbols);
+and ``forced``, the flagship in forced-alignment mode (``attention=
+"teacher_forcing_forward"``, ``use_forced_alignment_mode``, as ``predict_mel.py`` sets
+them), with the flagship's trained weights. No trained weights of the baseline family,
+of location-sensitive attention, of the WORLD heads or of the three ``configs/``
+configurations are committed: those networks are made from a seed.
 """
 
 from __future__ import annotations
@@ -43,7 +50,16 @@ TRAINED_NPZ = os.path.join(_REPO, "artifacts", "convergence_long_r5", "trained_p
 # the baseline Tacotron's configuration, as the training command line reads it
 BASELINE_JSON = os.path.join(_REPO, "configs", "ljspeech_baseline.json")
 CONFIGS = ("flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0", "flagship-mgclf0",
-           "mgclf0-ls", "flagship-mgclf0-ls", "flagship-dualsource-ls")
+           "mgclf0-ls", "flagship-mgclf0-ls", "flagship-dualsource-ls", "streaming", "vctk",
+           "japanese", "forced")
+# the configurations that read a JSON of configs/ over the defaults
+CONFIG_JSONS = {
+    "streaming": os.path.join(_REPO, "configs", "ljspeech_griffinlim_streaming.json"),
+    "vctk": os.path.join(_REPO, "configs", "vctk_multispeaker.json"),
+    "japanese": os.path.join(_REPO, "configs", "japanese_pitch_accent.json"),
+}
+# the configurations whose networks load the committed trained weights
+TRAINED = ("flagship", "forced")
 # the compute dtypes a script may ask for (hparams.compute_dtype)
 DTYPES = ("float32", "bfloat16")
 
@@ -80,9 +96,17 @@ def config_hparams(config: str, **overrides) -> HParams:
     the flagship's as ``DualSourceSelfAttentionMgcLf0TacotronModel`` (the hparams'
     own ``num_mgcs=60``, ``num_lf0s=256``); ``mgclf0-ls`` and ``flagship-mgclf0-ls``
     those with location-sensitive attention (as ``ls``), ``flagship-dualsource-ls``
-    the flagship with ``decoder="DualSourceDecoder"`` and it."""
+    the flagship with ``decoder="DualSourceDecoder"`` and it; ``streaming``,
+    ``vctk`` and ``japanese`` their JSON over the defaults (float32), ``forced`` the
+    flagship in forced-alignment mode."""
     if config == "flagship":
         return flagship_hparams(**overrides)
+    if config in CONFIG_JSONS:
+        hp = HParams(compute_dtype="float32").override_from_json_file(CONFIG_JSONS[config])
+        return hp.override_from_dict(overrides)
+    if config == "forced":
+        return flagship_hparams(**{"attention": "teacher_forcing_forward",
+                                   "use_forced_alignment_mode": True, **overrides})
     if config == "baseline":
         return baseline_hparams(**overrides)
     if config == "zoneout":
@@ -110,11 +134,11 @@ def config_hparams(config: str, **overrides) -> HParams:
 
 
 def load_network(config: str, seed: int = 0, device="cuda", **overrides) -> TacotronNetwork:
-    """The network of ``config`` on ``device`` in eval mode: the flagship with its
-    trained weights, the others with weights made from ``seed`` (on the CPU's
-    generator, so that every path of one seed holds the same weights)."""
+    """The network of ``config`` on ``device`` in eval mode: the flagship and
+    ``forced`` with the trained weights, the others with weights made from ``seed``
+    (on the CPU's generator, so that every path of one seed holds the same weights)."""
     hp = config_hparams(config, **overrides)
-    if config == "flagship":
+    if config in TRAINED:
         return convert.load_npz(TRAINED_NPZ, hp, device=device)
     torch.manual_seed(seed)
     return tacotron_model_factory(hp).network(device=device).eval()
@@ -137,10 +161,35 @@ def ragged_request(
     return {"source": source, "source_lengths": lengths}
 
 
+def conditioning_inputs(hp: HParams, rng: np.random.Generator, source_lengths: np.ndarray,
+                        longest: int) -> Dict[str, np.ndarray]:
+    """The inputs besides the source that ``hp``'s encoder reads, from ``rng``:
+    ``accent_type`` (B, S), ids in the embedding's range from its offset, zero
+    beyond a lane's length, where accent types are used; ``speaker_id`` (B,) where
+    a speaker embedding is."""
+    out = {}
+    batch = len(source_lengths)
+    if hp.use_accent_type:
+        accent = hp.accent_type_offset + rng.integers(0, hp.num_accent_type, size=(batch, longest))
+        out["accent_type"] = accent * (np.arange(longest)[None, :] < source_lengths[:, None])
+    if hp.use_speaker_embedding:
+        out["speaker_id"] = hp.speaker_embedding_offset + rng.integers(
+            0, hp.num_speakers, size=batch)
+    return out
+
+
+def config_request(hp: HParams, rng: np.random.Generator, batch: int, longest: int,
+                   shortest: int = 24) -> Dict[str, np.ndarray]:
+    """``ragged_request`` with the inputs ``hp``'s encoder reads besides the source."""
+    req = ragged_request(rng, batch, longest, shortest)
+    req.update(conditioning_inputs(hp, rng, req["source_lengths"], longest))
+    return req
+
+
 def training_batch(
     rng: np.random.Generator, batch: int = 32, frames: int = 800, longest: int = 128,
     num_mels: int = 80, outputs_per_step: int = 2, shortest: int = 24,
-    num_mgcs: int = 0, num_lf0s: int = 0,
+    num_mgcs: int = 0, num_lf0s: int = 0, num_freq: int = 0,
 ) -> Dict[str, np.ndarray]:
     """A training batch in the data layer's field names, all from ``rng``.
 
@@ -150,7 +199,9 @@ def training_batch(
     uniform in [0, 1) and zero beyond a lane's length; ``done`` 1 from a lane's
     last frame on. With ``num_lf0s`` (the WORLD heads) ``mgc`` (B, T, num_mgcs)
     uniform in [0, 1) and ``lf0`` (B, T) class ids in [0, num_lf0s) instead of
-    ``mel``, both zero beyond a lane's length.
+    ``mel``, both zero beyond a lane's length. With ``num_freq`` (the linear
+    postnet) also ``spec`` (B, T, num_freq) uniform in [0, 1), zero beyond a lane's
+    length, drawn after everything else.
     """
     out = ragged_request(rng, batch, longest, shortest)
     r = outputs_per_step
@@ -165,18 +216,25 @@ def training_batch(
         out["mel"] = rng.random((batch, frames, num_mels), dtype=np.float32) * valid[..., None]
     done = (np.arange(frames)[None, :] >= target_lengths[:, None] - 1).astype(np.float32)
     out.update(done=done, target_lengths=target_lengths)
+    if num_freq:
+        out["spec"] = rng.random((batch, frames, num_freq), dtype=np.float32) * valid[..., None]
     return out
 
 
 def config_batch(hp: HParams, rng: np.random.Generator, batch: int = 32, frames: int = 800,
-                 longest: int = 128) -> Dict[str, np.ndarray]:
+                 longest: int = 128, shortest: int = 24) -> Dict[str, np.ndarray]:
     """``training_batch`` with the targets of ``hp``'s heads: ``mel``, or for the
-    ``MgcLf0`` decoders ``mgc`` and ``lf0``."""
+    ``MgcLf0`` decoders ``mgc`` and ``lf0``; ``spec`` where the linear postnet is
+    configured, then the inputs the encoder reads besides the source
+    (``conditioning_inputs``)."""
     world = hp.decoder.startswith("MgcLf0")
-    return training_batch(
-        rng, batch, frames, longest, hp.num_mels, hp.outputs_per_step,
+    out = training_batch(
+        rng, batch, frames, longest, hp.num_mels, hp.outputs_per_step, shortest,
         num_mgcs=hp.num_mgcs if world else 0, num_lf0s=hp.num_lf0s if world else 0,
+        num_freq=hp.num_freq if hp.use_linear_spectrogram_postnet else 0,
     )
+    out.update(conditioning_inputs(hp, rng, out["source_lengths"], longest))
+    return out
 
 
 def gpu_line() -> str:

@@ -5,7 +5,9 @@
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
 flagship with its trained weights, the default; ``baseline``, ``zoneout``, ``ls``,
-``flagship-ls``, ``mgclf0`` or ``flagship-mgclf0`` with weights made from a seed) in ``--dtype`` (``compute_dtype``, float32 by
+``flagship-ls``, ``mgclf0``, ``flagship-mgclf0``, ``streaming``, ``vctk``, ``japanese``
+and the others with weights made from a seed; ``forced`` has no fused decode and is
+not offered) in ``--dtype`` (``compute_dtype``, float32 by
 default), batch 32 (ragged source lengths up to 128) and batch 1, ``--steps``
 decoder steps with the stop threshold out of reach, so that every run does the
 same work. The first line names the card and its power limit. It prints JSON
@@ -40,8 +42,8 @@ from self_attention_tacotron_torch.tools.flagship import (
     DTYPES,
     device_busy,
     gpu_line,
+    config_request,
     load_network,
-    ragged_request,
 )
 from self_attention_tacotron_torch.utils.platform import resolve_device
 
@@ -59,17 +61,17 @@ def wall_per_step(predict, req, steps: int, dev) -> float:
 
 
 def encoder_ms(net, req, dev, iters: int = 10) -> float:
-    source = torch.as_tensor(req["source"], device=dev)
-    lengths = torch.as_tensor(req["source_lengths"], device=dev)
+    inputs = [torch.as_tensor(req[k], device=dev) if k in req else None
+              for k in ("source", "source_lengths", "accent_type", "speaker_id")]
     gen = torch.Generator(device=dev).manual_seed(0)
     with torch.inference_mode():
         for _ in range(2):
-            net.encode(source, lengths, generator=gen)
+            net.encode(*inputs, generator=gen)
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(iters):
-            net.encode(source, lengths, generator=gen)
+            net.encode(*inputs, generator=gen)
         end.record()
         torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -99,7 +101,8 @@ def device_row(predict, req, steps: int, untraced_ms: float, dev):
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=200, help="decoder steps per request")
-    parser.add_argument("--config", choices=CONFIGS, default="flagship")
+    parser.add_argument("--config", choices=[c for c in CONFIGS if c != "forced"],
+                        default="flagship")
     parser.add_argument("--dtype", choices=DTYPES, default="float32", help="compute dtype")
     args = parser.parse_args()
     dev = resolve_device("cuda")
@@ -120,7 +123,7 @@ def main() -> None:
     }
 
     for batch, longest in ((32, 128), (1, 97)):
-        req = ragged_request(np.random.default_rng(1234), batch, longest)
+        req = config_request(net.hparams, np.random.default_rng(1234), batch, longest)
         print(json.dumps({
             "encoder": {"batch": batch, "kernels_ms": encoder_ms(net, req, dev),
                         "plain_ms": encoder_ms(net_plain, req, dev)}

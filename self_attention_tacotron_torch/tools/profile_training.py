@@ -4,9 +4,10 @@
 
 One configuration of ``tools/flagship.py`` at full width (``--config``: the
 flagship from the committed trained weights, the default; ``baseline``,
-``zoneout``, ``ls``, ``flagship-ls``, ``mgclf0`` or ``flagship-mgclf0`` from weights
-made from a seed), the seeded batch of ``tools/flagship.py::config_batch`` (32 lanes
-x 800 frames, sources 24..128, the configuration's heads),
+``zoneout``, ``ls``, ``flagship-ls``, ``mgclf0``, ``flagship-mgclf0``, ``streaming``,
+``vctk``, ``japanese`` and the others from weights made from a seed), the seeded batch
+of ``tools/flagship.py::config_batch`` (32 lanes x 800 frames, sources 24..128, the
+configuration's heads, ``spec`` and the accent types or speaker ids it reads),
 ``Trainer.train_step`` through the kernels and with ``use_pallas_kernels=False``
 (eager encoder, the decoder's Python loop under autograd). It prints JSON lines:
 

@@ -6,6 +6,11 @@ loss, backward, optional clipping by global norm, Adam at the scheduled rate.
 Checkpoints, the training loop, evaluation artifacts and the command line are
 not ported yet.
 
+With the postnets configured, the losses add ``postnet_loss`` (PostNetV2's mel
+against ``mel``) and ``linear_loss`` (PostCBHG's linear spectrogram against the
+batch's ``spec``, where the batch has it); the postnets' batch-norm running
+statistics move in a training step as the encoder's do.
+
 The network and the optimizer carry their state themselves, so ``train_step``
 updates them in place and hands back a :class:`TrainState` around the same
 objects with the step count advanced.
@@ -102,8 +107,12 @@ class Trainer:
         self, state: TrainState, batch, generator: Optional[torch.Generator] = None,
         mark: Optional[Callable[[str], None]] = None,
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        """One update. Returns the state and the metrics: the loss parts and
-        ``grad_norm`` (before clipping), 0-dim tensors on the device.
+        """One update. Returns the state and the metrics: the loss parts (with
+        ``postnet_loss`` and ``linear_loss`` where the postnets are configured) and
+        ``grad_norm`` (before clipping), 0-dim tensors on the device. ``batch`` takes
+        the data layer's field names: ``source``, ``source_lengths``, the heads'
+        targets, ``done``, ``target_lengths``, and where the configuration reads them
+        ``spec``, ``accent_type``, ``speaker_id``.
 
         ``mark``, where given, is called with ``"forward"``, ``"backward"`` and
         ``"optimizer"`` as each of these parts has been queued (a profiler's hook).

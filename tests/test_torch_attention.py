@@ -117,7 +117,14 @@ def test_factory_names():
     assert isinstance(mech, attention.LocationSensitiveAttention)
     assert mech.attention_kernel == hp.attention_kernel and mech.cumulative_weights
     assert tuple(mech.location_conv.weight.shape) == (hp.attention_filters, 1, hp.attention_kernel)
-    with pytest.raises(NotImplementedError):
-        attention.attention_factory("teacher_forcing_forward", 8, hp, query_units=4, memory_units=4)
+    # forced-alignment mode: the mechanism it stands for in training, the window in eval
+    mech = attention.attention_factory("teacher_forcing_forward", 8, hp, query_units=4,
+                                       memory_units=4)
+    assert isinstance(mech, attention.TeacherForcingAttention)
+    assert isinstance(mech, attention.ForwardAttention)
+    mech = attention.attention_factory("teacher_forcing_additive", 8, hp, query_units=4,
+                                       memory_units=4)
+    assert isinstance(mech, attention.TeacherForcingAttention)
+    assert isinstance(mech, attention.AdditiveAttention)
     with pytest.raises(ValueError):
         attention.attention_factory("nope", 8, hp, query_units=4, memory_units=4)

@@ -4,10 +4,12 @@ cluster which lanes, and how many waves of clusters a batch takes.
 ``ops/fused_rnn.py::bigru_plan`` mirrors what ``csrc/bigru.cu`` (forward) and
 ``csrc/bigru_bwd.cu`` (backward) compute for themselves (``csrc/cluster_rnn.cuh``:
 ``rnn_plan``, ``rnn_layout``). Every CBHG width that a configuration of
-``tools/flagship.py`` or ``configs/*.json`` builds is planned in both io types and
-both directions of autograd, at batches up to ``fused_decode.MAX_LANES``; so are the
-narrow widths the kernels are checked at. No card is needed; ``chip_smoke.py`` holds
-the mirror against the built kernels' own numbers.
+``tools/flagship.py`` or ``configs/*.json`` builds (the encoder's and PostCBHG's) is
+planned in both io types and both directions of autograd, at batches up to
+``fused_decode.MAX_LANES``; so are the narrow widths the kernels are checked at, and
+PostCBHG's BiGRU over a whole ``streaming`` request (B = 64, S = max_iters * r = 2400).
+No card is needed; ``chip_smoke.py`` holds the mirror against the built kernels' own
+numbers.
 """
 
 import glob
@@ -33,19 +35,12 @@ BATCHES = (1, 8, 32, 128, 528, 1024)
 # the widths of the kernel checks (tests/test_torch_fused_rnn.py, chip_smoke.py):
 # H below and off the cluster size
 NARROW = ((10, 8), (7, 20))
-# PostCBHG (the linear-spectrogram postnet of the JAX package, not yet ported) builds
-# its CBHG with cbhg_out_units=256: a BiGRU of 128 units over 128 channels
-POST_CBHG = (128, 128)
 
 
 def _gru_widths(hp: HParams):
-    """(C, H) of every GRU cell of the configuration's network."""
-    try:
-        net = tacotron_model_factory(hp).network(device="cpu")
-    except NotImplementedError:
-        # the postnets are not ported: the encoder's CBHG and PostCBHG's
-        half = hp.cbhg_out_units // 2
-        return {(half, half), POST_CBHG}
+    """(C, H) of every GRU cell of the configuration's network: the encoder's CBHG and,
+    with the linear postnet, PostCBHG's."""
+    net = tacotron_model_factory(hp).network(device="cpu")
     return {(m.kernel_params()["gates_kernel"].shape[0] - m.num_units, m.num_units)
             for m in net.modules() if isinstance(m, GRUCell)}
 
@@ -69,10 +64,34 @@ def _ids(case):
 
 
 def test_every_configured_cbhg_width_is_planned():
-    """Every BiGRU a configuration builds has a width the cases below plan."""
+    """Every BiGRU a configuration builds has a width the cases below plan; PostCBHG's
+    (``streaming``) is the encoder's, 128 units over 128 channels after ``highway_in``."""
     configured = _configured_widths()
     assert configured == [(128, 128)]
     assert set(configured) <= set(WIDTHS)
+    post = tacotron_model_factory(config_hparams("streaming")).network(device="cpu").post_cbhg
+    assert _gru_widths(config_hparams("streaming")) == {(128, 128)}
+    assert post.cbhg.birnn.use_pallas and post.cbhg.highway_in.out_features == 128
+
+
+@pytest.mark.parametrize("io", IO, ids=lambda io: str(io).split(".")[-1])
+@pytest.mark.parametrize("backward", (False, True), ids=("fwd", "bwd"))
+def test_post_cbhg_over_a_streaming_request_takes_one_wave(io, backward):
+    """PostCBHG's BiGRU over a whole ``streaming`` request: 64 lanes of up to
+    max_iters * r = 2400 frames. The plan does not depend on S (a block holds no step's
+    rows beyond the current one): 64 lanes in 7 groups of up to 10 (padded to 12), 14
+    clusters, one wave; the input projection's scratch is B * S * 6H floats."""
+    hp = config_hparams("streaming")
+    S = hp.max_iters * hp.outputs_per_step
+    assert (hp.batch_size, S) == (64, 2400)
+    plan = fr.bigru_plan(64, S, 128, 128, io, n_sms=H100_SMS, backward=backward,
+                         active_clusters=H100_CLUSTERS_OF_8)
+    assert plan == fr.bigru_plan(64, 97, 128, 128, io, n_sms=H100_SMS, backward=backward,
+                                 active_clusters=H100_CLUSTERS_OF_8)
+    assert (plan.cluster, plan.groups, plan.lanes, plan.lanes_padded, plan.clusters,
+            plan.waves) == (8, 7, 10, 12, 14, 1)
+    assert plan.smem_bytes <= fr.RNN_SMEM_LIMIT
+    assert 64 * S * 6 * 128 * 4 == 471_859_200
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)

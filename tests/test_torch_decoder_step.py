@@ -18,6 +18,7 @@ from self_attention_tacotron_tpu.hparams import HParams as JaxHParams
 from self_attention_tacotron_tpu.models.models import TacotronNetwork as JaxNetwork
 
 from self_attention_tacotron_torch.hparams import HParams
+from self_attention_tacotron_torch.models.attention import TeacherForcingAttention
 from self_attention_tacotron_torch.models.decoders import decoder_factory
 from self_attention_tacotron_torch.models.models import TacotronNetwork, tacotron_model_factory
 
@@ -168,11 +169,15 @@ def test_factories_name_what_is_not_ported():
         decoder_factory(HParams(decoder="nope"), (), ())
     with pytest.raises(ValueError):
         decoder_factory(HParams(decoder="MgcLf0nope"), (), ())
-    with pytest.raises(NotImplementedError):
-        TacotronNetwork(HParams(attention="teacher_forcing_forward", decoder="ExtendedDecoder",
-                                encoder="EncoderV1"))
-    with pytest.raises(NotImplementedError):
-        TacotronNetwork(HParams(decoder="DualSourceSelfAttentionDecoder", use_postnet_v2=True))
+    # forced alignment and the postnets build (tests/test_torch_forced_alignment.py and
+    # tests/test_torch_postnet.py hold them against the JAX package)
+    net = TacotronNetwork(HParams(attention="teacher_forcing_forward", decoder="ExtendedDecoder",
+                                  encoder="EncoderV1"))
+    assert isinstance(net.decoder.attention_0, TeacherForcingAttention)
+    net = TacotronNetwork(HParams(decoder="DualSourceSelfAttentionDecoder", use_postnet_v2=True,
+                                  use_linear_spectrogram_postnet=True))
+    assert net.postnet_v2.conv_4.Conv_0.out_channels == net.hparams.num_mels
+    assert net.post_cbhg.linear.out_features == net.hparams.num_freq
     # bfloat16 is ported (it builds, tests/test_torch_bf16.py); a dtype the JAX
     # package does not know is refused
     with pytest.raises(ValueError):

@@ -18,7 +18,9 @@ from self_attention_tacotron_torch.tools.flagship import CONFIGS, config_hparams
 
 SMS = (132, 114)
 IO = (torch.float32, torch.bfloat16)
-CASES = [(c, io, n) for c in CONFIGS for io in IO for n in SMS]
+# forced-alignment mode decodes with the step-by-step loop (the kernel does not serve it)
+DECODED = [c for c in CONFIGS if c != "forced"]
+CASES = [(c, io, n) for c in DECODED for io in IO for n in SMS]
 
 
 def _ids(case):
@@ -35,9 +37,14 @@ def _plan(config, io, sms):
 def test_every_configuration_is_planned():
     assert set(CONFIGS) == {"flagship", "baseline", "zoneout", "ls", "flagship-ls", "mgclf0",
                             "flagship-mgclf0", "mgclf0-ls", "flagship-mgclf0-ls",
-                            "flagship-dualsource-ls"}
-    for config in CONFIGS:
+                            "flagship-dualsource-ls", "streaming", "vctk", "japanese", "forced"}
+    for config in DECODED:
         assert fd.supports_fused_decode(config_hparams(config)), config
+    assert not fd.supports_fused_decode(config_hparams("forced"))
+    # streaming's output stage: R * M + R = 243 columns at r = 3
+    z = fd._hp_sizes(config_hparams("streaming"))
+    assert (z["R"], z["M"]) == (3, 80)
+    assert fd.product_shapes(z)["out"][1] == 3 * 80 + 3
 
 
 @pytest.mark.parametrize("case", CASES, ids=_ids)
@@ -126,7 +133,7 @@ def test_a_block_that_cannot_fit_gives_no_launch():
     assert "src_len" not in inspect.signature(fd.grid_plan).parameters
 
 
-@pytest.mark.parametrize("config", CONFIGS)
+@pytest.mark.parametrize("config", DECODED)
 def test_the_plan_reads_the_shapes_the_decoder_packs(config):
     """Each product's depth and width are those of the packed matrix it multiplies by."""
     hp = config_hparams(config)
