@@ -102,8 +102,8 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    (narrow and off-tile against the plain versions on their first launches, then
    at full width, timed), its main path (``seeded_main_path``: synthesis at batch 1
    and 32 through the kernels and the plain path, launch counts exact) and its
-   training (``seeded_training``: three steps of each configuration through the
-   kernels, every gradient leaf of the first step against the plain path): the
+   training (``seeded_training``: one timed step of each configuration through the
+   kernels after a warm-up, every gradient leaf of that step against the plain path): the
    location-sensitive family (``ls``, ``flagship-ls``, the latter in both io types),
    the WORLD-feature family (``mgclf0``, ``flagship-mgclf0``: ``fused_decode``'s lf0
    feedback on every pair of flags in both io types with early exits, and the
@@ -130,7 +130,27 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    plain path, every gradient leaf; one ``forced`` request (the flagship's weights in
    forced-alignment mode, the step-by-step loop) whose alignment rows peak on the
    forced diagonal;
-8. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
+8. from a corpus on disk to a checkpoint and back, through the command lines a user
+   runs (``phase_corpus_cli``): (a) ``data.synthetic.generate_corpus`` writes the
+   flagship's convergence corpus on the card (256 utterances of 94 to 152 symbols,
+   seed 1234; its ``validation.lst`` must hold the 12 ids of
+   ``artifacts/convergence_long_r5/summary.json``); (b) ``train.main`` restores the
+   committed npz (``--steps=0``), whose checkpoint must equal ``convert.load_npz``'s
+   weights bit for bit; (c) ``predict_mel.main`` synthesizes the 12 validation
+   utterances in one batch of 16 in bfloat16 with a stop threshold of 0.5, scored as
+   ``scripts/convergence_run.py::score_predictions`` scores them (every lane stops
+   before the cap, median and largest length error, median mel MSE, against bounds
+   of about twice that run's own), ``bigru``, ``mha_full`` and ``fused_decode``
+   launched once each; (d) ``train.main`` takes 6 steps from the npz with a
+   checkpoint and PNGs every 3, a second call resumes at step 6 and takes 3 more: the
+   step-6 checkpoint restores step, weights, batch-norm buffers and Adam's moments bit
+   for bit, ``metrics.jsonl`` holds steps 1 to 9, the teacher backward and
+   ``bigru_bwd`` launched once a step, the teacher forward once a step and once per
+   eval-mode forward, and ``Trainer.evaluate`` on the validation list writes its
+   means and PNGs; (e) ``Audio.inv_spectrogram`` on the card over one lane of the
+   ``streaming`` request's ``linear`` output against the same call on the CPU with the
+   same start phases;
+9. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
    location-sensitive and lf0 instantiations as entries of their own, the batch
    blocks inside the lf0 family's teacher entries, the shapes of phase 7 as entries
    ``*_configs`` and ``*_streaming``), then the last line
@@ -143,6 +163,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import shutil
 import sys
 import time
 
@@ -153,8 +174,15 @@ if not torch.cuda.is_available():
     sys.stderr.write("chip_smoke: no CUDA device is available\n")
     sys.exit(1)
 
-from self_attention_tacotron_torch import convert  # noqa: E402
-from self_attention_tacotron_torch.hparams import HParams  # noqa: E402
+from self_attention_tacotron_torch import convert, predict_mel, train  # noqa: E402
+from self_attention_tacotron_torch.audio import Audio  # noqa: E402
+from self_attention_tacotron_torch.data.dataset import (  # noqa: E402
+    TacotronDataset,
+    parse_target_tfrecord,
+    read_selected_list,
+)
+from self_attention_tacotron_torch.data.synthetic import generate_corpus  # noqa: E402
+from self_attention_tacotron_torch.hparams import HParams, default_hparams  # noqa: E402
 from self_attention_tacotron_torch.models.decoders import DecoderConditioning  # noqa: E402
 from self_attention_tacotron_torch.models.models import (  # noqa: E402
     TacotronNetwork,
@@ -169,6 +197,9 @@ from self_attention_tacotron_torch.ops import (  # noqa: E402
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult  # noqa: E402
 from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
+    CONVERGENCE_CORPUS,
+    CONVERGENCE_SUMMARY,
+    FLAGSHIP_OVERRIDES,
     TRAINED_NPZ as NPZ,
     config_batch,
     config_hparams,
@@ -176,6 +207,7 @@ from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     device_busy,
     flagship_hparams,
     gpu_line,
+    hparams_string,
     load_network,
     ragged_lengths,
     ragged_request,
@@ -183,6 +215,7 @@ from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
 )
 from self_attention_tacotron_torch.tools.profile_training import timed_step  # noqa: E402
 from self_attention_tacotron_torch.training.trainer import (  # noqa: E402
+    CheckpointManager,
     Trainer,
     targets_from_batch,
 )
@@ -398,8 +431,9 @@ def check_bigru(B, S, C, H, lengths, dtype, timed: bool, seed: int = 0):
         t_ops, t_bytes = flops / PEAK_FLOPS[dtype], nbytes / PEAK_BYTES_PER_S
         rec.update(
             ms=time_ms(lambda: fused_rnn.bigru(xs, lens, pf, pb, H)),
+            # the plain version ran just above: no warm-up, one call
             plain_ms=time_ms(
-                lambda: fused_rnn.bigru_reference(xs, lens, pf, pb, H), warmup=1, iters=2
+                lambda: fused_rnn.bigru_reference(xs, lens, pf, pb, H), warmup=0, iters=1
             ),
             bound_ms=max(t_ops, t_bytes) * 1e3,
             bound_by="operations" if t_ops >= t_bytes else "bytes",
@@ -1659,17 +1693,17 @@ def check_bigru_train(B, S, C, H, lengths, timed: bool, seed: int = 0, dtype=tor
             max_abs_err=max(max_abs_err(a, b) for a, b in zip(g_kernel, g_plain)),
             ms=time_ms(lambda: fused_rnn.bigru_bwd_carry(*args)),
             plain_ms=time_ms(
-                lambda: fused_rnn.bigru_bwd_carry_reference(*args), warmup=1, iters=2),
+                lambda: fused_rnn.bigru_bwd_carry_reference(*args), warmup=0, iters=1),
             train_fwd_bwd_ms=time_ms(lambda: run(fused_rnn.bigru_train), warmup=1, iters=5),
             **bound(flops, nbytes, dtype), flops=flops, bytes=nbytes,
         )
         if bf16:
             with plain_bigru_train():
                 rec["plain_fwd_bwd_ms"] = time_ms(lambda: run(fused_rnn.bigru_train),
-                                                  warmup=0, iters=2)
+                                                  warmup=0, iters=1)
         else:
             rec["plain_fwd_bwd_ms"] = time_ms(lambda: run(fused_rnn.bigru_reference),
-                                              warmup=0, iters=2)
+                                              warmup=0, iters=1)
     log("check " + json.dumps(rec))
     if not ok:
         raise SystemExit(f"bigru_train disagrees with autograd through its plain version: {rec}")
@@ -2583,14 +2617,15 @@ def seeded_network(hp):
 
 
 def run_training(path: str, batch, overrides, make_net, steps: int, measure: bool,
-                 trace: bool = False, config: str = "flagship"):
+                 trace: bool = False, config: str = "flagship", warm_up: bool = True):
     """``steps`` updates of ``config`` from ``make_net(hp)`` with the launch counts
-    read around them. ``measure``: a warm-up on a state of its own and an
-    evaluation step first; ``trace``: one more step under ``torch.profiler`` after."""
+    read around them. ``measure``: a warm-up on a state of its own (unless
+    ``warm_up`` is False) and an evaluation step first; ``trace``: one more step
+    under ``torch.profiler`` after."""
     hp = config_hparams(config, **overrides)
     trainer = Trainer(tacotron_model_factory(hp))
     eval_losses, eval_counts = {}, {}
-    if measure:
+    if measure and warm_up:
         warm = trainer.init_state(make_net(hp))
         trainer.train_step(warm, batch, torch.Generator(device=DEV).manual_seed(1))
         del warm
@@ -2619,8 +2654,9 @@ def run_training(path: str, batch, overrides, make_net, steps: int, measure: boo
     finite = all(np.isfinite(v) for m in metrics for v in m.values())
     busy = None
     if trace and finite:
+        timed = rows[1:] or rows       # the first step is warm where measure ran one before
         busy = device_busy(lambda: trainer.train_step(state, batch, gen),
-                           sum(r["wall_ms"] for r in rows[1:]) / (steps - 1), top=6)
+                           sum(r["wall_ms"] for r in timed) / len(timed), top=6)
     log(f"training {path} " + json.dumps({
         "card": gpu_line(), "batch": int(batch["done"].shape[0]),
         "frames_per_lane": int(batch["done"].shape[1]), "valid_frames": frames,
@@ -2697,7 +2733,9 @@ def phase_training():
                                        "mha_full": 1},
             f"an evaluation step launched {kernels['eval_counts']}")
     torch.cuda.empty_cache()
-    plain = run_training("plain", batch, plain_hp, trained_network, TRAIN_STEPS, True)
+    # the plain path's later steps are warm: its step time is the least of its rows
+    plain = run_training("plain", batch, plain_hp, trained_network, TRAIN_STEPS, True,
+                         warm_up=False)
     require(all(v == 0 for v in plain["counts"].values()), "the plain path launched a kernel")
     require(all(v == 0 for v in plain["eval_counts"].values()), "the plain path launched a kernel")
     nudged = run_training("plain, embedding moved by 1e-7", batch, plain_hp,
@@ -2794,7 +2832,8 @@ def phase_training_bf16():
                                        "mha_full": 1},
             f"a bf16 evaluation step launched {kernels['eval_counts']}")
     torch.cuda.empty_cache()
-    plain_run = run_training("bf16 plain", batch, plain, trained_network, TRAIN_STEPS, True)
+    plain_run = run_training("bf16 plain", batch, plain, trained_network, TRAIN_STEPS, True,
+                             warm_up=False)
     require(all(v == 0 for v in plain_run["counts"].values()), "the plain path launched a kernel")
     require(all(v == 0 for v in plain_run["eval_counts"].values()),
             "the plain path launched a kernel")
@@ -3446,6 +3485,9 @@ FAMILIES = {
 # Seeded stop rows never fire: on the main path they are spread so that a run of the
 # one-source configuration's batch-32 request to the cap spans this much in logits.
 SEEDED_STOP_SPAN = 20.0
+# The timed training steps of a seeded family's configuration through the kernels,
+# after the warm-up step (the first is the step whose every gradient leaf is held)
+SEEDED_TRAIN_STEPS = 1
 
 
 def seeded_main_path(family: str):
@@ -3597,7 +3639,8 @@ def phase_mgclf0_main_path():
 def seeded_training(family: str):
     """``train_step`` of ``family``'s configurations at full width, 32 lanes x 800
     frames (the configuration's heads), from seeded weights: (a) the one-source
-    configuration in float32, three timed steps through the kernels (the one-source
+    configuration in float32, SEEDED_TRAIN_STEPS timed steps through the kernels after
+    a warm-up, traced once (the one-source
     teacher kernels; ZoneoutEncoderV1 trains through its plain LSTM) and one with
     ``use_pallas_kernels=False``, every gradient leaf of the first step held (the
     location-sensitive family: ``location_conv``, ``location_layer`` and
@@ -3605,7 +3648,7 @@ def seeded_training(family: str):
     evaluation step on both; (b) the same in bfloat16 (the plain path one step, no
     evaluation), the first step's leaves beside the yardstick of the plain path in
     bfloat16 against the plain path in float32 (the median leaf held); (c) each
-    two-source configuration: TRAIN_STEPS steps through the kernels against one on
+    two-source configuration: SEEDED_TRAIN_STEPS steps through the kernels against one on
     the plain path, every leaf of the first step held in float32, and (where the
     family trains it so) in bfloat16 beside its yardstick."""
     single, duals, dual_dtypes = FAMILIES[family]
@@ -3647,21 +3690,22 @@ def seeded_training(family: str):
     for dtype in ("float32", "bfloat16"):
         overrides = {"compute_dtype": dtype}
         kernels = run_training(f"{single} {dtype} kernels, seeded weights", batch, overrides,
-                               seeded_network, TRAIN_STEPS, True, trace=True, config=single)
-        expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
-        require(kernels["counts"] == expected, f"{TRAIN_STEPS} {single} {dtype} steps launched "
+                               seeded_network, SEEDED_TRAIN_STEPS, True,
+                               trace=dtype == "float32", config=single)
+        expected = {k: SEEDED_TRAIN_STEPS * v for k, v in one_step.items()}
+        require(kernels["counts"] == expected, f"{SEEDED_TRAIN_STEPS} {single} {dtype} steps launched "
                 f"{kernels['counts']}, expected {expected}")
-        require(kernels["variants"] == {f"fwd_single{suffix}": TRAIN_STEPS,
-                                        f"bwd_single{suffix}": TRAIN_STEPS},
+        require(kernels["variants"] == {f"fwd_single{suffix}": SEEDED_TRAIN_STEPS,
+                                        f"bwd_single{suffix}": SEEDED_TRAIN_STEPS},
                 f"{single} {dtype} launched the teacher specialisations {kernels['variants']}")
         require(kernels["eval_counts"] == eval_step,
                 f"a {single} {dtype} evaluation step launched {kernels['eval_counts']}")
         torch.cuda.empty_cache()
-        # float32: with a warm-up and an evaluation step, which are held; bfloat16 one
-        # step, held beside its yardstick
+        # float32: with an evaluation step, which is held; bfloat16 one step, held
+        # beside its yardstick (the plain path's single step is not warmed up)
         plain_run = run_training(f"{single} {dtype} plain, seeded weights", batch,
                                  dict(overrides, **plain), seeded_network, 1,
-                                 dtype == "float32", config=single)
+                                 dtype == "float32", config=single, warm_up=False)
         require(all(v == 0 for v in plain_run["counts"].values()), "the plain path launched a kernel")
         require(all(v == 0 for v in plain_run["eval_counts"].values()),
                 "the plain path launched a kernel")
@@ -3679,20 +3723,21 @@ def seeded_training(family: str):
         results[dtype] = (kernels, plain_run)
         torch.cuda.empty_cache()
 
-    # (c) the two-source configurations: TRAIN_STEPS steps through the kernels, one on
-    # the plain path, in each io type
-    fl_steps = {k: TRAIN_STEPS * v for k, v in {**one_step, "bigru": 1, "bigru_bwd": 1}.items()}
+    # (c) the two-source configurations: SEEDED_TRAIN_STEPS steps through the kernels, one
+    # on the plain path, in each io type
+    fl_steps = {k: SEEDED_TRAIN_STEPS * v
+                for k, v in {**one_step, "bigru": 1, "bigru_bwd": 1}.items()}
     for dual_config in duals:
         dual_batch = config_batch(config_hparams(dual_config), np.random.default_rng(1234))
         for dtype in dual_dtypes:
             overrides = {"compute_dtype": dtype}
             fl_kernels = run_training(f"{dual_config} {dtype} kernels, seeded weights", dual_batch,
-                                      overrides, seeded_network, TRAIN_STEPS, False,
+                                      overrides, seeded_network, SEEDED_TRAIN_STEPS, False,
                                       config=dual_config)
-            require(fl_kernels["counts"] == fl_steps,
-                    f"{TRAIN_STEPS} {dual_config} {dtype} steps launched {fl_kernels['counts']}")
-            require(fl_kernels["variants"] == {f"fwd_dual{suffix}": TRAIN_STEPS,
-                                               f"bwd_dual{suffix}": TRAIN_STEPS},
+            require(fl_kernels["counts"] == fl_steps, f"{SEEDED_TRAIN_STEPS} {dual_config} "
+                    f"{dtype} steps launched {fl_kernels['counts']}")
+            require(fl_kernels["variants"] == {f"fwd_dual{suffix}": SEEDED_TRAIN_STEPS,
+                                               f"bwd_dual{suffix}": SEEDED_TRAIN_STEPS},
                     f"{dual_config} launched the teacher specialisations "
                     f"{fl_kernels['variants']}")
             fl_plain = run_training(f"{dual_config} {dtype} plain, seeded weights", dual_batch,
@@ -4000,6 +4045,15 @@ def config_main_path(config: str, batch: int) -> dict:
                 f"{config}: the postnets through the kernels differ from the plain ones: "
                 f"{same_input}")
         rec["split"] = streaming_split(net, req, steps)
+        # one lane of the request's linear spectrogram, to its length, for Griffin-Lim:
+        # the shortest lane that fired with at least 300 frames
+        lengths = out["lengths"].tolist()
+        fired = sorted((lengths[i], i) for i in range(batch) if bool(out["finished"][i]))
+        long_enough = [i for n, i in fired if n >= 300]
+        lane = long_enough[0] if long_enough else max(range(batch), key=lengths.__getitem__)
+        n = lengths[lane]
+        rec["linear_lane"] = {"lane": lane, "frames": n,
+                              "linear": out["linear"][lane, :n].float().cpu()}
     del outs, outs_plain
     torch.cuda.empty_cache()
     return rec
@@ -4251,6 +4305,219 @@ def configs_kernel_entries(kernels, main, train, forced):
           for which, line in (("fwd", 1219), ("bwd", 1310))),
     ]
 
+# phase_corpus_cli: the bounds on the convergence run's validation set, about twice that
+# run's own scores (artifacts/convergence_long_r5/summary.json: median |length error| 0,
+# largest 13 frames, median mel MSE 0.00098), and Griffin-Lim on the card against the CPU
+CLI_MEDIAN_LENGTH_ERROR = 2
+CLI_MAX_LENGTH_ERROR = 26
+CLI_MEDIAN_MSE = 0.002
+CLI_LOOP_STEPS = (6, 3)
+CLI_CADENCE = 3
+TOL_GRIFFIN_LIM = 1e-4
+
+
+def score_predictions(data: str, lists: str, pred: str, hp: HParams) -> dict:
+    """``scripts/convergence_run.py::score_predictions`` on the port's outputs: per
+    validation utterance true and predicted frames and the mel MSE over the overlap."""
+    rows = []
+    for utt in read_selected_list(lists, "validation"):
+        tgt = parse_target_tfrecord(os.path.join(data, f"{utt}.{hp.target_file_extension}"))
+        mel = np.fromfile(os.path.join(pred, f"{utt}.{hp.predicted_mel_extension}"), np.float32)
+        mel = mel.reshape(-1, hp.num_mels)
+        n = min(len(mel), tgt.target_length)
+        rows.append({"id": utt, "true_frames": tgt.target_length, "predicted_frames": len(mel),
+                     "length_error": len(mel) - tgt.target_length,
+                     "mel_mse": float(np.mean((mel[:n] - tgt.mel[:n]) ** 2))})
+    errs = [abs(r["length_error"]) for r in rows]
+    mses = [r["mel_mse"] for r in rows]
+    return {"utterances": rows, "n_scored": len(rows),
+            "median_abs_length_error_frames": float(np.median(errs)),
+            "max_abs_length_error_frames": float(max(errs)),
+            "all_stopped_before_cap": all(r["predicted_frames"] < hp.max_iters * hp.outputs_per_step
+                                          for r in rows),
+            "mean_mel_mse": float(np.mean(mses)), "median_mel_mse": float(np.median(mses))}
+
+
+def _state_equal(a, b) -> bool:
+    if torch.is_tensor(a):
+        return torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_state_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_state_equal(x, y) for x, y in zip(a, b))
+    return a == b
+
+
+def phase_corpus_cli(config_main):
+    """From a corpus on disk to a checkpoint and back through the port's command lines,
+    on the card (module docstring, item 8)."""
+    os.environ.pop("SATT_PLATFORM", None)            # the command lines take the card
+    work = os.path.join(REPO, "runs", "chip_smoke_corpus_cli")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    data, lists = os.path.join(work, "data"), os.path.join(work, "lists")
+    overrides = hparams_string(FLAGSHIP_OVERRIDES)
+    hp = default_hparams()
+    hp.parse(overrides)
+    summary = json.load(open(CONVERGENCE_SUMMARY))["synthesis"]
+    seconds = {}
+
+    # (a) the convergence run's corpus, written by the port on the card
+    begin = time.perf_counter()
+    ids = generate_corpus(data, hp, selected_list_dir=lists, device=DEV, **CONVERGENCE_CORPUS)
+    seconds["a_corpus"] = time.perf_counter() - begin
+    validation = read_selected_list(lists, "validation")
+    require(validation == [u["id"] for u in summary["utterances"]],
+            f"validation.lst holds {validation}, not the convergence run's 12 ids")
+    true_frames = {u: parse_target_tfrecord(os.path.join(data, f"{u}.target.tfrecord")).target_length
+                   for u in validation}
+    require(true_frames == {u["id"]: u["true_frames"] for u in summary["utterances"]},
+            f"the regenerated validation utterances have other lengths: {true_frames}")
+    log("corpus_cli corpus " + json.dumps({"utterances": len(ids), "validation": validation,
+                                           "seconds": seconds["a_corpus"]}))
+
+    # (b) the committed npz through train's warm start, no step
+    ckpt = os.path.join(work, "restored")
+    begin = time.perf_counter()
+    reset_training_counts()
+    state = train.main([f"--source-data-root={data}", f"--checkpoint-dir={ckpt}",
+                        f"--selected-list-dir={lists}", f"--restore-from={NPZ}", "--steps=0",
+                        f"--hparams={overrides}"])
+    seconds["b_restore"] = time.perf_counter() - begin
+    require(state.step == 0 and CheckpointManager(ckpt).steps() == [0],
+            "the restore must leave one checkpoint at step 0")
+    saved = CheckpointManager(ckpt).load(0)["net"]
+    want = convert.load_npz(NPZ, hp, device=DEV).state_dict()
+    require(set(saved) == set(want) and all(torch.equal(saved[k].to(DEV), want[k]) for k in want),
+            "the checkpoint's weights are not convert.load_npz's bit for bit")
+    require(all(v == 0 for v in training_counts().values()), "a restore launched a kernel")
+    del state, saved, want
+
+    # (c) the 12 validation utterances in one batch, bfloat16, stop threshold 0.5
+    pred = os.path.join(work, "predictions")
+    reset_launch_counts()
+    begin = time.perf_counter()
+    result = predict_mel.main([f"--source-data-root={data}", f"--checkpoint-dir={ckpt}",
+                               f"--output-dir={pred}", f"--selected-list-dir={lists}",
+                               "--test-list-filename=validation", "--batch-size=16",
+                               f"--hparams={overrides},stop_token_threshold=0.5"])
+    seconds["c_predict"] = time.perf_counter() - begin
+    predict_counts = launch_counts()
+    variants = dict(fused_decode.variant_launches)
+    scores = score_predictions(data, lists, pred, hp)
+    frames = sum(result["frames"].values())
+    run_scores = {k: summary[k] for k in ("median_abs_length_error_frames",
+                                          "max_abs_length_error_frames", "all_stopped_before_cap",
+                                          "mean_mel_mse", "median_mel_mse")}
+    log("corpus_cli predict_mel " + json.dumps({
+        "card": gpu_line(), "launches": predict_counts, "fused_decode_specialisations": variants,
+        "frames": frames, "synthesis_s": result["synthesis_s"], "cli_s": seconds["c_predict"],
+        "synthesis_frames_per_s": frames / result["synthesis_s"],
+        "scores": {k: v for k, v in scores.items() if k != "utterances"},
+        "convergence_run_scores": run_scores,
+        "utterances": [{**r, "run_predicted_frames": u["predicted_frames"],
+                        "run_mel_mse": u["mel_mse"]}
+                       for r, u in zip(scores["utterances"], summary["utterances"])],
+    }))
+    for key, want in (("bigru", 1), ("mha_full", 1), ("fused_decode", 1), ("bilstm", 0)):
+        require(predict_counts[key] == want,
+                f"predict_mel launched {predict_counts}, expected {key} {want}")
+    require(variants == {fused_decode.variant_name(True, True, torch.bfloat16): 1},
+            f"predict_mel decoded through {variants}")
+    require(scores["n_scored"] == 12 and scores["all_stopped_before_cap"],
+            f"a lane ran to the cap: {scores}")
+    require(scores["median_abs_length_error_frames"] <= CLI_MEDIAN_LENGTH_ERROR
+            and scores["max_abs_length_error_frames"] <= CLI_MAX_LENGTH_ERROR
+            and scores["median_mel_mse"] <= CLI_MEDIAN_MSE,
+            f"the synthesis misses the convergence run's bounds: {scores}")
+
+    # (d) 6 steps from the npz, a resume, 3 more, the evaluation
+    loop = os.path.join(work, "loop")
+    loop_overrides = (f"{overrides},save_checkpoints_steps={CLI_CADENCE},"
+                      f"alignment_save_steps={CLI_CADENCE},log_step_count_steps=1")
+    loop_hp = default_hparams()
+    loop_hp.parse(loop_overrides)
+    common = [f"--source-data-root={data}", f"--checkpoint-dir={loop}",
+              f"--selected-list-dir={lists}", f"--hparams={loop_overrides}"]
+    reset_training_counts()
+    begin = time.perf_counter()
+    first = train.main(common + [f"--restore-from={NPZ}", f"--steps={CLI_LOOP_STEPS[0]}"])
+    restored = Trainer(tacotron_model_factory(loop_hp), loop, device=DEV).restore_or_init()
+    require(restored.step == first.step == CLI_LOOP_STEPS[0], "the resume must start at step 6")
+    require(_state_equal(restored.net.state_dict(), first.net.state_dict())
+            and _state_equal(restored.optimizer.state_dict(), first.optimizer.state_dict()),
+            "the step-6 checkpoint does not restore the state bit for bit")
+    require(any(k.endswith("running_mean") for k in restored.net.state_dict())
+            and restored.optimizer.state_dict()["state"],
+            "the checkpoint lacks the batch-norm buffers or Adam's moments")
+    del restored, first
+    final = train.main(common + [f"--steps={CLI_LOOP_STEPS[1]}"])
+    total = sum(CLI_LOOP_STEPS)
+    require(final.step == total, f"the resumed run ended at step {final.step}")
+    trainer = Trainer(tacotron_model_factory(loop_hp), loop, device=DEV)
+    eval_data = TacotronDataset(data, data, loop_hp, utterance_ids=validation)
+    means = trainer.evaluate(final, eval_data.batches(loop_hp.batch_size, shuffle=False,
+                                                      repeat=False))
+    seconds["d_loop"] = time.perf_counter() - begin
+    counts = training_counts()
+    records = [json.loads(line) for line in open(os.path.join(loop, "log", "metrics.jsonl"))]
+    train_records = [r for r in records if "loss" in r]
+    step_ms = [1e3 / r["steps_per_sec"] for r in train_records[1:]]
+    artifacts = total // CLI_CADENCE
+    evaluations = min(len(list(eval_data.batches(loop_hp.batch_size, shuffle=False,
+                                                  repeat=False))), loop_hp.num_evaluation_steps)
+    pngs = sorted(os.listdir(os.path.join(loop, "log")))
+    log("corpus_cli training " + json.dumps({
+        "card": gpu_line(), "launches": counts, "checkpoints": CheckpointManager(loop).steps(),
+        "ms_per_step": step_ms, "eval": means, "metrics": train_records,
+        "pngs": [p for p in pngs if p.endswith(".png")]}))
+    require([r["step"] for r in train_records] == list(range(1, total + 1)),
+            f"metrics.jsonl holds steps {[r['step'] for r in train_records]}")
+    require(all(np.isfinite(v) for r in records for v in r.values()), "a metric is not finite")
+    require(counts["bigru_bwd"] == total and counts["fused_teacher_bwd"] == total,
+            f"{total} steps launched {counts}")
+    require(counts["fused_teacher_fwd"] == total + artifacts + evaluations,
+            f"the teacher forward launched {counts['fused_teacher_fwd']}, expected "
+            f"{total} steps + {artifacts} artifact forwards + {evaluations} evaluation batches")
+    require({"eval_loss", "eval_mel_loss", "eval_done_loss"} <= set(means)
+            and all(np.isfinite(v) for v in means.values()), f"evaluate gave {means}")
+    require(records[-1]["step"] == total and "eval_loss" in records[-1],
+            "evaluate wrote no eval_* means")
+    require(f"alignment_step{total:08d}_utt0.png" in pngs and f"mel_step{total:08d}_utt0.png" in pngs
+            and f"train_alignment_step{CLI_CADENCE:08d}.png" in pngs, f"PNGs: {pngs}")
+    del final, trainer
+
+    # (e) Griffin-Lim of one streaming lane on the card against the CPU, same start phases
+    lane = config_main["streaming"]["linear_lane"]
+    ghp = config_hparams("streaming")
+    phases = torch.rand(tuple(lane["linear"].shape), generator=torch.Generator().manual_seed(7))
+    phases = phases * (2 * np.pi) - np.pi
+    begin = time.perf_counter()
+    on_card = Audio(ghp, device=DEV).inv_spectrogram(lane["linear"].numpy(), angles=phases)
+    seconds["e_griffin_lim_card"] = time.perf_counter() - begin
+    begin = time.perf_counter()
+    on_cpu = Audio(ghp, device="cpu").inv_spectrogram(lane["linear"].numpy(), angles=phases)
+    seconds["e_griffin_lim_cpu"] = time.perf_counter() - begin
+    peak = float(np.abs(on_cpu).max())
+    err = float(np.abs(on_card - on_cpu).max())
+    log("corpus_cli griffin_lim " + json.dumps({
+        "lane": lane["lane"], "frames": lane["frames"], "iterations": ghp.griffin_lim_iters,
+        "samples": int(on_card.shape[0]), "max_abs_err": err, "peak": peak,
+        "err_share_of_peak": err / peak, "tol": TOL_GRIFFIN_LIM, "seconds": seconds}))
+    require(on_card.shape == on_cpu.shape and np.isfinite(on_card).all(),
+            "Griffin-Lim gave no finite waveform")
+    require(err <= TOL_GRIFFIN_LIM * peak, f"Griffin-Lim on the card is {err / peak} of the "
+            "peak from the CPU's")
+    seconds["e_griffin_lim"] = seconds.pop("e_griffin_lim_card") + seconds.pop("e_griffin_lim_cpu")
+    rec = {"seconds": seconds, "predict_launches": predict_counts,
+           "scores": scores, "synthesis_frames_per_s": frames / result["synthesis_s"],
+           "train_ms_per_step": float(np.median(step_ms)), "training_launches": counts,
+           "griffin_lim_err_share": err / peak}
+    log("corpus_cli " + json.dumps({"card": gpu_line(), "seconds": seconds,
+                                    "synthesis_frames_per_s": rec["synthesis_frames_per_s"],
+                                    "train_ms_per_step": rec["train_ms_per_step"]}))
+    return rec
+
 
 def main() -> int:
     started = time.perf_counter()
@@ -4302,6 +4569,7 @@ def main() -> int:
     config_main = timed_phase(phase_configs_main_path)
     config_train = timed_phase(phase_configs_training)
     forced = timed_phase(phase_forced)
+    corpus = timed_phase(phase_corpus_cli, config_main)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -4567,6 +4835,23 @@ def main() -> int:
     kernels += family_kernel_entries("ls_branches", branch_decode, branch_teacher, branch_main,
                                      branch_train)
     kernels += configs_kernel_entries(config_kernels, config_main, config_train, forced)
+    # the command lines' path (phase_corpus_cli): predict_mel's bfloat16 request and the
+    # bfloat16 training loop, counted into the launches of the entries they reach
+    by_name = {k["name"]: k for k in kernels}
+    cli, cli_train = corpus["predict_launches"], corpus["training_launches"]
+    for name, count in (("bigru", cli["bigru"]), ("mha_full", cli["mha_full"]),
+                        ("fused_decode_bf16", cli["fused_decode"]),
+                        ("bigru_bwd_bf16", cli_train["bigru_bwd"]),
+                        ("fused_teacher_fwd_bf16", cli_train["fused_teacher_fwd"]),
+                        ("fused_teacher_bwd_bf16", cli_train["fused_teacher_bwd"])):
+        by_name[name]["launches"] += count
+        by_name[name]["corpus_cli_launches"] = count
+    for name in ("bigru", "mha_full"):
+        by_name[name]["corpus_cli_training_launches"] = cli_train[name]
+    by_name["fused_decode_bf16"]["corpus_cli"] = {
+        k: corpus[k] for k in ("seconds", "synthesis_frames_per_s", "train_ms_per_step",
+                               "griffin_lim_err_share")
+    } | {"scores": {k: v for k, v in corpus["scores"].items() if k != "utterances"}}
     log(f"total: {time.perf_counter() - started:.1f} s")
     log(gpu_line())
     log(json.dumps({"kernels": kernels}))

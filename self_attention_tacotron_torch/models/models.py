@@ -186,10 +186,15 @@ class TacotronNetwork(nn.Module):
         accent_type: Optional[torch.Tensor] = None,
         speaker_id: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        teacher_ratio: Optional[torch.Tensor] = None,
     ) -> NetworkOutput:
         """Teacher-forced forward pass; every random draw comes from ``generator``.
-        The postnets take the decoded mel of every frame and ``target_lengths``."""
+        The postnets take the decoded mel of every frame and ``target_lengths``.
+        ``teacher_ratio`` (B,), where given, is the forced-alignment window's source
+        positions per decoder step, placed on the conditioning as JAX does."""
         cond, enc_sa = self.encode(source, source_lengths, accent_type, speaker_id, generator)
+        if teacher_ratio is not None:
+            cond = dataclasses.replace(cond, teacher_ratio=teacher_ratio)
         frames, stop_logits, aligns, dec_sa = self.decoder(cond, targets, generator=generator)
         postnet_frames, linear_frames = None, None
         if "mel" in frames:

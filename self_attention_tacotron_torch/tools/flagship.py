@@ -62,6 +62,37 @@ CONFIG_JSONS = {
 TRAINED = ("flagship", "forced")
 # the compute dtypes a script may ask for (hparams.compute_dtype)
 DTYPES = ("float32", "bfloat16")
+# The command-line overrides of the run that trained TRAINED_NPZ, the flagship's
+# convergence run (the port's own copy of scripts/convergence_run.py:40
+# FLAGSHIP_OVERRIDES); with --long its corpus is the synthetic one of
+# CONVERGENCE_CORPUS, its validation scores artifacts/convergence_long_r5/summary.json.
+FLAGSHIP_OVERRIDES = dict(
+    tacotron_model="DualSourceSelfAttentionTacotronModel",
+    encoder="SelfAttentionCBHGEncoder",
+    decoder="DualSourceSelfAttentionDecoder",
+    attention="forward",
+    attention2="additive",
+    dataset="synthetic",
+    compute_dtype="bfloat16",
+    use_gradient_clipping="true",
+    use_cache="true",
+    save_summary_steps="50",
+    log_step_count_steps="50",
+    save_checkpoints_steps="1000",
+    alignment_save_steps="500",
+    save_training_time_metrics="true",
+    eval_start_delay_secs="60",
+    eval_throttle_secs="240",
+    num_evaluation_steps="2",
+)
+# data.synthetic.generate_corpus's arguments for that run's corpus (--long)
+CONVERGENCE_CORPUS = dict(num_utterances=256, min_symbols=94, max_symbols=152, seed=1234)
+CONVERGENCE_SUMMARY = os.path.join(_REPO, "artifacts", "convergence_long_r5", "summary.json")
+
+
+def hparams_string(overrides: Dict[str, object]) -> str:
+    """``k=v,...`` for a command line's ``--hparams``."""
+    return ",".join(f"{k}={v}" for k, v in overrides.items())
 
 
 def flagship_hparams(**overrides) -> HParams:

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import Union
 
 import torch
@@ -20,6 +21,19 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
             'pass device="cpu" to run on the CPU'
         )
     return dev
+
+
+def platform_device() -> torch.device:
+    """The device of the command-line tools: the card, or the CPU where
+    ``SATT_PLATFORM=cpu`` is set (the variable the JAX package's CLIs read).
+
+    Without a card and without that variable this raises, as
+    :func:`resolve_device` does for ``"cuda"``.
+    """
+    platform = os.environ.get("SATT_PLATFORM", "").lower()
+    if platform not in ("", "cpu", "cuda", "gpu"):
+        raise ValueError(f"SATT_PLATFORM={platform!r}: expected cpu, cuda or gpu")
+    return resolve_device("cpu" if platform == "cpu" else "cuda")
 
 
 def use_full_float32() -> None:

@@ -13,6 +13,10 @@
   Pallas kernel does not), and auto mode on the card takes the step-by-step loop.
 * One ``train_step`` (every loss part, every gradient leaf) and an ``eval_step`` with
   ``attention="teacher_forcing_forward"`` against the JAX trainer.
+* The teacher-forced forward of the evaluation network with a ``teacher_ratio`` per
+  lane (``TacotronNetwork.forward`` places it on the conditioning, as JAX
+  ``models.py:192-197`` does): frames, stop logits and alignments to 1e-4, each
+  alignment row's peak where the ratio puts it.
 """
 
 import jax
@@ -30,10 +34,12 @@ from self_attention_tacotron_torch.hparams import HParams
 from self_attention_tacotron_torch.models import attention
 from self_attention_tacotron_torch.models.models import tacotron_model_factory
 from self_attention_tacotron_torch.synthesis import decode_fused, make_predict_fn
+from self_attention_tacotron_torch.tools.flagship import config_batch
 from self_attention_tacotron_torch.training.trainer import Trainer
 
 from test_torch_configs import (
     ATOL,
+    jax_variables,
     B,
     FRAMES,
     NO_DROPOUT,
@@ -165,3 +171,32 @@ def test_one_train_step_and_an_eval_step_with_teacher_forcing_forward(tmp_path_f
     assert_close(out.alignments[0], np.asarray(want_out.alignments[0]), atol=ATOL)
     n = FRAMES // kw["outputs_per_step"]
     assert out.alignments[0].argmax(dim=-1)[0].tolist() == [min(i, S - 1) for i in range(n)]
+
+
+def test_an_eval_forward_with_a_teacher_ratio_against_jax():
+    kw = _forced_kw(**NO_DROPOUT)
+    hp = HParams(**kw)
+    batch = _int32(config_batch(hp, np.random.default_rng(12), B, FRAMES, S, shortest=3))
+    variables = jax_variables(kw, batch, seed=2)
+    ratio = np.array([0.5, 1.25, 2.0], np.float32)[:B]
+    jnet = jax_factory(JaxHParams(**kw)).network(is_training=False)
+    key = jax.random.PRNGKey(1)
+    want = jax.jit(lambda: jnet.apply(
+        variables, jnp.asarray(batch["source"]), jnp.asarray(batch["source_lengths"]),
+        jnp.asarray(batch["mel"]), jnp.asarray(batch["target_lengths"]),
+        teacher_ratio=jnp.asarray(ratio), rngs={"dropout": key, "zoneout": key},
+    ))()
+    net = port_network(kw, variables, hp).eval()
+    with torch.no_grad():
+        got = net(t(batch["source"]), t(batch["source_lengths"]), t(batch["mel"]),
+                  t(batch["target_lengths"]), teacher_ratio=t(ratio))
+    assert_close(got.frames["mel"], np.asarray(want.frames["mel"]), atol=ATOL)
+    assert_close(got.stop_logits, np.asarray(want.stop_logits), atol=ATOL)
+    for g, w in zip(got.alignments, want.alignments):
+        assert_close(g, np.asarray(w), atol=ATOL)
+    align = got.alignments[0].numpy()
+    for b in range(B):
+        steps = FRAMES // kw["outputs_per_step"]
+        centre = np.minimum(np.arange(steps, dtype=np.float32) * ratio[b], np.float32(S - 1))
+        peak = np.minimum(centre, batch["source_lengths"][b] - 1)
+        assert np.all(np.abs(align[b, :steps].argmax(axis=-1) - peak) <= 0.5), b

@@ -47,7 +47,12 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
                      "training/trainer.py", "training/schedules.py", "tools/flagship.py",
                      "tools/profile_training.py", "models/encoders.py", "models/modules.py",
                      "tools/profile_synthesis.py", "models/self_attention.py",
-                     "models/attention.py", "models/decoders.py", "utils/cuda_build.py"):
+                     "models/attention.py", "models/decoders.py", "utils/cuda_build.py",
+                     "audio/dsp.py", "audio/audio.py", "text/english.py", "text/japanese.py",
+                     "text/symbols.py", "data/dataset.py", "data/corpus.py", "data/synthetic.py",
+                     "data/ljspeech.py", "data/vctk.py", "data/japanese.py",
+                     "data/dataset_factory.py", "utils/tfrecord.py", "training/metrics.py",
+                     "train.py", "predict_mel.py", "preprocess.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
 
 
@@ -69,6 +74,13 @@ def test_importing_the_port_loads_nothing_of_jax():
         "from self_attention_tacotron_torch.training import schedules, trainer\n"
         "from self_attention_tacotron_torch.tools import flagship, profile_synthesis\n"
         "from self_attention_tacotron_torch.tools import profile_training\n"
+        "from self_attention_tacotron_torch import audio, text, data\n"
+        "from self_attention_tacotron_torch.audio import dsp\n"
+        "from self_attention_tacotron_torch.data import corpus, synthetic, dataset_factory\n"
+        "from self_attention_tacotron_torch.utils import tfrecord\n"
+        "from self_attention_tacotron_torch.training import metrics\n"
+        "from self_attention_tacotron_torch import train, predict_mel, preprocess\n"
+        "print('MATPLOTLIB', 'matplotlib' in sys.modules, 'tensorboard' in sys.modules)\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print('LOADED', bad)\n"
         # no kernel is built or bound, and no triton is asked for, by an import
@@ -82,6 +94,8 @@ def test_importing_the_port_loads_nothing_of_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
+    # matplotlib and TensorBoard are imported where a plot or a scalar is written
+    assert "MATPLOTLIB False False" in out.stdout, out.stdout
     assert "BOUND [] False" in out.stdout, out.stdout
 
 
