@@ -150,7 +150,20 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    means and PNGs; (e) ``Audio.inv_spectrogram`` on the card over one lane of the
    ``streaming`` request's ``linear`` output against the same call on the CPU with the
    same start phases;
-9. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
+9. the mesh (``phase_mesh``, ``parallel/``), the flagship at full width: (a) a process
+   group of one (NCCL): ``make_sharded_predict_fn`` against ``make_predict_fn`` on the
+   batch-32 request (trained npz, source up to 128, 500 steps) and ``Trainer(mesh=...)``
+   against the single-device ``Trainer`` over two steps of 32 x 800 frames, bit for bit
+   with equal launch counts, times side by side; (b) two ranks on the one card (gloo,
+   spawned), 16 lanes a rank: the sharded request against the single-device request
+   (lengths and flags exact on the lanes with the margin, the first ``EARLY_STEPS``
+   within ``TOL_MAIN_EARLY``, ``num_steps`` exact) and one data-parallel step with dropout
+   and zoneout on against the single-device step (``MESH_*`` tolerances); the teacher
+   kernels with ``lane0`` against their plain version, and lanes k.. at lane0 = k
+   against rows k.. of the whole launch; (c) with two or more cards,
+   min(count, 4) ranks under NCCL with (b)'s checks (on one card it prints that it did
+   not run);
+10. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
    location-sensitive and lf0 instantiations as entries of their own, the batch
    blocks inside the lf0 family's teacher entries, the shapes of phase 7 as entries
    ``*_configs`` and ``*_streaming``), then the last line
@@ -165,7 +178,9 @@ import json
 import os
 import shutil
 import sys
+import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -195,7 +210,11 @@ from self_attention_tacotron_torch.ops import (  # noqa: E402
     fused_teacher,
 )
 from self_attention_tacotron_torch.ops.decode_loop import DecodeResult  # noqa: E402
-from self_attention_tacotron_torch.synthesis import make_predict_fn  # noqa: E402
+from self_attention_tacotron_torch.parallel import mesh as mesh_lib  # noqa: E402
+from self_attention_tacotron_torch.synthesis import (  # noqa: E402
+    make_predict_fn,
+    make_sharded_predict_fn,
+)
 from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     CONVERGENCE_CORPUS,
     CONVERGENCE_SUMMARY,
@@ -1007,10 +1026,10 @@ def check_fused_long(name, got, want, r: int, spec=FUSED_WINDOWS):
 def check_long_cap(flagship, rng) -> dict:
     """The flagship at LONG_CAP steps, beyond the 1872 that one block's shared memory
     held before the decoder self-attention was tiled: one launch per request
-    (B=32 and B=1, under the launch limit of MAX_LANES lanes), one block's shared memory the same
+    (under the launch limit of MAX_LANES lanes), one block's shared memory the same
     as at the main path's step cap, every launch held against the plain version by
-    windows of steps: seeded weights at the flagship's widths on every step, the
-    trained weights on the first FUSED_STEPS (see LONG_CAP)."""
+    windows of steps: seeded weights at the flagship's widths on every step, B=32 and
+    B=1, the trained weights at B=32 on the first FUSED_STEPS (see LONG_CAP)."""
     hp = flagship.hparams
     sms = torch.cuda.get_device_properties(DEV).multi_processor_count
     trained = fused_decode.pack_decoder(flagship.decoder)
@@ -1038,9 +1057,12 @@ def check_long_cap(flagship, rng) -> dict:
     printed = ((FUSED_STEPS, TOL_FUSED, "max"), (512, None, "printed"),
                (LONG_CAP, None, "printed"))
     records = {}
-    for label, packed, windows in (("seeded weights", seeded, held),
-                                   ("trained weights", trained, printed)):
-        for batch, longest in ((32, 128), (1, 97)):
+    # the trained weights at B=32 alone (held on their first FUSED_STEPS steps, which the
+    # 500-step checks hold too): B=1 at the cap is held on every step with seeded weights
+    for label, packed, windows, shapes in (
+            ("seeded weights", seeded, held, ((32, 128), (1, 97))),
+            ("trained weights", trained, printed, ((32, 128),))):
+        for batch, longest in shapes:
             req = ragged_request(rng, batch, longest)
             if packed is trained:
                 cond = flagship_conditioning(flagship, req, seed=batch)
@@ -4519,6 +4541,364 @@ def phase_corpus_cli(config_main):
     return rec
 
 
+# --------------------------------------------------------------------------- #
+# Phase 9: the mesh (parallel/): data-parallel synthesis and training
+# --------------------------------------------------------------------------- #
+
+# (a) A mesh of one rank (a process group of one, NCCL) is the single-device path:
+# every output, metric, gradient and parameter bit for bit, every launch count equal.
+# The two steps run under PyTorch's deterministic algorithms: with its defaults two
+# runs of the same single-device step already differ in a few leaves (the embedding's
+# backward adds atomically), which the phase prints.
+# (b) Two ranks on the one card, gloo over CUDA tensors (NCCL refuses two ranks on
+# one device), 16 lanes a rank, against the single-device call on the same global
+# batch and generator:
+# * synthesis from the trained npz, B=32, source up to 128, 500 steps. The encoder's
+#   prenet dropout is off and the decoder's prenet masks are injected (each rank's
+#   16 lanes take the same masks, as JAX's shards draw them from one key; the
+#   single-device call takes them twice over), so that both draw nothing. Each rank
+#   exits when its own lanes stop, and a lane's frames after its stop feed back its
+#   own output, which the trained model spreads (see FUSED_WINDOWS): so lengths and
+#   flags are held exactly on the lanes that keep MAIN_MARGIN, the frames within
+#   TOL_MAIN_EARLY over the first EARLY_STEPS steps, ``num_steps`` exactly.
+# * one training step at 32 x 800 frames with dropout and zoneout on, from seeded
+#   weights: from the trained ones the encoder's gradients are ill conditioned (see
+#   TOL_TRAINED_NORM_REL). Each rank's loss is its share of the global loss; the
+#   shares differ from the whole by float32 summation order, so the loss parts are
+#   held within MESH_LOSS_RTOL relative; the batch-norm running averages, which move
+#   by the global statistics at momentum 0.01, within MESH_BN_ATOL. Gradients are held
+#   tightly (Adam's first step is about lr * sign(g)): every leaf within
+#   MESH_GRAD_SHARE of its largest entry, apart from the leaves of MESH_KINK_LEAVES,
+#   which float32 does not determine to MESH_GRAD_SHARE at all: on an H100 the
+#   decoder self-attention's ffn1 kernel moved by 1.86e-4 of its largest entry (its
+#   bias by 1.24e-4) between the two steps, and by 1.86e-4 in the single-device step
+#   alone when the embedding moved by one part in 1e7 (a unit at ReLU's kink; the
+#   median leaf moved 6.8e-6 between the steps). Those two are held within
+#   MESH_KINK_SHARE, and their move under that nudge (the yardstick, measured in the
+#   same run) is printed beside them.
+# * the teacher kernels with ``lane0``: against their plain version with the same
+#   lane0 (TOL_TEACHER, TOL_TEACHER_GRAD), and a launch over lanes k.. at lane0 = k
+#   against rows k.. of the launch over every lane at lane0 = 0 (TOL_TEACHER; whether
+#   bit for bit is printed). ``tools/ab_loop_kernels.py --teacher`` holds lane0 = 0
+#   against the parent commit's kernels bit for bit (its ``digest``).
+# (c) Where the machine has two or more cards, min(count, 4) ranks under NCCL, one
+# card each, with the checks of (b).
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_SHARE = 1e-4
+MESH_KINK_LEAVES = ("decoder.self_attention.block_0.ffn1.weight",
+                    "decoder.self_attention.block_0.ffn1.bias")
+MESH_KINK_SHARE = 5e-4
+MESH_BN_ATOL = 1e-6
+MESH_B, MESH_FRAMES, MESH_SOURCE = 32, 800, 128
+
+
+@contextlib.contextmanager
+def process_group_of_one(tmp: str):
+    """The default process group of this process alone (NCCL), through a file store."""
+    torch.distributed.init_process_group(
+        "nccl", store=torch.distributed.FileStore(os.path.join(tmp, "store"), 1), rank=0,
+        world_size=1, device_id=DEV)
+    try:
+        yield
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def mesh_masks(hp, rows: int):
+    """Decoder prenet keep masks, (max_iters, rows, units) per layer, seeded, on the CPU."""
+    rng = np.random.default_rng(77)
+    return tuple(torch.as_tensor(rng.random((hp.max_iters, rows, units)) < 0.5)
+                 for units in hp.decoder_prenet_out_units)
+
+
+def mesh_step(trainer, net, batch, device, steps: int = 1, keep: int = 0):
+    """``steps`` updates from ``net``: the metrics, gradients, state and launch counts
+    after update ``keep`` (default the last), and the median ms of the updates after
+    the first (the first's with one; CUDA events around each update)."""
+    state = trainer.init_state(net)
+    keep = keep or steps
+    mesh = trainer.mesh
+    times, kept = [], None
+    for i in range(steps):
+        reset_training_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, metrics = trainer.train_step(state, batch,
+                                            torch.Generator(device=device).manual_seed(4321 + i))
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+        if i + 1 == keep:
+            kept = {
+                "metrics": {k: float(v) for k, v in metrics.items()},
+                "counts": training_counts(),
+                "grads": {k: v.cpu() for k, v in mesh_lib.whole_gradients(state.net, mesh).items()},
+                "state": {k: v.detach().cpu().clone()
+                          for k, v in mesh_lib.whole_state_dict(state.net, mesh).items()},
+            }
+    return dict(kept, ms=float(np.median(times[1:] or times)))
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms for the block (the embedding's backward
+    without atomic adds, cuDNN's deterministic convolutions): two runs of one step then
+    give the same bits, which PyTorch's defaults do not promise (``phase_mesh`` prints
+    how many leaves two default runs left apart). cuBLAS is deterministic on one
+    stream; its warning about the workspace setting is silenced, not heeded."""
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(), torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", message=".*CUBLAS_WORKSPACE_CONFIG.*")
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic = was[2]
+
+
+def differing_leaves(a, b) -> dict:
+    """The gradient and state leaves of two ``mesh_step`` results that are not equal,
+    with their largest difference."""
+    out = {}
+    for kind in ("grads", "state"):
+        for k, v in b[kind].items():
+            if not torch.equal(a[kind][k], v):
+                out[f"{kind}/{k}"] = float((a[kind][k].double() - v.double()).abs().max())
+    return out
+
+
+def mesh_predict(predict, req, device, masks=None, repeats: int = 3):
+    """A request after a warm-up: the output on the CPU, the launch counts of one
+    request and the median ms of ``repeats`` (host clock, ending in a synchronise)."""
+    predict(req, torch.Generator(device=device).manual_seed(99), masks)
+    times = []
+    for _ in range(repeats):
+        reset_launch_counts()
+        torch.cuda.synchronize(device)
+        begin = time.perf_counter()
+        out = predict(req, torch.Generator(device=device).manual_seed(100), masks)
+        torch.cuda.synchronize(device)
+        times.append(1e3 * (time.perf_counter() - begin))
+    return {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple) else v.cpu())
+            for k, v in out.items()}, launch_counts(), float(np.median(times))
+
+
+def mesh_rank(world: int, req, masks, batch):
+    """One rank of (b) or (c): the sharded request and the data-parallel step."""
+    device = mesh_lib.rank_device()
+    use_full_float32()
+    mesh = mesh_lib.make_mesh((world, 1))
+    hp = flagship_hparams(encoder_prenet_drop_rate=0.0)
+    predict = make_sharded_predict_fn(convert.load_npz(NPZ, hp), mesh, max_iters=hp.max_iters)
+    out, counts, ms = mesh_predict(predict, req, device, masks, repeats=1)
+    model = tacotron_model_factory(flagship_hparams())
+    trainer = Trainer(model, mesh=mesh)
+    torch.manual_seed(7)
+    step = mesh_step(trainer, model.network(is_training=True), batch, device, steps=2, keep=1)
+    return {"out": out, "counts": counts, "ms": ms, "step": step, "device": str(device),
+            "backend": torch.distributed.get_backend()}
+
+
+def grad_shares(got, want) -> dict:
+    """Each gradient leaf's largest difference as a share of the leaf's largest entry."""
+    return {k: float((got["grads"][k] - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+            for k, v in want["grads"].items()}
+
+
+def compare_steps(got, want, yardstick) -> dict:
+    """A mesh step against the single-device step, as MESH_* set out; ``yardstick``:
+    ``grad_shares`` of the single-device step nudged against itself."""
+    losses = {k: abs(got["metrics"][k] - v) / max(abs(v), 1e-30)
+              for k, v in want["metrics"].items()}
+    grads = grad_shares(got, want)
+    beyond = {k: v for k, v in grads.items()
+              if v > (MESH_KINK_SHARE if k in MESH_KINK_LEAVES else MESH_GRAD_SHARE)}
+    buffers = {k: float((got["state"][k].float() - v.float()).abs().max())
+               for k, v in want["state"].items() if ".running_" in k}
+    params = {k: float((got["state"][k] - v).abs().max())
+              for k, v in want["state"].items() if v.is_floating_point() and ".running_" not in k}
+    others = sorted(((k, v) for k, v in grads.items() if k not in MESH_KINK_LEAVES),
+                    key=lambda row: -row[1])
+    return {"loss_rel": max(losses.values()),
+            "grad_share_median": float(np.median(list(grads.values()))),
+            "kink_leaves_with_yardstick": {k: [grads[k], yardstick[k]] for k in MESH_KINK_LEAVES},
+            "largest_other_leaves": others[:5], "beyond": beyond,
+            "bn_abs": max(buffers.values()), "param_abs": max(params.values()),
+            "ok": (max(losses.values()) <= MESH_LOSS_RTOL and not beyond
+                   and max(buffers.values()) <= MESH_BN_ATOL)}
+
+
+def check_mesh_world(label: str, world: int, devices, backend: str, req, masks_rank, ref_out,
+                     ref_step, yardstick, batch, hp) -> dict:
+    """Spawn ``world`` ranks on ``devices`` and hold them against the single-device
+    results (``ref_out`` from the doubled masks, ``ref_step``)."""
+    begin = time.perf_counter()
+    ranks = mesh_lib.spawn(mesh_rank, world, (world, req, masks_rank, batch), devices=devices,
+                           backend=backend)
+    seconds = time.perf_counter() - begin
+    rows = []
+    r = hp.outputs_per_step
+    for rank, got in enumerate(ranks):
+        out = got["out"]
+        left_out = compare_lengths(out, ref_out, hp.stop_token_threshold, r)
+        steps = min(int(out["num_steps"]), int(ref_out["num_steps"]))
+        early = output_errors(out, ref_out, min(EARLY_STEPS, steps), r)
+        step = compare_steps(got["step"], ref_step, yardstick)
+        rows.append({"rank": rank, "device": got["device"], "backend": got["backend"],
+                     "request_ms": got["ms"], "step_ms": got["step"]["ms"],
+                     "num_steps": [int(out["num_steps"]), int(ref_out["num_steps"])],
+                     "lanes_left_out": len(left_out), "early": early, "step": step,
+                     "synthesis_launches": got["counts"], "training_launches": got["step"]["counts"]})
+        require(int(out["num_steps"]) == int(ref_out["num_steps"]),
+                f"{label} rank {rank}: num_steps {int(out['num_steps'])} against "
+                f"{int(ref_out['num_steps'])}")
+        require(max(early.values()) <= TOL_MAIN_EARLY, f"{label} rank {rank}: early {early}")
+        require(step["ok"], f"{label} rank {rank}: the step differs: {step}")
+        require(got["counts"]["bigru"] == 1 and got["counts"]["mha_full"] == 1
+                and got["counts"]["fused_decode"] == 1,
+                f"{label} rank {rank}: the sharded request launched {got['counts']}")
+        require(all(got["step"]["counts"][k] == 1 for k in
+                    ("bigru", "bigru_bwd", "fused_teacher_fwd", "fused_teacher_bwd")),
+                f"{label} rank {rank}: the step launched {got['step']['counts']}")
+    log(f"mesh {label} " + json.dumps({
+        "world": world, "lanes_per_rank": MESH_B // world, "seconds": seconds, "ranks": rows,
+        "tol": {"early": TOL_MAIN_EARLY, "loss_rel": MESH_LOSS_RTOL,
+                "grad_share": MESH_GRAD_SHARE, "kink_share": MESH_KINK_SHARE,
+                "bn_abs": MESH_BN_ATOL},
+        "collectives": "all_reduce and all_gather on CUDA tensors (none staged)"}))
+    return {"seconds": seconds, "ranks": rows}
+
+
+def check_teacher_lane0() -> dict:
+    """The teacher kernels with ``lane0``, as (b) sets out."""
+    rng = np.random.default_rng(31)
+    z = dict(F=7, P1=20, P2=12, AU=28, A1=10, A2=7, DU=36, E1=20, E2=12)
+    lengths = [7, 2, 5, 7, 7, 3]
+    ops, feeds, masks = teacher_case_inputs(rng, z, lengths, 19,
+                                            dict(zc=0.3, zo=0.2, use_ta=True))
+    out = {}
+    for k in (0, 3):
+        ops_k = dict(ops, hp_like=dict(ops["hp_like"], lane0=k))
+        out[f"lane0={k}"] = check_teacher(f"lane0={k}, odd widths B=6 S=7, train zoneout",
+                                          ops_k, feeds, masks, lengths)
+    k = 2
+    rows = lambda v: None if v is None else v[k:]  # noqa: E731
+    part = dict(ops, hp_like=dict(ops["hp_like"], lane0=k),
+                **{name: rows(ops[name]) for name in ("keys", "mem1", "mem2", "spk", "score_bias")})
+    with torch.no_grad():
+        whole = fused_teacher.teacher_decode(**ops, feeds=feeds, seed=1234, prenet_masks=masks)
+        sub = fused_teacher.teacher_decode(**part, feeds=feeds[k:], seed=1234,
+                                           prenet_masks=tuple(m[k:] for m in masks))
+        plain = fused_teacher.teacher_decode_reference(**ops, feeds=feeds, seed=1234,
+                                                       prenet_masks=masks)
+    err = max(max_abs_err(a[k:], b) for a, b in zip(whole, sub))
+    rec = {"kernel": "fused_teacher", "case": f"lanes {k}.. at lane0={k} against rows {k}.. "
+           "of the launch at lane0=0", "max_abs_err": err, "tol": TOL_TEACHER,
+           "bit_for_bit": all(torch.equal(a[k:], b) for a, b in zip(whole, sub)),
+           "lane0_0_against_plain": max(max_abs_err(a, b) for a, b in zip(whole, plain))}
+    log("check " + json.dumps(rec))
+    require(err <= TOL_TEACHER,
+            "the teacher kernels' lanes at lane0 = k are not rows k.. of the whole launch")
+    return {"plain": out, "rows": rec}
+
+
+def phase_mesh():
+    """(a), (b) and (c) as set out above."""
+    hp = flagship_hparams()
+    req = requests()[1]            # the main path's batch-32 request
+    batch = training_batch(np.random.default_rng(1234), MESH_B, MESH_FRAMES, MESH_SOURCE,
+                           hp.num_mels, hp.outputs_per_step)
+    record = {}
+    begin = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        with process_group_of_one(tmp):
+            mesh = mesh_lib.make_mesh()
+            require(mesh.size == 1 and mesh.device_mesh is None and mesh.group("data") is None,
+                    "a mesh of one rank must need no collective")
+            plain = make_predict_fn(convert.load_npz(NPZ, hp), max_iters=hp.max_iters)
+            sharded = make_sharded_predict_fn(convert.load_npz(NPZ, hp), mesh,
+                                              max_iters=hp.max_iters)
+            want, want_counts, want_ms = mesh_predict(plain, req, DEV)
+            got, got_counts, got_ms = mesh_predict(sharded, req, DEV)
+            same = all(
+                all(torch.equal(a, b) for a, b in zip(got[k], v)) if isinstance(v, tuple)
+                else torch.equal(got[k], v) for k, v in want.items())
+            require(set(got) == set(want) and same,
+                    "(a) the sharded request at world 1 is not the single-device request")
+            require(got_counts == want_counts, f"(a) launches {got_counts} against {want_counts}")
+            model = tacotron_model_factory(hp)
+
+            def run(mesh_arg, steps):
+                torch.manual_seed(7)
+                return mesh_step(Trainer(model, mesh=mesh_arg), model.network(is_training=True),
+                                 batch, DEV, steps=steps)
+
+            # timed with PyTorch's default algorithms in turns (single, mesh, mesh,
+            # single), which leave two runs of one step a few ulps apart (the yardstick:
+            # how many leaves, and how far)
+            timed = [run(m, 3) for m in (None, mesh, mesh, None)]
+            yardstick = differing_leaves(timed[1], timed[0])
+            with deterministic_algorithms():
+                b, a = run(None, 2), run(mesh, 2)
+            differ = differing_leaves(a, b)
+            require(not differ and a["metrics"] == b["metrics"],
+                    f"(a) the mesh step at world 1 is not the single-device step: {differ}")
+            require(a["counts"] == b["counts"], f"(a) launches {a['counts']} against {b['counts']}")
+            record["a"] = {"request_ms": got_ms, "single_request_ms": want_ms,
+                           "step_ms": [timed[1]["ms"], timed[2]["ms"]],
+                           "single_step_ms": [timed[0]["ms"], timed[3]["ms"]],
+                           "synthesis_launches": got_counts, "training_launches": a["counts"],
+                           "default_algorithms_yardstick": {
+                               "leaves_differing": len(yardstick),
+                               "of": len(a["grads"]) + len(a["state"]),
+                               "largest": max(yardstick.values(), default=0.0)}}
+            log("mesh (a) world 1, NCCL " + json.dumps(dict(record["a"], bit_for_bit=True)))
+    del plain, sharded
+    torch.cuda.empty_cache()
+    seconds = {"a": time.perf_counter() - begin}
+
+    # the single-device references of (b) and (c)
+    hp0 = flagship_hparams(encoder_prenet_drop_rate=0.0)
+    count = torch.cuda.device_count()
+    worlds = {"b": 2} | ({"c": min(count, 4)} if count >= 2 else {})
+    refs = {}
+    for world in sorted(set(worlds.values())):
+        masks = mesh_masks(hp0, MESH_B // world)
+        doubled = tuple(m.repeat(1, world, 1) for m in masks)
+        plain = make_predict_fn(convert.load_npz(NPZ, hp0), max_iters=hp0.max_iters)
+        refs[world] = (masks, mesh_predict(plain, req, DEV, doubled)[0])
+    model = tacotron_model_factory(hp)
+    torch.manual_seed(7)
+    ref_step = mesh_step(Trainer(model), model.network(is_training=True), batch, DEV)
+    torch.manual_seed(7)
+    nudged = model.network(is_training=True)
+    with torch.no_grad():
+        for p in nudged.embedding.parameters():
+            p.mul_(1.0 + 1e-7)
+    yardstick = grad_shares(mesh_step(Trainer(model), nudged, batch, DEV), ref_step)
+    del plain, nudged
+    torch.cuda.empty_cache()
+    seconds["references"] = time.perf_counter() - begin - seconds["a"]
+    record["b"] = check_mesh_world("(b) world 2 on one card, gloo", 2, [0, 0], "gloo", req,
+                                   refs[2][0], refs[2][1], ref_step, yardstick, batch, hp)
+    if "c" in worlds:
+        n = worlds["c"]
+        record["c"] = check_mesh_world(f"(c) world {n}, NCCL, one card a rank", n, list(range(n)),
+                                       "nccl", req, refs[n][0], refs[n][1], ref_step, yardstick,
+                                       batch, hp)
+    else:
+        log(f"mesh (c): not run: this machine has {count} card (it needs two or more)")
+        record["c"] = None
+    record["teacher_lane0"] = check_teacher_lane0()
+    seconds["b"] = record["b"]["seconds"]
+    seconds["total"] = time.perf_counter() - begin
+    log("mesh seconds " + json.dumps(seconds))
+    return record
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -4570,6 +4950,7 @@ def main() -> int:
     config_train = timed_phase(phase_configs_training)
     forced = timed_phase(phase_forced)
     corpus = timed_phase(phase_corpus_cli, config_main)
+    mesh = timed_phase(phase_mesh)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -4848,6 +5229,25 @@ def main() -> int:
         by_name[name]["corpus_cli_launches"] = count
     for name in ("bigru", "mha_full"):
         by_name[name]["corpus_cli_training_launches"] = cli_train[name]
+    # the mesh's world 1 (phase_mesh (a)): the sharded request and the mesh's steps,
+    # counted into the launches of the entries they reach; the teacher kernels' lane0
+    for name, count in (("bigru", mesh["a"]["synthesis_launches"]["bigru"]
+                         + mesh["a"]["training_launches"]["bigru"]),
+                        ("mha_full", mesh["a"]["synthesis_launches"]["mha_full"]),
+                        ("fused_decode", mesh["a"]["synthesis_launches"]["fused_decode"]),
+                        ("bigru_bwd", mesh["a"]["training_launches"]["bigru_bwd"]),
+                        ("fused_teacher_fwd", mesh["a"]["training_launches"]["fused_teacher_fwd"]),
+                        ("fused_teacher_bwd", mesh["a"]["training_launches"]["fused_teacher_bwd"])):
+        by_name[name]["launches"] += count
+        by_name[name]["mesh_world1_launches"] = count
+    for which in ("fwd", "bwd"):
+        by_name[f"fused_teacher_{which}"]["lane0"] = {
+            "hash": "(seed + t, draw, (lane0 + lane) * width + unit)",
+            "against_plain_max_abs_err": {
+                k: (v["features_max_abs_err"] if which == "fwd" else v["grad_max_abs_err"])
+                for k, v in mesh["teacher_lane0"]["plain"].items()},
+            "rows_bit_for_bit": mesh["teacher_lane0"]["rows"]["bit_for_bit"],
+        }
     by_name["fused_decode_bf16"]["corpus_cli"] = {
         k: corpus[k] for k in ("seconds", "synthesis_frames_per_s", "train_ms_per_step",
                                "griffin_lim_err_share")

@@ -143,19 +143,31 @@ def _flax_names(root: nn.Module, parts: Tuple[str, ...]) -> Tuple[str, ...]:
     return tuple(names)
 
 
-def _place_back(module: nn.Module, leaf: str, value: np.ndarray):
-    """(collection, flax leaf name, array in flax layout) for one state-dict leaf."""
+def _place_back(module: nn.Module, leaf: str, ndim: int) -> Tuple[str, str, Tuple[int, ...]]:
+    """(collection, flax leaf name, axes) of one state-dict leaf: the flax array is the
+    torch one with its axes permuted by ``axes``."""
+    same = tuple(range(ndim))
     if isinstance(module, nn.Linear):
-        return ("params", "kernel", value.T) if leaf == "weight" else ("params", "bias", value)
+        return ("params", "kernel", (1, 0)) if leaf == "weight" else ("params", "bias", same)
     if isinstance(module, nn.Conv1d):
         if leaf == "weight":
-            return "params", "kernel", value.transpose(2, 1, 0)
-        return "params", "bias", value
+            return "params", "kernel", (2, 1, 0)
+        return "params", "bias", same
     if isinstance(module, nn.BatchNorm1d) and leaf.startswith("running_"):
-        return "batch_stats", leaf[len("running_"):], value
+        return "batch_stats", leaf[len("running_"):], same
     if isinstance(module, (nn.BatchNorm1d, nn.LayerNorm)):
-        return "params", "scale" if leaf == "weight" else "bias", value
-    return "params", leaf, value
+        return "params", "scale" if leaf == "weight" else "bias", same
+    return "params", leaf, same
+
+
+def flax_layout(module: nn.Module, full: str) -> Tuple[str, Tuple[int, ...]]:
+    """The flat flax key of the parameter or buffer ``full`` of ``module`` and the
+    permutation of its axes that gives the flax layout (flax axis i is torch axis
+    ``axes[i]``)."""
+    *parts, leaf = full.split(".")
+    owner = module.get_submodule(".".join(parts))
+    collection, name, axes = _place_back(owner, leaf, getattr(owner, leaf).dim())
+    return "/".join((collection, *_flax_names(module, tuple(parts)), name)), axes
 
 
 def torch_to_flax_flat(module: nn.Module, gradients: bool = False) -> Dict[str, np.ndarray]:
@@ -175,9 +187,10 @@ def torch_to_flax_flat(module: nn.Module, gradients: bool = False) -> Dict[str, 
         owner = module.get_submodule(".".join(parts))
         if gradients:
             tensor = torch.zeros_like(tensor) if tensor.grad is None else tensor.grad
-        collection, name, array = _place_back(owner, leaf, tensor.detach().cpu().numpy())
+        collection, name, axes = _place_back(owner, leaf, tensor.dim())
         key = "/".join((collection, *_flax_names(module, tuple(parts)), name))
-        flat[key] = np.array(array)     # a copy: the tensor's memory changes with the next update
+        # a copy: the tensor's memory changes with the next update
+        flat[key] = np.array(np.transpose(tensor.detach().cpu().numpy(), axes))
     return flat
 
 

@@ -153,11 +153,13 @@ struct Scalars {
   float zc, zo, forget_bias;
 };
 
-// Keep thresholds of the mask hash, the seed, and the draw number of every
-// (cell, c or h) mask within a step: c then h per cell, kinds at factor 0 skipped.
+// Keep thresholds of the mask hash, the seed, the draw number of every (cell, c
+// or h) mask within a step (c then h per cell, kinds at factor 0 skipped), and the
+// global index of lane 0 (a data-parallel rank's first row; 0 on one device).
 struct Bits {
   unsigned thr_c, thr_h, seed;
   unsigned draw[6];
+  unsigned lane0;
 };
 
 template <typename IO>
@@ -202,13 +204,14 @@ __device__ __forceinline__ unsigned mix32(unsigned x) {
   return x;
 }
 
-// How much of the previous state unit (row, col) of a (., width) state keeps.
+// How much of the previous state unit (row, col) of a (., width) state keeps; row
+// is the global lane.
 __device__ __forceinline__ float keep_old(int train, unsigned step_seed, unsigned draw,
-                                          unsigned threshold, float factor, int row, int col,
-                                          int width) {
+                                          unsigned threshold, float factor, unsigned row,
+                                          int col, int width) {
   if (!train || factor <= 0.0f) return factor;
   const unsigned base = step_seed * 0x9E3779B9u + draw * 0x85EBCA6Bu;
-  const unsigned idx = (unsigned)row * (unsigned)width + (unsigned)col;
+  const unsigned idx = row * (unsigned)width + (unsigned)col;
   return mix32(base + idx * 0xC2B2AE35u) < threshold ? 1.0f : 0.0f;
 }
 
@@ -634,9 +637,9 @@ teacher_fwd_kernel(const Ptrs<IO> P, const Dims d, const Scalars sc, const Bits 
       const float new_c = sigmoidf_(zf + sc.forget_bias) * c + sigmoidf_(zi) * tanhf(zg);
       const float new_h = sigmoidf_(zo) * tanhf(new_c);
       const float mc = keep_old(d.train_masks, step_seed, bits.draw[2 * cell], bits.thr_c, sc.zc,
-                                l, u, U);
+                                bits.lane0 + (unsigned)l, u, U);
       const float mh = keep_old(d.train_masks, step_seed, bits.draw[2 * cell + 1], bits.thr_h,
-                                sc.zo, l, u, U);
+                                sc.zo, bits.lane0 + (unsigned)l, u, U);
       const float out_c = c * mc + new_c * (1.0f - mc);
       const float out_h = h * mh + new_h * (1.0f - mh);
       c_state[(size_t)l * ldc + u] = out_c;
@@ -1006,9 +1009,9 @@ __device__ __forceinline__ void lstm_backward(const Ptrs<IO>& P, const Dims& d,
   const float tc = tanhf(sf * c_prev + si * tg);
   const unsigned step_seed = bits.seed + (unsigned)t;
   const float mc = keep_old(d.train_masks, step_seed, bits.draw[2 * cell], bits.thr_c, sc.zc,
-                            l, j, U);
+                            bits.lane0 + (unsigned)l, j, U);
   const float mh = keep_old(d.train_masks, step_seed, bits.draw[2 * cell + 1], bits.thr_h,
-                            sc.zo, l, j, U);
+                            sc.zo, bits.lane0 + (unsigned)l, j, U);
   const float g_c_out = __ldcg(gc + (size_t)l * ldg + j);
   const float g_h_new = g_h_out * (1.0f - mh);
   const float g_c_new = g_c_out * (1.0f - mc) + g_h_new * so * (1.0f - tc * tc);

@@ -47,6 +47,7 @@ from self_attention_tacotron_torch.models.modules import (
 )
 from self_attention_tacotron_torch.models.self_attention import SelfAttentionTransformer
 from self_attention_tacotron_torch.ops import fused_teacher
+from self_attention_tacotron_torch.parallel import shard
 
 
 @dataclasses.dataclass
@@ -387,6 +388,7 @@ class Decoder(nn.Module):
             ls_cumulative=bool(mech1.cumulative_weights) if ls else True,
             ls_kernel=int(mech1.attention_kernel) if ls else 0,
             eval_zoneout=not self.training,
+            lane0=shard.lane_offset(),
         )
 
     def teacher_operands(self, cond: DecoderConditioning) -> Dict:
@@ -468,7 +470,7 @@ class Decoder(nn.Module):
         if self.prenet.drop_rate > 0.0:
             keep = 1.0 - self.prenet.drop_rate
             prenet_masks = tuple(
-                torch.rand((batch, steps, units), device=device, generator=generator) < keep
+                shard.rand((batch, steps, units), device, generator) < keep
                 for units in self.prenet.out_units
             )
         seed = 0
@@ -493,7 +495,7 @@ class Decoder(nn.Module):
                 for pair in fused_teacher.zoneout_keep_masks(
                     dict(zoneout_cell=zc, zoneout_output=zo,
                          att_units=self.attention_rnn_out_units,
-                         dec_units=self.decoder_out_units),
+                         dec_units=self.decoder_out_units, lane0=shard.lane_offset()),
                     seed, n, b, feeds.device,
                 )
             ]

@@ -1,7 +1,9 @@
 """Loss functions: masked spectrogram L1/MSE, stop-token cross-entropy, regularisers.
 
 Counterpart of ``self_attention_tacotron_tpu/models/losses.py``. Every loss masks
-padding by the true target lengths and reduces in float32.
+padding by the true target lengths and reduces in float32. In a data-parallel step
+each normaliser is the global batch's (``parallel/shard.py``), so that a rank's loss
+is its share of the global loss.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from self_attention_tacotron_torch.models.modules import sequence_mask
+from self_attention_tacotron_torch.parallel import shard
 
 
 def _frame_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
@@ -32,7 +35,7 @@ def spec_loss(
         total = diff.square().sum()
     else:
         raise ValueError(f"unknown spec_loss_type {loss_type!r}")
-    denom = (mask.sum() * target.shape[-1]).clamp_min(1.0)
+    denom = (shard.sum_over_data(mask.sum()) * target.shape[-1]).clamp_min(1.0)
     return total / denom
 
 
@@ -46,7 +49,7 @@ def stop_token_loss(
     logits = logits.float()
     labels = done.float()
     per = logits.clamp_min(0.0) - logits * labels + torch.log1p(torch.exp(-logits.abs()))
-    return (per * mask).sum() / mask.sum().clamp_min(1.0)
+    return (per * mask).sum() / shard.sum_over_data(mask.sum()).clamp_min(1.0)
 
 
 def classification_loss(
@@ -60,7 +63,7 @@ def classification_loss(
         picked = logp.gather(-1, labels.long()[..., None])[..., 0]
     else:
         picked = (logp * labels.float()).sum(dim=-1)
-    return -(picked * mask).sum() / mask.sum().clamp_min(1.0)
+    return -(picked * mask).sum() / shard.sum_over_data(mask.sum()).clamp_min(1.0)
 
 
 def binary_divergence(
@@ -76,10 +79,11 @@ def binary_divergence(
     ent = -(
         t * torch.log(t.clamp(1e-5, 1.0)) + (1.0 - t) * torch.log((1.0 - t).clamp(1e-5, 1.0))
     )
-    return ((per - ent) * mask).sum() / (mask.sum() * target.shape[-1]).clamp_min(1.0)
+    return ((per - ent) * mask).sum() / (
+        shard.sum_over_data(mask.sum()) * target.shape[-1]).clamp_min(1.0)
 
 
 def l2_regularization(params: Iterable[torch.Tensor], weight: float) -> torch.Tensor:
     """``weight`` times the sum of squares of every kernel (two or more axes): not
-    of biases and scales."""
-    return weight * sum(p.float().square().sum() for p in params if p.dim() >= 2)
+    of biases and scales. In a data-parallel step each rank adds its share."""
+    return shard.data_share(weight * sum(p.float().square().sum() for p in params if p.dim() >= 2))

@@ -22,6 +22,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from self_attention_tacotron_torch.ops import fused_rnn
+from self_attention_tacotron_torch.parallel import shard
 
 LSTMCarry = Tuple[torch.Tensor, torch.Tensor]  # (c, h)
 
@@ -153,7 +154,7 @@ class PreNet(nn.Module):
             if dropout_masks is not None:
                 mask = dropout_masks[i]
             elif self.drop_rate > 0.0:
-                mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+                mask = shard.rand(x.shape, x.device, generator) < keep
             else:
                 continue
             x = torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
@@ -174,7 +175,10 @@ class Conv1dBN(nn.Module):
     batch norm does it: the variance is the biased one, E[x^2] - E[x]^2, both in
     the normalisation and in the running average (``nn.BatchNorm1d`` would store
     the unbiased one). In bfloat16 the convolution runs in bfloat16 and the batch
-    norm in float32 (statistics and normalisation), its result cast back.
+    norm in float32 (statistics and normalisation), its result cast back. In a
+    data-parallel step the statistics are the global batch's, from sums all-reduced
+    over the data axis (``parallel.shard.batch_moments``), so that the running
+    averages stay equal on every rank.
     ``drop_rate`` drops after the activation in train mode only, its keep-mask
     drawn from ``generator``.
     """
@@ -204,8 +208,11 @@ class Conv1dBN(nn.Module):
         bn = self.BatchNorm_0
         if self.training:
             x32 = x.float()
-            mean = x32.mean(dim=(0, 2))
-            var = ((x32 * x32).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            if shard.current() is None:
+                mean = x32.mean(dim=(0, 2))
+                var = ((x32 * x32).mean(dim=(0, 2)) - mean * mean).clamp_min(0.0)
+            else:   # a data-parallel step: the global batch's statistics
+                mean, var = shard.batch_moments(x32, (0, 2))
             with torch.no_grad():
                 bn.running_mean.lerp_(mean, bn.momentum)
                 bn.running_var.lerp_(var, bn.momentum)
@@ -222,7 +229,7 @@ class Conv1dBN(nn.Module):
             x = self.activation(x)
         if self.training and self.drop_rate > 0.0:
             keep = 1.0 - self.drop_rate
-            mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+            mask = shard.rand(x.shape, x.device, generator) < keep
             x = torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
         return x
 
@@ -270,7 +277,7 @@ class ZoneoutLSTMCell(nn.Module):
             return new
         if self.training:
             if mask is None:
-                mask = torch.rand(new.shape, device=new.device, generator=generator) < factor
+                mask = shard.rand(new.shape, new.device, generator) < factor
             return torch.where(mask, old, new)
         return in_dtype(factor, new.dtype) * old + in_dtype(1.0 - factor, new.dtype) * new
 

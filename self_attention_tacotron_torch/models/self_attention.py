@@ -21,6 +21,7 @@ import torch.nn.functional as F
 
 from self_attention_tacotron_torch.models.modules import Dense, LayerNorm, in_dtype
 from self_attention_tacotron_torch.ops import fused_attention
+from self_attention_tacotron_torch.parallel import shard
 
 _NEG_INF = -1e9
 _LN_EPS = 1e-6  # the JAX package's LayerNorm epsilon; torch's default is 1e-5
@@ -47,7 +48,7 @@ def _device_table(length: int, dim: int, dtype, device) -> torch.Tensor:
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator]) -> torch.Tensor:
     """Inverted dropout with the mask drawn from ``generator`` (or the default one)."""
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    mask = shard.rand(x.shape, x.device, generator) < keep
     return torch.where(mask, x / in_dtype(keep, x.dtype), torch.zeros_like(x))
 
 

@@ -196,7 +196,7 @@ def mha_full(
     probs = torch.empty(B, num_heads, T, T, dtype=torch.float32, device=qkv.device)
     fn = _kernel_fn(qkv.dtype)
     with torch.cuda.device(qkv.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(qkv.device).cuda_stream
         err = fn(
             qkv_c.data_ptr(), None if mask_c is None else mask_c.data_ptr(),
             ctx.data_ptr(), probs.data_ptr(), B, T, D, int(num_heads), stream,

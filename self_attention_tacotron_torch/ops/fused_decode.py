@@ -977,7 +977,7 @@ def _decode_kernel(p: PackedDecoder, ops: _Operands, max_iters: int, stop_thresh
     )
     fn = _kernel_fn()
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(pointers, dims, scalars, stream)
     if err != 0:
         raise RuntimeError(f"fused_decode kernel launch failed: CUDA error {err}")

@@ -374,7 +374,7 @@ def bigru(
     # padded steps are left unwritten: the recurrence reads valid steps alone)
     proj = torch.empty(B * S * 6 * H, dtype=torch.float32, device=xs.device)
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = _kernel_fn(xs.dtype, proj=True)(
             xs_c.data_ptr(), *(w.data_ptr() for w in wf), *(w.data_ptr() for w in wb),
             len_c.data_ptr(), proj.data_ptr(), B, S, C, H, stream,
@@ -468,7 +468,7 @@ def bigru_bwd_carry(g_y, rz, n, hp, lengths, wgh_t, wch_t):
     # rows at and beyond a lane's length are never written
     g_ag, g_ac = torch.zeros_like(operands[1]), torch.zeros_like(operands[2])
     with torch.cuda.device(g_y.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(g_y.device).cuda_stream
         err = _bwd_kernel_fn(io)(
             *(x.data_ptr() for x in operands), g_ag.data_ptr(), g_ac.data_ptr(), B, S, H, stream
         )
@@ -676,7 +676,7 @@ def bilstm(
     proj = torch.empty(B * S * 8 * H, dtype=torch.float32, device=xs.device)
     w_f, b_f, w_b, b_b = weights
     with torch.cuda.device(xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = torch.cuda.current_stream(xs.device).cuda_stream
         err = _lstm_kernel_fn(xs.dtype, proj=True)(
             xs_c.data_ptr(), w_f.data_ptr(), b_f.data_ptr(), w_b.data_ptr(), b_b.data_ptr(),
             len_c.data_ptr(), proj.data_ptr(), B, S, C, H, stream,

@@ -47,7 +47,9 @@ Zoneout masks are not stored. In training the keep mask of (step, draw, lane,
 unit) is a counter-based hash of ``seed + t`` with a murmur3 finalizer, the one
 the JAX package's kernels use in interpret mode, with the global lane as the
 row, so it does not depend on how lanes are grouped into blocks; the plain
-version draws the same masks (``hash_keep_masks``). In evaluation the mask is
+version draws the same masks (``hash_keep_masks``). ``hp_like["lane0"]`` (default
+0) is the global index of the launch's lane 0: a data-parallel rank passes its
+first row, so that its lanes draw the masks they draw in the single-device step. In evaluation the mask is
 the constant zoneout factor.
 
 Specialised to the decoders' family, the mel head or the WORLD heads alike (the
@@ -101,6 +103,7 @@ import torch
 from self_attention_tacotron_torch.ops.fused_rnn import rounded
 from self_attention_tacotron_torch.ops.grid import SLICE_BYTES, deal  # noqa: F401
 from self_attention_tacotron_torch.ops.grid import round8 as _round8
+from self_attention_tacotron_torch.parallel import shard
 from self_attention_tacotron_torch.utils.cuda_build import load_library
 
 # Launches of the forward and of the backward kernel made in this process
@@ -245,16 +248,18 @@ def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
 
 
 def hash_keep_masks(seed: int, num_steps: int, batch: int, width: int, draw: int,
-                    threshold: int, device) -> torch.Tensor:
+                    threshold: int, device, lane0: int = 0) -> torch.Tensor:
     """(N, B, width) boolean keep masks of draw number ``draw`` for every step.
 
     bits = murmur3_finalizer((seed + t) * 0x9E3779B9 + draw * 0x85EBCA6B
-    + (lane * width + unit) * 0xC2B2AE35), all modulo 2**32; keep where
-    bits < threshold.
+    + ((lane0 + lane) * width + unit) * 0xC2B2AE35), all modulo 2**32; keep where
+    bits < threshold. ``lane0``: the global index of lane 0.
     """
     t = torch.arange(num_steps, dtype=torch.int64, device=device)
     base = (_mul32((t + int(seed)) & _MASK32, 0x9E3779B9) + ((draw * 0x85EBCA6B) & _MASK32))
-    idx = torch.arange(batch * width, dtype=torch.int64, device=device).view(batch, width)
+    first = int(lane0) * width
+    idx = torch.arange(first, first + batch * width, dtype=torch.int64,
+                       device=device).view(batch, width)
     x = (base[:, None, None] + _mul32(idx & _MASK32, 0xC2B2AE35)[None]) & _MASK32
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
@@ -298,7 +303,7 @@ def zoneout_keep_masks(hp_like: Dict, seed: int, num_steps: int, batch: int, dev
             else:
                 pair.append(hash_keep_masks(
                     seed, num_steps, batch, width, draws[2 * cell + kind],
-                    keep_threshold(factor), device,
+                    keep_threshold(factor), device, int(hp_like.get("lane0", 0)),
                 ).to(torch.float32))
         masks.append(tuple(pair))
     return masks
@@ -328,7 +333,7 @@ def _prenet(weights, feeds, drop_rate: float, prenet_masks, generator, io=torch.
         if prenet_masks is not None:
             mask = prenet_masks[i]
         elif drop_rate > 0.0:
-            mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+            mask = shard.rand(x.shape, x.device, generator) < keep
         else:
             continue
         x = torch.where(mask, x / keep, torch.zeros_like(x))
@@ -776,8 +781,9 @@ def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_
     variant = (which, ("dual" if z["E2"] else "single") + ("_ls" if z["K"] else ""))
     zc, zo = float(hp_like["zoneout_cell"]), float(hp_like["zoneout_output"])
     scalars = (ctypes.c_float * 3)(zc, zo, float(hp_like.get("forget_bias", 1.0)))
-    bits = (ctypes.c_uint * 9)(
-        keep_threshold(zc), keep_threshold(zo), int(seed) & _MASK32, *_draw_numbers(zc, zo)
+    bits = (ctypes.c_uint * 10)(
+        keep_threshold(zc), keep_threshold(zo), int(seed) & _MASK32, *_draw_numbers(zc, zo),
+        int(hp_like.get("lane0", 0)) & _MASK32,
     )
     array = (ctypes.c_void_p * len(pointers))(
         *(None if x is None else x.data_ptr() for x in pointers)
@@ -786,7 +792,7 @@ def _launch(which: str, pointers: Sequence[Optional[torch.Tensor]], z, dims, hp_
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     with torch.cuda.device(device):
         start.record()
-        err = fn(array, dims, scalars, bits, torch.cuda.current_stream().cuda_stream)
+        err = fn(array, dims, scalars, bits, torch.cuda.current_stream(device).cuda_stream)
         end.record()
     _launch_events[which] = (start, end)
     if err != 0:
@@ -1148,7 +1154,8 @@ def teacher_decode(*, weights, keys, mem1, mem2, score_bias, spk, feeds, seed, h
     ``score_bias`` (B, S) is 0 where valid and -1e9 where padded, ``feeds``
     (B, N, F) the teacher frames, ``seed`` the zoneout masks' seed. ``hp_like``:
     ``dual, use_ta, att_units, att1_units, att2_units, dec_units, zoneout_cell,
-    zoneout_output, prenet_drop_rate, eval_zoneout, io_dtype``, and for
+    zoneout_output, prenet_drop_rate, eval_zoneout, io_dtype``, optionally ``lane0``
+    (the global index of lane 0 in the zoneout hash, default 0), and for
     location-sensitive attention on source 1 ``src1_kind="location_sensitive",
     ls_cumulative, ls_kernel`` with the weights ``w_lsW`` (K, A1) and ``ls_bias``
     (A1,). The weights, ``spk`` and ``score_bias`` are float32; keys and memories

@@ -14,6 +14,10 @@ writes ``FORCED_ALIGNMENT_NOTE.txt``. ``--write-wav`` adds a Griffin-Lim
 waveform from the predicted linear spectrogram (only with
 ``use_linear_spectrogram_postnet``).
 
+Under ``torchrun --standalone --nproc_per_node=N`` each rank takes ``cuda:LOCAL_RANK``
+and the batch is split over the N ranks (``make_sharded_predict_fn``) where the batch
+size divides N, as the JAX CLI shards it over its devices; rank 0 writes the files.
+
 Usage:
   python -m self_attention_tacotron_torch.predict_mel --source-data-root=<dir> \\
       [--target-data-root=<dir>] --checkpoint-dir=<dir> --output-dir=<dir> \\
@@ -69,16 +73,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     from self_attention_tacotron_torch.data.dataset import TacotronDataset, read_selected_list
     from self_attention_tacotron_torch.hparams import default_hparams
     from self_attention_tacotron_torch.models.models import tacotron_model_factory
-    from self_attention_tacotron_torch.synthesis import make_predict_fn
+    from self_attention_tacotron_torch.parallel import init_from_env, make_mesh
+    from self_attention_tacotron_torch.synthesis import make_predict_fn, make_sharded_predict_fn
     from self_attention_tacotron_torch.training.metrics import (
         image_writer,
         save_alignment_png,
         save_mel_comparison_png,
     )
     from self_attention_tacotron_torch.training.trainer import Trainer, step_generator
-    from self_attention_tacotron_torch.utils.platform import platform_device
 
-    device = platform_device()
+    device = init_from_env()
     hparams = default_hparams()
     if args.hparam_json_file:
         hparams.override_from_json_file(args.hparam_json_file)
@@ -104,18 +108,25 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
     data = TacotronDataset(args.source_data_root, target_root, hparams, utterance_ids=ids)
 
     model = tacotron_model_factory(hparams)
-    state = Trainer(model, args.checkpoint_dir, device=device).restore_inference()
-    predict = make_predict_fn(state.net, device=device)
+    mesh = make_mesh(hparams.mesh_shape)
+    state = Trainer(model, args.checkpoint_dir, device=device, mesh=mesh).restore_inference()
     batch_size = args.batch_size or hparams.batch_size
+    world = mesh.size
+    if world > 1 and batch_size % world == 0:
+        predict = make_sharded_predict_fn(state.net, make_mesh((world, 1)), device=device)
+    else:
+        predict = make_predict_fn(state.net, device=device)
+    chief = mesh.rank == 0
     batches = data.batches(
         batch_size, shuffle=False, repeat=False, drop_incomplete=False, prefetch=0
     )
-    os.makedirs(args.output_dir, exist_ok=True)
-    if hparams.use_forced_alignment_mode:
-        with open(os.path.join(args.output_dir, "FORCED_ALIGNMENT_NOTE.txt"), "w") as f:
-            f.write(FORCED_ALIGNMENT_NOTE)
-    print(f"[predict_mel] step {state.step} of {args.checkpoint_dir} on {device}; "
-          f"images by {image_writer()}", flush=True)
+    if chief:
+        os.makedirs(args.output_dir, exist_ok=True)
+        if hparams.use_forced_alignment_mode:
+            with open(os.path.join(args.output_dir, "FORCED_ALIGNMENT_NOTE.txt"), "w") as f:
+                f.write(FORCED_ALIGNMENT_NOTE)
+        print(f"[predict_mel] step {state.step} of {args.checkpoint_dir} on {device} "
+              f"({world} rank{'s' if world > 1 else ''}); images by {image_writer()}", flush=True)
 
     written: Dict[str, int] = {}
     synthesis_s = 0.0
@@ -145,6 +156,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 continue
             n = int(lengths[i])
             written[utt_id] = n
+            if not chief:
+                continue
             predicted = frames[i, :n].astype(np.float32)
             if primary == "mel":
                 predicted.tofile(os.path.join(
@@ -171,7 +184,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict[str, object]:
                 wav = audio.inv_spectrogram(linear[i, :n])
                 audio.save_wav(wav, os.path.join(args.output_dir, f"{utt_id}.wav"))
             print(f"{utt_id}: {n} frames")
-    print(f"wrote predictions to {args.output_dir}")
+    if chief:
+        print(f"wrote predictions to {args.output_dir}")
     return {"frames": written, "synthesis_s": synthesis_s}
 
 

@@ -6,6 +6,9 @@ postnets on the decoded mel, and return the same output dictionary. The decode
 is the whole-loop kernel of ``ops/fused_decode.py`` where the configuration has
 one, else the step-by-step loop of ``ops/decode_loop.py``.
 
+``make_sharded_predict_fn`` is the data-parallel counterpart of the JAX package's:
+each rank of the mesh's ``data`` axis synthesizes its rows of the batch.
+
 Forced-alignment mode (``hparams.use_forced_alignment_mode`` with a
 ``teacher_forcing_*`` attention): the batch brings ``target_lengths`` and the
 window's ratio is derived from them. The kernel does not serve it, as the
@@ -28,6 +31,8 @@ from self_attention_tacotron_torch.ops.fused_decode import (
     pack_decoder,
     supports_fused_decode,
 )
+from self_attention_tacotron_torch.parallel import mesh as mesh_lib
+from self_attention_tacotron_torch.parallel import shard as shard_lib
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
 
 
@@ -166,6 +171,61 @@ def make_predict_fn(
         return _assemble_outputs(result, enc_sa, net, cond)
 
     return predict
+
+
+def make_sharded_predict_fn(
+    model: TacotronNetwork,
+    mesh: mesh_lib.Mesh,
+    max_iters: Optional[int] = None,
+    use_fused: Optional[bool] = None,
+    device="cuda",
+):
+    """Data-parallel batched synthesis over the mesh's ``data`` axis (JAX
+    ``make_sharded_predict_fn``): ``predict(batch, generator=None, prenet_masks=None)``
+    on every rank, with the same global batch and generator state.
+
+    Each rank runs ``make_predict_fn``'s ``predict`` on its rows (``encode``, the fused
+    decode or the step loop, the postnets); ``num_steps`` is the ranks' largest, as
+    JAX's ``pmax`` makes it, and every other output is gathered along the batch, so
+    that every rank returns the global batch's dictionary. A batch that does not
+    divide the data axis raises ``ValueError``. The weights are replicated, as JAX's
+    ``in_specs`` replicate them: a net placed on a ``model`` axis is gathered whole
+    once, in place, before the decoder is packed. A rank exits when its own lanes
+    stop, so frames past a lane's length may differ from the unsharded call's.
+
+    Prenet dropout follows JAX's shards: each rank draws its (max_iters, B/n, units)
+    masks from the same generator state (JAX's replicated key), and ``prenet_masks``,
+    where given, are those (max_iters, B/n, units) masks, the same on every rank. So
+    with dropout on the output is not the unsharded call's, as in JAX.
+    """
+    mesh_lib.unshard_params(model)
+    predict = make_predict_fn(model, max_iters=max_iters, use_fused=use_fused, device=device)
+    n, d = mesh.shape["data"], mesh.coordinate[0]
+    group = mesh.group("data")
+
+    def gather(value):
+        if isinstance(value, (tuple, list)):
+            return type(value)(gather(v) for v in value)
+        return shard_lib.all_gather(value, group)
+
+    @torch.inference_mode()
+    def sharded_predict(batch: Dict[str, object], generator: Optional[torch.Generator] = None,
+                        prenet_masks: Optional[Sequence[object]] = None) -> Dict[str, object]:
+        b = batch["source"].shape[0]
+        if b % n != 0:
+            raise ValueError(f"batch {b} must divide the data axis ({n})")
+        rows = b // n
+        local = {k: v[d * rows : (d + 1) * rows] for k, v in batch.items()}
+        out = predict(local, generator, prenet_masks)
+        if group is None:
+            return out
+        steps = shard_lib.all_reduce(out["num_steps"].reshape(1).clone(), group,
+                                     torch.distributed.ReduceOp.MAX)
+        gathered = {k: gather(v) for k, v in out.items() if k != "num_steps"}
+        gathered["num_steps"] = steps.reshape(out["num_steps"].shape)
+        return gathered
+
+    return sharded_predict
 
 
 def decode_fused(hp, use_fused: Optional[bool], device_type: str) -> bool:

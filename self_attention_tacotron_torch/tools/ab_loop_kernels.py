@@ -25,7 +25,9 @@ S=128 ragged):
   or bfloat16, each direction) at B=32 and B=1, the flagship's structure also at
   B=8, B=64 and B=128 (labels ``_b1`` ...); five launches each after a warm-up,
   and whether the launches on the same inputs gave the same features and
-  gradients bit for bit (``bit_for_bit``);
+  gradients bit for bit (``bit_for_bit``), with a digest of those features and
+  gradients (``digest``, SHA-256 of their bytes): two trees whose digests agree
+  computed the same bits;
 * the BiGRU backward's carry kernel (``bigru_bwd``, float32, H=128; five runs of
   20 launches);
 * with ``--rnn``: the recurrent kernels alone (``RNN_CASES``, ``LSTM_CASES``),
@@ -170,14 +172,17 @@ def _teacher_cases():
 
 def _teacher_times(dev):
     """Forward and backward kernel times of every case of ``_teacher_cases`` (N=400,
-    train zoneout, prenet dropout; five launches each after a warm-up), and for each
+    train zoneout, prenet dropout; five launches each after a warm-up), for each
     whether the launches on the same inputs gave the same features and gradients bit
-    for bit (``bit_for_bit``: the label, True or the names that differ)."""
+    for bit (``bit_for_bit``: the label, True or the names that differ), and the
+    SHA-256 of the first launch's features and gradients (``digest``)."""
+    import hashlib
+
     import torch
     from self_attention_tacotron_torch.ops import fused_teacher
 
     fan = lambda k: 1.0 / np.sqrt(k)  # noqa: E731
-    out, same = {}, {}
+    out, same, digest = {}, {}, {}
     for label, dual, ls, io, batches in _teacher_cases():
         rng = np.random.default_rng(zlib.crc32(label.encode()))
 
@@ -241,7 +246,11 @@ def _teacher_times(dev):
             out[f"{name}_fwd"], out[f"{name}_bwd"] = fwd, bwd
             differ = [k for k in results[0] if not torch.equal(results[0][k], results[1][k])]
             same[name] = True if not differ else differ
-    return out, same
+            hashed = hashlib.sha256()
+            for k in sorted(results[0]):
+                hashed.update(results[0][k].float().cpu().numpy().tobytes())
+            digest[name] = hashed.hexdigest()
+    return out, same, digest
 
 
 # The BiGRU cases of --rnn: (label, kernel, io, batch, source length); B=1 at the
@@ -377,7 +386,7 @@ def main(argv=None) -> None:
     if not flags or "--decode" in flags:
         times.update(_decode_times(dev))
     if not flags or "--teacher" in flags:
-        teacher, extra["bit_for_bit"] = _teacher_times(dev)
+        teacher, extra["bit_for_bit"], extra["digest"] = _teacher_times(dev)
         times.update(teacher)
     if not flags:
         times.update(_rnn_times(dev, np.random.default_rng(6)))

@@ -7,6 +7,11 @@ to ``--log-dir`` (default ``<checkpoint-dir>/log``). ``--restore-from`` warm
 starts from a flat ``.npz`` of the JAX layout or from another run's checkpoint
 directory.
 
+Under ``torchrun --standalone --nproc_per_node=N`` each rank takes ``cuda:LOCAL_RANK``
+(``SATT_PLATFORM=cpu``: the CPU, with gloo) and trains data-parallel over the
+mesh ``--hparams=mesh_shape=D+M`` (default: every rank on ``data``); every rank
+reads the same batches, and rank 0 writes the checkpoints, logs and PNGs.
+
 Usage:
   python -m self_attention_tacotron_torch.train --source-data-root=<dir> \\
       [--target-data-root=<dir>] --checkpoint-dir=<dir> [--selected-list-dir=<dir>] \\
@@ -51,10 +56,10 @@ def main(argv: Optional[Sequence[str]] = None):
     from self_attention_tacotron_torch.data.dataset import TacotronDataset, read_selected_list
     from self_attention_tacotron_torch.hparams import default_hparams
     from self_attention_tacotron_torch.models.models import tacotron_model_factory
+    from self_attention_tacotron_torch.parallel import init_from_env
     from self_attention_tacotron_torch.training.trainer import Trainer
-    from self_attention_tacotron_torch.utils.platform import platform_device
 
-    device = platform_device()
+    device = init_from_env()
     hparams = default_hparams()
     if args.hparam_json_file:
         hparams.override_from_json_file(args.hparam_json_file)
@@ -65,8 +70,10 @@ def main(argv: Optional[Sequence[str]] = None):
     os.makedirs(args.checkpoint_dir, exist_ok=True)
     log = logging.getLogger("self_attention_tacotron_torch.train")
     log.setLevel(logging.INFO)
+    chief = int(os.environ.get("RANK", "0")) == 0
     handlers = [logging.StreamHandler(),
-                logging.FileHandler(os.path.join(args.checkpoint_dir, hparams.logfile))]
+                logging.FileHandler(os.path.join(args.checkpoint_dir, hparams.logfile))
+                ] if chief else []
     for handler in handlers:
         handler.setFormatter(logging.Formatter("%(asctime)s %(levelname)s %(message)s"))
         log.addHandler(handler)

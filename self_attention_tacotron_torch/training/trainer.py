@@ -25,7 +25,21 @@ Counterpart of ``self_attention_tacotron_tpu/training/trainer.py``:
 The random draws of an update come from a ``torch.Generator`` derived from
 ``random_seed`` and the step count (``step_generator``), as JAX folds the step
 into its key, so that feeding the same batches after a resume gives the same
-run as going straight through. The port runs on one device: there is no mesh.
+run as going straight through.
+
+The mesh (``parallel/mesh.py``; default ``make_mesh(hparams.mesh_shape)`` over the
+ranks of the default process group, which ``parallel.init_from_env`` makes under
+torchrun): every rank reads the same global batch, as JAX's single controller does;
+``shard_batch`` gives each rank its rows, and the step computes the global batch's
+loss as GSPMD computes it in the JAX package: every loss normaliser and batch-norm
+statistic over the whole batch and every random mask drawn for the whole batch
+(``parallel/shard.py``), each rank's loss its share, the gradients summed over the
+data axis, the clipping norm taken after that sum. The parameters that the model
+axis's rules place keep their slice on each rank (``shard_params``). The metrics
+are the global batch's; checkpoints hold whole tensors (any mesh's checkpoint
+restores at any mesh, one device included) and are written by rank 0 alone, with
+the others at a barrier; ``metrics.jsonl`` and the PNGs are rank 0's too. A mesh of
+one rank is the single-device path: no process group, no collective.
 
 With the postnets configured, the losses add ``postnet_loss`` (PostNetV2's mel
 against ``mel``) and ``linear_loss`` (PostCBHG's linear spectrogram against the
@@ -62,6 +76,8 @@ from self_attention_tacotron_torch.models.models import (
     TacotronModelBase,
     TacotronNetwork,
 )
+from self_attention_tacotron_torch.parallel import mesh as mesh_lib
+from self_attention_tacotron_torch.parallel import shard as shard_lib
 from self_attention_tacotron_torch.training.metrics import (
     MetricsWriter,
     save_alignment_png,
@@ -200,16 +216,20 @@ class Trainer:
     the default raises. ``checkpoint_dir`` is where ``save``, ``restore_or_init``,
     ``restore_inference`` and ``train`` keep the checkpoints; ``log_dir`` (default
     ``<checkpoint_dir>/log``) takes ``metrics.jsonl`` and the PNGs. A trainer
-    without a directory serves ``train_step`` and ``eval_step`` alone."""
+    without a directory serves ``train_step`` and ``eval_step`` alone. ``mesh``
+    (default ``make_mesh(hparams.mesh_shape)``): the ranks the steps run on."""
 
     #: utterances rendered to PNGs per evaluation
     EVAL_PLOT_UTTERANCES = 3
 
     def __init__(self, model: TacotronModelBase, checkpoint_dir: Optional[str] = None,
-                 log_dir: Optional[str] = None, device="cuda"):
+                 log_dir: Optional[str] = None, device="cuda",
+                 mesh: Optional[mesh_lib.Mesh] = None):
         self.model = model
         self.hparams = model.hparams
         self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else mesh_lib.make_mesh(self.hparams.mesh_shape)
+        self.is_chief = self.mesh.rank == 0
         use_full_float32()
         self.schedule = learning_rate_schedule(self.hparams)
         self.checkpoint_dir = self.log_dir = self.checkpoints = None
@@ -237,11 +257,38 @@ class Trainer:
 
     def init_state(self, net: Optional[TacotronNetwork] = None) -> TrainState:
         """A state at step 0 around ``net`` (for instance from ``convert.load_npz``),
-        moved to the trainer's device; a freshly initialised network without one."""
+        moved to the trainer's device; a freshly initialised network without one.
+        On a mesh of more than one rank, rank 0's weights go to every rank, and the
+        model axis's parameters are placed (``shard_params``)."""
+        return self._placed_state(self._network(net))
+
+    def _network(self, net: Optional[TacotronNetwork]) -> TacotronNetwork:
         if net is None:
             net = self.model.network(is_training=True, device=self.device)
-        net = net.to(self.device)
-        return TrainState(step=0, net=net, optimizer=make_optimizer(self.hparams, net.parameters()))
+        return net.to(self.device)
+
+    def _placed_state(self, net: TacotronNetwork, step: int = 0) -> TrainState:
+        if self.mesh.size > 1 and mesh_lib.placement(net) is None:
+            for tensor in list(net.parameters()) + list(net.buffers()):
+                torch.distributed.broadcast(tensor.data, src=0)
+        mesh_lib.shard_params(net, self.mesh)
+        return TrainState(step=step, net=net,
+                          optimizer=make_optimizer(self.hparams, net.parameters()))
+
+    def _shard(self, batch) -> mesh_lib.ShardedBatch:
+        """This rank's rows of a global batch (the whole batch on a data axis of one)."""
+        if self.mesh.shape["data"] == 1:
+            return mesh_lib.ShardedBatch(batch)
+        return mesh_lib.shard_batch(batch, self.mesh)
+
+    def _global(self, losses: Dict[str, torch.Tensor], sharded) -> Dict[str, torch.Tensor]:
+        """The global batch's loss parts from this rank's shares."""
+        values = {k: v.detach() for k, v in losses.items()}
+        if not sharded.data_parallel:
+            return values
+        stacked = shard_lib.all_reduce(torch.stack(list(values.values())).float(),
+                                       self.mesh.group("data"))
+        return dict(zip(values, stacked.unbind(0)))
 
     def _batch(self, batch) -> Dict[str, torch.Tensor]:
         return {
@@ -273,23 +320,27 @@ class Trainer:
         hp = self.hparams
         mark = mark or (lambda name: None)
         net, optimizer = state.net, state.optimizer
-        batch = self._batch(batch)
+        sharded = self._shard(batch)
+        batch = self._batch(sharded)
         net.train()
         optimizer.zero_grad(set_to_none=True)
-        out = self._forward(net, batch, generator)
-        losses = self.model.loss(out, batch, params=net.parameters())
-        mark("forward")
-        losses["loss"].backward()
+        with mesh_lib.data_shard(sharded, self.mesh):
+            out = self._forward(net, batch, generator)
+            losses = self.model.loss(out, batch, params=mesh_lib.logical_parameters(net))
+            mark("forward")
+            losses["loss"].backward()
+        if sharded.data_parallel:
+            mesh_lib.sum_gradients(list(net.parameters()), self.mesh)
         mark("backward")
         grads = [p.grad for p in net.parameters() if p.grad is not None]
-        norm = global_norm(grads)
+        norm = mesh_lib.gradient_norm(net, grads, self.mesh, global_norm)
         if hp.use_gradient_clipping and hp.gradient_clip_norm > 0:
             clip_by_global_norm(grads, norm, float(hp.gradient_clip_norm))
         for group in optimizer.param_groups:
             group["lr"] = self.schedule(state.step)
         optimizer.step()
         mark("optimizer")
-        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics = self._global(losses, sharded)
         metrics["grad_norm"] = norm.detach()
         return TrainState(step=state.step + 1, net=net, optimizer=optimizer), metrics
 
@@ -297,12 +348,19 @@ class Trainer:
         self, state: TrainState, batch, generator: Optional[torch.Generator] = None
     ) -> Tuple[Dict[str, torch.Tensor], NetworkOutput]:
         """Teacher-forced losses and outputs in eval mode (running batch-norm
-        averages, zoneout as interpolation; the prenet's dropout stays on)."""
-        batch = self._batch(batch)
+        averages, zoneout as interpolation; the prenet's dropout stays on). The
+        losses are the global batch's; the outputs are this rank's rows."""
+        losses, out, _ = self._eval(state, batch, generator)
+        return losses, out
+
+    def _eval(self, state: TrainState, batch, generator):
+        sharded = self._shard(batch)
+        tensors = self._batch(sharded)
         state.net.eval()
-        with torch.no_grad():
-            out = self._forward(state.net, batch, generator)
-            return self.model.loss(out, batch), out
+        with torch.no_grad(), mesh_lib.data_shard(sharded, self.mesh):
+            out = self._forward(state.net, tensors, generator)
+            losses = self.model.loss(out, tensors)
+        return self._global(losses, sharded), out, sharded
 
     # ----------------------------- checkpoints ----------------------------- #
 
@@ -312,12 +370,20 @@ class Trainer:
         return self.checkpoints
 
     def save(self, state: TrainState) -> bool:
-        """Checkpoint ``state``: the step, the network's ``state_dict`` and Adam's."""
-        return self._checkpoints().save(state.step, {
+        """Checkpoint ``state``: the step, the network's ``state_dict`` and Adam's, whole
+        (placed parameters and their moments gathered). Every rank calls it; rank 0
+        writes while the others wait at a barrier."""
+        checkpoints = self._checkpoints()
+        payload = {
             "step": int(state.step),
-            "net": state.net.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-        })
+            "net": mesh_lib.whole_state_dict(state.net, self.mesh),
+            "optimizer": mesh_lib.whole_optimizer_state(state.net, state.optimizer, self.mesh),
+        }
+        if self.mesh.size == 1:
+            return checkpoints.save(state.step, payload)
+        written = [checkpoints.save(state.step, payload) if self.is_chief else None]
+        torch.distributed.broadcast_object_list(written, src=0)
+        return bool(written[0])
 
     def restore_or_init(
         self, warm_start_from: Optional[str] = None, net: Optional[TacotronNetwork] = None
@@ -333,39 +399,41 @@ class Trainer:
         the donor's: a leaf that finds no place, or no leaf, raises. Otherwise
         ``net`` or a freshly initialised network.
         """
-        state = self.init_state(net)
+        net = self._network(net)
         latest = self._checkpoints().latest_step()
         if latest is not None:
             payload = self.checkpoints.load(latest, self.device)
-            state.net.load_state_dict(payload["net"])
-            state.optimizer.load_state_dict(payload["optimizer"])
-            return TrainState(step=int(payload["step"]), net=state.net, optimizer=state.optimizer)
+            net.load_state_dict(payload["net"])
+            state = self._placed_state(net, step=int(payload["step"]))
+            mesh_lib.load_whole_optimizer_state(state.net, state.optimizer, payload["optimizer"],
+                                                self.mesh)
+            return state
         if warm_start_from and warm_start_from.endswith(".npz"):
             with np.load(warm_start_from) as archive:
                 flat = {k: archive[k] for k in archive.files}
             if not any(k.startswith("batch_stats/") for k in flat):
-                flat.update((k, v) for k, v in convert.torch_to_flax_flat(state.net).items()
+                flat.update((k, v) for k, v in convert.torch_to_flax_flat(net).items()
                             if k.startswith("batch_stats/"))
-            convert.load_state(state.net, convert.flax_to_torch_state(flat, self.hparams, state.net))
+            convert.load_state(net, convert.flax_to_torch_state(flat, self.hparams, net))
         elif warm_start_from:
             donor = CheckpointManager(warm_start_from)
             step = donor.latest_step()
             if step is None:
                 raise FileNotFoundError(f"warm-start dir {warm_start_from!r} has no checkpoints")
-            state.net.load_state_dict(donor.load(step, self.device)["net"])
-        return state
+            net.load_state_dict(donor.load(step, self.device)["net"])
+        return self._placed_state(net)
 
     def restore_inference(self, net: Optional[TacotronNetwork] = None) -> TrainState:
         """The parameters and batch-norm statistics of the latest checkpoint, at its
         step, and a fresh Adam that is never consulted: a change of the optimizer's
         hparams (``use_gradient_clipping``, the rates) does not break synthesis.
         Raises ``FileNotFoundError`` where the directory has no checkpoint."""
-        state = self.init_state(net)
+        net = self._network(net)
         latest = self._checkpoints().latest_step()
         if latest is None:
             raise FileNotFoundError(f"no checkpoint found under {self.checkpoint_dir!r}")
-        state.net.load_state_dict(self.checkpoints.load(latest, self.device)["net"])
-        return TrainState(step=latest, net=state.net, optimizer=state.optimizer)
+        net.load_state_dict(self.checkpoints.load(latest, self.device)["net"])
+        return self._placed_state(net, step=latest)
 
     # -------------------------------- loops -------------------------------- #
 
@@ -406,7 +474,8 @@ class Trainer:
                     scalars["frames_per_sec"] = (
                         window_steps * float(np.sum(np.asarray(batch["target_lengths"]))) / dt
                     )
-                self.metrics.write(step, scalars)
+                if self.is_chief:
+                    self.metrics.write(step, scalars)
                 window_t0 = time.monotonic()
                 window_steps = 0
             if step % hp.save_checkpoints_steps == 0:
@@ -414,14 +483,18 @@ class Trainer:
             # alignment and mel PNGs on a training cadence, from an eval-mode forward
             # on the current batch
             if step % hp.alignment_save_steps == 0:
-                _, out = self.eval_step(state, batch, self.generator(step))
-                self._save_artifacts(step, out, batch, tag="train_")
+                _, out, sharded = self._eval(state, batch, self.generator(step))
+                self._save_artifacts(step, out, sharded, batch, tag="train_")
             # evaluation follows new checkpoints, after the delay and throttle
             if eval_batches_fn is not None and step % hp.save_checkpoints_steps == 0:
                 now = time.monotonic()
-                if now - train_start >= hp.eval_start_delay_secs and (
+                due = [now - train_start >= hp.eval_start_delay_secs and (
                     last_eval_time is None or now - last_eval_time >= hp.eval_throttle_secs
-                ):
+                )]
+                if self.mesh.size > 1:
+                    # rank 0's clock decides for every rank: evaluate runs collectives
+                    torch.distributed.broadcast_object_list(due, src=0)
+                if due[0]:
                     self.evaluate(state, eval_batches_fn())
                     last_eval_time = time.monotonic()
         self.save(state)
@@ -435,41 +508,52 @@ class Trainer:
         hp = self.hparams
         totals: Dict[str, float] = {}
         count = 0
-        first_out = first_batch = None
+        first = None
         for i, batch in enumerate(eval_batches):
             if i >= hp.num_evaluation_steps:
                 break
-            losses, out = self.eval_step(state, batch, self.generator(7919, i))
-            if first_out is None:
-                first_out, first_batch = out, batch
+            losses, out, sharded = self._eval(state, batch, self.generator(7919, i))
+            if first is None:
+                first = (out, sharded, batch)
             for k, v in losses.items():
                 totals[k] = totals.get(k, 0.0) + float(v)
             count += 1
         if count == 0:
             return {}
         means = {f"eval_{k}": v / count for k, v in totals.items()}
-        self.metrics.write(state.step, means)
-        self._save_artifacts(state.step, first_out, first_batch,
-                             max_utts=self.EVAL_PLOT_UTTERANCES)
+        if self.is_chief:
+            self.metrics.write(state.step, means)
+        self._save_artifacts(state.step, *first, max_utts=self.EVAL_PLOT_UTTERANCES)
         return means
 
-    def _save_artifacts(self, step: int, out: NetworkOutput, batch, *, tag="", max_utts=1):
-        """Alignment and mel comparison PNGs of the first ``max_utts`` lanes."""
+    def _save_artifacts(self, step: int, out: NetworkOutput, sharded, batch, *, tag="",
+                        max_utts=1):
+        """Alignment and mel comparison PNGs of the first ``max_utts`` lanes of the
+        global batch, written by rank 0 (every rank calls it: where rank 0 holds fewer
+        of those lanes, the data axis gathers them first)."""
         r = self.hparams.outputs_per_step
         n = min(max_utts, int(np.asarray(batch["source_lengths"]).shape[0]))
+        aligns = list(out.alignments)
+        mel = out.frames.get("mel")
+        if sharded.data_parallel and sharded.rows < n:
+            group = self.mesh.group("data")
+            aligns = [shard_lib.all_gather(a[:n], group) for a in aligns]
+            mel = None if mel is None else shard_lib.all_gather(mel[:n], group)
+        if not self.is_chief:
+            return
         for u in range(n):
             suffix = f"_utt{u}" if n > 1 else ""
             target_length = int(np.asarray(batch["target_lengths"])[u])
             save_alignment_png(
-                [a[u].float().cpu().numpy() for a in out.alignments],
+                [a[u].float().cpu().numpy() for a in aligns],
                 os.path.join(self.log_dir, f"{tag}alignment_step{step:08d}{suffix}.png"),
                 info=f"step {step}",
                 source_length=int(np.asarray(batch["source_lengths"])[u]),
                 decoder_steps=target_length // r,
             )
-            if "mel" in out.frames:
+            if mel is not None:
                 save_mel_comparison_png(
-                    out.frames["mel"][u].float().cpu().numpy(),
+                    mel[u].float().cpu().numpy(),
                     np.asarray(batch["mel"][u]),
                     os.path.join(self.log_dir, f"{tag}mel_step{step:08d}{suffix}.png"),
                     info=f"step {step}",

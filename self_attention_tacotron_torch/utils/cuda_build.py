@@ -89,8 +89,21 @@ def _finish_build(name: str, proc: subprocess.Popen, tmp: str, out: str) -> None
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> float:
     """Build every missing library, one ``nvcc`` per source, all started together.
 
-    Returns the seconds it took (0.0 when nothing had to be built).
+    Under a process group of more than one rank, rank 0 builds and the others wait
+    at a barrier, so that N ranks do not start N sets of ``nvcc`` on a cold tree;
+    every rank must call it. Returns the seconds this process spent building (0.0
+    when it built nothing).
     """
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        spent = _build_missing(names) if dist.get_rank() == 0 else 0.0
+        dist.barrier()
+        return spent
+    return _build_missing(names)
+
+
+def _build_missing(names: Iterable[str]) -> float:
     start = time.perf_counter()
     with _lock:
         pending = []
@@ -108,7 +121,7 @@ def load_library(name: str) -> ctypes.CDLL:
     lib = _libraries.get(name)
     if lib is not None:
         return lib
-    build_all([name])
+    _build_missing([name])
     with _lock:
         lib = _libraries.get(name)
         if lib is None:

@@ -25,7 +25,8 @@ def resolve_device(device: Union[str, torch.device] = "cuda") -> torch.device:
 
 def platform_device() -> torch.device:
     """The device of the command-line tools: the card, or the CPU where
-    ``SATT_PLATFORM=cpu`` is set (the variable the JAX package's CLIs read).
+    ``SATT_PLATFORM=cpu`` is set (the variable the JAX package's CLIs read). Under
+    torchrun the card is ``cuda:LOCAL_RANK``.
 
     Without a card and without that variable this raises, as
     :func:`resolve_device` does for ``"cuda"``.
@@ -33,7 +34,11 @@ def platform_device() -> torch.device:
     platform = os.environ.get("SATT_PLATFORM", "").lower()
     if platform not in ("", "cpu", "cuda", "gpu"):
         raise ValueError(f"SATT_PLATFORM={platform!r}: expected cpu, cuda or gpu")
-    return resolve_device("cpu" if platform == "cpu" else "cuda")
+    if platform == "cpu":
+        return resolve_device("cpu")
+    if "LOCAL_RANK" in os.environ:
+        return resolve_device(f"cuda:{int(os.environ['LOCAL_RANK'])}")
+    return resolve_device("cuda")
 
 
 def use_full_float32() -> None:

@@ -52,8 +52,17 @@ def test_the_walk_sees_the_package_and_the_smoke_script():
                      "text/symbols.py", "data/dataset.py", "data/corpus.py", "data/synthetic.py",
                      "data/ljspeech.py", "data/vctk.py", "data/japanese.py",
                      "data/dataset_factory.py", "utils/tfrecord.py", "training/metrics.py",
-                     "train.py", "predict_mel.py", "preprocess.py"):
+                     "train.py", "predict_mel.py", "preprocess.py", "parallel/__init__.py",
+                     "parallel/mesh.py", "parallel/shard.py"):
         assert os.path.join("self_attention_tacotron_torch", expected) in names
+
+
+def test_the_mesh_tests_rank_functions_import_nothing_of_jax():
+    # spawned ranks import this module by name, without conftest.py's JAX setup
+    path = os.path.join(REPO, "tests", "torch_mesh_workers.py")
+    roots = set(_imported_roots(path))
+    assert "self_attention_tacotron_torch" in roots
+    assert not roots & set(FORBIDDEN)
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, REPO))
