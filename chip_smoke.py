@@ -163,7 +163,15 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    against rows k.. of the whole launch; (c) with two or more cards,
    min(count, 4) ranks under NCCL with (b)'s checks (on one card it prints that it did
    not run);
-10. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
+10. training from scratch (``phase_convergence``): two flagship networks drawn with
+   flax's initialisers from ``random_seed`` on the card equal bit for bit, and equal
+   to the CPU's; ``tools/convergence_run.py`` trains the flagship at full width in
+   bfloat16 from those weights for ``CONVERGENCE_STEPS`` steps on a corpus of
+   ``CONVERGENCE_UTTERANCES`` short utterances (17 to 24 symbols), synthesizes its
+   validation utterances and exports the npz: the loss falls to a quarter, the
+   teacher kernels, ``bigru_bwd`` and ``fused_decode`` launched, and the npz through
+   ``convert.load_npz`` gives the trained checkpoint's requests bit for bit;
+11. report: one JSON line ``{"kernels": [...]}`` (every kernel; the bfloat16,
    location-sensitive and lf0 instantiations as entries of their own, the batch
    blocks inside the lf0 family's teacher entries, the shapes of phase 7 as entries
    ``*_configs`` and ``*_streaming``), then the last line
@@ -232,6 +240,7 @@ from self_attention_tacotron_torch.tools.flagship import (  # noqa: E402
     ragged_request,
     training_batch,
 )
+from self_attention_tacotron_torch.tools.convergence_run import score_predictions  # noqa: E402
 from self_attention_tacotron_torch.tools.profile_training import timed_step  # noqa: E402
 from self_attention_tacotron_torch.training.trainer import (  # noqa: E402
     CheckpointManager,
@@ -4338,28 +4347,6 @@ CLI_CADENCE = 3
 TOL_GRIFFIN_LIM = 1e-4
 
 
-def score_predictions(data: str, lists: str, pred: str, hp: HParams) -> dict:
-    """``scripts/convergence_run.py::score_predictions`` on the port's outputs: per
-    validation utterance true and predicted frames and the mel MSE over the overlap."""
-    rows = []
-    for utt in read_selected_list(lists, "validation"):
-        tgt = parse_target_tfrecord(os.path.join(data, f"{utt}.{hp.target_file_extension}"))
-        mel = np.fromfile(os.path.join(pred, f"{utt}.{hp.predicted_mel_extension}"), np.float32)
-        mel = mel.reshape(-1, hp.num_mels)
-        n = min(len(mel), tgt.target_length)
-        rows.append({"id": utt, "true_frames": tgt.target_length, "predicted_frames": len(mel),
-                     "length_error": len(mel) - tgt.target_length,
-                     "mel_mse": float(np.mean((mel[:n] - tgt.mel[:n]) ** 2))})
-    errs = [abs(r["length_error"]) for r in rows]
-    mses = [r["mel_mse"] for r in rows]
-    return {"utterances": rows, "n_scored": len(rows),
-            "median_abs_length_error_frames": float(np.median(errs)),
-            "max_abs_length_error_frames": float(max(errs)),
-            "all_stopped_before_cap": all(r["predicted_frames"] < hp.max_iters * hp.outputs_per_step
-                                          for r in rows),
-            "mean_mel_mse": float(np.mean(mses)), "median_mel_mse": float(np.median(mses))}
-
-
 def _state_equal(a, b) -> bool:
     if torch.is_tensor(a):
         return torch.equal(a.cpu(), b.cpu())
@@ -4899,6 +4886,81 @@ def phase_mesh():
     return record
 
 
+# phase_convergence: the flagship from weights drawn from random_seed, trained through
+# tools/convergence_run.py on a short corpus (the r3 protocol's 17-24 symbols, fewer
+# utterances); its loss falls to a quarter in these steps (the JAX run's: 1.73 at step
+# 1, 0.106 at step 200, artifacts/convergence_r3/metrics.jsonl)
+CONVERGENCE_STEPS = 200
+CONVERGENCE_UTTERANCES = 64
+CONVERGENCE_LOSS_SHARE = 0.25
+
+
+def phase_convergence():
+    """Training from scratch through the convergence tool on the card (module docstring,
+    item 10)."""
+    from self_attention_tacotron_torch.models.models import init_generator
+    from self_attention_tacotron_torch.tools import convergence_run
+
+    os.environ.pop("SATT_PLATFORM", None)                    # the tool takes the card
+    work = os.path.join(REPO, "runs", "chip_smoke_convergence")
+    if os.path.isdir(work):
+        shutil.rmtree(work)
+    seconds = {}
+
+    # (a) a fresh network from random_seed: the same bits twice on the card and on the CPU
+    begin = time.perf_counter()
+    hp = convergence_run.flagship_run_hparams()
+    model = tacotron_model_factory(hp)
+    first, again = (model.network(device=DEV, generator=init_generator(hp.random_seed))
+                    .state_dict() for _ in range(2))
+    on_cpu = model.network(device="cpu", generator=init_generator(hp.random_seed)).state_dict()
+    other = model.network(device=DEV, generator=init_generator(hp.random_seed + 1)).state_dict()
+    require(all(torch.equal(first[k], again[k]) and torch.equal(first[k].cpu(), on_cpu[k])
+                for k in first), "two networks drawn from one seed differ")
+    require(any(not torch.equal(first[k], other[k]) for k in first if k.endswith("weight")),
+            "another seed drew the same weights")
+    seconds["a_init"] = time.perf_counter() - begin
+    del first, again, on_cpu, other
+
+    # (b) the tool: corpus, training from those weights, synthesis, scores, export
+    begin = time.perf_counter()
+    summary = convergence_run.main(["--run-dir", work, "--steps", str(CONVERGENCE_STEPS),
+                                    "--num-utterances", str(CONVERGENCE_UTTERANCES)])
+    seconds["b_tool"] = time.perf_counter() - begin
+    losses = [r["loss"] for r in convergence_run.read_metrics(os.path.join(work, "checkpoints", "log"))
+              if "loss" in r]
+    require(losses[-1] < CONVERGENCE_LOSS_SHARE * losses[0],
+            f"the loss did not fall to a quarter in {CONVERGENCE_STEPS} steps: {losses}")
+    training = summary["provenance"]["launches"]["training"]
+    synthesis = summary["provenance"]["launches"]["synthesis"]
+    require(training["fused_teacher_bwd"] == training["bigru_bwd"] == CONVERGENCE_STEPS
+            and training["fused_teacher_fwd"] >= CONVERGENCE_STEPS,
+            f"training from scratch did not run the training kernels once a step: {training}")
+    require(synthesis["fused_decode"] > 0 and synthesis["bigru"] > 0 and synthesis["mha_full"] > 0,
+            f"the validation set was not synthesized through the kernels: {synthesis}")
+    require(summary["provenance"]["train_path"] == "fused_teacher kernels"
+            and summary["provenance"]["decode_path"] == "fused_decode kernel",
+            f"provenance {summary['provenance']['train_path']}, {summary['provenance']['decode_path']}")
+
+    # (c) the exported npz against the trained checkpoint: one request, the same bits
+    begin = time.perf_counter()
+    trained = Trainer(model, os.path.join(work, "checkpoints"), device=DEV).restore_inference().net
+    exported = convert.load_npz(os.path.join(work, "trained_params.npz"), hp, device=DEV)
+    request = ragged_request(np.random.default_rng(11), 8, 24, 17)
+    outs = [make_predict_fn(net, device=DEV)(request, torch.Generator(device=DEV).manual_seed(5))
+            for net in (trained, exported)]
+    same = {k: torch.equal(outs[0][k], outs[1][k]) for k in ("mel", "stop_probs", "lengths")}
+    require(all(same.values()), f"the exported npz synthesizes otherwise: {same}")
+    seconds["c_npz"] = time.perf_counter() - begin
+    syn = {k: v for k, v in summary["synthesis"].items() if k != "utterances"}
+    record = {"seconds": seconds, "losses": [losses[0], losses[-1]],
+              "logged_steps_per_sec": summary.get("logged_steps_per_sec"),
+              "scores": syn, "npz": summary["npz"], "training_launches": training,
+              "synthesis_launches": synthesis}
+    log("convergence " + json.dumps(record))
+    return record
+
+
 def main() -> int:
     started = time.perf_counter()
     gpu = gpu_line()
@@ -4951,6 +5013,7 @@ def main() -> int:
     forced = timed_phase(phase_forced)
     corpus = timed_phase(phase_corpus_cli, config_main)
     mesh = timed_phase(phase_mesh)
+    scratch = timed_phase(phase_convergence)
 
     replaces = {
         "bigru": "self_attention_tacotron_tpu/ops/fused_rnn.py:101",
@@ -5248,6 +5311,17 @@ def main() -> int:
                 for k, v in mesh["teacher_lane0"]["plain"].items()},
             "rows_bit_for_bit": mesh["teacher_lane0"]["rows"]["bit_for_bit"],
         }
+    # training from scratch (phase_convergence): the bfloat16 flagship's steps and its
+    # validation request, counted into the launches of the entries they reach
+    fresh, fresh_syn = scratch["training_launches"], scratch["synthesis_launches"]
+    for name, count in (("bigru", fresh["bigru"] + fresh_syn["bigru"]),
+                        ("mha_full", fresh["mha_full"] + fresh_syn["mha_full"]),
+                        ("fused_decode_bf16", fresh_syn["fused_decode"]),
+                        ("bigru_bwd_bf16", fresh["bigru_bwd"]),
+                        ("fused_teacher_fwd_bf16", fresh["fused_teacher_fwd"]),
+                        ("fused_teacher_bwd_bf16", fresh["fused_teacher_bwd"])):
+        by_name[name]["launches"] += count
+        by_name[name]["convergence_launches"] = count
     by_name["fused_decode_bf16"]["corpus_cli"] = {
         k: corpus[k] for k in ("seconds", "synthesis_frames_per_s", "train_ms_per_step",
                                "griffin_lim_err_share")

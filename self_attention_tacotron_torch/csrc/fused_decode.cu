@@ -121,6 +121,10 @@
 #include "dense.cuh"
 #include "grid.cuh"
 #include "location.cuh"
+#include "parts.cuh"
+
+// the entry of instantiation `variant` (its flags as bits, `variant_of`) in the table
+extern "C" SATT_HIDDEN void fused_decode_enrol(int variant, const void* kernel);
 
 namespace {
 
@@ -1182,40 +1186,66 @@ bool sizes_ok(const Dims& d) {
   return sources && block && ls && lf0;
 }
 
-template <typename IO>
-using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars, const Held);
+// An instantiation's index in the table: its flags as bits.
+constexpr int variant_of(bool dual, bool use_sa, bool ls, bool lf0, bool stamps, bool bf16) {
+  return (int)dual | (int)use_sa << 1 | (int)ls << 2 | (int)lf0 << 3 | (int)stamps << 4 |
+         (int)bf16 << 5;
+}
+constexpr int VARIANTS = 64;
 
-// The instantiation of the pair of flags (dual, use_sa) with LS and LF0.
+// The instantiation's address in the table, where it belongs to this part (parts.cuh):
+// the parts take every pair (dual, use_sa) alike, the costly ones spread.
+template <bool DUAL, bool USE_SA, bool LS, bool LF0, bool STAMPS, typename IO>
+void enrol() {
+  constexpr bool bf16 = std::is_same<IO, __nv_bfloat16>::value;
+  if constexpr (in_this_part((int)DUAL + 2 * (int)USE_SA + (int)LS + 2 * (int)LF0 + (int)STAMPS +
+                             (int)bf16))
+    fused_decode_enrol(variant_of(DUAL, USE_SA, LS, LF0, STAMPS, bf16),
+                       (const void*)fused_decode_kernel<DUAL, USE_SA, LS, LF0, STAMPS, IO>);
+}
+
+// The four pairs of flags (dual, use_sa) with LS and LF0.
 template <bool LS, bool LF0, typename IO>
-Kernel<IO> kernel_of(bool dual, bool use_sa) {
-  if (dual) {
-    return use_sa ? fused_decode_kernel<true, true, LS, LF0, false, IO>
-                  : fused_decode_kernel<true, false, LS, LF0, false, IO>;
-  }
-  return use_sa ? fused_decode_kernel<false, true, LS, LF0, false, IO>
-                : fused_decode_kernel<false, false, LS, LF0, false, IO>;
+void enrol_pairs() {
+  enrol<true, true, LS, LF0, false, IO>();
+  enrol<true, false, LS, LF0, false, IO>();
+  enrol<false, true, LS, LF0, false, IO>();
+  enrol<false, false, LS, LF0, false, IO>();
 }
 
-// The kernel compiled for the specialisation of `d`'s widths, with io type IO. The
-// stamps of a step (stamp_step >= 0) are compiled into the flagship's structure
-// alone (two sources, self-attention, forward attention, the mel head; null for any
-// other): every instantiation a request runs has no stamp code, which cost 2-5 %
-// even with a null pointer (PERF.md §6).
+// Every instantiation of io type IO: the sixteen of the flags and the stamped
+// flagship's structure (two sources, self-attention, forward attention, the mel
+// head). The stamps are compiled into that structure alone: every instantiation a
+// request runs has no stamp code, which cost 2-5 % even with a null pointer
+// (PERF.md §6).
 template <typename IO>
-Kernel<IO> kernel_for(const Dims& d) {
-  const bool dual = d.E2 > 0, use_sa = d.SA > 0;
-  if (d.stamp_step >= 0)
-    return dual && use_sa && d.K == 0 && d.LF0 == 0
-               ? fused_decode_kernel<true, true, false, false, true, IO> : nullptr;
-  if (d.K > 0)
-    return d.LF0 > 0 ? kernel_of<true, true, IO>(dual, use_sa)
-                     : kernel_of<true, false, IO>(dual, use_sa);
-  return d.LF0 > 0 ? kernel_of<false, true, IO>(dual, use_sa)
-                   : kernel_of<false, false, IO>(dual, use_sa);
+void enrol_io() {
+  enrol_pairs<false, false, IO>();
+  enrol_pairs<true, false, IO>();
+  enrol_pairs<false, true, IO>();
+  enrol_pairs<true, true, IO>();
+  enrol<true, true, false, false, true, IO>();
 }
 
+struct Enrolment {
+  Enrolment() {
+    enrol_io<float>();
+    enrol_io<__nv_bfloat16>();
+  }
+} enrolment;
+
+#if SATT_PART == 0
+
+// every part's kernels, by variant_of (null where no instantiation is compiled)
+const void* kernels[VARIANTS] = {};
+
+// The kernel compiled for the specialisation of `d`'s widths, with io type `d.bf16`;
+// null for stamps on any structure but the flagship's.
 const void* kernel_address(const Dims& d) {
-  return d.bf16 ? (const void*)kernel_for<__nv_bfloat16>(d) : (const void*)kernel_for<float>(d);
+  const bool dual = d.E2 > 0, use_sa = d.SA > 0, ls = d.K > 0, lf0 = d.LF0 > 0;
+  const bool stamps = d.stamp_step >= 0;
+  if (stamps && !(dual && use_sa && !ls && !lf0)) return nullptr;
+  return kernels[variant_of(dual, use_sa, ls, lf0, stamps, d.bf16 != 0)];
 }
 
 // Dynamic shared memory one block may have on the current device (what a block can
@@ -1238,7 +1268,7 @@ int device_limits(const Dims& d, long long* have, int* sms) {
 
 template <typename IO>
 int launch(const Ptrs<IO>& P, const Dims& d, const Scalars& sc, cudaStream_t stream) {
-  const Kernel<IO> kernel = kernel_for<IO>(d);
+  const void* kernel = kernel_address(d);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   long long have = 0;
   int sms = 0;
@@ -1248,8 +1278,8 @@ int launch(const Ptrs<IO>& P, const Dims& d, const Scalars& sc, cudaStream_t str
   const Smem sm = smem_layout(d, held, d.B);
   if ((long long)sm.work + sm.min_work > have) return (int)cudaErrorInvalidValue;
   const size_t smem = (size_t)imin((int)smem_want(d, sms), (int)have);
-  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   // the grid barriers need every block resident: a launch that cannot have that
   // is refused here instead of waiting forever
@@ -1258,7 +1288,7 @@ int launch(const Ptrs<IO>& P, const Dims& d, const Scalars& sc, cudaStream_t str
   Scalars s = sc;
   Held h = held;
   void* args[] = {(void*)&p, (void*)&dd, (void*)&s, (void*)&h};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms), dim3(NT), args, smem, stream);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(sms), dim3(NT), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1290,7 +1320,13 @@ Ptrs<IO> pointers(const void* const* ptr) {
   return P;
 }
 
+#endif  // SATT_PART == 0
+
 }  // namespace
+
+#if SATT_PART == 0
+
+void fused_decode_enrol(int variant, const void* kernel) { kernels[variant] = kernel; }
 
 extern "C" {
 
@@ -1347,3 +1383,5 @@ int fused_decode_launch(const void* const* ptrs, const int* dims, const float* s
 }
 
 }  // extern "C"
+
+#endif  // SATT_PART == 0

@@ -113,6 +113,10 @@
 #include "dense.cuh"
 #include "grid.cuh"
 #include "location.cuh"
+#include "parts.cuh"
+
+// the entry of instantiation `variant` (its flags as bits, `variant_of`) in the table
+extern "C" SATT_HIDDEN void fused_teacher_enrol(int variant, const void* kernel);
 
 namespace {
 
@@ -1667,39 +1671,65 @@ Ptrs<IO> make_ptrs(const void* const* p, const Dims& d) {
   return P;
 }
 
-template <typename IO>
-using Kernel = void (*)(const Ptrs<IO>, const Dims, const Scalars, const Bits, const Held);
+// An instantiation's index in the table: its direction and flags as bits.
+constexpr int variant_of(bool backward, bool dual, bool ls, bool stamps, bool bf16) {
+  return (int)backward | (int)dual << 1 | (int)ls << 2 | (int)stamps << 3 | (int)bf16 << 4;
+}
+constexpr int VARIANTS = 32;
 
-// The kernel of one direction compiled for the specialisation of `d`'s widths
-// (a second memory, E2 > 0, means two sources; K > 0 location-sensitive
-// attention), with io type IO. The stamps of a step (stamp_step >= 0) are compiled
-// into the flagship's structure in float alone (null for any other): every
-// instantiation training runs has no stamp code.
-template <typename IO>
-Kernel<IO> kernel_for(const Dims& d, bool backward) {
-  const bool dual = d.E2 > 0;
-  const bool ls = d.K > 0;
-  if (d.stamp_step >= 0) {
-    if constexpr (std::is_same<IO, float>::value) {
-      if (dual && !ls)
-        return backward ? teacher_bwd_kernel<true, false, true, IO>
-                        : teacher_fwd_kernel<true, false, true, IO>;
-    }
-    return nullptr;
+// The instantiation's address in the table, where it belongs to this part (parts.cuh):
+// the parts take every pair (direction, dual) alike, the costly ones spread.
+template <bool BACKWARD, bool DUAL, bool LS, bool STAMPS, typename IO>
+void enrol() {
+  constexpr bool bf16 = std::is_same<IO, __nv_bfloat16>::value;
+  if constexpr (in_this_part((int)BACKWARD + 2 * (int)DUAL + (int)LS + 2 * (int)bf16 +
+                             (int)STAMPS)) {
+    // one direction's kernel alone is instantiated here
+    if constexpr (BACKWARD)
+      fused_teacher_enrol(variant_of(true, DUAL, LS, STAMPS, bf16),
+                          (const void*)teacher_bwd_kernel<DUAL, LS, STAMPS, IO>);
+    else
+      fused_teacher_enrol(variant_of(false, DUAL, LS, STAMPS, bf16),
+                          (const void*)teacher_fwd_kernel<DUAL, LS, STAMPS, IO>);
   }
-  if (backward) {
-    if (ls)
-      return dual ? teacher_bwd_kernel<true, true, false, IO> : teacher_bwd_kernel<false, true, false, IO>;
-    return dual ? teacher_bwd_kernel<true, false, false, IO> : teacher_bwd_kernel<false, false, false, IO>;
-  }
-  if (ls)
-    return dual ? teacher_fwd_kernel<true, true, false, IO> : teacher_fwd_kernel<false, true, false, IO>;
-  return dual ? teacher_fwd_kernel<true, false, false, IO> : teacher_fwd_kernel<false, false, false, IO>;
 }
 
+// Both directions of one specialisation.
+template <bool DUAL, bool LS, bool STAMPS, typename IO>
+void enrol_directions() {
+  enrol<false, DUAL, LS, STAMPS, IO>();
+  enrol<true, DUAL, LS, STAMPS, IO>();
+}
+
+// Every instantiation: two sources or one, forward or location-sensitive attention,
+// each io type, and the stamps compiled into the flagship's structure in float
+// alone: every instantiation training runs has no stamp code.
+struct Enrolment {
+  Enrolment() {
+    enrol_directions<true, false, false, float>();
+    enrol_directions<false, false, false, float>();
+    enrol_directions<true, true, false, float>();
+    enrol_directions<false, true, false, float>();
+    enrol_directions<true, false, false, __nv_bfloat16>();
+    enrol_directions<false, false, false, __nv_bfloat16>();
+    enrol_directions<true, true, false, __nv_bfloat16>();
+    enrol_directions<false, true, false, __nv_bfloat16>();
+    enrol_directions<true, false, true, float>();
+  }
+} enrolment;
+
+#if SATT_PART == 0
+
+// every part's kernels, by variant_of (null where no instantiation is compiled)
+const void* kernels[VARIANTS] = {};
+
+// The kernel of one direction compiled for the specialisation of `d`'s widths (a
+// second memory, E2 > 0, means two sources; K > 0 location-sensitive attention),
+// with io type `d.bf16`; null for stamps on any structure but the flagship's in float.
 const void* kernel_address(const Dims& d, bool backward) {
-  return d.bf16 ? (const void*)kernel_for<__nv_bfloat16>(d, backward)
-                : (const void*)kernel_for<float>(d, backward);
+  const bool dual = d.E2 > 0, ls = d.K > 0, stamps = d.stamp_step >= 0;
+  if (stamps && !(dual && !ls && !d.bf16)) return nullptr;
+  return kernels[variant_of(backward, dual, ls, stamps, d.bf16 != 0)];
 }
 
 // Dynamic shared memory one block may have on the current device (what a block can
@@ -1724,7 +1754,7 @@ int device_limits(const Dims& d, bool backward, long long* have, int* sms) {
 template <typename IO>
 int launch_io(bool backward, const void* const* pointers, const Dims& d, const Scalars& sc,
               const Bits& bt, cudaStream_t stream) {
-  const Kernel<IO> kernel = kernel_for<IO>(d, backward);
+  const void* kernel = kernel_address(d, backward);
   if (kernel == nullptr) return (int)cudaErrorInvalidValue;
   long long have = 0;
   int sms = 0;
@@ -1735,8 +1765,8 @@ int launch_io(bool backward, const void* const* pointers, const Dims& d, const S
   // the backward aligns its dynamic region itself (teacher_bwd_kernel): 128 bytes more
   const size_t smem = (size_t)imin((int)smem_want(d, backward, sms), (int)have) +
                       (backward ? 128 : 0);
-  cudaError_t e = cudaFuncSetAttribute((const void*)kernel,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)smem);
   if (e != cudaSuccess) return (int)e;
   // the grid barriers need every block resident: a launch that cannot have that
   // is refused here instead of waiting forever
@@ -1746,7 +1776,7 @@ int launch_io(bool backward, const void* const* pointers, const Dims& d, const S
   Bits b = bt;
   Held h = held;
   void* args[] = {(void*)&p, (void*)&dd, (void*)&s, (void*)&b, (void*)&h};
-  e = cudaLaunchCooperativeKernel((const void*)kernel, dim3(sms), dim3(NT), args, smem, stream);
+  e = cudaLaunchCooperativeKernel(kernel, dim3(sms), dim3(NT), args, smem, stream);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1773,7 +1803,13 @@ int launch(bool backward, const void* const* pointers, const int* dims, const fl
   return launch_io<float>(backward, pointers, d, sc, bt, (cudaStream_t)stream);
 }
 
+#endif  // SATT_PART == 0
+
 }  // namespace
+
+#if SATT_PART == 0
+
+void fused_teacher_enrol(int variant, const void* kernel) { kernels[variant] = kernel; }
 
 extern "C" {
 
@@ -1823,3 +1859,5 @@ int fused_teacher_bwd(const void* const* pointers, const int* dims, const float*
 }
 
 }  // extern "C"
+
+#endif  // SATT_PART == 0

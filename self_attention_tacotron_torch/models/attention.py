@@ -88,6 +88,7 @@ class _AdditiveScore(nn.Module):
     """
 
     initial_alignment = "uniform"
+    flax_init = {"attention_v": ("glorot_uniform",)}
 
     def __init__(self, query_units: int, memory_units: int, num_units: int,
                  own_query_layer: bool = True):
@@ -135,6 +136,7 @@ class LocationSensitiveAttention(_AdditiveScore):
     """
 
     compute_dtype = torch.float32
+    flax_init = {"attention_v": ("glorot_uniform",), "attention_b": ("zeros",)}
 
     def __init__(self, query_units: int, memory_units: int, num_units: int,
                  attention_kernel: int = 31, attention_filters: int = 32,

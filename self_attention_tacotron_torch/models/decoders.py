@@ -460,11 +460,16 @@ class Decoder(nn.Module):
 
     def draw_teacher_masks(self, batch: int, steps: int, device,
                            generator: Optional[torch.Generator] = None):
-        """``(prenet keep masks or None, zoneout seed)`` for one teacher-forced pass.
+        """``(prenet keep masks or None, zoneout)`` for one teacher-forced pass.
 
-        One call per prenet layer, then one for the seed that all zoneout masks of
-        the pass come from (``fused_teacher.hash_keep_masks``); the seed is 0, and
-        nothing is drawn for it, in eval mode and at zoneout 0.
+        One call per prenet layer, then the zoneout of the pass. With two decoder
+        LSTMs (the kernels' structure) ``zoneout`` is the seed that all its masks
+        come from (``fused_teacher.hash_keep_masks``), one draw. With any other
+        count it is the masks themselves, as JAX's XLA scan draws them: per cell
+        (the attention LSTM, then the decoder LSTMs) a cell and an output mask of
+        (steps, batch, units), each where its factor is above 0 (True: keep the
+        previous state), one call each. In eval mode and at zoneout 0 it is 0, and
+        nothing is drawn.
         """
         prenet_masks = None
         if self.prenet.drop_rate > 0.0:
@@ -473,23 +478,35 @@ class Decoder(nn.Module):
                 shard.rand((batch, steps, units), device, generator) < keep
                 for units in self.prenet.out_units
             )
-        seed = 0
-        if self.training and self._zoneout_factors() != (0.0, 0.0):
-            seed = int(torch.randint(0, 2**31 - 1, (1,), device=device, generator=generator))
-        return prenet_masks, seed
+        zc, zo = self._zoneout_factors()
+        if not self.training or (zc, zo) == (0.0, 0.0):
+            return prenet_masks, 0
+        if self.num_decoder_layers == 2:
+            return prenet_masks, int(
+                torch.randint(0, 2**31 - 1, (1,), device=device, generator=generator))
+        units = [self.attention_rnn_out_units] + [self.decoder_out_units] * self.num_decoder_layers
+
+        def draw(factor, width):
+            if factor <= 0.0:
+                return None
+            return (shard.rand((batch, steps, width), device, generator) < factor).transpose(0, 1)
+
+        return prenet_masks, tuple((draw(zc, u), draw(zo, u)) for u in units)
 
     def _zoneout_factors(self) -> Tuple[float, float]:
         cell = self.attention_lstm
         return max(cell.zoneout_factor_cell, 0.0), max(cell.zoneout_factor_output, 0.0)
 
-    def _plain_teacher_scan(self, cond: DecoderConditioning, feeds, prenet_masks, seed: int):
-        """The scanned region as a Python loop over ``step`` under autograd."""
+    def _plain_teacher_scan(self, cond: DecoderConditioning, feeds, prenet_masks, zoneout):
+        """The scanned region as a Python loop over ``step`` under autograd.
+        ``zoneout`` is ``draw_teacher_masks``'s: a seed or the cells' masks."""
         b, n = feeds.shape[:2]
         zc, zo = self._zoneout_factors()
-        zoneout = None
-        if self.training and (zc > 0.0 or zo > 0.0):
+        seed, zoneout = (zoneout, None) if isinstance(zoneout, int) else (0, zoneout)
+        if zoneout is None and self.training and (zc > 0.0 or zo > 0.0):
             if self.num_decoder_layers != 2:
-                raise NotImplementedError("zoneout masks are made for two decoder LSTMs")
+                raise ValueError(f"{self.num_decoder_layers} decoder LSTMs take the zoneout "
+                                 "masks draw_teacher_masks draws, not a seed")
             zoneout = [
                 tuple(None if m is None else m > 0.5 for m in pair)
                 for pair in fused_teacher.zoneout_keep_masks(
@@ -520,16 +537,18 @@ class Decoder(nn.Module):
         Returns ``({head: frames}, stop_logits (B, T), alignments ((B, N, S_i) per
         source), sa_alignments)``. The prenet's dropout masks are drawn in one
         call per layer; in train mode the zoneout masks of all steps come from
-        one seed (``fused_teacher.hash_keep_masks``), in eval mode zoneout is
-        the deterministic interpolation.
+        one seed (``fused_teacher.hash_keep_masks``) with two decoder LSTMs, and
+        are drawn one call per cell and kind with any other count
+        (``draw_teacher_masks``); in eval mode zoneout is the deterministic
+        interpolation.
         """
         feeds = self.make_teacher_feeds(targets)
         kernels = self.use_pallas and feeds.device.type != "cpu" and self.fused_teacher_supported()
-        prenet_masks, seed = self.draw_teacher_masks(*feeds.shape[:2], feeds.device, generator)
+        prenet_masks, zoneout = self.draw_teacher_masks(*feeds.shape[:2], feeds.device, generator)
         if kernels:
-            features, aligns = self._fused_teacher_call(cond, feeds, prenet_masks, seed)
+            features, aligns = self._fused_teacher_call(cond, feeds, prenet_masks, zoneout)
         else:
-            features, aligns = self._plain_teacher_scan(cond, feeds, prenet_masks, seed)
+            features, aligns = self._plain_teacher_scan(cond, feeds, prenet_masks, zoneout)
         frames, stop, sa_aligns = self.post(features, generator=generator)
         return frames, stop, aligns, sa_aligns
 

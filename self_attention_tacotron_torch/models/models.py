@@ -33,11 +33,18 @@ from self_attention_tacotron_torch.models.decoders import (
 from self_attention_tacotron_torch.models.encoders import encoder_factory, encoder_out_units
 from self_attention_tacotron_torch.models.modules import (
     Embedding,
+    init_parameters,
     sequence_mask,
     set_compute_dtype,
 )
 from self_attention_tacotron_torch.models.postnet import PostCBHG, PostNetV2
 from self_attention_tacotron_torch.utils.platform import resolve_device, use_full_float32
+
+
+def init_generator(seed: int) -> torch.Generator:
+    """The CPU generator a fresh network's weights are drawn from (``random_seed``),
+    as the JAX package draws them from ``jax.random.PRNGKey(random_seed)``."""
+    return torch.Generator().manual_seed(int(seed))
 
 
 @dataclasses.dataclass
@@ -261,16 +268,29 @@ class TacotronModelBase:
     def _validate(self) -> None:
         pass
 
-    def network(self, is_training: bool = False, device="cuda") -> TacotronNetwork:
+    def network(self, is_training: bool = False, device="cuda",
+                generator: Optional[torch.Generator] = None) -> TacotronNetwork:
         """A freshly initialised network on ``device`` (the card unless told otherwise).
+
+        With ``generator`` (a CPU ``torch.Generator``; ``init_generator`` seeds one
+        from ``hparams.random_seed``) every parameter is drawn from it with flax's
+        initialiser of its JAX twin (``modules.init_parameters``), the way a training
+        run starts from scratch, and the global generator is left as it was. Without
+        one the modules keep torch's default draws from the global generator (the GPU
+        scripts seed it for weights that are only held against a plain version).
 
         The float32 model keeps matrix products and convolutions in full
         float32 (TF32 off), so that it can be held against a float32 reference.
         """
         dev = resolve_device(device)
         use_full_float32()
-        net = TacotronNetwork(self.hparams).to(dev)
-        return net.train(is_training)
+        if generator is None:
+            net = TacotronNetwork(self.hparams)
+        else:
+            with torch.random.fork_rng(devices=[]):
+                net = TacotronNetwork(self.hparams)
+            init_parameters(net, generator)
+        return net.to(dev).train(is_training)
 
     def head_dims(self) -> Dict[str, int]:
         """Output head widths in the decoder's head order (the order of the fed-back block)."""

@@ -11,11 +11,16 @@ a dense layer or convolution casts its input, kernel and bias to the compute
 dtype and returns that dtype; a normalisation takes its statistics and
 normalises in float32 and returns the compute dtype; every other operation runs
 in the dtype of what it is given.
+
+A fresh network takes flax's initialisers through ``init_parameters``: every
+parameter drawn from one explicit ``torch.Generator`` on the CPU, so that a seed
+gives the same weights bit for bit on any device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -43,6 +48,8 @@ class Dense(nn.Linear):
     it. In float32 it is ``nn.Linear`` itself."""
 
     compute_dtype = torch.float32
+    #: the value of every bias entry at initialisation (flax's ``bias_init``)
+    bias_init = 0.0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = self.compute_dtype
@@ -114,6 +121,7 @@ class Embedding(nn.Module):
     """Symbol embedding with an index offset; ids are clipped into the table."""
 
     compute_dtype = torch.float32
+    flax_init = {"embedding": ("normal", 0.5)}
 
     def __init__(self, num_symbols: int, embedding_dim: int, index_offset: int = 0):
         super().__init__()
@@ -241,6 +249,7 @@ class HighwayNet(nn.Module):
         super().__init__()
         self.H = Dense(units, units)
         self.T = Dense(units, units)
+        self.T.bias_init = -1.0
         nn.init.constant_(self.T.bias, -1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -490,3 +499,89 @@ class CBHG(nn.Module):
             highway = getattr(self, f"highway_{i}")(highway)
         highway = highway * mask
         return self.birnn(highway, lengths)
+
+
+# --------------------------------------------------------------------------- #
+# flax's initialisers
+# --------------------------------------------------------------------------- #
+
+# the standard deviation of a unit normal truncated to [-2, 2]: flax's
+# ``variance_scaling(..., "truncated_normal")`` divides its scale by it, so that the
+# truncated draw has the variance asked for
+TRUNCATED_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal(shape: Sequence[int], fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax's ``lecun_normal``: a unit normal truncated to [-2, 2], times
+    ``sqrt(1 / fan_in) / TRUNCATED_NORMAL_STD``; float32 on the CPU."""
+    x = torch.empty(tuple(shape))
+    nn.init.trunc_normal_(x, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return x * (math.sqrt(1.0 / fan_in) / TRUNCATED_NORMAL_STD)
+
+
+def glorot_uniform(shape: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+    """flax's ``glorot_uniform`` of a matrix of ``shape`` in flax's layout (in, out):
+    uniform within ``sqrt(6 / (in + out))``."""
+    fan_in, fan_out = shape[-2], shape[-1]
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    return torch.empty(tuple(shape)).uniform_(-limit, limit, generator=generator)
+
+
+def _direct_init(kind: Tuple, shape, generator: torch.Generator) -> torch.Tensor:
+    """A parameter a module holds itself (``flax_init``): ``("normal", stddev)``,
+    ``("glorot_uniform",)`` or ``("zeros",)``."""
+    if kind[0] == "normal":
+        return torch.empty(tuple(shape)).normal_(0.0, kind[1], generator=generator)
+    if kind[0] == "glorot_uniform":
+        return glorot_uniform(shape, generator)
+    if kind[0] == "zeros":
+        return torch.zeros(tuple(shape))
+    raise ValueError(f"unknown initialiser {kind!r}")
+
+
+def init_parameters(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw every parameter of ``module`` as flax initialises its JAX twin; returns it.
+
+    ``Dense``, ``DenseIO`` and the convolutions: ``lecun_normal`` kernels, fan-in in
+    flax's layout (in, or in x taps for a convolution), and biases of ``bias_init``
+    (0; -1 for a highway's transform gate). Batch and layer norms: scale 1, bias 0,
+    and the batch norms' running averages 0 and 1. A module's own parameters take its
+    ``flax_init`` (the embeddings' normal(0.5), the attention vectors' glorot uniform,
+    ``attention_b``'s zeros). The draws come from ``generator``, a CPU generator, in
+    the order of ``module.modules()``, and are copied to each parameter's device, so
+    that a seed gives the same weights on every device. A parameter that no rule
+    fills raises ``ValueError``.
+    """
+    filled = set()
+
+    def put(param: torch.Tensor, value: torch.Tensor) -> None:
+        with torch.no_grad():
+            param.copy_(value)
+        filled.add(id(param))
+
+    for m in module.modules():
+        if isinstance(m, nn.Linear):                       # Dense: weight (out, in)
+            put(m.weight, lecun_normal(m.weight.shape, m.in_features, generator))
+            if m.bias is not None:
+                put(m.bias, torch.full(m.bias.shape, float(getattr(m, "bias_init", 0.0))))
+        elif isinstance(m, DenseIO):                       # kernel (in, out)
+            put(m.kernel, lecun_normal(m.kernel.shape, m.kernel.shape[0], generator))
+            put(m.bias, torch.zeros(m.bias.shape))
+        elif isinstance(m, nn.Conv1d):                     # weight (out, in, taps)
+            fan_in = m.in_channels * m.kernel_size[0]
+            put(m.weight, lecun_normal(m.weight.shape, fan_in, generator))
+            if m.bias is not None:
+                put(m.bias, torch.zeros(m.bias.shape))
+        elif isinstance(m, (nn.BatchNorm1d, nn.LayerNorm)):
+            put(m.weight, torch.ones(m.weight.shape))
+            put(m.bias, torch.zeros(m.bias.shape))
+            if isinstance(m, nn.BatchNorm1d):
+                m.reset_running_stats()
+        flax_init: Dict[str, Tuple] = getattr(m, "flax_init", {})
+        for name, kind in flax_init.items():
+            param = getattr(m, name)
+            put(param, _direct_init(kind, param.shape, generator))
+    missing = [name for name, p in module.named_parameters() if id(p) not in filled]
+    if missing:
+        raise ValueError(f"no initialiser for the parameters {missing}")
+    return module

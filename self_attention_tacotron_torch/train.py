@@ -5,7 +5,9 @@ Runs on the card; ``SATT_PLATFORM=cpu`` runs it on the CPU. Checkpoints go to
 ``--checkpoint-dir`` (auto-resume from the latest one there), scalars and PNGs
 to ``--log-dir`` (default ``<checkpoint-dir>/log``). ``--restore-from`` warm
 starts from a flat ``.npz`` of the JAX layout or from another run's checkpoint
-directory.
+directory. A run with nothing to restore starts from weights drawn with flax's
+initialisers from ``random_seed`` (``Trainer.init_state``), as the JAX CLI's do, and
+shuffles its batches from that seed too: the same seed, the same run.
 
 Under ``torchrun --standalone --nproc_per_node=N`` each rank takes ``cuda:LOCAL_RANK``
 (``SATT_PLATFORM=cpu``: the CPU, with gloo) and trains data-parallel over the

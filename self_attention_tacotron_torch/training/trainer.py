@@ -75,6 +75,7 @@ from self_attention_tacotron_torch.models.models import (
     NetworkOutput,
     TacotronModelBase,
     TacotronNetwork,
+    init_generator,
 )
 from self_attention_tacotron_torch.parallel import mesh as mesh_lib
 from self_attention_tacotron_torch.parallel import shard as shard_lib
@@ -257,14 +258,17 @@ class Trainer:
 
     def init_state(self, net: Optional[TacotronNetwork] = None) -> TrainState:
         """A state at step 0 around ``net`` (for instance from ``convert.load_npz``),
-        moved to the trainer's device; a freshly initialised network without one.
+        moved to the trainer's device; without one a fresh network, drawn with flax's
+        initialisers from ``init_generator(hparams.random_seed)``, as JAX's trainer
+        draws it from ``PRNGKey(random_seed)``: the same seed, the same weights.
         On a mesh of more than one rank, rank 0's weights go to every rank, and the
         model axis's parameters are placed (``shard_params``)."""
         return self._placed_state(self._network(net))
 
     def _network(self, net: Optional[TacotronNetwork]) -> TacotronNetwork:
         if net is None:
-            net = self.model.network(is_training=True, device=self.device)
+            net = self.model.network(is_training=True, device=self.device,
+                                     generator=init_generator(self.hparams.random_seed))
         return net.to(self.device)
 
     def _placed_state(self, net: TacotronNetwork, step: int = 0) -> TrainState:
@@ -397,7 +401,7 @@ class Trainer:
         lacks keep their initial values) or from the latest checkpoint of another
         run's directory; the step and Adam start fresh. The architecture must be
         the donor's: a leaf that finds no place, or no leaf, raises. Otherwise
-        ``net`` or a freshly initialised network.
+        ``net`` or a fresh network drawn from ``random_seed`` (``init_state``).
         """
         net = self._network(net)
         latest = self._checkpoints().latest_step()

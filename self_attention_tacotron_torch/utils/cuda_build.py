@@ -3,16 +3,21 @@
 Each source under ``csrc/`` has a plain C interface and includes none of
 PyTorch's headers, so ``nvcc`` compiles it in seconds. A source is built at
 first use into ``build/`` inside the package (git-ignored), under a name keyed
-by a hash of the source, the shared headers (``csrc/*.cuh``) and the compiler
-flags, and loaded once per process.
+by a hash of the source, the shared headers (``csrc/*.cuh``), the compiler
+flags and its parts, and loaded once per process. The sources with many kernel
+instantiations (``KERNEL_PARTS``) are compiled as several translation units at
+once, each with its share of the instantiations (``csrc/parts.cuh``), and linked
+into one library; every ``nvcc`` of every source is started together.
 There is no other way to a kernel: if the build fails, the caller gets the
 compiler's message as an exception.
 
-    python3 -m self_attention_tacotron_torch.utils.cuda_build SOURCE.cu [SOURCE.cu ...]
+    python3 -m self_attention_tacotron_torch.utils.cuda_build [--parts N] SOURCE.cu [...]
 
 prints what ``ptxas`` reports for every kernel of each source (registers, stack
-frame, spill stores and loads), compiled with the flags of the build; any
-checkout's sources can be named, so two trees' kernels can be set side by side.
+frame, spill stores and loads), compiled with the flags and parts of the build
+(``--parts 1``: as one translation unit), then one line per kernel sorted by
+name; any checkout's sources can be named, so two trees' kernels, or one source
+built whole and in parts, can be set side by side.
 """
 
 from __future__ import annotations
@@ -21,11 +26,12 @@ import argparse
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, List, Tuple
 
 _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, "csrc")
@@ -39,6 +45,9 @@ NVCC_FLAGS: Tuple[str, ...] = (
 KERNEL_SOURCES: Tuple[str, ...] = (
     "bigru", "mha_full", "fused_decode", "bigru_bwd", "fused_teacher", "bilstm",
 )
+
+# the translation units a source is compiled in (1 where it is not named)
+KERNEL_PARTS: Dict[str, int] = {"fused_decode": 4, "fused_teacher": 4}
 
 _libraries: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -59,8 +68,13 @@ def source_path(name: str) -> str:
     return os.path.join(CSRC_DIR, f"{name}.cu")
 
 
+def parts_of(name: str) -> int:
+    return KERNEL_PARTS.get(name, 1)
+
+
 def library_path(name: str) -> str:
     hashed = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    hashed.update(f"parts={parts_of(name)}".encode())
     headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
     for path in [source_path(name)] + [os.path.join(CSRC_DIR, f) for f in headers]:
         with open(path, "rb") as f:
@@ -69,25 +83,59 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 
-def _start_build(name: str, out: str) -> Tuple[subprocess.Popen, str]:
+def _commands(source: str, out: str, parts: int, extra: Tuple[str, ...] = ()) -> List[List[str]]:
+    """The ``nvcc`` commands of one source: one that builds the library ``out``, or
+    one per part that compiles an object ``<out>.part<i>.o`` (linked by ``_link``)."""
+    nvcc = find_nvcc()
+    if parts == 1:
+        return [[nvcc, *NVCC_FLAGS, *extra, "-o", out, source]]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [[nvcc, *flags, *extra, f"-DSATT_PARTS={parts}", f"-DSATT_PART={i}", "-c",
+             "-o", f"{out}.part{i}.o", source] for i in range(parts)]
+
+
+def _objects(out: str, parts: int) -> List[str]:
+    return [f"{out}.part{i}.o" for i in range(parts)] if parts > 1 else []
+
+
+def _link(out: str, parts: int) -> subprocess.CompletedProcess:
+    return subprocess.run([find_nvcc(), "-shared", "-Xcompiler", "-fPIC", "-o", out,
+                           *_objects(out, parts)], capture_output=True, text=True)
+
+
+def _remove(*paths: str) -> None:
+    for path in paths:
+        if os.path.exists(path):
+            os.remove(path)
+
+
+def _start_build(name: str, out: str) -> Tuple[List[subprocess.Popen], str]:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, source_path(name)]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return proc, tmp
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in _commands(source_path(name), tmp, parts_of(name))]
+    return procs, tmp
 
 
-def _finish_build(name: str, proc: subprocess.Popen, tmp: str, out: str) -> None:
-    log, _ = proc.communicate()
-    if proc.returncode != 0:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-        raise RuntimeError(f"nvcc failed on {name}.cu (exit {proc.returncode}):\n{log}")
+def _finish_build(name: str, procs: List[subprocess.Popen], tmp: str, out: str) -> None:
+    logs = [proc.communicate()[0] for proc in procs]
+    parts = parts_of(name)
+    failed = [(proc.returncode, log) for proc, log in zip(procs, logs) if proc.returncode != 0]
+    if not failed and parts > 1:
+        linked = _link(tmp, parts)
+        if linked.returncode != 0:
+            failed.append((linked.returncode, linked.stdout + linked.stderr))
+    _remove(*_objects(tmp, parts))
+    if failed:
+        _remove(tmp)
+        code, log = failed[0]
+        raise RuntimeError(f"nvcc failed on {name}.cu (exit {code}):\n{log}")
     os.replace(tmp, out)
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> float:
-    """Build every missing library, one ``nvcc`` per source, all started together.
+    """Build every missing library, every ``nvcc`` of every source (one per part)
+    started together.
 
     Under a process group of more than one rank, rank 0 builds and the others wait
     at a barrier, so that N ranks do not start N sets of ``nvcc`` on a cold tree;
@@ -111,8 +159,8 @@ def _build_missing(names: Iterable[str]) -> float:
             out = library_path(name)
             if not os.path.exists(out):
                 pending.append((name, out, *_start_build(name, out)))
-        for name, out, proc, tmp in pending:
-            _finish_build(name, proc, tmp, out)
+        for name, out, procs, tmp in pending:
+            _finish_build(name, procs, tmp, out)
     return time.perf_counter() - start if pending else 0.0
 
 
@@ -130,29 +178,75 @@ def load_library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def resource_usage(source: str) -> str:
+def resource_usage(source: str, parts: int = 0) -> str:
     """``ptxas``'s report on the kernels of one ``.cu`` file, built as ``build_all``
-    builds a source; the library it makes is removed again."""
+    builds a source (in its parts, or in ``parts`` translation units where given);
+    the objects and the library it makes are removed again."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    stem = os.path.splitext(os.path.basename(source))[0]
+    parts = parts or parts_of(stem)
     out = os.path.join(BUILD_DIR, f"resource-usage.{os.getpid()}.so")
+    reports, procs = [], []
     try:
-        proc = subprocess.run(
-            [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", out, source],
-            capture_output=True, text=True,
-        )
+        procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                 for cmd in _commands(source, out, parts, ("-Xptxas", "-v"))]
+        for proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n{err}")
+            reports.append(err)
     finally:
-        if os.path.exists(out):
-            os.remove(out)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {source} (exit {proc.returncode}):\n{proc.stderr}")
-    return proc.stderr
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        _remove(out, *_objects(out, parts))
+    return "".join(reports)
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+# a kernel in a translation unit's anonymous namespace, whose name nvcc makes per unit
+_UNIT = re.compile(r"_ZN(\d+)_GLOBAL__N_")
+
+
+def _without_unit(name: str) -> str:
+    """A mangled name without its anonymous namespace (``_ZN<length><namespace>...``)."""
+    unit = _UNIT.match(name)
+    return name if unit is None else "_ZN" + name[unit.end(1) + int(unit.group(1)):]
+_STACK = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def kernel_table(report: str) -> Dict[str, Tuple[int, int, int, int]]:
+    """Each kernel's (registers, stack frame, spill stores, spill loads) in bytes, from
+    a ``resource_usage`` report; a kernel of an anonymous namespace is named without
+    its translation unit's hashes, so that a file built whole and in parts compare."""
+    table: Dict[str, List[int]] = {}
+    kernel = None
+    for line in report.splitlines():
+        entry = _ENTRY.search(line)
+        if entry:
+            kernel = _without_unit(entry.group(1))
+            table[kernel] = [0, 0, 0, 0]
+        elif kernel is not None and _STACK.search(line):
+            table[kernel][1:] = [int(v) for v in _STACK.search(line).groups()]
+        elif kernel is not None and _REGS.search(line):
+            table[kernel][0] = int(_REGS.search(line).group(1))
+    return {k: tuple(v) for k, v in table.items()}
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description="ptxas's report on the kernels of CUDA sources")
     parser.add_argument("sources", nargs="+", help="paths of .cu files")
-    for source in parser.parse_args().sources:
-        print(f"== {source}\n{resource_usage(source)}", flush=True)
+    parser.add_argument("--parts", type=int, default=0,
+                        help="translation units (default: the build's; 1: the file whole)")
+    args = parser.parse_args()
+    for source in args.sources:
+        report = resource_usage(source, args.parts)
+        print(f"== {source}\n{report}", flush=True)
+        for kernel, (regs, stack, stores, loads) in sorted(kernel_table(report).items()):
+            print(f"kernel {kernel} registers {regs} stack {stack} spill_stores {stores} "
+                  f"spill_loads {loads}", flush=True)
 
 
 if __name__ == "__main__":
