@@ -149,7 +149,14 @@ Phases, each of which ends the run with a non-zero exit code if it fails:
    eval-mode forward, and ``Trainer.evaluate`` on the validation list writes its
    means and PNGs; (e) ``Audio.inv_spectrogram`` on the card over one lane of the
    ``streaming`` request's ``linear`` output against the same call on the CPU with the
-   same start phases;
+   same start phases; then a trained step on that corpus (``phase_trained_step``): the
+   first update of the long fine-tune from ``artifacts/convergence_r3``'s npz at
+   ``random_seed`` 1235 (its first batch of 32 lanes, the same generator on every
+   path) through the kernels and through the plain path, in float32 (the loss parts,
+   ``grad_norm`` and every gradient leaf held, a leaf that the plain path's move of the
+   decoder's memories by one part in 1e7 moves past the tolerance at twice that
+   yardstick, printed beside it) and in bfloat16 (the median-share rule of
+   ``phase_training_bf16``), launch counts exact;
 9. the mesh (``phase_mesh``, ``parallel/``), the flagship at full width: (a) a process
    group of one (NCCL): ``make_sharded_predict_fn`` against ``make_predict_fn`` on the
    batch-32 request (trained npz, source up to 128, 500 steps) and ``Trainer(mesh=...)``
@@ -245,6 +252,7 @@ from self_attention_tacotron_torch.tools.profile_training import timed_step  # n
 from self_attention_tacotron_torch.training.trainer import (  # noqa: E402
     CheckpointManager,
     Trainer,
+    step_generator,
     targets_from_batch,
 )
 from self_attention_tacotron_torch.utils import cuda_build  # noqa: E402
@@ -2595,6 +2603,9 @@ def phase_baseline_main_path():
 # --------------------------------------------------------------------------- #
 
 TRAIN_STEPS = 3
+# the launches of one flagship or baseline update through the kernels
+ONE_TRAINING_STEP = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
+                     "mha_full": 0, "fused_decode": 0, "bilstm": 0}
 # Kernel path against the all-plain path, same state, batch and generator seed (so
 # the same dropout and zoneout masks), float32.
 # From freshly initialised weights (drawn from a seed) the gradients are well
@@ -2743,8 +2754,7 @@ def phase_training():
     hp = flagship_hparams()
     batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
                            hp.outputs_per_step)
-    one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
-                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    one_step = ONE_TRAINING_STEP
     plain_hp = {"use_pallas_kernels": False}
 
     # (a) one step from freshly initialised weights at full width: every gradient leaf
@@ -2810,8 +2820,7 @@ def phase_training_bf16():
     hp = flagship_hparams(compute_dtype="bfloat16")
     batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
                            hp.outputs_per_step)
-    one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
-                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    one_step = ONE_TRAINING_STEP
     bf16 = {"compute_dtype": "bfloat16"}
     plain = {"compute_dtype": "bfloat16", "use_pallas_kernels": False}
 
@@ -2885,8 +2894,7 @@ def phase_baseline_training():
     hp = config_hparams("baseline")
     batch = training_batch(np.random.default_rng(1234), 32, 800, 128, hp.num_mels,
                            hp.outputs_per_step)
-    one_step = {"bigru": 1, "bigru_bwd": 1, "fused_teacher_fwd": 1, "fused_teacher_bwd": 1,
-                "mha_full": 0, "fused_decode": 0, "bilstm": 0}
+    one_step = ONE_TRAINING_STEP
     kernels = run_training("baseline kernels, seeded weights", batch, {}, seeded_network,
                            TRAIN_STEPS, True, trace=True, config="baseline")
     expected = {k: TRAIN_STEPS * v for k, v in one_step.items()}
@@ -4345,6 +4353,7 @@ CLI_MEDIAN_MSE = 0.002
 CLI_LOOP_STEPS = (6, 3)
 CLI_CADENCE = 3
 TOL_GRIFFIN_LIM = 1e-4
+CORPUS_CLI_DIR = os.path.join(REPO, "runs", "chip_smoke_corpus_cli")
 
 
 def _state_equal(a, b) -> bool:
@@ -4361,7 +4370,7 @@ def phase_corpus_cli(config_main):
     """From a corpus on disk to a checkpoint and back through the port's command lines,
     on the card (module docstring, item 8)."""
     os.environ.pop("SATT_PLATFORM", None)            # the command lines take the card
-    work = os.path.join(REPO, "runs", "chip_smoke_corpus_cli")
+    work = CORPUS_CLI_DIR
     if os.path.isdir(work):
         shutil.rmtree(work)
     data, lists = os.path.join(work, "data"), os.path.join(work, "lists")
@@ -4526,6 +4535,137 @@ def phase_corpus_cli(config_main):
                                     "synthesis_frames_per_s": rec["synthesis_frames_per_s"],
                                     "train_ms_per_step": rec["train_ms_per_step"]}))
     return rec
+
+
+# --------------------------------------------------------------------------- #
+# Phase 8, continued: a trained step on corpus data, kernels against the plain path
+# --------------------------------------------------------------------------- #
+
+# The first update of the long fine-tune from the JAX run's r3 npz at random_seed 1235
+# (the protocol of artifacts/convergence_h100/replay/, whose update 1771 jumped on the
+# kernel and the plain paths alike): that npz, the first batch of 32 lanes of the long
+# corpus that phase_corpus_cli wrote, as the loop draws it at that seed, and
+# step_generator(1235, 0) on every path (dropout and zoneout on, as the protocol trains).
+# Float32: the loss parts at TOL_TRAIN_LOSS, grad_norm at TOL_TRAIN_NORM_REL, every
+# gradient leaf at TOL_TRAIN_LEAF_REL where the yardstick (the plain path against itself
+# with the decoder's memories moved by one part in 1e7, tools/replay_steps.py's path d)
+# stays within it, and at twice the yardstick where it does not, printed beside it (on
+# an H100 every leaf within 2.2e-4, the yardstick as far: the decoder's output
+# projection).
+# Bfloat16: phase_training_bf16's rule, the plain path's own bfloat16-against-float32
+# gap as the yardstick: the median leaf's ||delta|| / ||ref|| within it, each loss part
+# within the larger of its gap and 1e-4.
+R3_NPZ = os.path.join(REPO, "artifacts", "convergence_r3", "trained_params.npz")
+TRAINED_STEP_SEED = 1235
+
+
+def trained_step(batch, dtype: str, kernels: bool, moved: bool = False) -> dict:
+    """One update of the fine-tune's protocol from R3_NPZ on ``batch``: its metrics,
+    gradients and launch counts."""
+    from self_attention_tacotron_torch.tools.convergence_run import flagship_run_hparams
+    from self_attention_tacotron_torch.tools.replay_steps import moved_memories
+
+    hp = flagship_run_hparams(dict(random_seed=TRAINED_STEP_SEED, compute_dtype=dtype,
+                                   use_pallas_kernels=kernels))
+    trainer = Trainer(tacotron_model_factory(hp))
+    state = trainer.init_state(convert.load_npz(R3_NPZ, hp, device=DEV))
+    reset_training_counts()
+    with moved_memories(state.net, hp) if moved else contextlib.nullcontext():
+        state, metrics = trainer.train_step(state, batch,
+                                            step_generator(TRAINED_STEP_SEED, 0, device=DEV))
+    counts = training_counts()
+    grads = {k: p.grad.detach().clone() for k, p in state.net.named_parameters()}
+    return {"metrics": {k: float(v) for k, v in metrics.items()}, "grads": grads,
+            "counts": counts}
+
+
+def phase_trained_step(corpus_dir: str):
+    """The fine-tune's first update through the kernels against the plain path, in
+    float32 and bfloat16 (the comment above)."""
+    data, lists = os.path.join(corpus_dir, "data"), os.path.join(corpus_dir, "lists")
+    hp = default_hparams()
+    hp.parse(hparams_string(FLAGSHIP_OVERRIDES))
+    dataset = TacotronDataset(data, data, hp, utterance_ids=read_selected_list(lists, "train"))
+    batch = next(iter(dataset.batches(hp.batch_size, shuffle=True, repeat=True,
+                                      seed=TRAINED_STEP_SEED, prefetch=0)))
+    seconds = {}
+
+    def step(name, *args, **kwargs):
+        begin = time.perf_counter()
+        run = trained_step(batch, *args, **kwargs)
+        seconds[name] = time.perf_counter() - begin
+        want = ONE_TRAINING_STEP if args[1] else {k: 0 for k in ONE_TRAINING_STEP}
+        require(run["counts"] == want, f"trained step, {name}: launched {run['counts']}")
+        require(all(np.isfinite(v) for v in run["metrics"].values()),
+                f"trained step, {name}: a metric is not finite")
+        runs[name] = run
+        return run
+
+    runs = {}
+    k32, p32 = step("f32_kernels", "float32", True), step("f32_plain", "float32", False)
+    k16, p16 = step("bf16_kernels", "bfloat16", True), step("bf16_plain", "bfloat16", False)
+
+    # float32: every leaf where the step is conditioned, else at twice its yardstick. A
+    # leaf within TOL_TRAIN_LEAF_REL passes whatever its yardstick, so the yardstick's
+    # step runs where a leaf is past it
+    leaves = relative_errors(k32["grads"], p32["grads"])
+    yard = {}
+    if max(leaves.values()) > TOL_TRAIN_LEAF_REL:
+        yard = relative_errors(step("f32_plain_moved", "float32", False, moved=True)["grads"],
+                               p32["grads"])
+    bounds = {k: max(TOL_TRAIN_LEAF_REL, 2 * yard[k]) if yard.get(k, 0.0) > TOL_TRAIN_LEAF_REL
+              else TOL_TRAIN_LEAF_REL for k in leaves}
+    loose = {k: {"kernels_against_plain": leaves[k], "yardstick": yard[k], "bound": bounds[k]}
+             for k in leaves if bounds[k] > TOL_TRAIN_LEAF_REL}
+    loss32 = {k: abs(k32["metrics"][k] - p32["metrics"][k]) for k in p32["metrics"]
+              if k != "grad_norm"}
+    norm_rel = abs(k32["metrics"]["grad_norm"] - p32["metrics"]["grad_norm"]) / \
+        p32["metrics"]["grad_norm"]
+    worst = sorted(leaves.items(), key=lambda kv: -kv[1] / bounds[kv[0]])[:6]
+
+    # bfloat16: phase_training_bf16's median-share rule
+    against_plain = norm_relative(k16["grads"], p16["grads"])
+    gap = norm_relative(p16["grads"], p32["grads"])
+    shares = {k: against_plain[k] / max(gap[k], 1e-30) for k in gap}
+    median_share = float(np.median(list(shares.values())))
+    loss16 = {k: {"kernels_against_plain": abs(k16["metrics"][k] - p16["metrics"][k]),
+                  "plain_bf16_against_f32": abs(p16["metrics"][k] - p32["metrics"][k])}
+              for k in p16["metrics"] if k != "grad_norm"}
+    record = {
+        "card": gpu_line(), "npz": os.path.relpath(R3_NPZ, REPO), "seed": TRAINED_STEP_SEED,
+        "batch": {"lanes": int(batch["done"].shape[0]), "frames": int(batch["done"].shape[1]),
+                  "valid_frames": int(np.sum(batch["target_lengths"])),
+                  "symbols": [int(batch["source_lengths"].min()),
+                              int(batch["source_lengths"].max())]},
+        "metrics": {name: run["metrics"] for name, run in runs.items()},
+        "float32": {"loss_parts_abs": loss32, "tol_loss": TOL_TRAIN_LOSS,
+                    "grad_norm_rel": norm_rel, "tol_grad_norm_rel": TOL_TRAIN_NORM_REL,
+                    "leaves_max": max(leaves.values()),
+                    "leaves_median": float(np.median(list(leaves.values()))),
+                    "yardstick_max": max(yard.values()) if yard else None,
+                    "tol_leaf_rel": TOL_TRAIN_LEAF_REL,
+                    "worst_against_bound": [[k, v, yard.get(k), bounds[k]] for k, v in worst],
+                    "held_at_twice_the_yardstick": loose},
+        "bfloat16": {"loss_parts": loss16, "median_leaf_share_of_gap": median_share,
+                     "largest_leaf_share_of_gap": max(shares.values()),
+                     "worst": sorted(([k, against_plain[k], gap[k]] for k in gap),
+                                     key=lambda r: -r[1] / max(r[2], 1e-30))[:6]},
+        "launches": {name: run["counts"] for name, run in runs.items()},
+        "seconds": seconds,
+    }
+    log("trained_step " + json.dumps(record))
+    require(max(loss32.values()) <= TOL_TRAIN_LOSS,
+            f"trained step, float32: kernel and plain losses differ: {loss32}")
+    require(norm_rel <= TOL_TRAIN_NORM_REL,
+            f"trained step, float32: grad_norm differs by {norm_rel} of itself")
+    require(all(leaves[k] <= bounds[k] for k in leaves),
+            f"trained step, float32: a gradient leaf is past its bound: {worst}")
+    require(median_share <= 1.0,
+            f"trained step, bfloat16: the median leaf is {median_share} of its gap")
+    for k, row in loss16.items():
+        require(row["kernels_against_plain"] <= max(row["plain_bf16_against_f32"], 1e-4),
+                f"trained step, bfloat16 loss part {k}: {row}")
+    return {"f32_launches": k32["counts"], "bf16_launches": k16["counts"]}
 
 
 # --------------------------------------------------------------------------- #
@@ -5012,6 +5152,7 @@ def main() -> int:
     config_train = timed_phase(phase_configs_training)
     forced = timed_phase(phase_forced)
     corpus = timed_phase(phase_corpus_cli, config_main)
+    trained = timed_phase(phase_trained_step, CORPUS_CLI_DIR)
     mesh = timed_phase(phase_mesh)
     scratch = timed_phase(phase_convergence)
 
@@ -5292,6 +5433,15 @@ def main() -> int:
         by_name[name]["corpus_cli_launches"] = count
     for name in ("bigru", "mha_full"):
         by_name[name]["corpus_cli_training_launches"] = cli_train[name]
+    # the trained step on corpus data (phase_trained_step): the kernel path's update in
+    # each dtype, counted into the launches of the entries it reaches
+    for suffix, counts in (("", trained["f32_launches"]), ("_bf16", trained["bf16_launches"])):
+        for name in ("bigru_bwd", "fused_teacher_fwd", "fused_teacher_bwd"):
+            by_name[name + suffix]["launches"] += counts[name]
+            by_name[name + suffix]["trained_step_launches"] = counts[name]
+    bigru_count = trained["f32_launches"]["bigru"] + trained["bf16_launches"]["bigru"]
+    by_name["bigru"]["launches"] += bigru_count
+    by_name["bigru"]["trained_step_launches"] = bigru_count
     # the mesh's world 1 (phase_mesh (a)): the sharded request and the mesh's steps,
     # counted into the launches of the entries they reach; the teacher kernels' lane0
     for name, count in (("bigru", mesh["a"]["synthesis_launches"]["bigru"]

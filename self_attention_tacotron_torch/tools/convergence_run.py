@@ -29,6 +29,11 @@ Usage:
       [--steps 8000] [--num-utterances 256] [--long] [--min-symbols N] [--max-symbols N] \\
       [--restore-from DIR] [--skip-train] [--skip-generate] [--hparams-extra k=v,...] \\
       [--score-draws N] [--device cpu]
+  python -m self_attention_tacotron_torch.tools.convergence_run --spread RUN_DIR ...
+
+``--spread`` reads finished runs instead: per run directory its seed, its validation
+scores and the logged steps at which its loss more than tripled the median of the 20
+logged steps before (``loss_jumps``), one JSON line each.
 """
 
 from __future__ import annotations
@@ -271,6 +276,34 @@ def read_metrics(log_dir: str) -> List[dict]:
         return [json.loads(line) for line in f if line.strip()]
 
 
+def loss_jumps(records: List[dict], window: int = 20, factor: float = 3.0) -> List[int]:
+    """The logged steps whose training loss is over ``factor`` times the median of the
+    ``window`` logged steps before it."""
+    rows = [(r["step"], r["loss"]) for r in records if "loss" in r]
+    return [step for i, (step, loss) in enumerate(rows) if i >= window
+            and loss > factor * float(np.median([v for _, v in rows[i - window:i]]))]
+
+
+def spread(run_dirs: Sequence[str]) -> List[dict]:
+    """Per run directory: its seed, its validation scores (``summary.json``) and the
+    steps at which its loss jumped (``loss_jumps`` over ``metrics.jsonl``)."""
+    rows = []
+    for run_dir in run_dirs:
+        with open(os.path.join(run_dir, "summary.json")) as f:
+            summary = json.load(f)
+        records = read_metrics(os.path.join(run_dir, "checkpoints", "log"))
+        syn = summary["synthesis"]
+        rows.append(dict(
+            run_dir=repo_path(run_dir), random_seed=summary["provenance"]["random_seed"],
+            steps=summary["steps"], logged_steps=sum("loss" in r for r in records),
+            loss_jumps=loss_jumps(records), npz_sha256=summary["npz"]["sha256"],
+            gpu=summary["provenance"]["gpu"], train_path=summary["provenance"]["train_path"],
+            **{k: syn[k] for k in ("median_mel_mse", "mean_mel_mse",
+                                   "median_abs_length_error_frames",
+                                   "max_abs_length_error_frames", "all_stopped_before_cap")}))
+    return rows
+
+
 def plot_loss_curve(log_dir: str, out_png: str) -> dict:
     """The training loss, ``mel_loss`` and ``done_loss`` (lines) and ``eval_loss``
     (points) of ``metrics.jsonl`` on a log scale; returns the JAX run's loss summary."""
@@ -409,6 +442,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "with the prenet's dropout drawn from another seed")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                    help="the card (default) or the CPU")
+    p.add_argument("--spread", nargs="+", default=None, metavar="RUN_DIR",
+                   help="print the scores and loss jumps of these finished runs (``spread``) "
+                        "instead of running")
     args = p.parse_args(argv)
     if args.long:
         args.min_symbols = 94 if args.min_symbols is None else args.min_symbols
@@ -423,6 +459,11 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from self_attention_tacotron_torch import predict_mel, train
 
     args = parse_args(argv)
+    if args.spread:
+        rows = spread(args.spread)
+        for row in rows:
+            print(json.dumps(row))
+        return {"spread": rows}
     EXTRA.clear()
     EXTRA.update(parse_extra(args.hparams_extra))
     device = device_of(args.device)

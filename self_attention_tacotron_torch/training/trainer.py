@@ -403,15 +403,10 @@ class Trainer:
         the donor's: a leaf that finds no place, or no leaf, raises. Otherwise
         ``net`` or a fresh network drawn from ``random_seed`` (``init_state``).
         """
-        net = self._network(net)
         latest = self._checkpoints().latest_step()
         if latest is not None:
-            payload = self.checkpoints.load(latest, self.device)
-            net.load_state_dict(payload["net"])
-            state = self._placed_state(net, step=int(payload["step"]))
-            mesh_lib.load_whole_optimizer_state(state.net, state.optimizer, payload["optimizer"],
-                                                self.mesh)
-            return state
+            return self.restore(latest, net)
+        net = self._network(net)
         if warm_start_from and warm_start_from.endswith(".npz"):
             with np.load(warm_start_from) as archive:
                 flat = {k: archive[k] for k in archive.files}
@@ -426,6 +421,17 @@ class Trainer:
                 raise FileNotFoundError(f"warm-start dir {warm_start_from!r} has no checkpoints")
             net.load_state_dict(donor.load(step, self.device)["net"])
         return self._placed_state(net)
+
+    def restore(self, step: int, net: Optional[TacotronNetwork] = None) -> TrainState:
+        """The state of the checkpoint of ``step`` in ``checkpoint_dir``: step, weights,
+        batch-norm buffers and Adam's moments, into ``net`` or a fresh network."""
+        net = self._network(net)
+        payload = self._checkpoints().load(step, self.device)
+        net.load_state_dict(payload["net"])
+        state = self._placed_state(net, step=int(payload["step"]))
+        mesh_lib.load_whole_optimizer_state(state.net, state.optimizer, payload["optimizer"],
+                                            self.mesh)
+        return state
 
     def restore_inference(self, net: Optional[TacotronNetwork] = None) -> TrainState:
         """The parameters and batch-norm statistics of the latest checkpoint, at its
